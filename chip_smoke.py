@@ -5,16 +5,29 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
 1. Builds the hand-written kernels (``gptq_v2_tpu_torch/csrc/*.cu``, one
    ``nvcc`` per source, all started together).
-2. Drives the main path at Llama-2-7B width (hidden 4096, intermediate
+2. Drives three paths at Llama-2-7B width (hidden 4096, intermediate
    11008, 32 heads, vocab 32000, bf16) with random weights from a seed and
-   the depth cut to ``DEPTH`` blocks: writes a checkpoint with the port's
-   safetensors writer, loads it, GPTQ-quantizes it (INT4, group 128,
-   act-order) on seeded token ids, saves ``results.npz``, and serves it
-   through ``serve.main`` and an ``Engine`` built by ``serve.build_engine``.
-   Every kernel's launch count over this run must be > 0; greedy output
-   must repeat on a second run and agree with a plain bf16 forward over
-   the dequantized weights on every request's first new token.
-3. Holds each kernel against its plain PyTorch version at the main path's
+   the depth cut to ``DEPTH`` blocks, each with every launch count set to 0
+   just before it and read just after:
+
+   * main: writes a checkpoint with the port's safetensors writer, loads
+     it, GPTQ-quantizes it (INT4, group 128, act-order; K1, K2) on seeded
+     token ids, saves ``results.npz`` and serves it (K3, K4 on the bf16
+     cache) through ``serve.main`` and an ``Engine`` built by
+     ``serve.build_engine``: greedy output must repeat on a second run and
+     agree with a plain bf16 forward on every request's first new token;
+   * cli.quantize: ``python -m gptq_v2_tpu_torch.main`` (as ``main.main``)
+     with ``--mse true`` and ``--save-dir`` over seeded token windows
+     written to ``--data-cache-dir`` (K1, K5), then again, where every
+     layer must resume (no K1/K2/K5 launch) and the ppl and codes must be
+     equal; then one block with ``--scale-bit-width 4``, served;
+   * serve.kv: ``serve.main`` with ``--kv-dtype int8`` (K4) and ``int4``
+     (K7): greedy output must repeat, and the first decoded token must
+     agree with a decode step through the plain attention over the same
+     quantized cache.
+
+   Every kernel of a path must launch in it.
+3. Holds each kernel against its plain PyTorch version at the paths'
    shapes and times kernel, plain version and one library call.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
@@ -23,6 +36,7 @@ result, without a CUDA device or without the package beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import subprocess
@@ -50,7 +64,10 @@ NEW_TOKENS = 32
 # the TPU kernels these replace (pl.pallas_call sites)
 REPLACES = {"hessian": "gptq_v2_tpu/ops/hessian_pallas.py:91",
             "gptq": "gptq_v2_tpu/ops/gptq_pallas.py:206",
-            "w4a16": "gptq_v2_tpu/ops/w4a16.py:201"}
+            "w4a16": "gptq_v2_tpu/ops/w4a16.py:201",
+            "gptq_step": "gptq_v2_tpu/ops/gptq_pallas.py:325",
+            "attention": "gptq_v2_tpu/ops/contiguous_attention.py:117",
+            "attention_p4": "gptq_v2_tpu/ops/contiguous_attention.py:271"}
 
 
 def log(msg: str) -> None:
@@ -318,6 +335,341 @@ def phase_w4a16(torch, timer, launches, layer0) -> list:
     return out
 
 
+def phase_cli(torch, work: Path) -> dict:
+    """The quantization CLI: --mse with --save-dir, a resumed second run,
+    then one block under --scale-bit-width 4, served."""
+    from gptq_v2_tpu_torch import main as M
+    from gptq_v2_tpu_torch import serve as S
+    from gptq_v2_tpu_torch.data import cache_key
+    from gptq_v2_tpu_torch.models import llama as L
+    from gptq_v2_tpu_torch.models.loader import save_hf_model
+    from gptq_v2_tpu_torch.ops import gptq_cuda, hessian_cuda
+
+    cache = work / "datasets"
+    cache.mkdir()
+    toks = np.random.default_rng(2).integers(0, MODEL["vocab_size"], (N_SEQ, SEQLEN))
+    np.savez(cache / f"{cache_key('c4', 'train', SEQLEN, N_SEQ, 0)}.npz",
+             tokens=toks.astype(np.int64))
+    base = ["--seqlen", str(SEQLEN), "--data-train-n-samples", str(N_SEQ),
+            "--data-cache-dir", str(cache), "--batch-size", str(CALIB_BATCH),
+            "--eval-sets", "train"]
+    argv = ["--model-dir", str(work / "model"), *base, "--mse", "true",
+            "--save-dir", str(work / "layers"),
+            "--save-model-path", str(work / "cli_results.npz")]
+    solvers = (hessian_cuda.accumulate_hessian, gptq_cuda.gptq_solve,
+               gptq_cuda.gptq_step)
+    runs = []
+    for label in ("first", "resumed"):
+        n0 = [f.launches for f in solvers]
+        t0 = time.time()
+        out = M.main(argv)
+        torch.cuda.synchronize()
+        dn = [f.launches - n for f, n in zip(solvers, n0)]
+        runs.append((out, dn))
+        log(f"phase cli.quantize {label}: {time.time() - t0:.1f} s wall, quantize "
+            f"{out['quant_s']:.2f} s for {DEPTH} blocks, ppl(train) "
+            f"{out['ppls']['train']!r}; K1/K2/K5 launches {dn}")
+    (first, dn1), (second, dn2) = runs
+    if not dn1[2] or dn1[1]:
+        raise RuntimeError(f"--mse did not run through K5 alone: {dn1}")
+    if any(dn2):
+        raise RuntimeError(f"the resumed run quantized again: launches {dn2}")
+    p1, p2 = first["ppls"]["train"], second["ppls"]["train"]
+    if not np.isfinite(p1) or p1 != p2:
+        raise RuntimeError(f"ppl {p1!r} then {p2!r} after resuming")
+    data1, data2 = first["results"]["data"], second["results"]["data"]
+    if set(data1) != set(data2) or len(data1) != 7 * DEPTH or not all(
+            torch.equal(data1[n]["qweight"], data2[n]["qweight"]) for n in data1):
+        raise RuntimeError("resumed codes differ from the first run's")
+    log(f"phase cli.resume: ok, all {len(data1)} layers resumed, ppl and codes equal")
+
+    cfg1 = L.LlamaConfig(**{**MODEL, "num_hidden_layers": 1})
+    save_hf_model(cfg1, L.init_params(cfg1, seed=0), work / "model1")
+    t0 = time.time()
+    out = M.main(["--model-dir", str(work / "model1"), *base, "--scale-bit-width", "4",
+                  "--save-model-path", str(work / "sbw.npz")])
+    metas = out["results"]["data"].values()
+    if len(metas) != 7 or any(m["sscale"] is None or m["qscale"] is None for m in metas):
+        raise RuntimeError("--scale-bit-width 4 wrote no EXL2 scales")
+    log(f"phase cli.scale_bit_width: ok, 1 block in {time.time() - t0:.1f} s wall "
+        f"(quantize {out['quant_s']:.2f} s), ppl(train) {out['ppls']['train']!r}")
+    stats = S.main(["--model-dir", str(work / "model1"), "--results",
+                    str(work / "sbw.npz"), "--max-batch", "8", "--max-seq-len", "512",
+                    "--prompt-tokens", "64", "--bench-tokens", "8"])
+    log(f"phase cli.serve_exl2: ok, {stats['requests']} requests x 8 new tokens, "
+        f"{stats['tok_s']:.1f} tok/s")
+    return {"quant_s": first["quant_s"], "ppl": p1}
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Decode through K4's and K7's plain versions for the block (the
+    reference the serve paths are held against); the package itself never
+    falls back."""
+    import types
+
+    from gptq_v2_tpu_torch.ops import contiguous_attention as ca
+    from gptq_v2_tpu_torch.serving import decode as D
+
+    kernel = D.ca
+    D.ca = types.SimpleNamespace(
+        contiguous_decode_attention=ca.contiguous_decode_attention_ref,
+        contiguous_decode_attention_p4=ca.contiguous_decode_attention_xla4)
+    try:
+        yield
+    finally:
+        D.ca = kernel
+
+
+def phase_serve_kv(torch, work: Path) -> None:
+    """serve.main and the engine over the int8 and int4 caches."""
+    from gptq_v2_tpu_torch import serve as S
+    from gptq_v2_tpu_torch.serving import Request
+    from gptq_v2_tpu_torch.serving import decode as D
+    from gptq_v2_tpu_torch.serving import kv_cache as kvc
+    from gptq_v2_tpu_torch.serving.engine import _bucket
+
+    serve_args = ["--model-dir", str(work / "model"), "--results",
+                  str(work / "results.npz"), "--max-batch", str(len(PROMPT_LENS)),
+                  "--max-seq-len", "512"]
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, MODEL["vocab_size"], (n,)).tolist() for n in PROMPT_LENS]
+    for kv in ("int8", "int4"):
+        args = serve_args + ["--kv-dtype", kv]
+        t0 = time.time()
+        stats = S.main(args + ["--prompt-tokens", "128", "--bench-tokens", str(NEW_TOKENS)])
+        log(f"phase serve.kv {kv} serve.main: ok, {time.time() - t0:.1f} s; benchmark "
+            f"{stats['requests']} requests x {NEW_TOKENS} new tokens: "
+            f"{stats['tok_s']:.1f} tok/s ({stats['wall_s']:.2f} s)")
+        eng = S.build_engine(S.parse_serve_args(args))
+        outs = []
+        for _ in range(2):
+            reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+                    for i, p in enumerate(prompts)]
+            torch.cuda.synchronize()
+            t0 = time.time()
+            outs.append(eng.run(reqs))
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+            log(f"phase serve.kv {kv} engine run: {len(reqs)} requests, "
+                f"{len(reqs) * NEW_TOKENS / dt:.1f} tok/s")
+        if outs[0] != outs[1]:
+            raise RuntimeError(f"{kv}: greedy output differs between two runs")
+        if any(len(v) != NEW_TOKENS or not all(0 <= t < MODEL["vocab_size"] for t in v)
+               for v in outs[0].values()):
+            raise RuntimeError(f"{kv}: malformed engine output")
+        # the first decode step again, over copies of the cache the run left
+        # (request i sat in slot i; rows past each prompt are masked): through
+        # the kernels it must give the engine's second token; through the
+        # plain attention its argmax must be that token or give it a logit
+        # within 1% of the largest (a near-tie the two summation orders and
+        # the kernel's fp32 probabilities can flip)
+        lens = torch.tensor(PROMPT_LENS, device="cuda")
+        first = torch.tensor([outs[0][i][0] for i in range(len(prompts))], device="cuda")
+        s_b = min(_bucket(max(PROMPT_LENS) + 1, eng.page_size), eng.max_seq_len)
+        logits = {}
+        for label in ("kernel", "plain"):
+            cache = kvc.ContiguousKVCache(eng.cache.k.clone(), eng.cache.v.clone(),
+                                          eng.cache.k_scales, eng.cache.v_scales,
+                                          eng.cache.kv_bits)
+            with plain_attention() if label == "plain" else contextlib.nullcontext():
+                logits[label] = D.decode_step(eng.model, first, cache, lens, s_b)[0].float()
+        exact = 0
+        for i in range(len(prompts)):
+            tok = outs[0][i][1]
+            if int(torch.argmax(logits["kernel"][i])) != tok:
+                raise RuntimeError(f"{kv} request {i}: the kernel decode step does not "
+                                   "repeat the engine's token")
+            lg = logits["plain"][i]
+            exact += int(torch.argmax(lg)) == tok
+            if float(lg.max() - lg[tok]) > 1e-2 * float(lg.abs().max()):
+                raise RuntimeError(f"{kv} request {i}: token {tok} disagrees with the "
+                                   f"plain attention (argmax {int(torch.argmax(lg))})")
+        log(f"phase serve.kv {kv} reference: ok, first decoded token equal to the "
+            f"plain attention's argmax on {exact}/{len(prompts)} requests, within the "
+            "near-tie tolerance on all")
+        del eng
+
+
+def phase_attention_ab(torch, work: Path) -> None:
+    """End-to-end effect of K4: the bf16 engine's tok/s with K4 and with the
+    plain attention in its place, in turns (plain, K4, K4, plain), on one
+    engine and one request set (prompts 64-256 tokens, 32 new each)."""
+    from gptq_v2_tpu_torch import serve as S
+    from gptq_v2_tpu_torch.serving import Request
+
+    eng = S.build_engine(S.parse_serve_args(
+        ["--model-dir", str(work / "model"), "--results", str(work / "results.npz"),
+         "--max-batch", str(len(PROMPT_LENS)), "--max-seq-len", "512"]))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, MODEL["vocab_size"], (n,)).tolist() for n in PROMPT_LENS]
+    rates = {"plain": [], "K4": []}
+    # the first plain and K4 runs warm up; the last four run in turns
+    for label in ("plain", "K4", "plain", "K4", "K4", "plain"):
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+                for i, p in enumerate(prompts)]
+        with plain_attention() if label == "plain" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.time()
+            eng.run(reqs)
+            torch.cuda.synchronize()
+        rates[label].append(len(reqs) * NEW_TOKENS / (time.time() - t0))
+    log("phase attention.ab: bf16 engine tok/s, plain attention "
+        + " / ".join(f"{r:.1f}" for r in rates["plain"][1:]) + ", K4 "
+        + " / ".join(f"{r:.1f}" for r in rates["K4"][1:]) + " (plain, K4, K4, plain)")
+
+
+def phase_gptq_step(torch, timer, launches) -> list:
+    """K5 at the q and down shapes under the CLI path's --mse parameters:
+    every launch held against its plain version on the same running
+    weight, then all C/g launches timed."""
+    from gptq_v2_tpu_torch.ops import gptq_cuda as K
+    from gptq_v2_tpu_torch.quant import hessian as hs
+    from gptq_v2_tpu_torch.quant import quantizer as qz
+
+    out = []
+    g, maxq = 128, 15.0
+    for label, c, r in (("q_proj", 4096, 4096), ("down_proj", 11008, 4096)):
+        gen = torch.Generator(device="cuda").manual_seed(c + 1)
+        scales = torch.logspace(-0.5, 0.5, c, device="cuda")[
+            torch.randperm(c, device="cuda", generator=gen)]
+        x = (torch.randn((N_SEQ * SEQLEN, c), device="cuda", generator=gen)
+             * scales).to(torch.bfloat16)
+        inv = hs.invert(hs.accumulate(hs.init_state(c), x[None]))
+        del x
+        hinv = inv.hessian_inv.contiguous()
+        w = torch.randn((r, c), device="cuda", generator=gen).to(torch.bfloat16).float()
+        w_t = w[:, inv.perm].T.contiguous()
+        maxq_t = torch.tensor(maxq, device="cuda")
+        w_k = w_t.clone()
+        q_k = torch.empty((c, r), dtype=torch.uint8, device="cuda")
+        e2_k = torch.empty((c // g, r), device="cuda")
+        params, n_diff, w_err, e_rel = [], 0, 0.0, 0.0
+        for gi in range(c // g):
+            wblk = w_k[gi * g:(gi + 1) * g].T
+            p = qz.mse_refine(qz.find_params_maxq(wblk, maxq_t, False), wblk)
+            params.append((p.scale[:, 0].contiguous(), p.qzero[:, 0].contiguous()))
+            w_in = w_k.clone()
+            K.gptq_step(w_k, hinv, gi, g, *params[-1], maxq, q_k, e2_k)
+            w_p, q_p, _, err_p = K._step_reference(w_in.T, hinv, gi * g, g, p.scale,
+                                                   p.qzero, maxq, torch.float16)
+            n_diff += int((q_k[gi * g:(gi + 1) * g].T.float() != q_p).sum())
+            w_err = max(w_err, float((w_k - w_p.T).abs().max()))
+            e2_p = torch.sum(err_p * err_p, dim=1)
+            e_rel = max(e_rel, float(((e2_k[gi] - e2_p).abs() / e2_p.abs().clamp_min(1e-30)).max()))
+        torch.cuda.synchronize()
+        w_max = float(w_t.abs().max())
+        # same inputs, every operation of the column loop rounded as the
+        # plain version does: codes equal (scale and zero are the launch's
+        # inputs, equal by construction); the tail product sums in another
+        # order, so the running weight may differ by fp32 rounding of sums
+        # of 128 products: 1e-5 of max|W|, and Σerr² rel 1e-5
+        if n_diff or w_err > 1e-5 * w_max or e_rel > 1e-5:
+            raise RuntimeError(f"K5 {label}: {n_diff} codes differ, weight max abs err "
+                               f"{w_err} (max|W| {w_max}), err² rel {e_rel}")
+
+        def run_kernel():
+            w_s.copy_(w_t)
+            for gi, (sc, zr) in enumerate(params):
+                K.gptq_step(w_s, hinv, gi, g, sc, zr, maxq, q_k, e2_k)
+
+        w_s = torch.empty_like(w_t)
+        ms = timer(run_kernel, 3)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        w_p = w_t.T.clone()
+        for gi, (sc, zr) in enumerate(params):
+            w_p = K._step_reference(w_p, hinv, gi * g, g, sc[:, None], zr[:, None],
+                                    maxq, torch.float16)[0]
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        n_groups = c // g
+        b_ms, b_by = bound(4 * r * c + 4 * c * c + r * c + 4 * 4 * n_groups * r,
+                           r * c * (c - 1), "fp32")
+        out.append(dict(name=f"gptq_step x{n_groups} [{label} C={c} R={r} g={g} mse]",
+                        route="cuda", source="gptq_v2_tpu_torch/csrc/gptq.cu",
+                        replaces=REPLACES["gptq_step"], launches=launches["gptq_step"],
+                        max_abs_err=w_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=None))
+        log(f"phase K5 {label}: ok, codes equal on all {n_groups} launches, weight "
+            f"max abs err {w_err:.2e}, err² rel {e_rel:.2e}; {n_groups} launches "
+            f"{ms:.2f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by})")
+        del inv, hinv, w, w_t, w_k, w_s, params
+    return out
+
+
+def phase_attention(torch, timer, launches) -> list:
+    """K4 (bf16, int8) and K7 (int4) at the serve paths' decode shapes:
+    Llama-2-7B's 32 kv heads of 128, a 512-row cache, B in {1, 8}, every
+    slot at position S-1."""
+    import torch.nn.functional as F
+
+    from gptq_v2_tpu_torch.ops import contiguous_attention as K
+    from gptq_v2_tpu_torch.serving import kv_cache as kvc
+
+    hkv, hd, s_max = MODEL["num_key_value_heads"], 128, 512
+    sm = hd ** -0.5
+    out = []
+    for kind in ("bf16", "int8", "int4"):
+        for b in (1, 8):
+            gen = torch.Generator(device="cuda").manual_seed(b)
+            kf, vf = (torch.randn((1, b, s_max, hkv, hd), device="cuda", generator=gen)
+                      for _ in range(2))
+            if kind == "bf16":
+                k, v, ks = kf.to(torch.bfloat16), vf.to(torch.bfloat16), 1.0
+            elif kind == "int8":
+                k, v = (torch.clamp(torch.round(a * 40), -127, 127).to(torch.int8)
+                        for a in (kf, vf))
+                ks = 1 / 40
+            else:
+                k, v = (kvc.pack_int4_rows(torch.clamp(torch.round(a * 2.5), -7, 7)
+                                           .to(torch.int32)) for a in (kf, vf))
+                ks = 1 / 2.5
+            del kf, vf
+            q = (torch.randn((b, hkv, hd), device="cuda", generator=gen) * ks
+                 ).to(torch.bfloat16)
+            if kind == "int4":
+                fn, plain, key = (K.contiguous_decode_attention_p4,
+                                  K.contiguous_decode_attention_xla4, "attention_p4")
+                kd, vd = (torch.cat(K.unpack_nibbles(a[0]), dim=-2) for a in (k, v))
+            else:
+                fn, plain, key = (K.contiguous_decode_attention,
+                                  K.contiguous_decode_attention_ref, "attention")
+                kd, vd = k[0], v[0]
+            # the library yardstick: SDPA over the cache as bf16 (B, H, S, hd)
+            kd, vd = (a.to(torch.bfloat16).transpose(1, 2) for a in (kd, vd))
+            for s in (128, 512):
+                pos = torch.full((b,), s - 1, dtype=torch.int32, device="cuda")
+                args = (q, k, v, pos, 0)
+                got = fn(*args, s_bucket=s, sm_scale=sm).float()
+                ref = plain(*args, s_bucket=s, sm_scale=sm).float()
+                err = float((got - ref).abs().max())
+                # the plain versions round the probabilities to bf16 before
+                # PV, the kernels keep them fp32: 1e-2 of the largest output
+                if err > 1e-2 * float(ref.abs().max()):
+                    raise RuntimeError(f"{key} {kind} B={b} S={s}: max abs err {err}")
+                ms = timer(lambda: fn(*args, s_bucket=s, sm_scale=sm), 20)
+                plain_ms = timer(lambda: plain(*args, s_bucket=s, sm_scale=sm), 5)
+                qd, kds, vds = q[:, :, None], kd[:, :, :s], vd[:, :, :s]
+                lib_ms = timer(lambda: F.scaled_dot_product_attention(qd, kds, vds,
+                                                                      scale=sm), 20)
+                elem = {"bf16": 2, "int8": 1, "int4": 0.5}[kind]
+                n_bytes = 2 * b * s * hkv * hd * elem + 2 * 2 * b * hkv * hd + 4 * b
+                b_ms, b_by = bound(n_bytes, 4 * b * hkv * s * hd, "fp32")
+                name = "K7" if kind == "int4" else "K4"
+                out.append(dict(name=f"decode_attention [{kind} B={b} S={s} Hkv={hkv} hd={hd}]",
+                                route="cuda",
+                                source="gptq_v2_tpu_torch/csrc/contiguous_attention.cu",
+                                replaces=REPLACES[key], launches=launches[key],
+                                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                bound_by=b_by, library_ms=lib_ms))
+                log(f"phase {name} {kind} B={b} S={s}: ok, max abs err {err:.3e} "
+                    f"(max|out| {float(ref.abs().max()):.3e}), kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            del k, v, kd, vd
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -326,7 +678,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     try:
-        from gptq_v2_tpu_torch.ops import gptq_cuda, hessian_cuda, w4a16
+        from gptq_v2_tpu_torch.ops import (contiguous_attention, gptq_cuda,
+                                           hessian_cuda, w4a16)
     except ImportError as e:
         print(f"chip_smoke: the gptq_v2_tpu_torch package is missing ({e})",
               file=sys.stderr)
@@ -344,26 +697,43 @@ def main() -> int:
     wall0 = time.time()
     phase_build()
 
+    wrappers = {"hessian": hessian_cuda.accumulate_hessian,
+                "gptq": gptq_cuda.gptq_solve, "w4a16": w4a16.w4a16_matmul,
+                "gptq_step": gptq_cuda.gptq_step,
+                "attention": contiguous_attention.contiguous_decode_attention,
+                "attention_p4": contiguous_attention.contiguous_decode_attention_p4}
+    paths = (("main", phase_main_path, ("hessian", "gptq", "w4a16", "attention")),
+             ("cli.quantize", phase_cli, ("hessian", "gptq_step", "w4a16", "attention")),
+             ("serve.kv", phase_serve_kv, ("w4a16", "attention", "attention_p4")))
     work = ROOT / "outputs" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    wrappers = {"hessian": hessian_cuda.accumulate_hessian,
-                "gptq": gptq_cuda.gptq_solve, "w4a16": w4a16.w4a16_matmul}
+    counts = {}
     try:
-        for fn in wrappers.values():
-            fn.launches = 0
-        main_out = phase_main_path(torch, work)
-        launches = {k: fn.launches for k, fn in wrappers.items()}
+        for name, phase, needed in paths:
+            for fn in wrappers.values():
+                fn.launches = 0
+            t0 = time.time()
+            result = phase(torch, work)
+            counts[name] = {k: fn.launches for k, fn in wrappers.items()}
+            if name == "main":
+                main_out = result
+            log(f"path {name}: {time.time() - t0:.1f} s, launches "
+                + ", ".join(f"{k} {v}" for k, v in counts[name].items()))
+            missing = [k for k in needed if not counts[name][k]]
+            if missing:
+                raise RuntimeError(f"path {name}: {missing} never launched")
+        phase_attention_ab(torch, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    log("main path launches: " + ", ".join(f"{k} {v}" for k, v in launches.items()))
-    if not all(launches.values()):
-        raise RuntimeError(f"a kernel of the main path never launched: {launches}")
+    launches = {k: sum(c[k] for c in counts.values()) for k in wrappers}
 
     timer = Timer(torch)
     kernels = (phase_hessian(torch, timer, launches)
                + phase_gptq(torch, timer, launches)
-               + phase_w4a16(torch, timer, launches, main_out["layer0"]))
+               + phase_w4a16(torch, timer, launches, main_out["layer0"])
+               + phase_gptq_step(torch, timer, launches)
+               + phase_attention(torch, timer, launches))
     log(f"total wall {time.time() - wall0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,20 @@
-// K2: blocked GPTQ column solver with fp16 error feedback.
+// K2: blocked GPTQ column solver with fp16 error feedback, and
+// K5: its group-stepped form with the quantization parameters given.
 //
-// Replaces gptq_v2_tpu/ops/gptq_pallas.py::_kernel (grid _solve_pallas,
-// entry gptq_solve).  Plain PyTorch version: quant/gptq.py::_solve_uniform.
+// K2 replaces gptq_v2_tpu/ops/gptq_pallas.py::_kernel (grid _solve_pallas,
+// entry gptq_solve); plain PyTorch version: ops/gptq_cuda.py::_solve_uniform.
+// K5 replaces gptq_v2_tpu/ops/gptq_pallas.py::_kernel_step (grid
+// _step_call, entry gptq_solve_stepped); plain PyTorch version:
+// ops/gptq_cuda.py::_step_reference.
 //
 // GPTQ treats weight rows independently.  For each group of g columns the
-// host loop launches two kernels:
+// host launches two kernels:
 //
 // 1. column_loop_kernel: a block owns 32 weight rows.  It loads the
 //    group's (g, 32) slice of W^T, the g x g diagonal block of hinv (64 KB
-//    at g = 128) into shared memory, computes min-max scale/zero per row,
+//    at g = 128) into shared memory, takes scale/zero per row (K2: min-max
+//    from the block; K5: given, computed between launches by find_params,
+//    the MSE grid search or EXL2 scale quantization, with maxq per group),
 //    then runs the g-step column loop: quantize column j (round-half-even,
 //    true division), dequantize through fp16 (the native round trip the TPU
 //    kernel emulates), e_j = (w_j - dq) / hinv[j, j], and the rank-1 update
@@ -19,7 +25,13 @@
 //    contraction, so the loop computes exactly what the plain version does.
 // 2. tail_update_kernel: W^T[i2:, :] -= hinv[i1:i2, i2:]^T @ E, a tiled
 //    fp32 product (64 x 64 output tiles, 16-deep k stages in shared memory)
-//    over the group's error rows E (g, R).
+//    over the group's error rows E (g, R).  Only the columns >= i2 are
+//    touched (the TPU kernel rewrites the whole block, masked).
+//
+// K2 loops over the groups inside one host call; K5 is one group per call,
+// W^T updated in place between calls, so the running weight the next
+// group's parameters are computed from carries every earlier group's
+// updates (the reference's kernel-path schedule, gptq_py.py:125-157).
 //
 // Bound on the H100: operations (fp32, no tensor cores: TF32 is outside the
 // numerics contract), plus the serial chain of g dependent column steps per
@@ -39,12 +51,13 @@ constexpr int LOOP_THREADS = ROWS * TPR;
 
 constexpr int PAD = 4;  // row stride G + 4 makes the (row, part) banks conflict-free
 
-template <int G>
+// GIVEN: scale/zero are inputs (K5), else min-max outputs (K2)
+template <int G, bool GIVEN>
 __global__ void __launch_bounds__(LOOP_THREADS)
 column_loop_kernel(const float* __restrict__ w, const float* __restrict__ hinv,
                    uint8_t* __restrict__ q, float* __restrict__ e,
-                   float* __restrict__ err2, float* __restrict__ scale_out,
-                   float* __restrict__ zero_out, int c, int r, int gi, float maxq,
+                   float* __restrict__ err2, float* __restrict__ scale_io,
+                   float* __restrict__ zero_io, int c, int r, int gi, float maxq,
                    int sym, int fb16) {
   extern __shared__ float smem[];
   float* sh = smem;              // (G, G) hinv diagonal block
@@ -70,26 +83,31 @@ column_loop_kernel(const float* __restrict__ w, const float* __restrict__ hinv,
   const bool live = gr < r;
   float* wr = sw + row * RS;
 
-  // min-max parameters of the pre-loop block (reference quant.py:89-118)
-  float mx = wr[part], mn = wr[part];
-  for (int k = part + TPR; k < G; k += TPR) {
-    mx = fmaxf(mx, wr[k]);
-    mn = fminf(mn, wr[k]);
-  }
-#pragma unroll
-  for (int off = 1; off < TPR; off <<= 1) {
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, off));
-  }
   float scale, qzero;
-  if (sym) {
-    float absmax = fmaxf(mx, -mn);
-    scale = __fadd_rn(__fmul_rn(absmax, __fdiv_rn(2.0f, maxq)), 1e-12f);
-    qzero = rintf(__fmul_rn(__fadd_rn(maxq, 1.0f), 0.5f));
+  if (GIVEN) {
+    scale = live ? scale_io[gr] : 1.0f;
+    qzero = live ? zero_io[gr] : 0.0f;
   } else {
-    float x_max = fmaxf(mx, 0.0f), x_min = fminf(mn, 0.0f);
-    scale = __fadd_rn(__fdiv_rn(__fsub_rn(x_max, x_min), maxq), 1e-12f);
-    qzero = rintf(__fdiv_rn(-x_min, scale));
+    // min-max parameters of the pre-loop block (reference quant.py:89-118)
+    float mx = wr[part], mn = wr[part];
+    for (int k = part + TPR; k < G; k += TPR) {
+      mx = fmaxf(mx, wr[k]);
+      mn = fminf(mn, wr[k]);
+    }
+#pragma unroll
+    for (int off = 1; off < TPR; off <<= 1) {
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+    }
+    if (sym) {
+      float absmax = fmaxf(mx, -mn);
+      scale = __fadd_rn(__fmul_rn(absmax, __fdiv_rn(2.0f, maxq)), 1e-12f);
+      qzero = rintf(__fmul_rn(__fadd_rn(maxq, 1.0f), 0.5f));
+    } else {
+      float x_max = fmaxf(mx, 0.0f), x_min = fminf(mn, 0.0f);
+      scale = __fadd_rn(__fdiv_rn(__fsub_rn(x_max, x_min), maxq), 1e-12f);
+      qzero = rintf(__fdiv_rn(-x_min, scale));
+    }
   }
   const float scale16 = __half2float(__float2half_rn(scale));
 
@@ -117,8 +135,10 @@ column_loop_kernel(const float* __restrict__ w, const float* __restrict__ hinv,
   }
   if (part == 0 && live) {
     err2[static_cast<size_t>(gi) * r + gr] = e2;
-    scale_out[static_cast<size_t>(gi) * r + gr] = scale;
-    zero_out[static_cast<size_t>(gi) * r + gr] = qzero;
+    if (!GIVEN) {
+      scale_io[static_cast<size_t>(gi) * r + gr] = scale;
+      zero_io[static_cast<size_t>(gi) * r + gr] = qzero;
+    }
   }
 }
 
@@ -179,30 +199,58 @@ tail_update_kernel(float* __restrict__ w, const float* __restrict__ hinv,
 }
 
 template <int G>
+constexpr int loop_smem() {
+  return (G * G + ROWS * (G + PAD)) * static_cast<int>(sizeof(float));
+}
+
+// one group: the column loop, then the tail update of the columns >= i2
+template <int G, bool GIVEN>
+cudaError_t group_step(float* w, const float* hinv, uint8_t* q, float* e, float* err2,
+                       float* scale, float* zero, int c, int r, int gi, float maxq,
+                       int sym, int fb16, cudaStream_t stream) {
+  const dim3 loop_grid((r + ROWS - 1) / ROWS);
+  column_loop_kernel<G, GIVEN><<<loop_grid, LOOP_THREADS, loop_smem<G>(), stream>>>(
+      w, hinv, q, e, err2, scale, zero, c, r, gi, maxq, sym, fb16);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int i2 = (gi + 1) * G;
+  if (i2 < c) {
+    dim3 tail_grid((r + TT - 1) / TT, (c - i2 + TT - 1) / TT);
+    tail_update_kernel<G><<<tail_grid, TAIL_THREADS, 0, stream>>>(
+        w, hinv, e, c, r, gi * G, i2);
+    err = cudaGetLastError();
+  }
+  return err;
+}
+
+template <int G, bool GIVEN>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(column_loop_kernel<G, GIVEN>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              loop_smem<G>());
+}
+
+template <int G>
 int solve(float* w, const float* hinv, uint8_t* q, float* e, float* err2,
           float* scale, float* zero, int c, int r, float maxq, int sym, int fb16,
           cudaStream_t stream) {
-  const int smem = (G * G + ROWS * (G + PAD)) * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      column_loop_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_groups = c / G;
-  const dim3 loop_grid((r + ROWS - 1) / ROWS);
-  for (int gi = 0; gi < n_groups; ++gi) {
-    column_loop_kernel<G><<<loop_grid, LOOP_THREADS, smem, stream>>>(
-        w, hinv, q, e, err2, scale, zero, c, r, gi, maxq, sym, fb16);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int i2 = (gi + 1) * G;
-    if (i2 < c) {
-      dim3 tail_grid((r + TT - 1) / TT, (c - i2 + TT - 1) / TT);
-      tail_update_kernel<G><<<tail_grid, TAIL_THREADS, 0, stream>>>(
-          w, hinv, e, c, r, gi * G, i2);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-  }
-  return static_cast<int>(cudaSuccess);
+  cudaError_t err = allow_smem<G, false>();
+  for (int gi = 0; err == cudaSuccess && gi < c / G; ++gi)
+    err = group_step<G, false>(w, hinv, q, e, err2, scale, zero, c, r, gi, maxq,
+                               sym, fb16, stream);
+  return static_cast<int>(err);
+}
+
+template <int G>
+int step(float* w, const float* hinv, uint8_t* q, float* e, float* err2,
+         const float* scale, const float* zero, int c, int r, int gi, float maxq,
+         int fb16, cudaStream_t stream) {
+  cudaError_t err = allow_smem<G, true>();
+  if (err == cudaSuccess)
+    err = group_step<G, true>(w, hinv, q, e, err2, const_cast<float*>(scale),
+                              const_cast<float*>(zero), c, r, gi, maxq, 0, fb16,
+                              stream);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -222,6 +270,22 @@ int gptq_solve(float* w, const float* hinv, uint8_t* q, float* e, float* err2,
     case 32: return solve<32>(w, hinv, q, e, err2, scale, zero, c, r, maxq, sym, fb16, stream);
     case 64: return solve<64>(w, hinv, q, e, err2, scale, zero, c, r, maxq, sym, fb16, stream);
     case 128: return solve<128>(w, hinv, q, e, err2, scale, zero, c, r, maxq, sym, fb16, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K5, one group gi: w (c, r) fp32 W^T updated in place; scale, zero (r,)
+// fp32 given; q (c, r) uint8 codes (rows gi*g .. gi*g+g-1 written); e (g, r)
+// scratch; err2 (c/g, r) (row gi written).  maxq is the group's.
+int gptq_step(float* w, const float* hinv, uint8_t* q, float* e, float* err2,
+              const float* scale, const float* zero, int c, int r, int g, int gi,
+              float maxq, int fb16, cudaStream_t stream) {
+  if (c <= 0 || r <= 0 || g <= 0 || c % g != 0 || gi < 0 || gi >= c / g)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (g) {
+    case 32: return step<32>(w, hinv, q, e, err2, scale, zero, c, r, gi, maxq, fb16, stream);
+    case 64: return step<64>(w, hinv, q, e, err2, scale, zero, c, r, gi, maxq, fb16, stream);
+    case 128: return step<128>(w, hinv, q, e, err2, scale, zero, c, r, gi, maxq, fb16, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

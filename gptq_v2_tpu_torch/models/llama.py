@@ -261,15 +261,26 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return x * c.to(x.dtype) + _rotate_half(x) * s.to(x.dtype)
 
 
+def soft_cap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """``tanh(x / cap) · cap`` (Gemma-2 logit soft-capping); None is the
+    identity."""
+    return x if cap is None else torch.tanh(x / cap) * cap
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal_offset: Optional[int] = 0,
               key_mask: Optional[torch.Tensor] = None,
-              sm_scale: Optional[float] = None) -> torch.Tensor:
+              sm_scale: Optional[float] = None,
+              logit_cap: Optional[float] = None,
+              sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dense attention with GQA in plain torch ops; scores and softmax in
     fp32.  q (B, N, Hq, hd), k/v (B, S, Hkv, hd) → (B, N, Hq, hd).
 
     ``causal_offset``: query i attends keys ``<= i + offset`` (None: no
-    causal mask); ``key_mask`` (B, S) masks invalid cache slots."""
+    causal mask); ``key_mask`` (B, S) masks invalid cache slots;
+    ``logit_cap`` soft-caps the scores; ``sinks`` (Hq,) per-head sink
+    logits join each softmax and their mass is dropped (the denominator
+    gains ``exp(sink - max)``)."""
     b, n, hq, hd = q.shape
     s, hkv = k.shape[1], k.shape[2]
     groups = hq // hkv
@@ -278,6 +289,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # product the JAX package asks for with preferred_element_type
     scores = torch.einsum("bnkgh,bskh->bkgns", qg.float(), k.float())
     scores = scores * (1.0 / math.sqrt(hd) if sm_scale is None else sm_scale)
+    scores = soft_cap(scores, logit_cap)
     neg = torch.finfo(torch.float32).min
     if causal_offset is not None:
         qi = torch.arange(n, device=q.device)[:, None]
@@ -286,7 +298,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = scores.masked_fill(~mask[None, None, None], neg)
     if key_mask is not None:
         scores = scores.masked_fill(~key_mask[:, None, None, None, :], neg)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    if sinks is None:
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    else:
+        sk = sinks.float().reshape(hkv, groups)[None, :, :, None]  # (1, hkv, g, 1)
+        m = torch.maximum(torch.amax(scores, dim=-1), sk)  # (b, hkv, g, n)
+        p = torch.exp(scores - m[..., None])
+        denom = torch.sum(p, dim=-1) + torch.exp(sk - m)
+        probs = (p / denom[..., None]).to(v.dtype)
     out = torch.einsum("bkgns,bskh->bnkgh", probs, v)
     return out.reshape(b, n, hq, v.shape[-1])
 

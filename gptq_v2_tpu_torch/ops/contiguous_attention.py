@@ -1,0 +1,215 @@
+"""K4 and K7 wrappers: one-token decode attention over the contiguous KV
+cache.
+
+* K4 :func:`contiguous_decode_attention` replaces
+  ``gptq_v2_tpu/ops/contiguous_attention.py::_kernel`` (entry
+  ``contiguous_decode_attention``): bf16 or int8 cache
+  ``(L, B, S, Hkv, hd)``.  Plain version:
+  :func:`contiguous_decode_attention_ref`.
+* K7 :func:`contiguous_decode_attention_p4` replaces ``::_kernel_p4``
+  (entry ``contiguous_decode_attention_p4``): the head-pair nibble-packed
+  int4 cache ``(L, B, S, Hkv/2, hd)`` (``serving/kv_cache.py::
+  pack_int4_rows``), read once for both nibbles.  Plain version:
+  :func:`contiguous_decode_attention_xla4`.
+
+Both are the hand-written CUDA kernels of ``csrc/contiguous_attention.cu``;
+what bounds them on the H100 and what the simple design does about it is
+noted there.  Semantics: ``models.llama.attention`` of one query per slot
+over the first ``s_bucket`` cache rows with the key mask ``j <= pos``,
+``j > pos - window`` and ``j // chunk == pos // chunk``, optional logit
+soft cap and attention sinks, GQA in HF kv-major head order.  The k-scale
+is folded into ``q`` and the v-scale applied to the output by the caller.
+Every position must be below ``s_bucket``.
+
+The plain versions are the JAX package's production paths (the einsum
+chain and its two-pass int4 unpack).  On a CPU tensor the wrappers run
+them; on a CUDA tensor they launch the kernel or raise.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from gptq_v2_tpu_torch.models import llama as L
+from gptq_v2_tpu_torch.ops import _cuda
+
+_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+_SIGNATURES = {
+    "contiguous_attention": _ARGS + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                     ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                     ctypes.c_void_p],
+    "contiguous_attention_p4": _ARGS + [ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+}
+HEAD_DIMS = (64, 128)
+GROUPS = (1, 2, 4, 8)  # q heads per kv head the kernels take
+
+
+def _span(k_cache: torch.Tensor, s_bucket: Optional[int]) -> int:
+    return k_cache.shape[2] if s_bucket is None else min(s_bucket, k_cache.shape[2])
+
+
+def key_mask(s: int, positions: torch.Tensor, window: Optional[int] = None,
+             chunk: Optional[int] = None) -> torch.Tensor:
+    """``(B, S)`` valid keys of each slot's query at ``positions``."""
+    j = torch.arange(s, device=positions.device)[None, :]
+    pos = positions[:, None]
+    mask = j <= pos
+    if window is not None:
+        mask &= j > pos - window
+    if chunk is not None:
+        mask &= (j // chunk) == (pos // chunk)
+    return mask
+
+
+def unpack_nibbles(p8: torch.Tensor):
+    """Sign-extended low and high nibbles of int8 bytes, as int32."""
+    w = p8.to(torch.int32)
+    return (w << 28) >> 28, w >> 4
+
+
+def contiguous_decode_attention_ref(q, k_cache, v_cache, positions, layer,
+                                    s_bucket=None, sm_scale=1.0, window=None,
+                                    chunk=None, soft_cap=None, sinks=None,
+                                    kv_bits=8):
+    """K4's plain version: ``q`` ``(B, Hq, hd)`` over the cache's layer
+    ``layer`` (any storage dtype; ``kv_bits=4`` unpacks the head-pair
+    nibbles), returns ``(B, Hq, hd)`` in ``q``'s dtype."""
+    s = _span(k_cache, s_bucket)
+    k, v = k_cache[layer, :, :s], v_cache[layer, :, :s]
+    if kv_bits == 4:
+        k, v = (torch.cat(unpack_nibbles(a), dim=-2) for a in (k, v))
+    mask = key_mask(s, positions, window, chunk)
+    return L.attention(q[:, None], k.to(q.dtype), v.to(q.dtype), causal_offset=None,
+                       key_mask=mask, sm_scale=sm_scale, logit_cap=soft_cap,
+                       sinks=sinks)[:, 0]
+
+
+def contiguous_decode_attention_xla4(q, k_cache, v_cache, positions, layer,
+                                     s_bucket=None, sm_scale=1.0, window=None,
+                                     chunk=None, soft_cap=None, sinks=None):
+    """K7's plain version, the JAX package's two-pass int4 path: the low
+    nibbles dot against the first half of the kv heads' queries, the high
+    nibbles against the second; p rounds to ``q``'s dtype before PV and the
+    normalization runs in fp32."""
+    b, hq, hd = q.shape
+    hp = k_cache.shape[3]
+    hkv = 2 * hp
+    g = hq // hkv
+    s = _span(k_cache, s_bucket)
+    dt = q.dtype
+    k_lo, k_hi = (a.to(dt) for a in unpack_nibbles(k_cache[layer, :, :s]))
+    v_lo, v_hi = (a.to(dt) for a in unpack_nibbles(v_cache[layer, :, :s]))
+    qg = q.reshape(b, hkv, g, hd)
+    scores = torch.cat([torch.einsum("bkgd,bskd->bkgs", qg[:, :hp], k_lo),
+                        torch.einsum("bkgd,bskd->bkgs", qg[:, hp:], k_hi)],
+                       dim=1).float() * sm_scale  # (B, Hkv, G, S)
+    scores = L.soft_cap(scores, soft_cap)
+    valid = key_mask(s, positions, window, chunk)
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.finfo(torch.float32).min)
+    m = torch.amax(scores, dim=-1, keepdim=True)
+    if sinks is not None:
+        sk = sinks.float().reshape(1, hkv, g, 1)
+        m = torch.maximum(m, sk)
+    p = torch.exp(scores - m)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    if sinks is not None:
+        l = l + torch.exp(sk - m)
+    pw = p.to(dt)
+    ctx = torch.cat([torch.einsum("bkgs,bskd->bkgd", pw[:, :hp], v_lo),
+                     torch.einsum("bkgs,bskd->bkgd", pw[:, hp:], v_hi)], dim=1)
+    return (ctx.float() / l).to(dt).reshape(b, hq, hd)
+
+
+def _launch(entry: str, q, k_cache, v_cache, positions, layer, s, sm_scale,
+            window, chunk, soft_cap, sinks, int8: Optional[int]) -> torch.Tensor:
+    b, hq, hd = q.shape
+    n_heads_stored = k_cache.shape[3]
+    n_kv = n_heads_stored * (2 if int8 is None else 1)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the decode attention kernels take bf16 q, got {q.dtype}")
+    if k_cache.dtype != v_cache.dtype or k_cache.shape != v_cache.shape:
+        raise ValueError("k and v caches differ in dtype or shape")
+    if hd not in HEAD_DIMS or k_cache.shape[4] != hd:
+        raise ValueError(f"head dim {hd} (cache {k_cache.shape[4]}); the kernels "
+                         f"take {HEAD_DIMS}")
+    if hq % n_kv or hq // n_kv not in GROUPS:
+        raise ValueError(f"{hq} q heads over {n_kv} kv heads; the kernels take "
+                         f"{GROUPS} q heads per kv head")
+    if positions.shape != (b,) or k_cache.shape[1] != b:
+        raise ValueError(f"positions {tuple(positions.shape)} / cache slots "
+                         f"{k_cache.shape[1]} for batch {b}")
+    if not 0 <= layer < k_cache.shape[0]:
+        raise ValueError(f"layer {layer} of {k_cache.shape[0]}")
+    if not all(t.device == q.device for t in (k_cache, v_cache, positions)):
+        raise ValueError("q, caches and positions must share a device")
+    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+        raise ValueError("the caches must be contiguous")
+    q = q.contiguous()
+    pos = positions.to(torch.int32).contiguous()
+    sk = None
+    if sinks is not None:
+        if sinks.shape != (hq,):
+            raise ValueError(f"sinks {tuple(sinks.shape)} for {hq} q heads")
+        sk = sinks.to(device=q.device, dtype=torch.float32).contiguous()
+    out = torch.empty_like(q)
+    lib = _cuda.library("contiguous_attention", _SIGNATURES)
+    head_args = [n_heads_stored, hq // n_kv, hd] + ([] if int8 is None else [int8])
+    with torch.cuda.device(q.device):
+        err = getattr(lib, entry)(
+            _cuda.ptr(q), _cuda.ptr(k_cache), _cuda.ptr(v_cache), _cuda.ptr(pos),
+            None if sk is None else _cuda.ptr(sk), _cuda.ptr(out), layer,
+            k_cache.shape[1], k_cache.shape[2], s, *head_args, float(sm_scale),
+            int(window or 0), int(chunk or 0), float(soft_cap or 0.0),
+            _cuda.stream_ptr(q.device))
+    _cuda.check(lib, err, entry)
+    return out
+
+
+def contiguous_decode_attention(q, k_cache, v_cache, positions, layer,
+                                s_bucket=None, sm_scale=1.0, window=None,
+                                chunk=None, soft_cap=None, sinks=None):
+    """K4: single-token decode attention for every slot over a bf16 or
+    int8 cache; returns ``(B, Hq, hd)``."""
+    if q.device.type == "cpu":
+        return contiguous_decode_attention_ref(q, k_cache, v_cache, positions, layer,
+                                               s_bucket, sm_scale, window, chunk,
+                                               soft_cap, sinks)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if k_cache.dtype not in (torch.bfloat16, torch.int8):
+        raise TypeError(f"K4 takes a bf16 or int8 cache, got {k_cache.dtype}")
+    out = _launch("contiguous_attention", q, k_cache, v_cache, positions, layer,
+                  _span(k_cache, s_bucket), sm_scale, window, chunk, soft_cap,
+                  sinks, int(k_cache.dtype == torch.int8))
+    contiguous_decode_attention.launches += 1
+    return out
+
+
+contiguous_decode_attention.launches = 0
+
+
+def contiguous_decode_attention_p4(q, k_cache, v_cache, positions, layer,
+                                   s_bucket=None, sm_scale=1.0, window=None,
+                                   chunk=None, soft_cap=None, sinks=None):
+    """K7: single-read int4 decode attention over the head-pair
+    nibble-packed cache; returns ``(B, Hq, hd)``."""
+    if q.device.type == "cpu":
+        return contiguous_decode_attention_xla4(q, k_cache, v_cache, positions, layer,
+                                                s_bucket, sm_scale, window, chunk,
+                                                soft_cap, sinks)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if k_cache.dtype != torch.int8:
+        raise TypeError(f"K7 takes the int8 nibble-packed cache, got {k_cache.dtype}")
+    out = _launch("contiguous_attention_p4", q, k_cache, v_cache, positions, layer,
+                  _span(k_cache, s_bucket), sm_scale, window, chunk, soft_cap,
+                  sinks, None)
+    contiguous_decode_attention_p4.launches += 1
+    return out
+
+
+contiguous_decode_attention_p4.launches = 0

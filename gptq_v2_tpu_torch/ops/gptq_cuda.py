@@ -1,28 +1,41 @@
-"""K2 wrapper: the blocked GPTQ column solver.
+"""K2 and K5 wrappers: the blocked GPTQ column solver, whole and
+group-stepped.
 
-Replaces ``gptq_v2_tpu/ops/gptq_pallas.py::_kernel`` (entry ``gptq_solve``)
-with the hand-written CUDA kernels of ``csrc/gptq.cu``: per group a column
-loop kernel (min-max params, the g-step quantize/feedback/rank-1 chain in
-shared memory) and a tiled fp32 tail-update product.  What bounds it on the
-H100 and what the simple design does about it is noted in that source.
+* K2 :func:`gptq_solve` replaces ``gptq_v2_tpu/ops/gptq_pallas.py::_kernel``
+  (entry ``gptq_solve``): min-max parameters inside the kernel, every
+  group in one host call.
+* K5 :func:`gptq_step` replaces ``gptq_v2_tpu/ops/gptq_pallas.py::
+  _kernel_step`` (entry ``gptq_solve_stepped``): one group's column loop
+  and tail update with scale, zero and maxq given, the running weight
+  updated in place.  :func:`gptq_solve_stepped` runs the parameter search
+  (min-max, MSE grid, EXL2 scale quantization, per-group bit widths) in
+  torch between the steps.
 
-:func:`_solve_uniform` is the plain PyTorch version (the executable spec,
-counterpart of ``gptq_v2_tpu/quant/gptq.py::_solve_uniform``).  On a CPU
-tensor :func:`gptq_solve` runs it; on a CUDA tensor it launches the kernel
-or raises.
+Both are the hand-written CUDA kernels of ``csrc/gptq.cu`` (a column loop
+kernel with the g-step quantize/feedback/rank-1 chain in shared memory, and
+a tiled fp32 tail-update product); what bounds them on the H100 and what
+the simple design does about it is noted in that source.
+
+The plain PyTorch versions are :func:`_step_reference` (one group) and
+:func:`_solve_uniform` (K2's, min-max over every group), counterparts of
+``gptq_v2_tpu/quant/gptq.py::_solve_uniform``.  On a CPU tensor the
+wrappers run them; on a CUDA tensor they launch the kernel or raise.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from gptq_v2_tpu_torch.ops import _cuda
-from gptq_v2_tpu_torch.quant.quantizer import find_params_maxq
+from gptq_v2_tpu_torch.quant import quantizer as qz
 
 _SIGNATURES = {"gptq_solve": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-               + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+               + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+               "gptq_step": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]}
+GROUP_SIZES = (32, 64, 128)  # the group sizes the CUDA solver takes
 
 
 def _feedback_dequantize(q, scale, qzero, fb_dtype: Optional[torch.dtype]):
@@ -39,63 +52,63 @@ def _fb_dtype(name: Optional[str]) -> Optional[torch.dtype]:
     return getattr(torch, name) if name else None
 
 
+def _step_reference(w_full: torch.Tensor, hinv: torch.Tensor, i1: int, g: int,
+                    scale: torch.Tensor, qzero: torch.Tensor, maxq,
+                    fb: Optional[torch.dtype]):
+    """One GPTQ group on the running weight ``w_full`` ``(R, C)`` with
+    given ``scale``/``qzero`` ``(R, 1)`` and ``maxq``: the column loop
+    (quantize, feedback dequantize, error, rank-1 update of the group's
+    later columns), then the block-tail update
+    ``W[:, i2:] -= E @ hinv[i1:i2, i2:]`` as one full-fp32 product.
+    Returns ``(w_new, q, dq, err)``, the last three ``(R, g)``."""
+    r, c = w_full.shape
+    dev = w_full.device
+    wb = w_full[:, i1:i1 + g].clone()
+    hblk = hinv[i1:i1 + g, i1:i1 + g]
+    jidx = torch.arange(g, device=dev)
+    q = torch.empty((g, r), dtype=torch.float32, device=dev)
+    dq = torch.empty_like(q)
+    err = torch.empty_like(q)
+    for j in range(g):
+        w_j = wb[:, j:j + 1]
+        q_j = qz.quantize(w_j, scale, qzero, maxq)
+        dq_j = _feedback_dequantize(q_j, scale, qzero, fb)
+        err_j = (w_j - dq_j) / hblk[j, j]
+        hrow = torch.where(jidx > j, hblk[j, :], 0.0)[None, :]
+        wb = wb - err_j * hrow
+        q[j] = q_j[:, 0]
+        dq[j] = dq_j[:, 0]
+        err[j] = err_j[:, 0]
+    col_ids = torch.arange(c, device=dev)
+    hrows = torch.where(col_ids[None, :] >= i1 + g, hinv[i1:i1 + g, :], 0.0)
+    return w_full - err.T @ hrows, q.T, dq.T, err.T
+
+
 def _solve_uniform(weight: torch.Tensor, hinv: torch.Tensor, maxq: float,
                    group_size: int, sym: bool,
                    fb_dtype_name: Optional[str]) -> dict:
-    """GPTQ over uniform groups with ``gptq_block == group``.
-
-    ``weight`` ``(R, C)`` fp32, act-order permuted; ``hinv`` ``(C, C)`` fp32
-    upper Cholesky factor of H⁻¹.  Per group: min-max params from the
-    running weight, a column loop (quantize, feedback dequantize, error,
-    rank-1 update of the group's later columns), then the block-tail update
-    ``W[:, i2:] -= E @ hinv[i1:i2, i2:]`` as one full-fp32 product.
-    """
-    r, c = weight.shape
+    """K2's plain version: GPTQ over uniform groups with ``gptq_block ==
+    group``, min-max parameters from the running weight of each group, then
+    :func:`_step_reference`.  ``weight`` ``(R, C)`` fp32, act-order
+    permuted; ``hinv`` ``(C, C)`` fp32 upper Cholesky factor of H⁻¹."""
     g = group_size
-    n_groups = c // g
-    dev = weight.device
     fb = _fb_dtype(fb_dtype_name)
-    maxq_t = torch.tensor(maxq, dtype=torch.float32, device=dev)
-    col_ids = torch.arange(c, device=dev)
-    jidx = torch.arange(g, device=dev)
-    w_full = weight.float().clone()
-    q_all = torch.empty((r, c), dtype=torch.float32, device=dev)
-    dq_all = torch.empty_like(q_all)
-    err_all = torch.empty_like(q_all)
-    scales, zeros = [], []
-    for gi in range(n_groups):
-        i1 = gi * g
-        wb = w_full[:, i1:i1 + g].clone()
-        hblk = hinv[i1:i1 + g, i1:i1 + g]
-        p = find_params_maxq(wb, maxq_t, sym)
-        err_cols = torch.empty((g, r), dtype=torch.float32, device=dev)
-        for j in range(g):
-            w_j = wb[:, j:j + 1]
-            q_j = torch.clamp(torch.round(w_j / p.scale) + p.qzero, 0.0,
-                              float(maxq))
-            dq_j = _feedback_dequantize(q_j, p.scale, p.qzero, fb)
-            err_j = (w_j - dq_j) / hblk[j, j]
-            hrow = torch.where(jidx > j, hblk[j, :], 0.0)[None, :]
-            wb = wb - err_j * hrow
-            q_all[:, i1 + j] = q_j[:, 0]
-            dq_all[:, i1 + j] = dq_j[:, 0]
-            err_all[:, i1 + j] = err_j[:, 0]
-            err_cols[j] = err_j[:, 0]
-        hrows = torch.where(col_ids[None, :] >= i1 + g, hinv[i1:i1 + g, :], 0.0)
-        w_full = w_full - err_cols.T @ hrows
-        scales.append(p.scale)
-        zeros.append(p.qzero)
-    return {"qweight": q_all, "quant": dq_all, "error": err_all,
-            "scale": torch.cat(scales, dim=1), "qzero": torch.cat(zeros, dim=1)}
+    maxq_t = torch.tensor(maxq, dtype=torch.float32, device=weight.device)
+    w = weight.float().clone()
+    parts, params = [], []
+    for i1 in range(0, weight.shape[1], g):
+        p = qz.find_params_maxq(w[:, i1:i1 + g], maxq_t, sym)
+        w, *outs = _step_reference(w, hinv, i1, g, p.scale, p.qzero, p.maxq, fb)
+        parts.append(outs)
+        params.append(p)
+    q, dq, err = (torch.cat(a, dim=1) for a in zip(*parts))
+    return {"qweight": q, "quant": dq, "error": err,
+            "scale": torch.cat([p.scale for p in params], dim=1),
+            "qzero": torch.cat([p.qzero for p in params], dim=1)}
 
 
-def gptq_solve(weight_t: torch.Tensor, hinv: torch.Tensor, group_size: int,
-               maxq: float, sym: bool = False,
-               feedback_dtype: Optional[str] = "float16") -> dict:
-    """Blocked GPTQ solve of ``weight_t`` ``(C, R)`` (act-order permuted,
-    transposed) against ``hinv`` ``(C, C)``.  Returns ``qweight``/``quant``
-    ``(R, C)``, ``scale``/``qzero`` ``(R, G)`` and ``error_sq_mean``, the
-    fields of the JAX package's ``gptq_solve``."""
+def _check_solver_input(weight_t: torch.Tensor, hinv: torch.Tensor,
+                        group_size: int, feedback_dtype: Optional[str]) -> None:
     c, r = weight_t.shape
     if hinv.shape != (c, c):
         raise ValueError(f"hinv {tuple(hinv.shape)} for weight_t {(c, r)}")
@@ -104,20 +117,34 @@ def gptq_solve(weight_t: torch.Tensor, hinv: torch.Tensor, group_size: int,
     if weight_t.device != hinv.device:
         raise ValueError(f"weight on {weight_t.device}, hinv on {hinv.device}")
     if weight_t.device.type == "cpu":
-        out = _solve_uniform(weight_t.T, hinv, maxq, group_size, sym,
-                             feedback_dtype)
-        out["error_sq_mean"] = torch.mean(out.pop("error") ** 2.0)
-        return out
+        return
     if weight_t.device.type != "cuda":
         raise ValueError(f"unsupported device {weight_t.device}")
-    if group_size not in (32, 64, 128):
-        raise ValueError(f"the CUDA solver takes group sizes 32/64/128, "
+    if group_size not in GROUP_SIZES:
+        raise ValueError(f"the CUDA solver takes group sizes {GROUP_SIZES}, "
                          f"got {group_size}")
     if feedback_dtype not in (None, "float16"):
         raise NotImplementedError(
             f"feedback dtype {feedback_dtype!r} (CUDA solver: float16 or None)")
     if weight_t.dtype != torch.float32 or hinv.dtype != torch.float32:
         raise TypeError("weight_t and hinv must be float32")
+
+
+def gptq_solve(weight_t: torch.Tensor, hinv: torch.Tensor, group_size: int,
+               maxq: float, sym: bool = False,
+               feedback_dtype: Optional[str] = "float16") -> dict:
+    """K2: blocked GPTQ solve of ``weight_t`` ``(C, R)`` (act-order
+    permuted, transposed) against ``hinv`` ``(C, C)`` with min-max
+    parameters.  Returns ``qweight``/``quant`` ``(R, C)``,
+    ``scale``/``qzero`` ``(R, G)`` and ``error_sq_mean``, the fields of the
+    JAX package's ``gptq_solve``."""
+    c, r = weight_t.shape
+    _check_solver_input(weight_t, hinv, group_size, feedback_dtype)
+    if weight_t.device.type == "cpu":
+        out = _solve_uniform(weight_t.T, hinv, maxq, group_size, sym,
+                             feedback_dtype)
+        out["error_sq_mean"] = torch.mean(out.pop("error") ** 2.0)
+        return out
     dev = weight_t.device
     g = group_size
     n_groups = c // g
@@ -148,3 +175,105 @@ def gptq_solve(weight_t: torch.Tensor, hinv: torch.Tensor, group_size: int,
 
 
 gptq_solve.launches = 0
+
+
+def gptq_step(w_t: torch.Tensor, hinv: torch.Tensor, group_index: int,
+              group_size: int, scale: torch.Tensor, qzero: torch.Tensor,
+              maxq: float, q_t: torch.Tensor, err2: torch.Tensor,
+              feedback_dtype: Optional[str] = "float16") -> None:
+    """K5: GPTQ group ``group_index`` of the running weight ``w_t``
+    ``(C, R)`` fp32 (act-order permuted, transposed), updated in place,
+    with ``scale``/``qzero`` ``(R,)`` fp32 and ``maxq`` given.  Writes the
+    group's codes into rows ``[i1, i1 + g)`` of ``q_t`` ``(C, R)`` uint8
+    and its per-row Σerr² into row ``group_index`` of ``err2``
+    ``(C/g, R)`` fp32."""
+    c, r = w_t.shape
+    g = group_size
+    i1 = group_index * g
+    _check_solver_input(w_t, hinv, g, feedback_dtype)
+    if not 0 <= group_index < c // g:
+        raise ValueError(f"group {group_index} of {c // g}")
+    if scale.shape != (r,) or qzero.shape != (r,):
+        raise ValueError(f"scale {tuple(scale.shape)}, qzero {tuple(qzero.shape)} "
+                         f"for {r} rows")
+    if q_t.shape != (c, r) or q_t.dtype != torch.uint8 or err2.shape != (c // g, r):
+        raise ValueError("q_t must be (C, R) uint8 and err2 (C/g, R)")
+    if w_t.device.type == "cpu":
+        w_new, q, _, err = _step_reference(
+            w_t.T, hinv, i1, g, scale[:, None], qzero[:, None], float(maxq),
+            _fb_dtype(feedback_dtype))
+        w_t.copy_(w_new.T)
+        q_t[i1:i1 + g] = q.T.to(torch.uint8)
+        err2[group_index] = torch.sum(err * err, dim=1)
+        return
+    if not (w_t.is_contiguous() and q_t.is_contiguous() and err2.is_contiguous()):
+        raise ValueError("K5 writes contiguous w_t, q_t and err2 in place")
+    if err2.dtype != torch.float32:
+        raise TypeError("err2 must be float32")
+    hinv = hinv.contiguous()  # a no-op in gptq_solve_stepped's loop
+    scale = scale.float().contiguous()
+    qzero = qzero.float().contiguous()
+    e = torch.empty((g, r), dtype=torch.float32, device=w_t.device)
+    lib = _cuda.library("gptq", _SIGNATURES)
+    with torch.cuda.device(w_t.device):
+        err = lib.gptq_step(_cuda.ptr(w_t), _cuda.ptr(hinv), _cuda.ptr(q_t),
+                            _cuda.ptr(e), _cuda.ptr(err2), _cuda.ptr(scale),
+                            _cuda.ptr(qzero), c, r, g, group_index, float(maxq),
+                            int(feedback_dtype == "float16"),
+                            _cuda.stream_ptr(w_t.device))
+    _cuda.check(lib, err, "gptq_step")
+    gptq_step.launches += 1
+
+
+gptq_step.launches = 0
+
+
+def gptq_solve_stepped(weight_t: torch.Tensor, hinv: torch.Tensor,
+                       group_size: int, group_bit_widths: Sequence[int],
+                       sym: bool = False, scale_bits: Optional[int] = None,
+                       mse: bool = False, mse_max_shrink: float = 0.8,
+                       mse_n_grid: int = 100, mse_norm: float = 2.4,
+                       feedback_dtype: Optional[str] = "float16") -> dict:
+    """Group-stepped GPTQ solve of ``weight_t`` ``(C, R)``: per group the
+    parameters (min-max, MSE grid, EXL2 scale quantization, the group's
+    own bit width) from the running weight, which carries every earlier
+    group's updates, then one :func:`gptq_step` (K5).  Returns the fields
+    of :func:`gptq_solve` plus ``qscale`` ``(R, G)`` and ``sscale``
+    ``(G,)`` under ``scale_bits`` (the JAX package's
+    ``gptq_solve_stepped``)."""
+    c, r = weight_t.shape
+    g = group_size
+    _check_solver_input(weight_t, hinv, g, feedback_dtype)
+    n_groups = c // g
+    if len(group_bit_widths) != n_groups:
+        raise ValueError(f"{len(group_bit_widths)} bit widths for {n_groups} groups")
+    dev = weight_t.device
+    w_t = weight_t.float().contiguous().clone()
+    hinv = hinv.contiguous()
+    q_t = torch.empty((c, r), dtype=torch.uint8, device=dev)
+    err2 = torch.empty((n_groups, r), dtype=torch.float32, device=dev)
+    params = []
+    for gi, bits in enumerate(group_bit_widths):
+        maxq = 2.0 ** float(bits) - 1.0
+        wblk = w_t[gi * g:(gi + 1) * g].T  # (R, g) running state
+        p = qz.find_params_maxq(
+            wblk, torch.tensor(maxq, dtype=torch.float32, device=dev), sym,
+            scale_bits)
+        if mse:
+            p = qz.mse_refine(p, wblk, mse_max_shrink, mse_n_grid, mse_norm)
+        gptq_step(w_t, hinv, gi, g, p.scale[:, 0], p.qzero[:, 0], maxq, q_t,
+                  err2, feedback_dtype)
+        params.append(p)
+    scale = torch.cat([p.scale for p in params], dim=1)  # (R, G)
+    qzero = torch.cat([p.qzero for p in params], dim=1)
+    q_rc = q_t.T.float()
+    out = {"qweight": q_rc,
+           "quant": _feedback_dequantize(
+               q_rc, torch.repeat_interleave(scale, g, dim=1),
+               torch.repeat_interleave(qzero, g, dim=1), _fb_dtype(feedback_dtype)),
+           "error_sq_mean": torch.sum(err2) / (r * c),
+           "scale": scale, "qzero": qzero}
+    if scale_bits is not None:
+        out["qscale"] = torch.cat([p.qscale for p in params], dim=1)
+        out["sscale"] = torch.cat([p.sscale[0] for p in params], dim=0)
+    return out

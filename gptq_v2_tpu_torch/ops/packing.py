@@ -107,8 +107,6 @@ def pack_quant_meta(quant_meta: dict, compute_dtype: torch.dtype = torch.bfloat1
     if bits_u.size != 1 or int(bits_u[0]) not in (2, 4, 8):
         raise NotImplementedError(
             f"packing ports uniform 2/4/8-bit groups, got {bits_u}")
-    if quant_meta.get("sscale") is not None:
-        raise NotImplementedError("EXL2 scale quantization is not ported yet")
     bits = int(bits_u[0])
     planes = 32 // bits
     group_sizes = _numpy(quant_meta["group_sizes"]).astype(np.int64)
@@ -119,7 +117,12 @@ def pack_quant_meta(quant_meta: dict, compute_dtype: torch.dtype = torch.bfloat1
     r, c = qweight.shape
     packed = pack_codes(qweight, g, bits)
     g_pad = packed.shape[0] // g * planes
-    scales = _numpy(quant_meta["scale"]).astype(np.float32).T  # (G, R)
+    if quant_meta.get("sscale") is not None:  # EXL2: scale = qscale² · sscale
+        qs = _numpy(quant_meta["qscale"]).astype(np.float32)
+        ss = _numpy(quant_meta["sscale"]).astype(np.float32)[None, :]
+        scales = (qs * qs * ss).T  # (G, R)
+    else:
+        scales = _numpy(quant_meta["scale"]).astype(np.float32).T
     zeros = _numpy(quant_meta["qzero"]).astype(np.float32).T
     pad_g = g_pad - scales.shape[0]
     if pad_g:

@@ -11,10 +11,14 @@ Per decoder block, for each stage of :data:`graph.LLAMA_STAGES`:
    into the block, so later stages see quantized predecessors (the GPTQ-v2
    error propagation, reference ``llama.py:171-179``).
 
-Then the next block's inputs are computed with the fully quantized block.
-The JAX package documents its incremental injection, wave fusion and
-per-layer saves as numerically identical to this path; they are not
-ported yet.
+Then the next block's inputs are computed with the fully quantized block,
+and the block's linears in ``params`` become the weights reconstructed
+from their ``quant_meta`` (the JAX package's default ``reconstruct``
+offload, what evaluation reads).  With ``save_dir`` each linear's result
+streams to ``{save_dir}/{name}.npz``; ``resume`` reloads every stage whose
+files were written by the same :class:`QuantConfig` instead of solving it.
+The JAX package documents its incremental injection and wave fusion as
+numerically identical to this path; they are not ported yet.
 
 Numerics contract (docs/PARITY.md): fp32 Hessians, ``2/n_seq`` scaling,
 act-order, cumulative damp retry, fp16 error feedback, TF32 off,
@@ -25,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
+from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
@@ -34,21 +39,27 @@ from gptq_v2_tpu_torch import graph
 from gptq_v2_tpu_torch.models import llama as L
 from gptq_v2_tpu_torch.quant import gptq as gq
 from gptq_v2_tpu_torch.quant import hessian as hs
-from gptq_v2_tpu_torch.quant.quantizer import full_fp32
+from gptq_v2_tpu_torch.quant.quantizer import full_fp32, reconstruct_weight
 
 logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
 class QuantConfig:
-    """Algorithm hyper-parameters (the JAX package's defaults).  MSE scale
-    search and EXL2 scale bits are not ported yet."""
+    """Algorithm hyper-parameters (the JAX package's defaults; its kernel
+    switches have no counterpart: the port always runs its kernels on a
+    card)."""
 
     bits: int = 4
     group_size: int = 128
     sym: bool = False
     act_order: bool = True
     damp_ratio: float = 1e-2
+    mse: bool = False
+    mse_max_shrink: float = 0.8
+    mse_n_grid: int = 100
+    mse_norm: float = 2.4
+    scale_bit_width: Optional[int] = None
     rtn: bool = False  # skip GPTQ error feedback entirely (round-to-nearest)
     feedback_dtype: Optional[str] = "float16"
 
@@ -121,6 +132,35 @@ def ensure_optional_meta(meta: Dict) -> Dict:
     return meta
 
 
+def _config_tag(qcfg: QuantConfig) -> str:
+    return repr(sorted(dataclasses.asdict(qcfg).items()))
+
+
+def _load_layer_npz(path: Path):
+    """Inverse of the per-layer streaming save: ``(meta, metrics,
+    config_tag)``, ``config_tag`` '' for files without one."""
+    meta: Dict = {}
+    metrics: Dict = {}
+    tag = ""
+    with np.load(path) as z:
+        for k in z.files:
+            if k == "config_tag":
+                tag = str(z[k])
+            elif k.startswith("metric_"):
+                metrics[k[len("metric_"):]] = float(z[k])
+            else:
+                meta[k] = z[k]
+    return ensure_optional_meta(_unpack_meta(meta)), metrics, tag
+
+
+def _dequantized(meta: Dict, dt: torch.dtype, device) -> torch.Tensor:
+    """A linear's ``(in, out)`` model-layout weight reconstructed from its
+    ``quant_meta`` (the JAX package's ``QuantMetaRef.materialize``)."""
+    meta = {k: (v.to(device) if isinstance(v, torch.Tensor) else v)
+            for k, v in meta.items()}
+    return reconstruct_weight(meta, out_dtype=torch.float32).T.to(dt).contiguous()
+
+
 def quantize_model(
     cfg: L.LlamaConfig,
     params: L.Params,
@@ -128,17 +168,23 @@ def quantize_model(
     qcfg: QuantConfig = QuantConfig(),
     batch_size: int = 16,
     device="cuda",
+    save_dir: Optional[str] = None,
+    resume: bool = True,
 ) -> Dict[str, Dict]:
     """Quantize every decoder block; compute runs on ``device``.
 
-    Each finished block's linears in ``params`` are replaced by their
-    dequantized weights (model dtype, on the layer's original device).
-    Returns ``{'data': {name: quant_meta}, 'metrics': {name: metrics}}``
-    with the reference's names ``model.layers.{i}.{linear}`` and quant_meta
-    as CPU tensors."""
+    Each finished block's linears in ``params`` are replaced by the weights
+    reconstructed from their ``quant_meta`` (model dtype, on the layer's
+    original device).  Returns ``{'data': {name: quant_meta}, 'metrics':
+    {name: metrics}}`` with the reference's names
+    ``model.layers.{i}.{linear}`` and quant_meta as CPU tensors."""
     n_seq, seqlen = encodings.shape
     dt = cfg.torch_dtype
     results: Dict[str, Dict] = {"data": {}, "metrics": {}}
+    save_path = Path(save_dir) if save_dir else None
+    if save_path:
+        save_path.mkdir(parents=True, exist_ok=True)
+    tag = _config_tag(qcfg)
     cos, sin = L.rope_cos_sin(cfg, np.arange(seqlen), device)
     tokens = torch.as_tensor(np.asarray(encodings), dtype=torch.long)
     embed_w = params["embed_tokens"].to(device)
@@ -147,6 +193,19 @@ def quantize_model(
     del embed_w
     stages = [st for st in graph.LLAMA_STAGES if st.linears != (graph.OUTPUT,)]
 
+    def try_resume(li, stage):
+        """The stage's saved results if every linear of it was written by
+        this QuantConfig, else None."""
+        files = [save_path / f"model.layers.{li}.{name}.npz" for name in stage.linears]
+        if not all(f.exists() for f in files):
+            return None
+        loaded = {name: _load_layer_npz(f) for name, f in zip(stage.linears, files)}
+        if any(t != tag for _, _, t in loaded.values()):
+            logger.warning("block %d stage %s: saved results are from another "
+                           "QuantConfig; recomputing", li, stage.linears[0])
+            return None
+        return loaded
+
     with full_fp32():
         for li in range(cfg.num_hidden_layers):
             t0 = time.time()
@@ -154,6 +213,15 @@ def quantize_model(
             lp = {k: v.to(device) for k, v in home.items()}
             pending = []
             for stage in stages:
+                loaded = try_resume(li, stage) if save_path and resume else None
+                if loaded is not None:
+                    for name, (meta, metrics, _) in loaded.items():
+                        canonical = f"model.layers.{li}.{name}"
+                        results["data"][canonical] = meta
+                        results["metrics"][canonical] = metrics
+                        lp[name] = _dequantized(meta, dt, device)
+                        logger.debug("%s resumed", canonical)
+                    continue
                 inv = None
                 if not qcfg.rtn:
                     first = stage.linears[0]
@@ -170,7 +238,11 @@ def quantize_model(
                     n_groups = lp[name].shape[0] // qcfg.group_size
                     res = gq.gptq_quant(
                         lp[name].T, inv, [qcfg.group_size] * n_groups,
-                        [qcfg.bits] * n_groups, quant_symmetric=qcfg.sym,
+                        [qcfg.bits] * n_groups,
+                        scale_bit_width=qcfg.scale_bit_width,
+                        quant_symmetric=qcfg.sym, quant_mse=qcfg.mse,
+                        quant_max_shrink=qcfg.mse_max_shrink,
+                        quant_n_grid=qcfg.mse_n_grid, quant_norm=qcfg.mse_norm,
                         feedback_dtype=qcfg.feedback_dtype, save_dtype=dt)
                     lp[name] = res["quant"].T.to(dt).contiguous()
                     canonical = f"model.layers.{li}.{name}"
@@ -181,10 +253,29 @@ def quantize_model(
             # inputs of the next block, through the fully quantized block
             # (reference llama.py:184-191)
             xs = [L.block_apply(cfg, lp, xb, cos, sin)[0] for xb in xs]
-            for canonical in pending:
-                results["data"][canonical] = _unpack_meta(
-                    {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
-                     for k, v in results["data"][canonical].items()})
-            params["layers"][li] = {k: v.to(home[k].device) for k, v in lp.items()}
+            _finish_block(results, pending, save_path, tag)
+            params["layers"][li] = {
+                k: (_dequantized(results["data"][f"model.layers.{li}.{k}"], dt, device)
+                    if f"model.layers.{li}.{k}" in results["data"] else v
+                    ).to(home[k].device)
+                for k, v in lp.items()}
             logger.info("finished block %d in %.2f s", li, time.time() - t0)
     return results
+
+
+def _finish_block(results: Dict, pending, save_path: Optional[Path],
+                  tag: str) -> None:
+    """Bring the block's new quant_meta to the host and stream each linear
+    to ``{save_path}/{name}.npz`` (meta, config tag, ``metric_*``), the JAX
+    package's per-layer layout."""
+    for canonical in pending:
+        meta = _unpack_meta(
+            {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+             for k, v in results["data"][canonical].items()})
+        results["data"][canonical] = ensure_optional_meta(meta)
+        logger.debug("%s %s", canonical, results["metrics"][canonical])
+        if save_path:
+            np.savez(save_path / f"{canonical}.npz", **npz_payload(meta),
+                     config_tag=tag,
+                     **{f"metric_{k}": v
+                        for k, v in results["metrics"][canonical].items()})

@@ -3,11 +3,11 @@ continuous-batching engine, report decode throughput (counterpart of
 ``gptq_v2_tpu/serve.py``).
 
 Run: ``python -m gptq_v2_tpu_torch.serve --model-dir ... --results
-outputs/results.npz [--benchmark true]``
+outputs/results.npz [--kv-dtype native|int8|int4] [--benchmark true]``
 
 Only the flags of the ported path exist (contiguous cache, phased
-scheduler, native-dtype KV, one device); argparse refuses any other flag
-(``--tp``, ``--cache-kind``, ``--kv-dtype`` …) as unrecognized.
+scheduler, one device); argparse refuses any other flag (``--tp``,
+``--cache-kind``, ``--scheduler`` …) as unrecognized.
 """
 from __future__ import annotations
 
@@ -33,6 +33,12 @@ def parse_serve_args(argv=None):
     p.add_argument("--max-seq-len", type=int, default=512)
     p.add_argument("--page-size", type=int, default=16,
                    help="rounds --max-seq-len; smallest decode context bucket")
+    p.add_argument("--kv-dtype", type=str, default="native",
+                   choices=["native", "int8", "int4"],
+                   help="KV cache storage: int8 halves decode KV traffic "
+                        "(per-layer scales calibrated at engine build), int4 "
+                        "halves it again (head-pair nibble-packed, per-kv-head "
+                        "scales)")
     p.add_argument("--benchmark", type=str2bool, default=True,
                    help="run a synthetic decode-throughput benchmark")
     p.add_argument("--bench-tokens", type=int, default=64,
@@ -60,7 +66,7 @@ def build_engine(args):
 
     model = _load_packed(args.model_dir, args.results, args.device)
     return Engine(model, max_batch=args.max_batch, page_size=args.page_size,
-                  max_seq_len=args.max_seq_len)
+                  max_seq_len=args.max_seq_len, kv_dtype=args.kv_dtype)
 
 
 def main(argv=None) -> dict:

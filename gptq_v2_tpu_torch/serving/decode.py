@@ -3,9 +3,13 @@
 path).
 
 Every block projection runs through K3 (``ops/w4a16.py``).  Decode
-attention is plain torch ops, as the JAX package decodes with an XLA
-einsum on this path; the paged/ragged steps and int8/int4 KV are not
-ported yet.  The cache is updated in place.
+attention runs through K4 (bf16 and int8 cache) or K7 (packed int4 cache),
+``ops/contiguous_attention.py``, for every KV dtype; on CPU tensors their
+plain versions (the JAX package's einsum paths) run.  Quantized caches fold
+the k-scale into q and apply the v-scale to the attention output, per
+layer or per kv head.  Prefill attends over its own fresh K/V and writes
+them quantized.  The paged/ragged steps are not ported yet.  The cache is
+updated in place.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import numpy as np
 import torch
 
 from gptq_v2_tpu_torch.models import llama as L
+from gptq_v2_tpu_torch.ops import contiguous_attention as ca
 from gptq_v2_tpu_torch.serving import kv_cache as kvc
 from gptq_v2_tpu_torch.serving.model import (
     PackedLlama,
@@ -62,24 +67,36 @@ def decode_step(model: PackedLlama, tokens: torch.Tensor,  # (B,) last token per
     cos, sin = cos[:, None, :], sin[:, None, :]  # (B, 1, hd)
     x = L.embed_lookup(cfg, model.embed_tokens, tokens)[:, None, :]
     s = cache.max_len if s_bucket is None else min(cache.max_len, s_bucket)
-    key_mask = (torch.arange(s, device=positions.device)[None, :]
-                <= positions[:, None])  # (B, S)
     for li, lp in enumerate(model.layers):
-        x = _decode_block(cfg, lp, x, cos, sin, cache, li, positions,
-                          key_mask, s)
+        x = _decode_block(cfg, lp, x, cos, sin, cache, li, positions, s)
     x = L.rms_norm(x, model.norm, cfg.rms_norm_eps)
     return head_logits(cfg, model.lm_head, x[:, 0]), cache
 
 
-def _decode_block(cfg, lp, x, cos, sin, cache, li, positions, key_mask, s):
+def _head_scales(scale, t: torch.Tensor) -> torch.Tensor:
+    """A per-layer KV scale (float, or per-kv-head tuple repeated over its
+    q heads, kv-major) in ``t``'s dtype, broadcasting over ``(B, Hq, hd)``."""
+    a = torch.tensor(scale, dtype=torch.float32, device=t.device)
+    if a.dim():
+        a = torch.repeat_interleave(a, t.shape[-2] // a.shape[0])[:, None]
+    return a.to(t.dtype)
+
+
+def _decode_block(cfg, lp, x, cos, sin, cache, li, positions, s):
     def attn_fn(q, k, v):
         # write this token's K/V first, then attend over the slot's region
         # in place (the new token's position is valid by the mask)
         kvc.write_kv_contiguous(cache, li, k, v, positions[:, None])
-        k_all = cache.k[li, :, :s].to(q.dtype)
-        v_all = cache.v[li, :, :s].to(q.dtype)
-        return L.attention(q, k_all, v_all, causal_offset=None,
-                           key_mask=key_mask, sm_scale=cfg.sm_scale_), None
+        qq = q[:, 0]
+        if cache.k_scales is not None:
+            qq = qq * _head_scales(cache.k_scales[li], qq)
+        attend = (ca.contiguous_decode_attention_p4 if cache.kv_bits == 4
+                  else ca.contiguous_decode_attention)
+        attn = attend(qq, cache.k, cache.v, positions, li, s_bucket=s,
+                      sm_scale=cfg.sm_scale_)
+        if cache.v_scales is not None:
+            attn = attn * _head_scales(cache.v_scales[li], attn)
+        return attn[:, None], None
 
     return L.block_core(cfg, lp, x, cos, sin,
                         lambda name, h: _linear(lp[name], h), attn_fn)[0]

@@ -9,7 +9,10 @@ cache).
   the last row: duplicate cache writes of identical values are benign);
 * every tick decodes all slots at once, attending over a power-of-two
   context bucket;
-* sampling is per-row temperature from one ``torch.Generator``.
+* sampling is per-row temperature from one ``torch.Generator``;
+* ``kv_dtype`` ``native`` / ``int8`` / ``int4`` picks the cache storage,
+  with per-layer (int8) or per-kv-head (int4) scales calibrated at build
+  time unless ``kv_scales`` gives them.
 
 The paged cache, ragged scheduler, speculative decoding, prefix cache,
 multi-step ticks, logprobs, top-k/top-p/min-p and W4A8 are not ported yet.
@@ -26,7 +29,11 @@ import torch
 
 from gptq_v2_tpu_torch.serving import decode as D
 from gptq_v2_tpu_torch.serving import kv_cache as kvc
-from gptq_v2_tpu_torch.serving.model import PackedLlama, fuse_stage_linears
+from gptq_v2_tpu_torch.serving.model import (
+    PackedLlama,
+    calibrate_kv_scales,
+    fuse_stage_linears,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -58,14 +65,24 @@ def _bucket(n: int, lo: int = 16) -> int:
 class Engine:
     def __init__(self, model: PackedLlama, max_batch: int = 8,
                  page_size: int = 16, max_seq_len: int = 512,
-                 eos_token_id: Optional[int] = None, seed: int = 0):
+                 eos_token_id: Optional[int] = None, seed: int = 0,
+                 kv_dtype: str = "native", kv_scales=None):
         """Serve ``model`` on the device its tensors live on.
 
         q/k/v and gate/up are fused into one packed linear each and down's
         act-order perm is folded into gate/up (outputs unchanged; one
         activation gather and one kernel launch per stage).  ``page_size``
         rounds ``max_seq_len`` and is the smallest context bucket, as in the
-        JAX package."""
+        JAX package.
+
+        ``kv_dtype="int8"`` stores the KV cache as int8 with one symmetric
+        scale per layer, ``"int4"`` as head-pair nibble-packed int4 with one
+        scale per kv head; ``kv_scales`` supplies ``(k_scales, v_scales)``
+        (:func:`~gptq_v2_tpu_torch.serving.model.calibrate_kv_scales`'s
+        layout), else they are calibrated on a seeded synthetic forward of
+        the fused model."""
+        if kv_dtype not in ("native", "int8", "int4"):
+            raise ValueError(f"kv_dtype {kv_dtype!r}")
         model = fuse_stage_linears(model)
         self.model = model
         cfg = model.cfg
@@ -73,10 +90,16 @@ class Engine:
         self.max_batch = max_batch
         self.page_size = page_size
         self.max_seq_len = -(-max_seq_len // page_size) * page_size
+        k_scales = v_scales = None
+        if kv_dtype != "native":
+            k_scales, v_scales = kv_scales or calibrate_kv_scales(
+                model, bits=4 if kv_dtype == "int4" else 8, seed=seed)
         self.cache = kvc.init_contiguous_cache(
             cfg.num_hidden_layers, max_batch, self.max_seq_len,
             cfg.num_key_value_heads, cfg.head_dim_,
-            dtype=model.embed_tokens.dtype, device=self.device)
+            dtype=torch.int8 if k_scales is not None else model.embed_tokens.dtype,
+            device=self.device, k_scales=k_scales, v_scales=v_scales,
+            kv_bits=4 if kv_dtype == "int4" else None)
         self.slots: List[Optional[_Slot]] = [None] * max_batch
         self.last_tokens = np.zeros((max_batch,), np.int64)
         self.queue: List[Request] = []

@@ -191,6 +191,46 @@ def packed_forward_logits(model: PackedLlama, tokens: torch.Tensor) -> torch.Ten
     return head_logits(cfg, model.lm_head, x)
 
 
+def _block_kv_amax(cfg: L.LlamaConfig, lp: Dict[str, Any], x: torch.Tensor, cos, sin):
+    """One packed block; returns ``(hidden, k_amax, v_amax)`` with the
+    per-kv-head ``(n_kv,)`` amax of its rope'd K and V."""
+    x, (k, v) = packed_block_apply(cfg, lp, x, cos, sin)
+    return (x, torch.amax(torch.abs(k), dim=(0, 1, 3)),
+            torch.amax(torch.abs(v), dim=(0, 1, 3)))
+
+
+def calibrate_kv_scales(model: PackedLlama, tokens: Optional[torch.Tensor] = None,
+                        margin: float = 1.05, bits: int = 8, seed: int = 0):
+    """Per-layer symmetric scales for int8/int4 KV storage: ``amax/qmax``
+    of each layer's rope'd K and V over a short forward of ``tokens``
+    (default: 2 sequences of ``min(128, max_positions)`` ids drawn from a
+    ``torch.Generator`` seeded with ``seed``).  Returns ``(k_scales,
+    v_scales)``: for int8 one float per layer, for int4 one tuple of
+    per-kv-head floats per layer (the JAX package's layout)."""
+    cfg = model.cfg
+    qmax = {8: 127.0, 4: 7.0}[bits]
+    dev = model.embed_tokens.device
+    if tokens is None:
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+        tokens = torch.randint(0, cfg.vocab_size,
+                               (2, min(128, cfg.max_position_embeddings)),
+                               generator=gen)
+    tokens = torch.as_tensor(tokens, dtype=torch.long).to(dev)
+    cos, sin = L.rope_cos_sin(cfg, np.arange(tokens.shape[1]), dev)
+    x = L.embed_lookup(cfg, model.embed_tokens, tokens)
+    k_scales, v_scales = [], []
+    for lp in model.layers:
+        x, ka, va = _block_kv_amax(cfg, lp, x, cos, sin)
+        ka, va = ka.float().cpu().tolist(), va.float().cpu().tolist()
+        if bits == 4:
+            k_scales.append(tuple(max(a * margin / qmax, 1e-6) for a in ka))
+            v_scales.append(tuple(max(a * margin / qmax, 1e-6) for a in va))
+        else:
+            k_scales.append(max(max(ka) * margin / qmax, 1e-6))
+            v_scales.append(max(max(va) * margin / qmax, 1e-6))
+    return tuple(k_scales), tuple(v_scales)
+
+
 def dequantized_params(model: PackedLlama, dtype=torch.bfloat16) -> L.Params:
     """Dense params from a packed model (reference forwards, parity checks)."""
     layers = [{name: (dequantize_dense(w, dtype) if isinstance(w, PackedLinear)

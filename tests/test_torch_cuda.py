@@ -11,8 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+from gptq_v2_tpu_torch.ops import contiguous_attention as ca
 from gptq_v2_tpu_torch.ops import gptq_cuda, hessian_cuda, packing, w4a16
 from gptq_v2_tpu_torch.quant import hessian as hs
+from gptq_v2_tpu_torch.quant import quantizer as qz
+from gptq_v2_tpu_torch.serving import kv_cache as kvc
 
 pytestmark = pytest.mark.cuda
 
@@ -102,3 +105,132 @@ def test_w4a16_kernel(dev, bits, m, dtype):
     # fp32 accumulation in both; bf16 output rounding dominates in bf16
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(out, ref, rtol=0, atol=tol * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("g", [32, 64, 128])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("fb", ["float16", None])
+def test_gptq_step_kernel(dev, g, bits, fb):
+    """K5, one group with given parameters, against its plain version on
+    the same inputs: R = 100 is not a multiple of the 32-row block, maxq
+    is 3, 15 or 255.  The column loop rounds every operation as the plain
+    version does, so codes are equal; Σerr² and the tail-updated weight
+    differ only by the tail product's summation order (rtol 1e-5)."""
+    c, r = 256, 100
+    inv = _inverse(c, 5, dev)
+    w_t = _rand((r, c), 6, dev=dev)[:, inv.perm].T.contiguous()
+    maxq = 2.0 ** bits - 1.0
+    gi = 1
+    p = qz.find_params_maxq(w_t[gi * g:(gi + 1) * g].T, torch.tensor(maxq, device=dev), False)
+    scale, zero = p.scale[:, 0].contiguous(), p.qzero[:, 0].contiguous()
+    outs = []
+    for target in (dev, torch.device("cpu")):
+        w = w_t.to(target).clone()
+        q = torch.zeros((c, r), dtype=torch.uint8, device=target)
+        e2 = torch.zeros((c // g, r), device=target)
+        gptq_cuda.gptq_step(w, inv.hessian_inv.to(target), gi, g, scale.to(target),
+                            zero.to(target), maxq, q, e2, fb)
+        outs.append((w.cpu(), q.cpu(), e2.cpu()))
+    (w_k, q_k, e_k), (w_p, q_p, e_p) = outs
+    torch.testing.assert_close(q_k, q_p, rtol=0, atol=0)
+    torch.testing.assert_close(e_k, e_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(w_k, w_p, rtol=1e-5, atol=1e-5 * float(w_p.abs().max()))
+
+
+@pytest.mark.parametrize("case", [dict(bits=[4, 8, 2, 4]), dict(bits=[3] * 4, mse=True),
+                                  dict(bits=[4] * 4, scale_bits=4, mse=True)])
+def test_gptq_solve_stepped_kernel(dev, case):
+    """The stepped solve through K5 against the same solve in plain
+    versions (mixed widths, MSE, EXL2): the kernel's tail product sums in
+    another order, which may move a code at a rounding boundary or a row's
+    MSE choice between near-equal candidates."""
+    c, r, g = 256, 100, 64
+    inv = _inverse(c, 7, dev)
+    w_t = _rand((r, c), 8, dev=dev)[:, inv.perm].T.contiguous()
+    kw = dict(case)
+    bits = kw.pop("bits")
+    ref = gptq_cuda.gptq_solve_stepped(w_t.cpu(), inv.hessian_inv.cpu(), g, bits, **kw)
+    n = gptq_cuda.gptq_step.launches
+    out = gptq_cuda.gptq_solve_stepped(w_t, inv.hessian_inv, g, bits, **kw)
+    torch.cuda.synchronize()
+    assert gptq_cuda.gptq_step.launches == n + c // g
+    mismatch = (out["qweight"].cpu() != ref["qweight"]).float().mean().item()
+    assert mismatch <= 1e-2
+    assert float(out["error_sq_mean"]) == pytest.approx(float(ref["error_sq_mean"]), rel=1e-2)
+
+
+def _cache(kind, n_layers, b, s, n_kv, hd, seed, dev):
+    rng = np.random.default_rng(seed)
+    kf = torch.from_numpy(rng.standard_normal((n_layers, b, s, n_kv, hd)).astype(np.float32))
+    vf = torch.from_numpy(rng.standard_normal((n_layers, b, s, n_kv, hd)).astype(np.float32))
+    if kind == "bf16":
+        return kf.to(dev, torch.bfloat16), vf.to(dev, torch.bfloat16), 1.0
+    if kind == "int8":
+        return (torch.clamp(torch.round(kf * 40), -127, 127).to(dev, torch.int8),
+                torch.clamp(torch.round(vf * 40), -127, 127).to(dev, torch.int8), 1 / 40)
+    k4 = torch.clamp(torch.round(kf * 2.5), -7, 7).to(torch.int32)
+    v4 = torch.clamp(torch.round(vf * 2.5), -7, 7).to(torch.int32)
+    return kvc.pack_int4_rows(k4).to(dev), kvc.pack_int4_rows(v4).to(dev), 1 / 2.5
+
+
+ATTN_CASES = {
+    "first_last": dict(pos="edges"),
+    "window": dict(window=37),
+    "chunk": dict(chunk=64),
+    "soft_cap": dict(soft_cap=5.0),
+    "sinks": dict(sinks=True),
+    "all": dict(window=100, chunk=128, soft_cap=8.0, sinks=True),
+    "s_bucket": dict(s_bucket=96),
+}
+
+
+@pytest.mark.parametrize("case", list(ATTN_CASES))
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("groups,hd", [(1, 128), (4, 128), (4, 64)])
+def test_decode_attention_kernels(dev, case, kind, groups, hd):
+    """K4 (bf16, int8) and K7 (int4) against their plain versions on the
+    same card inputs, at positions 0 and S-1 and with window, chunk, soft
+    cap, sinks and GQA 4.  The plain versions round the probabilities to
+    bf16 before PV and the kernels keep them in fp32; tolerance 1e-2 of
+    the largest output (about two bf16 ulps)."""
+    n_layers, b, s, n_kv = 2, 5, 300, 4
+    k, v, ks = _cache(kind, n_layers, b, s, n_kv, hd, seed=len(case), dev=dev)
+    hq = n_kv * groups
+    rng = np.random.default_rng(3)
+    q = (torch.from_numpy(rng.standard_normal((b, hq, hd)).astype(np.float32)) * ks
+         ).to(dev, torch.bfloat16)
+    kw = dict(ATTN_CASES[case])
+    s_used = kw.pop("s_bucket", s)
+    if kw.pop("pos", None) == "edges":
+        pos = torch.tensor([0, s_used - 1, 0, s_used - 1, 7])
+    else:
+        pos = torch.from_numpy(rng.integers(0, s_used, (b,)))
+    pos = pos.to(dev)
+    if kw.pop("sinks", False):
+        kw["sinks"] = torch.from_numpy(rng.standard_normal(hq).astype(np.float32)).to(dev)
+    args = (q, k, v, pos, 1)
+    kw.update(s_bucket=s_used, sm_scale=hd ** -0.5)
+    if kind == "int4":
+        fn, n = ca.contiguous_decode_attention_p4, ca.contiguous_decode_attention_p4.launches
+        ref = ca.contiguous_decode_attention_xla4(*args, **kw)
+    else:
+        fn, n = ca.contiguous_decode_attention, ca.contiguous_decode_attention.launches
+        ref = ca.contiguous_decode_attention_ref(*args, **kw)
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == n + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0,
+                               atol=1e-2 * float(ref.float().abs().max()))
+
+
+def test_decode_attention_refuses_bad_input(dev):
+    k = torch.zeros((1, 2, 16, 4, 128), dtype=torch.bfloat16, device=dev)
+    q = torch.zeros((2, 4, 128), dtype=torch.float32, device=dev)
+    pos = torch.zeros((2,), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        ca.contiguous_decode_attention(q, k, k, pos, 0)
+    with pytest.raises(ValueError):
+        ca.contiguous_decode_attention(q.bfloat16()[:, :3], k, k, pos, 0)
+    with pytest.raises(TypeError):
+        ca.contiguous_decode_attention_p4(q.bfloat16(), k, k, pos, 0)

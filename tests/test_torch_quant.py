@@ -201,3 +201,174 @@ def test_solver_wrapper_refuses_bad_input():
         gptq_cuda.gptq_solve(w, torch.zeros((32, 32)), 32, 15.0)
     with pytest.raises(ValueError):
         gptq_cuda.gptq_solve(w, torch.zeros((64, 64)), 48, 15.0)
+
+
+# --- EXL2 scales, MSE grid search, K5's group-stepped solver -------------
+
+
+@pytest.mark.parametrize("bits,scale_bits", [(4, 4), (3, 6), (8, 2)])
+def test_find_params_exl2_exact(bits, scale_bits):
+    # exact: the same f32 operations in the same order
+    x = np.random.default_rng(bits).standard_normal((3, 16, 40)).astype(np.float32)
+    jp = jq.find_params(jnp.asarray(x), bits, scale_bit_width=scale_bits)
+    tp = tq.find_params(_t(x), bits, scale_bit_width=scale_bits)
+    for k in ("scale", "qzero", "qscale", "sscale"):
+        np.testing.assert_array_equal(getattr(tp, k).numpy(),
+                                      np.asarray(getattr(jp, k)), err_msg=k)
+
+
+def _jax_mse_errors(p, x, max_shrink=0.8, n_grid=100, norm=2.4):
+    """The first half of JAX ``mse_refine``: the (..., R, Q) error table."""
+    grid = 1.0 - jnp.arange(0.0, max_shrink, 1.0 / n_grid, dtype=x.dtype)
+    q = jq.dequantize_quantized(x[..., None], p.scale[..., None] * grid,
+                                p.qzero[..., None], p.maxq)
+    return np.asarray(jnp.sum(jnp.abs(q - x[..., None]) ** norm, axis=-2))
+
+
+@pytest.mark.parametrize("sym", [False, True])
+def test_mse_refine_two_part(sym):
+    """(1) The chosen grid index per row equals JAX's, except on rows whose
+    two best JAX errors differ by under 1e-5 relative (a near-tie that
+    ``|·|^2.4`` rounding in another order may flip; at most 1 of the 512
+    rows).  (2) Given JAX's refined scales, the port's codes and zeros are
+    exactly equal."""
+    x = np.random.default_rng(3).standard_normal((4, 128, 32)).astype(np.float32)
+    jp = jq.find_params(jnp.asarray(x), 4, sym=sym)
+    tp = tq.find_params(_t(x), 4, sym=sym)
+    jerr = _jax_mse_errors(jp, jnp.asarray(x))
+    terr = tq.mse_errors(tp, _t(x), tq.shrink_grid(0.8, 100, "cpu"), 2.4).numpy()
+    np.testing.assert_allclose(terr, jerr, rtol=1e-5)
+    ji, ti = jerr.argmin(-1), terr.argmin(-1)
+    diff = np.argwhere(ji != ti)
+    for idx in diff:
+        e = jerr[tuple(idx)]
+        a, b = e[ji[tuple(idx)]], e[ti[tuple(idx)]]
+        print(f"row {tuple(idx)}: JAX index {ji[tuple(idx)]} err {a!r}, "
+              f"port index {ti[tuple(idx)]} err {b!r}")
+        assert abs(a - b) <= 1e-5 * abs(a)
+    assert len(diff) <= 1
+    jr = jq.mse_refine(jp, jnp.asarray(x))
+    tr = tq.mse_refine(tp, _t(x))
+    same = (ji == ti)[..., None]
+    np.testing.assert_array_equal(tr.scale.numpy()[same], np.asarray(jr.scale)[same])
+    codes = tq.quantize(_t(x), _t(jr.scale), tr.qzero, tr.maxq)
+    np.testing.assert_array_equal(
+        codes.numpy(), np.asarray(jq.quantize(jnp.asarray(x), jr.scale, jr.qzero, jr.maxq)))
+    np.testing.assert_array_equal(tr.qzero.numpy(), np.asarray(jr.qzero))
+
+
+def test_mse_refine_exl2_matches():
+    x = np.random.default_rng(4).standard_normal((96, 32)).astype(np.float32)
+    jr = jq.mse_refine(jq.find_params(jnp.asarray(x), 4, scale_bit_width=4), jnp.asarray(x))
+    tr = tq.mse_refine(tq.find_params(_t(x), 4, scale_bit_width=4), _t(x))
+    for k in ("scale", "qscale", "sscale"):
+        np.testing.assert_array_equal(getattr(tr, k).numpy(),
+                                      np.asarray(getattr(jr, k)), err_msg=k)
+
+
+def test_grid_is_numpys_f32_arange():
+    np.testing.assert_array_equal(
+        tq.shrink_grid(0.8, 100, "cpu").numpy(),
+        np.asarray(1.0 - jnp.arange(0.0, 0.8, 0.01, dtype=jnp.float32)))
+
+
+STEPPED = {
+    "mse": dict(quant_mse=True),
+    "mse_sym": dict(quant_mse=True, quant_symmetric=True),
+    "exl2": dict(scale_bit_width=4),
+    "exl2_mse": dict(scale_bit_width=4, quant_mse=True),
+    "mixed": dict(bits=[4, 8, 2, 4, 3, 4, 8, 4]),
+    "mixed_exl2": dict(bits=[4, 8, 2, 4, 3, 4, 8, 4], scale_bit_width=6),
+}
+
+
+@pytest.mark.parametrize("case", list(STEPPED))
+def test_stepped_solver_given_jax_inverse(calib, inverses, case):
+    """K5's plain version (``gptq_solve_stepped`` on CPU tensors) against
+    JAX ``gptq_quant`` on the same inverse: codes, zeros, qscales, perms,
+    group order and widths exactly equal; scales and sscales rtol 1e-6.
+    Without fp16 feedback JAX is run eagerly (its jit may contract an
+    FMA, see ``test_gptq_given_jax_inverse``)."""
+    _, w = calib
+    ji, _ = inverses
+    kw = dict(STEPPED[case])
+    bw = kw.pop("bits", [4] * (C // G))
+    gs = [G] * (C // G)
+    with contextlib.ExitStack() as stack:
+        if kw.get("feedback_dtype", "float16") is None:
+            stack.enter_context(jax.disable_jit())
+        jr = jg.gptq_quant(jnp.asarray(w), ji, gs, bw, save_dtype=jnp.float32, **kw)
+    n = gptq_cuda.gptq_step.launches
+    tr = tg.gptq_quant(_t(w), _port_inverse(ji), gs, bw, save_dtype=torch.float32, **kw)
+    assert gptq_cuda.gptq_step.launches == n  # CPU tensors: plain version
+    jm, tm = jr["quant_meta"], tr["quant_meta"]
+    for k in ("qweight", "qzero", "qscale", "perm", "perm_inv", "group_sizes",
+              "group_bit_widths", "scale_bit_width"):
+        if jm[k] is None:
+            assert tm[k] is None, k
+            continue
+        assert tm[k].numpy().dtype == np.asarray(jm[k]).dtype, k
+        np.testing.assert_array_equal(tm[k].numpy(), np.asarray(jm[k]), err_msg=k)
+    for k in ("scale", "sscale"):
+        if jm[k] is not None:
+            np.testing.assert_allclose(tm[k].numpy(), np.asarray(jm[k]), rtol=1e-6,
+                                       err_msg=k)
+    np.testing.assert_allclose(tr["quant"].numpy(), np.asarray(jr["quant"]),
+                               rtol=1e-6, atol=1e-6)
+    for k, v in jr["metrics"].items():
+        assert tr["metrics"][k] == pytest.approx(v, rel=1e-5), k
+    np.testing.assert_allclose(tq.reconstruct_weight(tm).numpy(),
+                               np.asarray(jq.reconstruct_weight(jm)), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("case", ["mse", "exl2_mse", "mixed"])
+def test_rtn_mse_exl2_mixed(calib, case):
+    _, w = calib
+    kw = dict(STEPPED[case])
+    bw = kw.pop("bits", [4] * (C // G))
+    gs = [G] * (C // G)
+    jm = jg.gptq_quant(jnp.asarray(w), None, gs, bw, save_dtype=jnp.float32, **kw)["quant_meta"]
+    tm = tg.gptq_quant(_t(w), None, gs, bw, save_dtype=torch.float32, **kw)["quant_meta"]
+    for k in ("qweight", "qzero", "qscale", "scale", "sscale", "group_sizes",
+              "group_bit_widths"):
+        if jm[k] is not None:
+            np.testing.assert_array_equal(tm[k].numpy(), np.asarray(jm[k]), err_msg=k)
+
+
+def test_group_resort_and_construct_matrix_2():
+    """Under EXL2 the groups are stored by descending (bits, size, -index):
+    a hand-made mixed-width meta reconstructs as in JAX."""
+    rng = np.random.default_rng(5)
+    r, g, bits = 6, 8, [2, 8, 4, 8]
+    w = rng.standard_normal((r, g * len(bits))).astype(np.float32)
+    jr = jg.gptq_quant(jnp.asarray(w), None, [g] * 4, bits, scale_bit_width=3)
+    tr = tg.gptq_quant(_t(w), None, [g] * 4, bits, scale_bit_width=3)
+    assert tr["quant_meta"]["group_bit_widths"].tolist() == [8, 8, 4, 2]
+    np.testing.assert_array_equal(tr["quant_meta"]["perm"].numpy(),
+                                  np.asarray(jr["quant_meta"]["perm"]))
+    jm = jr["quant_meta"]
+    args = [np.asarray(jm[k]) for k in ("qweight", "qzero", "qscale", "sscale")]
+    np.testing.assert_array_equal(
+        tq.construct_matrix_2(*[_t(a) for a in args], jm["group_sizes"]).numpy(),
+        np.asarray(jq.construct_matrix_2(*[jnp.asarray(a) for a in args],
+                                         np.asarray(jm["group_sizes"]))))
+
+
+def test_step_wrapper_plain_on_cpu_and_refuses_bad_input(inverses):
+    """On CPU tensors K5's wrapper is one group of the plain solver."""
+    ji, _ = inverses
+    hinv = _t(np.asarray(ji.hessian_inv))
+    w_t = _t(np.random.default_rng(6).standard_normal((C, 8)).astype(np.float32))
+    scale, zero = torch.full((8,), 0.3), torch.full((8,), 8.0)
+    q_t = torch.zeros((C, 8), dtype=torch.uint8)
+    err2 = torch.zeros((C // G, 8))
+    w_ref, q_ref, _, e_ref = gptq_cuda._step_reference(
+        w_t.T.clone(), hinv, G, G, scale[:, None], zero[:, None], 15.0, torch.float16)
+    gptq_cuda.gptq_step(w_t, hinv, 1, G, scale, zero, 15.0, q_t, err2)
+    torch.testing.assert_close(w_t, w_ref.T, rtol=0, atol=0)
+    torch.testing.assert_close(q_t[G:2 * G].float(), q_ref.T, rtol=0, atol=0)
+    torch.testing.assert_close(err2[1], (e_ref * e_ref).sum(1), rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        gptq_cuda.gptq_step(w_t, hinv, C // G, G, scale, zero, 15.0, q_t, err2)
+    with pytest.raises(ValueError):
+        gptq_cuda.gptq_step(w_t, hinv, 0, G, scale[:4], zero, 15.0, q_t, err2)

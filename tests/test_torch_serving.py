@@ -131,7 +131,8 @@ def test_serve_cli_runs_and_refuses_unported_flags(served):
     stats = tserve.main(argv + ["--device", "cpu"])
     assert stats["requests"] == 2 and stats["new_tokens"] == 6 and stats["tok_s"] > 0
     assert tserve.parse_serve_args(argv).device == "cuda"
-    for extra in (["--tp", "2"], ["--cache-kind", "paged"], ["--kv-dtype", "int8"]):
+    for extra in (["--tp", "2"], ["--cache-kind", "paged"], ["--scheduler", "ragged"],
+                  ["--kv-dtype", "fp8"]):
         with pytest.raises(SystemExit):
             tserve.parse_serve_args(argv + extra)
 
