@@ -5,7 +5,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
 1. Builds the hand-written kernels (``gptq_v2_tpu_torch/csrc/*.cu``, one
    ``nvcc`` per source, all started together).
-2. Drives three paths at Llama-2-7B width (hidden 4096, intermediate
+2. Drives four paths at Llama-2-7B width (hidden 4096, intermediate
    11008, 32 heads, vocab 32000, bf16) with random weights from a seed and
    the depth cut to ``DEPTH`` blocks, each with every launch count set to 0
    just before it and read just after:
@@ -24,11 +24,28 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    * serve.kv: ``serve.main`` with ``--kv-dtype int8`` (K4) and ``int4``
      (K7): greedy output must repeat, and the first decoded token must
      agree with a decode step through the plain attention over the same
-     quantized cache.
+     quantized cache;
+   * serve.paged: the paged cache through ``serve.main`` and engines built
+     by ``serve.build_engine`` (K3, K6, K9): paged + phased in bf16, paged
+     + ragged (chunked prefill, ``--token-budget 64``) in bf16, int8 and
+     int4, and ragged + ``--prefix-cache`` with requests sharing a
+     128-token prefix.  Each engine's greedy output must repeat; the bf16
+     engines' first tokens must agree with the contiguous engine's and the
+     paged-phased engine's (a differing token must be a near-tie of the
+     plain bf16 forward), the prefix engine's with a fresh engine's; the first
+     decode step over a copy of the pool the run left must repeat the
+     engine's token through K6 (exactly for the phased engine, whose step
+     it replays; as a near-tie for the ragged ones) and pass the near-tie
+     rule through K6's plain version.
 
    Every kernel of a path must launch in it.
 3. Holds each kernel against its plain PyTorch version at the paths'
-   shapes and times kernel, plain version and one library call.
+   shapes and times kernel, plain version and one library call.  K4, K6,
+   K7 and K9 take microseconds: their kernel and library times are the
+   median of 5 CUDA-graph replays of >= 100 back-to-back launches over
+   rotating input copies that together exceed twice the L2
+   (``Timer.steady``); every other time is one event pair per launch
+   after an L2 flush (``Timer.__call__``).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -37,7 +54,9 @@ result, without a CUDA device or without the package beside it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -51,6 +70,7 @@ ROOT = Path(__file__).resolve().parent
 # NVIDIA H100 SXM data sheet (dense): HBM bytes/s and peak FLOP/s by type
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+L2_BYTES = 50 << 20
 
 DEPTH = 4  # of 32 blocks: quantize + serve fit the time limit with room to spare
 MODEL = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
@@ -67,7 +87,9 @@ REPLACES = {"hessian": "gptq_v2_tpu/ops/hessian_pallas.py:91",
             "w4a16": "gptq_v2_tpu/ops/w4a16.py:201",
             "gptq_step": "gptq_v2_tpu/ops/gptq_pallas.py:325",
             "attention": "gptq_v2_tpu/ops/contiguous_attention.py:117",
-            "attention_p4": "gptq_v2_tpu/ops/contiguous_attention.py:271"}
+            "attention_p4": "gptq_v2_tpu/ops/contiguous_attention.py:271",
+            "paged_attention": "gptq_v2_tpu/ops/_ragged_sink_kernel.py:957",
+            "paged_write": "gptq_v2_tpu/ops/paged_write.py:63"}
 
 
 def log(msg: str) -> None:
@@ -77,6 +99,13 @@ def log(msg: str) -> None:
 def bound(n_bytes: float, flops: float, kind: str):
     t_bytes, t_ops = n_bytes / HBM_BPS, flops / PEAK_FLOPS[kind]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def near_tie(logits, tok: int) -> bool:
+    """The near-tie rule: ``tok`` is the argmax of ``logits`` or has a logit
+    within 1% of the largest |logit| below the top one (a tie that bf16
+    rounding in another order can flip)."""
+    return float(logits.max() - logits[tok]) <= 1e-2 * float(logits.abs().max())
 
 
 class Timer:
@@ -103,6 +132,38 @@ class Timer:
             end.synchronize()
             total += start.elapsed_time(end)
         return total / reps
+
+    def steady(self, make_launch, n_bytes: float, batches: int = 5) -> float:
+        """Device ms per launch of a microsecond kernel: the median over
+        ``batches`` replays of one CUDA graph holding >= 100 back-to-back
+        launches (the graph takes the host's launch cost out), each batch
+        in one event pair.  ``make_launch(i)`` returns a launch on input
+        copy ``i``; the copies rotate, and there are enough of them that
+        their ``n_bytes`` each exceed twice the L2 together, so L2 serves
+        none of a launch's inputs."""
+        torch = self.torch
+        n_copies = int(min(max(2, math.ceil(2 * L2_BYTES / n_bytes)), 512))
+        fns = [make_launch(i) for i in range(n_copies)]
+        reps = max(1, math.ceil(100 / n_copies))
+        for fn in fns:
+            fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                for fn in fns:
+                    fn()
+        times = []
+        for _ in range(batches):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / (reps * n_copies))
+        del graph, fns
+        return float(np.median(times))
 
 
 def phase_build():
@@ -199,13 +260,15 @@ def phase_main_path(torch, work: Path) -> dict:
         logits = L.forward_logits(cfg, dense, torch.tensor([p], device="cuda"))[0, -1].float()
         tok = outs[0][i][0]
         exact += int(torch.argmax(logits)) == tok
-        if float(logits.max() - logits[tok]) > 1e-2 * float(logits.abs().max()):
+        if not near_tie(logits, tok):
             raise RuntimeError(f"request {i}: first token {tok} disagrees with the "
                                f"plain forward (argmax {int(torch.argmax(logits))})")
     log(f"phase reference: ok, first token equal to the plain bf16 forward's "
         f"argmax on {exact}/{len(prompts)} requests, within the near-tie "
         "tolerance on all")
     del dense
+    (work / "contiguous_first.json").write_text(
+        json.dumps([outs[0][i][0] for i in range(len(prompts))]))
     return {"cfg": cfg, "layer0": eng.model.layers[0]}
 
 
@@ -403,22 +466,26 @@ def phase_cli(torch, work: Path) -> dict:
 
 @contextlib.contextmanager
 def plain_attention():
-    """Decode through K4's and K7's plain versions for the block (the
+    """Attend through K4's, K7's and K6's plain versions for the block (the
     reference the serve paths are held against); the package itself never
     falls back."""
     import types
 
     from gptq_v2_tpu_torch.ops import contiguous_attention as ca
+    from gptq_v2_tpu_torch.ops import paged_attention as pa
     from gptq_v2_tpu_torch.serving import decode as D
 
-    kernel = D.ca
+    kernels = D.ca, D.pa
     D.ca = types.SimpleNamespace(
         contiguous_decode_attention=ca.contiguous_decode_attention_ref,
         contiguous_decode_attention_p4=ca.contiguous_decode_attention_xla4)
+    D.pa = types.SimpleNamespace(
+        paged_decode_attention=pa.paged_decode_attention_reference,
+        paged_ragged_attention=pa.paged_ragged_attention_reference)
     try:
         yield
     finally:
-        D.ca = kernel
+        D.ca, D.pa = kernels
 
 
 def phase_serve_kv(torch, work: Path) -> None:
@@ -482,13 +549,213 @@ def phase_serve_kv(torch, work: Path) -> None:
                                    "repeat the engine's token")
             lg = logits["plain"][i]
             exact += int(torch.argmax(lg)) == tok
-            if float(lg.max() - lg[tok]) > 1e-2 * float(lg.abs().max()):
+            if not near_tie(lg, tok):
                 raise RuntimeError(f"{kv} request {i}: token {tok} disagrees with the "
                                    f"plain attention (argmax {int(torch.argmax(lg))})")
         log(f"phase serve.kv {kv} reference: ok, first decoded token equal to the "
             f"plain attention's argmax on {exact}/{len(prompts)} requests, within the "
             "near-tie tolerance on all")
         del eng
+
+
+PAGED_FLAGS = ["--cache-kind", "paged"]
+RAGGED_FLAGS = PAGED_FLAGS + ["--scheduler", "ragged", "--token-budget", "64"]
+PAGED_ENGINES = (("paged-phased bf16", PAGED_FLAGS),
+                 ("ragged bf16", RAGGED_FLAGS),
+                 ("ragged int8", RAGGED_FLAGS + ["--kv-dtype", "int8"]),
+                 ("ragged int4", RAGGED_FLAGS + ["--kv-dtype", "int4"]))
+PREFIX_LEN, TAIL_LEN, N_SHARING = 128, 32, 8
+
+
+def paged_counts() -> dict:
+    from gptq_v2_tpu_torch.ops import paged_attention, paged_write, w4a16
+
+    return {"K6": paged_attention.paged_ragged_attention.launches,
+            "K9": paged_write.paged_write_rows.launches,
+            "K3": w4a16.w4a16_matmul.launches}
+
+
+def record_tables(eng) -> dict:
+    """uid → the block-table row each request held, recorded as its slot
+    frees (the engine zeroes the row then)."""
+    tables = {}
+    free = eng._free_slot
+
+    def record(si):
+        tables[eng.slots[si].request.uid] = eng.block_tables[si].copy()
+        free(si)
+
+    eng._free_slot = record
+    return tables
+
+
+def serve_timed(torch, eng, prompts, label: str, uid0: int = 0):
+    """One engine run over ``prompts`` (NEW_TOKENS each); checks the output
+    and that K6, K9 and K3 launched in it; returns uid → tokens."""
+    from gptq_v2_tpu_torch.serving import Request
+
+    reqs = [Request(uid=uid0 + i, prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    n0, steps0 = paged_counts(), eng.steps
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = eng.run(reqs)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    dn = {k: v - n0[k] for k, v in paged_counts().items()}
+    log(f"phase serve.paged {label} run: {len(reqs)} requests x {NEW_TOKENS} new tokens, "
+        f"{len(reqs) * NEW_TOKENS / dt:.1f} tok/s ({dt:.3f} s, {eng.steps - steps0} ticks); "
+        "launches " + ", ".join(f"{k} {v}" for k, v in dn.items()))
+    if not all(dn.values()):
+        raise RuntimeError(f"{label}: a kernel of the paged path never launched: {dn}")
+    if any(len(v) != NEW_TOKENS or not all(0 <= t < MODEL["vocab_size"] for t in v)
+           for v in out.values()):
+        raise RuntimeError(f"{label}: malformed engine output")
+    return out
+
+
+def agree(label: str, what: str, got: list, want: list, dense_logits: list) -> int:
+    """First tokens ``got`` against ``want``: a token that differs must be a
+    near-tie of the plain bf16 forward, as must the one it replaces.
+    Returns the count of equal tokens."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b and not (near_tie(dense_logits[i], a) and near_tie(dense_logits[i], b)):
+            raise RuntimeError(f"{label} request {i}: first token {a} disagrees with {what}'s "
+                               f"{b} beyond the near-tie rule")
+    return sum(a == b for a, b in zip(got, want))
+
+
+def first_step_check(torch, eng, prompts, uids, out, tables, label: str,
+                     exact: bool) -> None:
+    """The first decode step again, over copies of the pool the run left
+    (rows past each prompt are masked; the step rewrites the row it
+    writes): through K6 its argmax must be the engine's second token
+    (``exact``: the engine ran this very step) or a near-tie of it, and
+    through K6's plain version a near-tie."""
+    from gptq_v2_tpu_torch.serving import decode as D
+    from gptq_v2_tpu_torch.serving.engine import _bucket
+
+    lens = torch.tensor([len(p) for p in prompts], device="cuda")
+    first = torch.tensor([out[u][0] for u in uids], device="cuda")
+    bt = torch.from_numpy(np.stack([tables[u] for u in uids])).to("cuda")
+    s_b = min(_bucket(max(len(p) for p in prompts) + 1, eng.page_size), eng.max_seq_len)
+    logits = {}
+    for mode in ("kernel", "plain"):
+        cache = dataclasses.replace(eng.cache, kv=eng.cache.kv.clone())
+        with plain_attention() if mode == "plain" else contextlib.nullcontext():
+            logits[mode] = D.decode_step(eng.model, first, cache, lens, s_b,
+                                         block_tables=bt)[0].float()
+        del cache
+    n_kernel = n_plain = 0
+    for i, u in enumerate(uids):
+        tok = out[u][1]
+        k_tok = int(torch.argmax(logits["kernel"][i]))
+        if (k_tok != tok) if exact else not near_tie(logits["kernel"][i], tok):
+            raise RuntimeError(f"{label} request {u}: the K6 decode step gives {k_tok}, "
+                               f"the engine {tok}")
+        if not near_tie(logits["plain"][i], tok):
+            raise RuntimeError(f"{label} request {u}: token {tok} disagrees with the plain "
+                               f"attention (argmax {int(torch.argmax(logits['plain'][i]))})")
+        n_kernel += k_tok == tok
+        n_plain += int(torch.argmax(logits["plain"][i])) == tok
+    log(f"phase serve.paged {label} first step: ok, K6 repeats the engine's token on "
+        f"{n_kernel}/{len(uids)}" + ("" if exact else " (the rest near-ties)")
+        + f"; the plain attention's argmax equal on {n_plain}/{len(uids)}, near-ties on all")
+
+
+def phase_serve_paged(torch, work: Path) -> None:
+    """The paged cache: serve.main with the ragged scheduler, then every
+    engine of PAGED_ENGINES and the prefix-caching engine, each run twice."""
+    from gptq_v2_tpu_torch import serve as S
+    from gptq_v2_tpu_torch.models import llama as L
+    from gptq_v2_tpu_torch.serving.model import dequantized_params
+
+    serve_args = ["--model-dir", str(work / "model"), "--results",
+                  str(work / "results.npz"), "--max-batch", str(len(PROMPT_LENS)),
+                  "--max-seq-len", "512"]
+    t0 = time.time()
+    stats = S.main(serve_args + RAGGED_FLAGS + ["--prompt-tokens", "128",
+                                                "--bench-tokens", str(NEW_TOKENS)])
+    log(f"phase serve.paged serve.main ragged: ok, {time.time() - t0:.1f} s; benchmark "
+        f"{stats['requests']} requests x {NEW_TOKENS} new tokens: {stats['tok_s']:.1f} "
+        f"tok/s ({stats['wall_s']:.2f} s)")
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, MODEL["vocab_size"], (n,)).tolist() for n in PROMPT_LENS]
+    rng = np.random.default_rng(3)
+    prefix = rng.integers(0, MODEL["vocab_size"], (PREFIX_LEN,)).tolist()
+    shared = [prefix + rng.integers(0, MODEL["vocab_size"], (TAIL_LEN,)).tolist()
+              for _ in range(N_SHARING + 1)]
+    contiguous_first = json.loads((work / "contiguous_first.json").read_text())
+    uids = list(range(len(prompts)))
+    phased_first, dense = None, None
+    for label, flags in PAGED_ENGINES:
+        eng = S.build_engine(S.parse_serve_args(serve_args + flags))
+        if dense is None:  # the plain bf16 forward's last-position logits
+            params = dequantized_params(eng.model, torch.bfloat16)
+            cfg = eng.model.cfg
+            dense = {key: [L.forward_logits(cfg, params, torch.tensor([p], device="cuda"))
+                           [0, -1].float() for p in ps]
+                     for key, ps in (("prompts", prompts), ("shared", shared[1:]))}
+            del params
+        tables = record_tables(eng)
+        outs = [serve_timed(torch, eng, prompts, label) for _ in range(2)]
+        if outs[0] != outs[1]:
+            raise RuntimeError(f"{label}: greedy output differs between two runs")
+        first = [outs[0][u][0] for u in uids]
+        if "bf16" in label:
+            n_c = agree(label, "the contiguous engine", first, contiguous_first,
+                        dense["prompts"])
+            msg = f"first tokens equal to the contiguous engine's on {n_c}/{len(uids)}"
+            if phased_first is None:
+                phased_first = first
+            else:
+                n_p = agree(label, "the paged-phased engine", first, phased_first,
+                            dense["prompts"])
+                msg += f", to the paged-phased engine's on {n_p}/{len(uids)}"
+            msg += " (the rest near-ties of the plain bf16 forward)"
+        else:  # chunked prefill attends the earlier chunks' quantized K/V
+            msg = (f"first tokens equal to the bf16 engines' on "
+                   f"{sum(a == b for a, b in zip(first, phased_first))}/{len(uids)} "
+                   "(not held to them: the prompt's later chunks read quantized K/V)")
+        log(f"phase serve.paged {label}: ok, greedy output repeats; {msg}")
+        first_step_check(torch, eng, prompts, uids, outs[1], tables, label,
+                         exact=label.startswith("paged-phased"))
+        del eng
+        torch.cuda.empty_cache()
+
+    # prefix caching: one request, then N_SHARING sharing its prefix, on one
+    # engine; twice, each on a fresh engine; then the same on an engine
+    # without the prefix cache
+    label = "ragged bf16 prefix-cache"
+    runs = []
+    for _ in range(2):
+        eng = S.build_engine(S.parse_serve_args(serve_args + RAGGED_FLAGS
+                                                + ["--prefix-cache", "true"]))
+        tables = record_tables(eng)
+        serve_timed(torch, eng, shared[:1], label + " (first request)")
+        if eng.prefix_hit_tokens:
+            raise RuntimeError(f"{label}: {eng.prefix_hit_tokens} hit tokens on an empty cache")
+        runs.append(serve_timed(torch, eng, shared[1:], label, uid0=1))
+        if eng.prefix_hit_tokens != N_SHARING * PREFIX_LEN:
+            raise RuntimeError(f"{label}: prefix_hit_tokens {eng.prefix_hit_tokens}, "
+                               f"expected {N_SHARING} x {PREFIX_LEN}")
+    if runs[0] != runs[1]:
+        raise RuntimeError(f"{label}: greedy output differs between two runs")
+    shared_uids = list(range(1, N_SHARING + 1))
+    first_step_check(torch, eng, shared[1:], shared_uids, runs[1], tables, label,
+                     exact=False)
+    del eng
+    fresh = S.build_engine(S.parse_serve_args(serve_args + RAGGED_FLAGS))
+    want = serve_timed(torch, fresh, shared[1:], "ragged bf16 without prefix cache", uid0=1)
+    n_eq = agree(label, "the engine without the prefix cache",
+                 [runs[0][u][0] for u in shared_uids], [want[u][0] for u in shared_uids],
+                 dense["shared"])
+    log(f"phase serve.paged {label}: ok, prefix_hit_tokens {N_SHARING} x {PREFIX_LEN}, "
+        f"greedy output repeats, first tokens equal to a fresh engine's on "
+        f"{n_eq}/{N_SHARING} (the rest near-ties)")
+    del fresh, dense
+    torch.cuda.empty_cache()
 
 
 def phase_attention_ab(torch, work: Path) -> None:
@@ -648,13 +915,22 @@ def phase_attention(torch, timer, launches) -> list:
                 # PV, the kernels keep them fp32: 1e-2 of the largest output
                 if err > 1e-2 * float(ref.abs().max()):
                     raise RuntimeError(f"{key} {kind} B={b} S={s}: max abs err {err}")
-                ms = timer(lambda: fn(*args, s_bucket=s, sm_scale=sm), 20)
-                plain_ms = timer(lambda: plain(*args, s_bucket=s, sm_scale=sm), 5)
-                qd, kds, vds = q[:, :, None], kd[:, :, :s], vd[:, :, :s]
-                lib_ms = timer(lambda: F.scaled_dot_product_attention(qd, kds, vds,
-                                                                      scale=sm), 20)
                 elem = {"bf16": 2, "int8": 1, "int4": 0.5}[kind]
                 n_bytes = 2 * b * s * hkv * hd * elem + 2 * 2 * b * hkv * hd + 4 * b
+
+                def make_kernel(i, s=s, args=args):
+                    a = args if i == 0 else (q.clone(), k.clone(), v.clone(), pos.clone(), 0)
+                    return lambda: fn(*a, s_bucket=s, sm_scale=sm)
+
+                qd, kds, vds = q[:, :, None], kd[:, :, :s], vd[:, :, :s]
+
+                def make_sdpa(i, a=(qd, kds, vds)):
+                    a = a if i == 0 else tuple(x.clone() for x in a)
+                    return lambda: F.scaled_dot_product_attention(*a, scale=sm)
+
+                ms = timer.steady(make_kernel, n_bytes)
+                plain_ms = timer(lambda: plain(*args, s_bucket=s, sm_scale=sm), 5)
+                lib_ms = timer.steady(make_sdpa, 2 * b * s * hkv * hd * 2)
                 b_ms, b_by = bound(n_bytes, 4 * b * hkv * s * hd, "fp32")
                 name = "K7" if kind == "int4" else "K4"
                 out.append(dict(name=f"decode_attention [{kind} B={b} S={s} Hkv={hkv} hd={hd}]",
@@ -670,6 +946,199 @@ def phase_attention(torch, timer, launches) -> list:
     return out
 
 
+def paged_case(torch, kind: str, seqs, n_pad: int, hkv: int, hq: int, seed: int) -> dict:
+    """One K6 input at 7B head width (hd 128, 16-row pages): a pool holding
+    only the case's pages in random order, ``seqs`` as (new rows, kv_len)
+    per sequence, ``n_pad`` pad rows, bf16 q; with the pool dequantized to
+    bf16 in the same combined layout (the yardstick's input)."""
+    from gptq_v2_tpu_torch.serving import kv_cache as kvc
+
+    hd, ps = 128, 16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mp = max(-(-kv_len // ps) for _, kv_len in seqs)
+    n_pages = 1 + len(seqs) * mp
+    f = torch.randn((n_pages, ps, 2 * hkv, hd), device="cuda", generator=gen)
+    if kind == "bf16":
+        pool, scale = f.to(torch.bfloat16), None
+        dense = pool
+    elif kind == "int8":
+        pool, scale = torch.clamp(torch.round(f * 40), -127, 127).to(torch.int8), 1 / 40
+        dense = (pool.float() * scale).to(torch.bfloat16)
+    else:
+        codes = torch.clamp(torch.round(f * 2.5), -7, 7).to(torch.int32)
+        pool = kvc.interleave_kv(kvc.pack_int4_rows_adj(codes[:, :, 0::2]),
+                                 kvc.pack_int4_rows_adj(codes[:, :, 1::2]))
+        scale = 1 / 2.5
+        dense = (codes.float() * scale).to(torch.bfloat16)
+    del f
+    i32 = dict(dtype=torch.int32, device="cuda")
+    tables = (torch.randperm(n_pages - 1, device="cuda", generator=gen) + 1).reshape(
+        len(seqs), mp).to(torch.int32)
+    cu = np.concatenate([[0], np.cumsum([n for n, _ in seqs])])
+    meta = (torch.tensor([kv_len for _, kv_len in seqs], **i32), tables,
+            torch.tensor(cu, **i32), torch.tensor([len(seqs)], **i32))
+    q = torch.randn((int(cu[-1]) + n_pad, hq, hd), device="cuda", generator=gen).to(
+        torch.bfloat16)
+    return dict(q=q, pool=pool, dense=dense, meta=meta, scale=scale, seqs=seqs, cu=cu,
+                mp=mp, ps=ps, int4=kind == "int4")
+
+
+def paged_sdpa(torch, c: dict, sm: float, window):
+    """K6's yardstick on a case: the gather of each sequence's pages from
+    the bf16 pool plus one ``scaled_dot_product_attention`` with a mask for
+    the causal runs and the window (q laid out per sequence beforehand).
+    Returns ``call(dense_pool, q_per_sequence)`` and that layout of q."""
+    import torch.nn.functional as F
+
+    q, seqs, cu, mp, ps = c["q"], c["seqs"], c["cu"], c["mp"], c["ps"]
+    s, r = len(seqs), max(n for n, _ in seqs)
+    qs = torch.zeros((s, q.shape[1], r, q.shape[2]), dtype=q.dtype, device="cuda")
+    mask = torch.zeros((s, 1, r, mp * ps), dtype=torch.bool, device="cuda")
+    j = torch.arange(mp * ps, device="cuda")[None]
+    for i, (n, kv_len) in enumerate(seqs):
+        qs[i, :, :n] = q[cu[i]:cu[i] + n].transpose(0, 1)
+        pos = torch.arange(kv_len - n, kv_len, device="cuda")[:, None]
+        m = (j <= pos) & (j < kv_len)
+        if window:
+            m &= j > pos - window
+        mask[i, 0, :n] = m
+        mask[i, 0, n:, 0] = True  # padding rows of q see one key
+    tl = c["meta"][1].long()
+
+    def call(dense, qs):
+        seq = dense[tl].reshape(s, mp * ps, *dense.shape[2:])
+        return F.scaled_dot_product_attention(
+            qs, seq[:, :, 0::2].transpose(1, 2), seq[:, :, 1::2].transpose(1, 2),
+            attn_mask=mask, scale=sm, enable_gqa=True)
+
+    return call, qs
+
+
+def phase_paged_attention(torch, timer, launches) -> list:
+    """K6 at the serve.paged path's shapes: decode at B in {1, 8}, S in
+    {128, 512} (every sequence at S-1) for bf16, int8 and int4; the mixed
+    tick of one 64-row prefill chunk, 7 decode rows and 9 pad rows; GQA 4
+    (Llama-3-8B's 8 kv heads under 32 q heads); window, soft cap and sinks
+    on the mixed tick."""
+    from gptq_v2_tpu_torch.ops import paged_attention as K
+
+    sm = 128 ** -0.5
+    mixed = [(64, 192)] + [(1, n) for n in (100, 200, 300, 400, 500, 64, 512)]
+    cases = [(f"decode {kind} B={b} S={s} Hkv=32", kind, [(1, s)] * b, 0, 32, {})
+             for kind in ("bf16", "int8", "int4") for b in (1, 8) for s in (128, 512)]
+    cases += [(f"mixed {kind}: 64-row chunk + 7 decode + 9 pad, Hkv=32", kind, mixed, 9, 32,
+               {}) for kind in ("bf16", "int8", "int4")]
+    cases += [("decode bf16 B=8 S=512 GQA Hkv=8 Hq=32", "bf16", [(1, 512)] * 8, 0, 8, {})]
+    cases += [(f"mixed bf16 {name}, Hkv=32", "bf16", mixed, 9, 32, kw) for name, kw in (
+        ("window 128", {"sliding_window": 128}), ("soft cap 30", {"soft_cap": 30.0}),
+        ("sinks", {"sinks": True}))]
+    out = []
+    for seed, (label, kind, seqs, n_pad, hkv, kw) in enumerate(cases):
+        hq = 32
+        c = paged_case(torch, kind, seqs, n_pad, hkv, hq, seed)
+        kw = dict(kw, k_scale=c["scale"], v_scale=c["scale"], sm_scale=sm, kv_int4=c["int4"])
+        if kw.pop("sinks", False):
+            kw["sinks"] = torch.randn((hq,), device="cuda")
+        args = (c["q"], c["pool"], *c["meta"])
+        got = K.paged_ragged_attention(*args, **kw).float()
+        ref = K.paged_ragged_attention_reference(*args, **kw).float()
+        err = float((got - ref).abs().max())
+        # the plain version rounds the probabilities (and int8 v·scale) to
+        # bf16 before PV, the kernel keeps them fp32: 1e-2 of the largest
+        if err > 1e-2 * float(ref.abs().max()) or got[int(c["cu"][-1]):].any():
+            raise RuntimeError(f"K6 {label}: max abs err {err}, or nonzero pad rows")
+        window = kw.get("sliding_window")
+        visible_rows, flops = 0, 0
+        for n, kv_len in seqs:
+            lo = max(0, kv_len - n - window + 1) if window else 0
+            visible_rows += kv_len - lo
+            for pos in range(kv_len - n, kv_len):
+                flops += 4 * hq * 128 * (pos + 1 - (max(0, pos - window + 1) if window else 0))
+        elem = {"bf16": 2, "int8": 1, "int4": 0.5}[kind]
+        n_bytes = (visible_rows * 2 * hkv * 128 * elem + 2 * 2 * c["q"].numel()
+                   + 4 * (3 * len(seqs) + c["meta"][1].numel() + 2))
+
+        def make_kernel(i, args=args, kw=kw):
+            a = args if i == 0 else (args[0].clone(), args[1].clone(), *args[2:])
+            return lambda: K.paged_ragged_attention(*a, **kw)
+
+        ms = timer.steady(make_kernel, n_bytes)
+        plain_ms = timer(lambda: K.paged_ragged_attention_reference(*args, **kw), 3)
+        lib_ms = None
+        if "soft_cap" not in kw and "sinks" not in kw:  # no SDPA counterpart
+            call, qs = paged_sdpa(torch, c, sm, window)
+
+            def make_sdpa(i, call=call, dense=c["dense"], qs=qs):
+                a = (dense, qs) if i == 0 else (dense.clone(), qs.clone())
+                return lambda: call(*a)
+
+            lib_ms = timer.steady(make_sdpa, visible_rows * 2 * hkv * 128 * 2)
+        b_ms, b_by = bound(n_bytes, flops, "fp32")
+        out.append(dict(name=f"paged_attention [{label}]", route="cuda",
+                        source="gptq_v2_tpu_torch/csrc/paged_attention.cu",
+                        replaces=REPLACES["paged_attention"],
+                        launches=launches["paged_attention"], max_abs_err=err, ms=ms,
+                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+        log(f"phase K6 {label}: ok, max abs err {err:.3e} (max|out| "
+            f"{float(ref.abs().max()):.3e}), kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"gather+sdpa {'-' if lib_ms is None else f'{lib_ms:.4f}'} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.2f} MB)")
+        del c, args, got, ref
+    return out
+
+
+def phase_paged_write(torch, timer, launches) -> list:
+    """K9 at the serve.paged path's shapes: 8 decode rows and a 64-row flat
+    write into a 7B-width pool (4 layers, 257 pages of 16), distinct
+    targets, bf16, int8 and int4 rows: bit-equal to the indexed store."""
+    from gptq_v2_tpu_torch.ops import paged_write as K
+
+    n_pages, ps, hkv, hd = 257, 16, 32, 128
+    out = []
+    for kind in ("bf16", "int8", "int4"):
+        n_comb = hkv if kind == "int4" else 2 * hkv
+        dtype = torch.bfloat16 if kind == "bf16" else torch.int8
+        pool = torch.zeros((DEPTH, n_pages, ps, n_comb, hd), dtype=dtype, device="cuda")
+        for t, label in ((8, "decode B=8"), (64, "flat write T=64")):
+            gen = torch.Generator(device="cuda").manual_seed(t)
+
+            def inputs(i, t=t, n_comb=n_comb, dtype=dtype, gen=gen):
+                if dtype == torch.bfloat16:
+                    rows = torch.randn((t, n_comb, hd), device="cuda", generator=gen).to(dtype)
+                else:
+                    rows = torch.randint(-128, 128, (t, n_comb, hd), device="cuda",
+                                         generator=gen, dtype=dtype)
+                slots = torch.randperm((n_pages - 1) * ps, device="cuda", generator=gen)[:t] + ps
+                return rows, (slots // ps).to(torch.int32), (slots % ps).to(torch.int32)
+
+            rows, pg, of = inputs(0)
+            got = K.paged_write_rows(pool.clone(), 1, rows, pg, of)
+            ref = K.paged_write_reference(pool.clone(), 1, rows, pg, of)
+            if not torch.equal(got, ref):
+                raise RuntimeError(f"K9 {kind} {label}: the pool differs from the indexed store's")
+            del got, ref
+            n_bytes = 2 * rows.numel() * rows.element_size() + 8 * t
+
+            def make(i, fn):
+                a = inputs(i)
+                return lambda: fn(pool, 1, *a)
+
+            ms = timer.steady(lambda i: make(i, K.paged_write_rows), n_bytes)
+            plain_ms = timer(lambda: K.paged_write_reference(pool, 1, rows, pg, of), 10)
+            lib_ms = timer.steady(lambda i: make(i, K.paged_write_reference), n_bytes)
+            b_ms, b_by = bound(n_bytes, 0, "bf16")
+            out.append(dict(name=f"paged_write [{kind} {label} rows of {n_comb}x{hd}]",
+                            route="cuda", source="gptq_v2_tpu_torch/csrc/paged_write.cu",
+                            replaces=REPLACES["paged_write"], launches=launches["paged_write"],
+                            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=lib_ms))
+            log(f"phase K9 {kind} {label}: ok, bit-equal to the indexed store; kernel "
+                f"{ms:.4f} ms, indexed store {lib_ms:.4f} ms (per-launch events: "
+                f"{plain_ms:.4f} ms), bound {b_ms:.5f} ms ({b_by}, {n_bytes} bytes)")
+        del pool
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -679,7 +1148,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     try:
         from gptq_v2_tpu_torch.ops import (contiguous_attention, gptq_cuda,
-                                           hessian_cuda, w4a16)
+                                           hessian_cuda, paged_attention, paged_write,
+                                           w4a16)
     except ImportError as e:
         print(f"chip_smoke: the gptq_v2_tpu_torch package is missing ({e})",
               file=sys.stderr)
@@ -701,10 +1171,13 @@ def main() -> int:
                 "gptq": gptq_cuda.gptq_solve, "w4a16": w4a16.w4a16_matmul,
                 "gptq_step": gptq_cuda.gptq_step,
                 "attention": contiguous_attention.contiguous_decode_attention,
-                "attention_p4": contiguous_attention.contiguous_decode_attention_p4}
+                "attention_p4": contiguous_attention.contiguous_decode_attention_p4,
+                "paged_attention": paged_attention.paged_ragged_attention,
+                "paged_write": paged_write.paged_write_rows}
     paths = (("main", phase_main_path, ("hessian", "gptq", "w4a16", "attention")),
              ("cli.quantize", phase_cli, ("hessian", "gptq_step", "w4a16", "attention")),
-             ("serve.kv", phase_serve_kv, ("w4a16", "attention", "attention_p4")))
+             ("serve.kv", phase_serve_kv, ("w4a16", "attention", "attention_p4")),
+             ("serve.paged", phase_serve_paged, ("w4a16", "paged_attention", "paged_write")))
     work = ROOT / "outputs" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -733,7 +1206,9 @@ def main() -> int:
                + phase_gptq(torch, timer, launches)
                + phase_w4a16(torch, timer, launches, main_out["layer0"])
                + phase_gptq_step(torch, timer, launches)
-               + phase_attention(torch, timer, launches))
+               + phase_attention(torch, timer, launches)
+               + phase_paged_attention(torch, timer, launches)
+               + phase_paged_write(torch, timer, launches))
     log(f"total wall {time.time() - wall0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

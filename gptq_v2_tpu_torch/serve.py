@@ -3,11 +3,13 @@ continuous-batching engine, report decode throughput (counterpart of
 ``gptq_v2_tpu/serve.py``).
 
 Run: ``python -m gptq_v2_tpu_torch.serve --model-dir ... --results
-outputs/results.npz [--kv-dtype native|int8|int4] [--benchmark true]``
+outputs/results.npz [--kv-dtype native|int8|int4] [--cache-kind paged
+[--scheduler ragged [--token-budget N] [--prefix-cache true]]]
+[--benchmark true]``
 
-Only the flags of the ported path exist (contiguous cache, phased
-scheduler, one device); argparse refuses any other flag (``--tp``,
-``--cache-kind``, ``--scheduler`` …) as unrecognized.
+Only the flags of the ported paths exist (one device); argparse refuses
+any other flag (``--tp``, ``--pp``, ``--draft-dir``, ``--multi-step``,
+``--act-dtype``, ``--mla-absorbed`` …) as unrecognized.
 """
 from __future__ import annotations
 
@@ -32,13 +34,25 @@ def parse_serve_args(argv=None):
     p.add_argument("--max-batch", type=int, default=32)
     p.add_argument("--max-seq-len", type=int, default=512)
     p.add_argument("--page-size", type=int, default=16,
-                   help="rounds --max-seq-len; smallest decode context bucket")
+                   help="rounds --max-seq-len; smallest decode context bucket; "
+                        "page size of the paged cache")
+    p.add_argument("--cache-kind", type=str, default="contiguous",
+                   choices=["contiguous", "paged"])
     p.add_argument("--kv-dtype", type=str, default="native",
                    choices=["native", "int8", "int4"],
                    help="KV cache storage: int8 halves decode KV traffic "
                         "(per-layer scales calibrated at engine build), int4 "
                         "halves it again (head-pair nibble-packed, per-kv-head "
                         "scales)")
+    p.add_argument("--scheduler", type=str, default="phased",
+                   choices=["phased", "ragged"],
+                   help="ragged = chunked prefill, one mixed prefill + decode "
+                        "call per tick (paged cache only)")
+    p.add_argument("--token-budget", type=int, default=0,
+                   help="ragged tick token budget (0 = auto)")
+    p.add_argument("--prefix-cache", type=str2bool, default=False,
+                   help="shared-prefix KV page reuse (paged cache + ragged "
+                        "scheduler)")
     p.add_argument("--benchmark", type=str2bool, default=True,
                    help="run a synthetic decode-throughput benchmark")
     p.add_argument("--bench-tokens", type=int, default=64,
@@ -66,7 +80,10 @@ def build_engine(args):
 
     model = _load_packed(args.model_dir, args.results, args.device)
     return Engine(model, max_batch=args.max_batch, page_size=args.page_size,
-                  max_seq_len=args.max_seq_len, kv_dtype=args.kv_dtype)
+                  max_seq_len=args.max_seq_len, kv_dtype=args.kv_dtype,
+                  cache_kind=args.cache_kind, scheduler=args.scheduler,
+                  token_budget=args.token_budget or None,
+                  prefix_cache=args.prefix_cache)
 
 
 def main(argv=None) -> dict:

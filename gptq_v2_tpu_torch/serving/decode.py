@@ -1,15 +1,18 @@
-"""Prefill and single-token decode over the contiguous KV cache
-(counterpart of ``gptq_v2_tpu/serving/decode.py``, its contiguous-cache
-path).
+"""Prefill, single-token decode and the ragged mixed step (counterpart of
+``gptq_v2_tpu/serving/decode.py``).
 
-Every block projection runs through K3 (``ops/w4a16.py``).  Decode
-attention runs through K4 (bf16 and int8 cache) or K7 (packed int4 cache),
-``ops/contiguous_attention.py``, for every KV dtype; on CPU tensors their
-plain versions (the JAX package's einsum paths) run.  Quantized caches fold
-the k-scale into q and apply the v-scale to the attention output, per
-layer or per kv head.  Prefill attends over its own fresh K/V and writes
-them quantized.  The paged/ragged steps are not ported yet.  The cache is
-updated in place.
+Every block projection runs through K3 (``ops/w4a16.py``).  Over the
+contiguous cache, decode attention runs through K4 (bf16 and int8) or K7
+(packed int4), ``ops/contiguous_attention.py``; quantized caches fold the
+k-scale into q and apply the v-scale to the attention output, per layer or
+per kv head.  Over the paged cache every K/V write goes through K9
+(``ops/paged_write.py``) and every attention read through K6
+(``ops/paged_attention.py``): decode as one row per sequence, the ragged
+step as prompt chunks and decode rows in one call.  Scalar int8 scales go
+to K6 as arguments; per-head (int4) scales are folded around it
+(:func:`fold_paged_kv_scales`).  On CPU tensors the kernels' plain versions
+run.  Prefill attends over its own fresh K/V and writes them quantized.
+Caches are updated in place.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 
 from gptq_v2_tpu_torch.models import llama as L
 from gptq_v2_tpu_torch.ops import contiguous_attention as ca
+from gptq_v2_tpu_torch.ops import paged_attention as pa
 from gptq_v2_tpu_torch.serving import kv_cache as kvc
 from gptq_v2_tpu_torch.serving.model import (
     PackedLlama,
@@ -29,46 +33,99 @@ from gptq_v2_tpu_torch.serving.model import (
 )
 
 
+def fold_paged_kv_scales(qq: torch.Tensor, ks, vs):
+    """Per-kv-head scales on the paged path, folded outside K6: the
+    k-scale multiplies each head's q group (every score of a q head uses
+    one kv head) and the v-scale the head's output slice.  ``ks``/``vs``
+    are one layer's entries: floats (passed through to the kernel) or
+    per-head tuples; a mixed scalar/tuple pair broadcasts the scalar over
+    the heads.  Returns ``(qq, k_scale, v_scale, out_fn)``; with tuples the
+    kernel scales become 1.0 and ``out_fn`` applies the v-scale to the
+    ``(..., Hq, hd)`` output (else it is None)."""
+    if ks is None or not (isinstance(ks, tuple) or isinstance(vs, tuple)):
+        return qq, ks, vs, None
+    hq = qq.shape[-2]
+    n_heads = len(ks) if isinstance(ks, tuple) else len(vs)
+    if not isinstance(ks, tuple):
+        ks = (float(ks),) * n_heads
+    if not isinstance(vs, tuple):
+        vs = (float(vs),) * n_heads
+
+    def per_q_head(s, t):
+        a = torch.tensor(s, dtype=torch.float32, device=t.device)
+        return torch.repeat_interleave(a, hq // len(s))[:, None].to(t.dtype)
+
+    def out_fn(attn):
+        return attn * per_q_head(vs, attn)
+
+    return qq * per_q_head(ks, qq), 1.0, 1.0, out_fn
+
+
+def _attend_paged(cache: kvc.PagedKVCache, li: int, q: torch.Tensor, attend):
+    """``attend(q, k_scale, v_scale)`` (a K6 call) with layer ``li``'s
+    scales folded around it."""
+    ks = None if cache.k_scales is None else cache.k_scales[li]
+    vs = None if cache.v_scales is None else cache.v_scales[li]
+    q, ks, vs, out_fn = fold_paged_kv_scales(q, ks, vs)
+    out = attend(q, ks, vs)
+    return out if out_fn is None else out_fn(out)
+
+
 def prefill(model: PackedLlama, tokens: torch.Tensor,  # (B, Lpad) padded prompts
-            cache: kvc.ContiguousKVCache,
+            cache,  # ContiguousKVCache | PagedKVCache
             lengths: torch.Tensor,  # (B,) true prompt lengths
-            slot: torch.Tensor,  # (B,) cache slots
-            ) -> Tuple[torch.Tensor, kvc.ContiguousKVCache]:
-    """Run the prompts, write their K/V into ``slot``, return the logits at
+            slot: Optional[torch.Tensor] = None,  # (B,) cache slots (contiguous)
+            block_tables: Optional[torch.Tensor] = None,  # (B, max_pages) (paged)
+            ) -> Tuple[torch.Tensor, object]:
+    """Run the prompts, write their K/V (into ``slot`` of the contiguous
+    cache, or into the pages of ``block_tables``), return the logits at
     each prompt's last real token: ``(B, V)``.
 
     Padding tokens sit at positions >= length; causal masking keeps them
-    out of real tokens' attention, and their K/V writes land on the last
-    cache position, which a real token rewrites before it is ever read."""
+    out of real tokens' attention.  Their K/V writes land on the paged
+    cache's trash page, or on the contiguous cache's last position, which a
+    real token rewrites before it is ever read."""
     cfg = model.cfg
     b, lpad = tokens.shape
     cos, sin = L.rope_cos_sin(cfg, np.arange(lpad), tokens.device)
     x = L.embed_lookup(cfg, model.embed_tokens, tokens)
     pos_b = torch.arange(lpad, device=tokens.device)[None].expand(b, lpad)
-    wpos = torch.where(pos_b >= lengths[:, None], cache.max_len - 1, pos_b)
+    pad_mask = pos_b >= lengths[:, None]
+    paged = isinstance(cache, kvc.PagedKVCache)
     for li, lp in enumerate(model.layers):
         x, (k, v) = packed_block_apply(cfg, lp, x, cos, sin)
-        kvc.write_kv_contiguous(cache, li, k, v, wpos, slots=slot)
+        if paged:
+            kvc.write_kv(cache, li, k, v, block_tables, pos_b, pad_mask=pad_mask)
+        else:
+            wpos = torch.where(pad_mask, cache.max_len - 1, pos_b)
+            kvc.write_kv_contiguous(cache, li, k, v, wpos, slots=slot)
     x = L.rms_norm(x, model.norm, cfg.rms_norm_eps)
     last = x[torch.arange(b, device=x.device), lengths - 1]
     return head_logits(cfg, model.lm_head, last), cache
 
 
 def decode_step(model: PackedLlama, tokens: torch.Tensor,  # (B,) last token per slot
-                cache: kvc.ContiguousKVCache,
+                cache,  # ContiguousKVCache | PagedKVCache
                 positions: torch.Tensor,  # (B,) position of the NEW token
                 s_bucket: Optional[int] = None,
-                ) -> Tuple[torch.Tensor, kvc.ContiguousKVCache]:
+                block_tables: Optional[torch.Tensor] = None,  # (B, max_pages) (paged)
+                ) -> Tuple[torch.Tensor, object]:
     """One decode step for every slot (batch row ``b`` is slot ``b``);
     returns ``(B, V)`` logits.  ``s_bucket`` bounds the attended context to
-    the first ``s_bucket`` cache positions."""
+    the first ``s_bucket`` positions (on the paged cache, to the first
+    ``ceil(s_bucket / page_size)`` table entries)."""
     cfg = model.cfg
     cos, sin = L.rope_cos_sin(cfg, positions)  # on-device fp32 path
     cos, sin = cos[:, None, :], sin[:, None, :]  # (B, 1, hd)
     x = L.embed_lookup(cfg, model.embed_tokens, tokens)[:, None, :]
-    s = cache.max_len if s_bucket is None else min(cache.max_len, s_bucket)
+    if isinstance(cache, kvc.PagedKVCache):
+        s = block_tables.shape[1] * cache.page_size
+    else:
+        s = cache.max_len
+    if s_bucket is not None:
+        s = min(s, s_bucket)
     for li, lp in enumerate(model.layers):
-        x = _decode_block(cfg, lp, x, cos, sin, cache, li, positions, s)
+        x = _decode_block(cfg, lp, x, cos, sin, cache, li, positions, s, block_tables)
     x = L.rms_norm(x, model.norm, cfg.rms_norm_eps)
     return head_logits(cfg, model.lm_head, x[:, 0]), cache
 
@@ -82,8 +139,8 @@ def _head_scales(scale, t: torch.Tensor) -> torch.Tensor:
     return a.to(t.dtype)
 
 
-def _decode_block(cfg, lp, x, cos, sin, cache, li, positions, s):
-    def attn_fn(q, k, v):
+def _decode_block(cfg, lp, x, cos, sin, cache, li, positions, s, block_tables):
+    def attn_contiguous(q, k, v):
         # write this token's K/V first, then attend over the slot's region
         # in place (the new token's position is valid by the mask)
         kvc.write_kv_contiguous(cache, li, k, v, positions[:, None])
@@ -98,8 +155,65 @@ def _decode_block(cfg, lp, x, cos, sin, cache, li, positions, s):
             attn = attn * _head_scales(cache.v_scales[li], attn)
         return attn[:, None], None
 
+    def attn_paged(q, k, v):
+        kvc.write_kv(cache, li, k, v, block_tables, positions[:, None])
+        bt = block_tables[:, :-(-s // cache.page_size)]
+        attn = _attend_paged(cache, li, q[:, 0], lambda qq, ks, vs: pa.paged_decode_attention(
+            qq, cache.kv[li], positions + 1, bt, k_scale=ks, v_scale=vs,
+            sm_scale=cfg.sm_scale_, kv_int4=cache.kv_bits == 4))
+        return attn[:, None], None
+
+    attn_fn = attn_paged if isinstance(cache, kvc.PagedKVCache) else attn_contiguous
     return L.block_core(cfg, lp, x, cos, sin,
                         lambda name, h: _linear(lp[name], h), attn_fn)[0]
+
+
+def ragged_step(model: PackedLlama,
+                tokens: torch.Tensor,  # (T,) new tokens grouped by sequence (padded)
+                cache: kvc.PagedKVCache,
+                positions: torch.Tensor,  # (T,) each token's position in its sequence
+                tok_pages: torch.Tensor,  # (T,) destination page (0 = trash for padding)
+                tok_offs: torch.Tensor,  # (T,) in-page offset
+                block_tables: torch.Tensor,  # (S, max_pages)
+                kv_lens: torch.Tensor,  # (S,) context length incl. the new tokens
+                cu_q_lens: torch.Tensor,  # (S+1,) cumulative new-token counts
+                num_seqs: torch.Tensor,  # (1,) active sequences
+                sample_rows: torch.Tensor,  # (S,) row of each sequence's last token
+                temperatures: torch.Tensor,  # (S,) per sequence, <= 0 greedy
+                generator: Optional[torch.Generator] = None,
+                ) -> Tuple[torch.Tensor, kvc.PagedKVCache]:
+    """Mixed prefill + decode in one forward (chunked prefill): one token
+    per decoding sequence plus prompt chunks, written at host-computed
+    ``(page, offset)`` slots (K9), then attended through K6 with causal
+    masking inside each sequence's run.  Returns ``(next_tokens (S,),
+    cache)``; an entry is meaningful only for a sequence whose
+    ``sample_rows`` row completes its prompt or decodes."""
+    x = _ragged_forward(model, tokens, cache, positions, tok_pages, tok_offs,
+                        block_tables, kv_lens, cu_q_lens, num_seqs)
+    logits = head_logits(model.cfg, model.lm_head, x[sample_rows])
+    return sample_per_row(logits, temperatures, generator), cache
+
+
+def _ragged_forward(model, tokens, cache, positions, tok_pages, tok_offs, block_tables,
+                    kv_lens, cu_q_lens, num_seqs) -> torch.Tensor:
+    """The ragged forward: per layer, write each token's K/V and attend
+    through K6; returns the final-norm hidden states ``(T, D)``."""
+    cfg = model.cfg
+    cos, sin = L.rope_cos_sin(cfg, positions)  # on-device fp32 path
+    cos, sin = cos[:, None, :], sin[:, None, :]  # (T, 1, hd)
+    x = L.embed_lookup(cfg, model.embed_tokens, tokens)[:, None, :]  # (T, 1, D)
+    for li, lp in enumerate(model.layers):
+
+        def attn_fn(q, k, v, li=li):
+            kvc.write_kv_flat(cache, li, k[:, 0], v[:, 0], tok_pages, tok_offs)
+            attn = _attend_paged(cache, li, q[:, 0], lambda qq, ks, vs: pa.paged_ragged_attention(
+                qq, cache.kv[li], kv_lens, block_tables, cu_q_lens, num_seqs, k_scale=ks,
+                v_scale=vs, sm_scale=cfg.sm_scale_, kv_int4=cache.kv_bits == 4))
+            return attn[:, None], None
+
+        x = L.block_core(cfg, lp, x, cos, sin,
+                         lambda name, h, lp=lp: _linear(lp[name], h), attn_fn)[0]
+    return L.rms_norm(x[:, 0], model.norm, cfg.rms_norm_eps)
 
 
 def sample_per_row(logits: torch.Tensor,  # (B, V)
@@ -124,12 +238,12 @@ def sample(logits: torch.Tensor, temperature: float = 0.0,
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
-def decode_sample_step(model: PackedLlama, tokens: torch.Tensor,
-                       cache: kvc.ContiguousKVCache, positions: torch.Tensor,
-                       temperatures: torch.Tensor,
+def decode_sample_step(model: PackedLlama, tokens: torch.Tensor, cache,
+                       positions: torch.Tensor, temperatures: torch.Tensor,
                        generator: Optional[torch.Generator] = None,
                        s_bucket: Optional[int] = None,
-                       ) -> Tuple[torch.Tensor, kvc.ContiguousKVCache]:
+                       block_tables: Optional[torch.Tensor] = None,
+                       ) -> Tuple[torch.Tensor, object]:
     """Decode plus per-row sampling; returns ``(next_tokens, cache)``."""
-    logits, cache = decode_step(model, tokens, cache, positions, s_bucket)
+    logits, cache = decode_step(model, tokens, cache, positions, s_bucket, block_tables)
     return sample_per_row(logits, temperatures, generator), cache

@@ -1,25 +1,34 @@
 """Continuous-batching serving engine (counterpart of
-``gptq_v2_tpu/serving/engine.py``, its phased scheduler on the contiguous
-cache).
+``gptq_v2_tpu/serving/engine.py``, single device).
 
-* fixed ``max_batch`` decode slots; a finished sequence frees its slot and
-  new requests are admitted the same tick;
-* prompts admitted in one tick prefill as batched calls grouped by
-  power-of-two length bucket (batch padded to a power of two by repeating
-  the last row: duplicate cache writes of identical values are benign);
-* every tick decodes all slots at once, attending over a power-of-two
-  context bucket;
+* fixed ``max_batch`` decode slots; a finished sequence frees its slot (and
+  its pages) and new requests are admitted the same tick;
+* two cache layouts (``kv_cache.py``): ``contiguous`` (one region per
+  slot) and ``paged`` (a vLLM-style page pool, page 0 the trash page; a
+  request is admitted only when the pool has its pages, else it waits);
+* two schedulers: ``phased`` prefills the prompts admitted in a tick as
+  batched calls grouped by power-of-two length bucket (batch padded to a
+  power of two by repeating the last row: duplicate cache writes of
+  identical values are benign), then decodes every slot at once over a
+  power-of-two context bucket; ``ragged`` (paged only) runs one mixed call
+  per tick, a decode token per running sequence plus prompt chunks up to
+  ``token_budget`` rows (chunked prefill);
+* ``prefix_cache`` (paged + ragged): full prompt pages are
+  content-addressed by a sha256 chain from position 0 and reused by later
+  prompts with the same prefix, refcounted while in use and evicted LRU
+  when the pool runs dry;
 * sampling is per-row temperature from one ``torch.Generator``;
 * ``kv_dtype`` ``native`` / ``int8`` / ``int4`` picks the cache storage,
   with per-layer (int8) or per-kv-head (int4) scales calibrated at build
   time unless ``kv_scales`` gives them.
 
-The paged cache, ragged scheduler, speculative decoding, prefix cache,
-multi-step ticks, logprobs, top-k/top-p/min-p and W4A8 are not ported yet.
+Speculative decoding, multi-step ticks, logprobs, top-k/top-p/min-p and
+W4A8 are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import logging
 import time
 from typing import Dict, List, Optional
@@ -53,6 +62,8 @@ class Request:
 class _Slot:
     request: Request
     length: int  # tokens currently in the cache
+    pages: List[int] = dataclasses.field(default_factory=list)
+    prefill_done: int = 0  # prompt tokens already written (ragged scheduler)
 
 
 def _bucket(n: int, lo: int = 16) -> int:
@@ -66,40 +77,77 @@ class Engine:
     def __init__(self, model: PackedLlama, max_batch: int = 8,
                  page_size: int = 16, max_seq_len: int = 512,
                  eos_token_id: Optional[int] = None, seed: int = 0,
-                 kv_dtype: str = "native", kv_scales=None):
+                 kv_dtype: str = "native", kv_scales=None,
+                 cache_kind: str = "contiguous", scheduler: str = "phased",
+                 n_pages: Optional[int] = None, token_budget: Optional[int] = None,
+                 prefix_cache: bool = False):
         """Serve ``model`` on the device its tensors live on.
 
         q/k/v and gate/up are fused into one packed linear each and down's
         act-order perm is folded into gate/up (outputs unchanged; one
         activation gather and one kernel launch per stage).  ``page_size``
-        rounds ``max_seq_len`` and is the smallest context bucket, as in the
-        JAX package.
+        rounds ``max_seq_len``, is the smallest context bucket and the page
+        size of the paged cache; its pool has ``n_pages`` pages (default
+        ``1 + max_batch · max_seq_len / page_size``: page 0 plus every
+        slot's longest sequence).  The ragged scheduler's mixed ticks carry
+        ``token_budget`` rows (default ``max(2·max_batch, 64)``).
 
         ``kv_dtype="int8"`` stores the KV cache as int8 with one symmetric
-        scale per layer, ``"int4"`` as head-pair nibble-packed int4 with one
-        scale per kv head; ``kv_scales`` supplies ``(k_scales, v_scales)``
+        scale per layer, ``"int4"`` as nibble-packed int4 with one scale per
+        kv head; ``kv_scales`` supplies ``(k_scales, v_scales)``
         (:func:`~gptq_v2_tpu_torch.serving.model.calibrate_kv_scales`'s
         layout), else they are calibrated on a seeded synthetic forward of
         the fused model."""
         if kv_dtype not in ("native", "int8", "int4"):
             raise ValueError(f"kv_dtype {kv_dtype!r}")
+        if cache_kind not in ("contiguous", "paged"):
+            raise ValueError(f"cache_kind {cache_kind!r}")
+        if scheduler not in ("phased", "ragged"):
+            raise ValueError(f"scheduler {scheduler!r}")
+        if scheduler == "ragged" and cache_kind != "paged":
+            raise ValueError("the ragged scheduler needs the paged cache")
+        if prefix_cache and scheduler != "ragged":
+            raise ValueError("prefix caching runs on the paged cache and the ragged "
+                             "scheduler")
         model = fuse_stage_linears(model)
         self.model = model
         cfg = model.cfg
         self.device = model.embed_tokens.device
         self.max_batch = max_batch
         self.page_size = page_size
-        self.max_seq_len = -(-max_seq_len // page_size) * page_size
+        self.max_pages_per_seq = -(-max_seq_len // page_size)
+        self.max_seq_len = self.max_pages_per_seq * page_size
+        self.cache_kind = cache_kind
+        self.scheduler = scheduler
+        self.token_budget = token_budget or max(2 * max_batch, 64)
         k_scales = v_scales = None
         if kv_dtype != "native":
             k_scales, v_scales = kv_scales or calibrate_kv_scales(
                 model, bits=4 if kv_dtype == "int4" else 8, seed=seed)
-        self.cache = kvc.init_contiguous_cache(
-            cfg.num_hidden_layers, max_batch, self.max_seq_len,
-            cfg.num_key_value_heads, cfg.head_dim_,
+        cache_args = dict(
             dtype=torch.int8 if k_scales is not None else model.embed_tokens.dtype,
             device=self.device, k_scales=k_scales, v_scales=v_scales,
             kv_bits=4 if kv_dtype == "int4" else None)
+        self.block_tables: Optional[np.ndarray] = None
+        self.free_pages: List[int] = []
+        if cache_kind == "paged":
+            n_pages = n_pages or 1 + max_batch * self.max_pages_per_seq
+            self.cache = kvc.init_cache(cfg.num_hidden_layers, n_pages, page_size,
+                                        cfg.num_key_value_heads, cfg.head_dim_,
+                                        **cache_args)
+            self.free_pages = list(range(1, n_pages))  # page 0 = trash
+            self.block_tables = np.zeros((max_batch, self.max_pages_per_seq), np.int32)
+        else:
+            self.cache = kvc.init_contiguous_cache(
+                cfg.num_hidden_layers, max_batch, self.max_seq_len,
+                cfg.num_key_value_heads, cfg.head_dim_, **cache_args)
+        self.prefix_cache = prefix_cache
+        if prefix_cache:
+            self._hash_to_page: Dict[bytes, int] = {}
+            self._page_key: Dict[int, bytes] = {}  # inverse, for eviction
+            self._page_rc: Dict[int, int] = {}  # active slots per cached page
+            self._cached_free: Dict[int, None] = {}  # refcount 0, LRU order
+            self.prefix_hit_tokens = 0
         self.slots: List[Optional[_Slot]] = [None] * max_batch
         self.last_tokens = np.zeros((max_batch,), np.int64)
         self.queue: List[Request] = []
@@ -118,16 +166,56 @@ class Engine:
                 f"request {req.uid} exceeds max_seq_len {self.max_seq_len}")
         self.queue.append(req)
 
+    def _pages_needed(self, req: Request) -> int:
+        return -(-(len(req.prompt) + req.max_new_tokens) // self.page_size)
+
+    def _alloc_pages(self, n: int) -> Optional[List[int]]:
+        if self.prefix_cache:
+            # reclaim cached pages no slot uses, oldest first, once the
+            # plain free list runs dry
+            while len(self.free_pages) < n and self._cached_free:
+                page = next(iter(self._cached_free))
+                del self._cached_free[page]
+                del self._hash_to_page[self._page_key.pop(page)]
+                del self._page_rc[page]
+                self.free_pages.append(page)
+        if len(self.free_pages) < n:
+            return None
+        pages, self.free_pages = self.free_pages[:n], self.free_pages[n:]
+        return pages
+
+    def _free_slot(self, si: int) -> None:
+        slot = self.slots[si]
+        for p in slot.pages:
+            if self.prefix_cache and p in self._page_rc:  # a cached page
+                self._page_rc[p] -= 1
+                if self._page_rc[p] == 0:
+                    self._cached_free[p] = None  # newest at the LRU tail
+            else:
+                self.free_pages.append(p)
+        self.slots[si] = None
+        if self.block_tables is not None:
+            self.block_tables[si] = 0  # an idle slot's writes go to the trash page
+
     # ---------------------------------------------------------------- prefill
     def _admit(self) -> None:
-        """Admit queued requests into free slots; prompts sharing a length
-        bucket prefill as one batched call."""
+        """Admit queued requests into free slots (and pages); prompts
+        sharing a length bucket prefill as one batched call."""
         admitted = []  # (slot, request, prompt_len)
         for si in range(self.max_batch):
             if self.slots[si] is not None or not self.queue:
                 continue
-            req = self.queue.pop(0)
-            self.slots[si] = _Slot(request=req, length=len(req.prompt))
+            req = self.queue[0]
+            pages = []
+            if self.cache_kind == "paged":
+                need = self._pages_needed(req)
+                pages = self._alloc_pages(need)
+                if pages is None:
+                    break  # wait for memory
+                self.block_tables[si] = 0
+                self.block_tables[si, :need] = pages
+            self.queue.pop(0)
+            self.slots[si] = _Slot(request=req, length=len(req.prompt), pages=pages)
             admitted.append((si, req, len(req.prompt)))
 
         by_bucket: Dict[int, list] = {}
@@ -143,9 +231,11 @@ class Engine:
                 tokens[i, :plen] = req.prompt
                 lengths[i] = plen
                 slot_ids[i] = si
+            bt = (None if self.block_tables is None
+                  else self._tensor(self.block_tables[slot_ids]))
             logits, self.cache = D.prefill(
                 self.model, self._tensor(tokens), self.cache,
-                self._tensor(lengths), self._tensor(slot_ids))
+                self._tensor(lengths), self._tensor(slot_ids), block_tables=bt)
             temps = np.zeros((nb,), np.float32)
             for i, (_, req, _) in enumerate(group):
                 temps[i] = req.temperature
@@ -164,11 +254,15 @@ class Engine:
                       and token in req.stop_token_ids)
         if stop or len(req.output) >= req.max_new_tokens:
             req.done = True
-            self.slots[si] = None
+            self._free_slot(si)
 
     def step(self) -> None:
-        """One scheduler tick: admit new work, then one decode step for
-        every slot; the sampled tokens are the tick's one host sync."""
+        """One scheduler tick; its sampled tokens are the tick's one host
+        sync.  Phased: admit new work, then one decode step for every slot
+        (idle slots decode too: on the paged cache their zeroed tables send
+        the writes to the trash page).  Ragged: :meth:`_step_ragged`."""
+        if self.scheduler == "ragged":
+            return self._step_ragged()
         self._admit()
         active = [si for si in range(self.max_batch) if self.slots[si] is not None]
         if not active:
@@ -183,13 +277,163 @@ class Engine:
         toks, self.cache = D.decode_sample_step(
             self.model, self._tensor(self.last_tokens), self.cache,
             self._tensor(positions), self._tensor(temps), self.generator,
-            s_bucket=s_bucket)
+            s_bucket=s_bucket,
+            block_tables=None if self.block_tables is None else self._tensor(self.block_tables))
         toks = toks.cpu().numpy()
         self.steps += 1
         for si in active:
             self.slots[si].length += 1
             self.decode_tokens += 1
             self._emit(si, int(toks[si]))
+
+    # ----------------------------------------------------------------- ragged
+    def _prefix_chain(self, prompt: List[int], n_pages: int) -> List[bytes]:
+        """sha256 chain key per full prompt page, anchored at position 0:
+        a key pins both the tokens and their absolute positions (rope)."""
+        h, keys = b"", []
+        ps = self.page_size
+        for i in range(n_pages):
+            chunk = np.asarray(prompt[i * ps:(i + 1) * ps], np.int64)
+            h = hashlib.sha256(h + chunk.tobytes()).digest()
+            keys.append(h)
+        return keys
+
+    def _prefix_lookup(self, prompt: List[int]) -> List[int]:
+        """The longest cached page chain of this prompt, capped so at least
+        one prompt token is recomputed (the first sampled token needs a
+        forward, and shared pages are never written again).  Takes a
+        reference on each page; :meth:`_prefix_release` gives them back if
+        admission fails."""
+        reuse = []
+        for key in self._prefix_chain(prompt, (len(prompt) - 1) // self.page_size):
+            page = self._hash_to_page.get(key)
+            if page is None:
+                break
+            reuse.append(page)
+            self._page_rc[page] += 1
+            self._cached_free.pop(page, None)  # in use again: not evictable
+        return reuse
+
+    def _prefix_release(self, pages: List[int]) -> None:
+        for p in pages:
+            self._page_rc[p] -= 1
+            if self._page_rc[p] == 0:
+                self._cached_free[p] = None
+
+    def _prefix_register(self, si: int) -> None:
+        """When a slot finishes its prompt, publish its full prompt pages
+        (never written again) in the content-addressed cache."""
+        prompt = self.slots[si].request.prompt
+        for i, key in enumerate(self._prefix_chain(prompt, len(prompt) // self.page_size)):
+            if key in self._hash_to_page:
+                continue  # this page was reused, or another copy is cached
+            page = int(self.block_tables[si, i])
+            self._hash_to_page[key] = page
+            self._page_key[page] = key
+            self._page_rc[page] = 1
+
+    def _admit_ragged(self) -> None:
+        """Bookkeeping-only admission: a slot and pages (the cached prefix
+        chain linked in under ``prefix_cache``); the prompt streams in
+        chunks through the following ticks."""
+        for si in range(self.max_batch):
+            if self.slots[si] is not None or not self.queue:
+                continue
+            req = self.queue[0]
+            need = self._pages_needed(req)
+            reuse = self._prefix_lookup(req.prompt) if self.prefix_cache else []
+            pages = self._alloc_pages(need - len(reuse))
+            if pages is None:
+                if reuse:
+                    self._prefix_release(reuse)
+                break  # wait for memory
+            self.block_tables[si] = 0
+            self.block_tables[si, :need] = reuse + pages
+            self.queue.pop(0)
+            done = len(reuse) * self.page_size
+            if self.prefix_cache:
+                self.prefix_hit_tokens += done
+            self.slots[si] = _Slot(request=req, length=done, pages=reuse + pages,
+                                   prefill_done=done)
+
+    def _step_ragged(self) -> None:
+        """One mixed prefill + decode tick (``decode.ragged_step``) in one
+        of two shapes: ``max_batch`` rows when every sequence decodes,
+        ``token_budget`` rows when prompts stream."""
+        self._admit_ragged()
+        active = [si for si in range(self.max_batch) if self.slots[si] is not None]
+        if not active:
+            return
+        s, ps = self.max_batch, self.page_size
+        decoding = [si for si in active
+                    if self.slots[si].prefill_done >= len(self.slots[si].request.prompt)]
+        prefilling = [si for si in active if si not in decoding]
+        t = self.token_budget if prefilling else s
+
+        tokens = np.zeros((t,), np.int64)
+        positions = np.zeros((t,), np.int64)
+        tok_pages = np.zeros((t,), np.int32)  # 0 = the trash page for padding
+        tok_offs = np.zeros((t,), np.int32)
+        kv_lens = np.ones((s,), np.int32)
+        cu = np.zeros((s + 1,), np.int32)
+        sample_rows = np.zeros((s,), np.int64)
+        temps = np.zeros((s,), np.float32)
+        bt_rows = np.zeros((s, self.max_pages_per_seq), np.int32)
+
+        row = 0
+        order = []  # (slot, n_new, completes_prefill)
+        remaining = t - len(decoding)
+        for si in decoding + prefilling:
+            slot = self.slots[si]
+            req = slot.request
+            if si in decoding:
+                n_new = 1
+                tokens[row] = self.last_tokens[si]
+                positions[row] = slot.length
+                completes = True
+            else:
+                n_new = min(len(req.prompt) - slot.prefill_done, remaining)
+                if n_new <= 0:  # out of budget this tick
+                    continue
+                remaining -= n_new
+                start = slot.prefill_done
+                tokens[row:row + n_new] = req.prompt[start:start + n_new]
+                positions[row:row + n_new] = np.arange(start, start + n_new)
+                completes = start + n_new >= len(req.prompt)
+            i = len(order)
+            pos = positions[row:row + n_new]
+            tok_pages[row:row + n_new] = self.block_tables[si][pos // ps]
+            tok_offs[row:row + n_new] = pos % ps
+            kv_lens[i] = int(pos[-1]) + 1
+            cu[i + 1] = cu[i] + n_new
+            sample_rows[i] = row + n_new - 1
+            temps[i] = req.temperature
+            bt_rows[i] = self.block_tables[si]
+            order.append((si, n_new, completes))
+            row += n_new
+        cu[len(order) + 1:] = cu[len(order)]
+
+        toks, self.cache = D.ragged_step(
+            self.model, self._tensor(tokens), self.cache, self._tensor(positions),
+            self._tensor(tok_pages), self._tensor(tok_offs), self._tensor(bt_rows),
+            self._tensor(kv_lens), self._tensor(cu),
+            self._tensor(np.array([len(order)], np.int32)), self._tensor(sample_rows),
+            self._tensor(temps), self.generator)
+        toks = toks.cpu().numpy()
+        self.steps += 1
+        for i, (si, n_new, completes) in enumerate(order):
+            slot = self.slots[si]
+            if si in decoding:
+                slot.length += 1
+                self.decode_tokens += 1
+                self._emit(si, int(toks[i]))
+                continue
+            slot.prefill_done += n_new
+            slot.length = slot.prefill_done
+            if completes:  # the prompt is in: its first generated token
+                if self.prefix_cache:
+                    self._prefix_register(si)  # before _emit may free the slot
+                self._emit(si, int(toks[i]))
 
     def run(self, requests: List[Request]) -> Dict[int, List[int]]:
         """Serve ``requests`` to completion; returns uid → tokens."""

@@ -1,22 +1,37 @@
-"""Slot-contiguous KV cache (counterpart of the contiguous half of
-``gptq_v2_tpu/serving/kv_cache.py``): native dtype, int8, or head-pair
-nibble-packed int4.
+"""KV caches (counterpart of ``gptq_v2_tpu/serving/kv_cache.py``).
 
-Per decode slot a contiguous ``(max_len, n_kv, hd)`` region per layer:
-attention reads the slot's prefix in place with a length mask, no gather.
-Unlike the JAX package's functional cache, writes update the tensors in
-place.  int8 and int4 store symmetric codes against static scales: one
-float per layer, or (int4, and int8 when given so) one float per kv head.
-The paged cache is not ported yet.
+Two layouts, both dataclasses of tensors that the write functions update
+**in place** (the JAX package's caches are functional):
+
+* :class:`ContiguousKVCache`: per decode slot a contiguous
+  ``(max_len, n_kv, hd)`` region per layer; attention reads the slot's
+  prefix in place with a length mask, no gather.
+* :class:`PagedKVCache`: a vLLM-style page pool ``(n_layers, n_pages,
+  page_size, 2·n_kv, hd)`` with K at even and V at odd combined-head
+  indices, so one token's K and V are one contiguous row.  Logical
+  position ``t`` of a sequence lives at page ``block_table[t //
+  page_size]``, offset ``t % page_size``.  Page 0 is the trash page: pad
+  tokens and inactive slots write there and nothing reads it.  Every write
+  goes through K9 (``ops/paged_write.py``).
+
+int8 and int4 store symmetric codes against static scales: one float per
+layer, or (int4, and int8 when given so) one float per kv head.  The
+contiguous int4 cache packs head pairs ``(h, h + n_kv/2)`` into a byte
+(:func:`pack_int4_rows`), the paged one adjacent heads ``(2p, 2p + 1)``
+(:func:`pack_int4_rows_adj`), each bit-identical to the JAX package's.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from gptq_v2_tpu_torch.models.llama import _to_tensor
 from gptq_v2_tpu_torch.ops.contiguous_attention import unpack_nibbles
+from gptq_v2_tpu_torch.ops.paged_attention import unpack_int4_rows_adj  # noqa: F401
+from gptq_v2_tpu_torch.ops.paged_write import paged_write_rows
 
 
 @dataclasses.dataclass
@@ -39,6 +54,21 @@ class ContiguousKVCache:
         return self.k.shape[2]
 
 
+@dataclasses.dataclass
+class PagedKVCache:
+    """``kv``: ``(n_layers, n_pages, page_size, 2·n_kv, hd)``; under
+    ``kv_bits=4`` int8 ``(…, n_kv, hd)``, where combined index ``2p`` holds
+    K and ``2p + 1`` V of the kv-head pair ``(2p, 2p + 1)``
+    (:func:`pack_int4_rows_adj`).  ``kv_bits`` 0 means the storage dtype
+    (full precision, or int8 with scales), as in the JAX package."""
+
+    kv: torch.Tensor
+    page_size: int
+    k_scales: Optional[Tuple] = None  # per layer: float or per-kv-head tuple
+    v_scales: Optional[Tuple] = None
+    kv_bits: int = 0
+
+
 def init_contiguous_cache(n_layers: int, n_slots: int, max_len: int, n_kv: int,
                           hd: int, dtype=torch.bfloat16, device="cuda",
                           k_scales=None, v_scales=None,
@@ -46,10 +76,7 @@ def init_contiguous_cache(n_layers: int, n_slots: int, max_len: int, n_kv: int,
     """``dtype`` int8 with scales gives the int8 cache; ``kv_bits=4`` the
     packed int4 one (``n_kv`` even, scales required)."""
     if kv_bits == 4:
-        if n_kv % 2:
-            raise ValueError("int4 KV packs kv-head pairs; n_kv must be even")
-        if k_scales is None or v_scales is None:
-            raise ValueError("int4 KV needs k and v scales")
+        _check_int4(n_kv, k_scales, v_scales)
         shape = (n_layers, n_slots, max_len, n_kv // 2, hd)
         dtype = torch.int8
     else:
@@ -58,6 +85,37 @@ def init_contiguous_cache(n_layers: int, n_slots: int, max_len: int, n_kv: int,
     return ContiguousKVCache(torch.zeros(shape, dtype=dtype, device=device),
                              torch.zeros(shape, dtype=dtype, device=device),
                              k_scales, v_scales, kv_bits)
+
+
+def init_cache(n_layers: int, n_pages: int, page_size: int, n_kv: int, hd: int,
+               dtype=torch.bfloat16, device="cuda", k_scales=None, v_scales=None,
+               kv_bits: Optional[int] = None) -> PagedKVCache:
+    """The page pool; ``kv_bits=4`` packs adjacent kv-head pairs (``n_kv``
+    even, scales required)."""
+    if kv_bits == 4:
+        _check_int4(n_kv, k_scales, v_scales)
+        kv = torch.zeros((n_layers, n_pages, page_size, n_kv, hd), dtype=torch.int8,
+                         device=device)
+        return PagedKVCache(kv, page_size, k_scales, v_scales, kv_bits=4)
+    kv = torch.zeros((n_layers, n_pages, page_size, 2 * n_kv, hd), dtype=dtype,
+                     device=device)
+    return PagedKVCache(kv, page_size, k_scales, v_scales)
+
+
+def paged_cache_from_numpy(kv: np.ndarray, page_size: int, k_scales=None,
+                           v_scales=None, kv_bits: int = 0,
+                           device="cuda") -> PagedKVCache:
+    """The port's cache from a JAX ``PagedKVCache``'s fields (``kv`` as
+    ``np.asarray`` gives it, bf16 included): the layouts are the same bit
+    for bit."""
+    return PagedKVCache(_to_tensor(kv, device), page_size, k_scales, v_scales, kv_bits)
+
+
+def _check_int4(n_kv: int, k_scales, v_scales) -> None:
+    if n_kv % 2:
+        raise ValueError("int4 KV packs kv-head pairs; n_kv must be even")
+    if k_scales is None or v_scales is None:
+        raise ValueError("int4 KV needs k and v scales")
 
 
 def pack_int4_rows(q4: torch.Tensor) -> torch.Tensor:
@@ -76,6 +134,15 @@ def unpack_int4_rows(p8: torch.Tensor) -> torch.Tensor:
     return torch.cat(unpack_nibbles(p8), dim=-2)
 
 
+def pack_int4_rows_adj(q4: torch.Tensor) -> torch.Tensor:
+    """``(…, n_kv, hd)`` int32 codes in [-7, 7] → ``(…, n_kv/2, hd)`` int8
+    in the adjacent-pair layout of the paged cache: byte ``[p, d]`` holds
+    kv head ``2p`` in its low nibble and ``2p + 1`` in its high nibble."""
+    lo = q4[..., 0::2, :] & 0xF
+    hi = q4[..., 1::2, :] << 4
+    return (lo | hi).to(torch.int8)
+
+
 def _scale(s, device) -> torch.Tensor:
     """A per-layer scale entry as a tensor broadcasting over
     ``(…, n_kv, hd)``: 0-d for a float, ``(n_kv, 1)`` for a tuple."""
@@ -83,20 +150,25 @@ def _scale(s, device) -> torch.Tensor:
     return a[:, None] if a.dim() else a
 
 
-def quantize_kv_write(cache: ContiguousKVCache, layer: int, k: torch.Tensor,
+def quantize_kv_write(cache, layer: int, k: torch.Tensor,
                       v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """New K/V rows in the cache's storage form: symmetric codes
-    ``clamp(round(x / scale))`` for int8 (±127) and packed int4 (±7); a
-    cast for full precision."""
-    if cache.kv_bits not in (4, 8) or cache.k.dtype != torch.int8:
-        return k.to(cache.k.dtype), v.to(cache.v.dtype)
-    qmax = 7.0 if cache.kv_bits == 4 else 127.0
+    ``clamp(round(x / scale))`` for int8 (±127) and packed int4 (±7, head
+    pairs on the contiguous cache, adjacent pairs on the paged one); a cast
+    for full precision."""
+    paged = isinstance(cache, PagedKVCache)
+    dtype = cache.kv.dtype if paged else cache.k.dtype
+    if dtype != torch.int8:
+        return k.to(dtype), v.to(dtype)
+    int4 = cache.kv_bits == 4
+    qmax = 7.0 if int4 else 127.0
     ks = _scale(cache.k_scales[layer], k.device)
     vs = _scale(cache.v_scales[layer], v.device)
     kq = torch.clamp(torch.round(k.float() / ks), -qmax, qmax)
     vq = torch.clamp(torch.round(v.float() / vs), -qmax, qmax)
-    if cache.kv_bits == 4:
-        return pack_int4_rows(kq.to(torch.int32)), pack_int4_rows(vq.to(torch.int32))
+    if int4:
+        pack = pack_int4_rows_adj if paged else pack_int4_rows
+        return pack(kq.to(torch.int32)), pack(vq.to(torch.int32))
     return kq.to(torch.int8), vq.to(torch.int8)
 
 
@@ -117,3 +189,63 @@ def write_kv_contiguous(cache: ContiguousKVCache, layer: int,
     cache.k[layer, rows, positions] = kq
     cache.v[layer, rows, positions] = vq
     return cache
+
+
+def page_offsets(block_tables: torch.Tensor, positions: torch.Tensor, page_size: int,
+                 pad_mask: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(B, max_pages)`` block tables and ``(B, N)`` logical positions →
+    ``(pages, offsets)``, each ``(B, N)``.  With ``pad_mask``, padded tokens
+    go to page 0, offset 0 (the trash page)."""
+    pages = torch.gather(block_tables, 1, (positions // page_size).long())
+    offsets = positions % page_size
+    if pad_mask is not None:
+        pages = torch.where(pad_mask, 0, pages)
+        offsets = torch.where(pad_mask, 0, offsets)
+    return pages, offsets
+
+
+def interleave_kv(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``(…, n, hd)`` K and V → ``(…, 2n, hd)`` combined rows (K even, V
+    odd)."""
+    return torch.stack((k, v), dim=-2).reshape(*k.shape[:-2], 2 * k.shape[-2], k.shape[-1])
+
+
+def write_kv(cache: PagedKVCache, layer: int,
+             k_new: torch.Tensor,  # (B, N, n_kv, hd)
+             v_new: torch.Tensor,
+             block_tables: torch.Tensor,  # (B, max_pages)
+             positions: torch.Tensor,  # (B, N) logical positions of the new tokens
+             pad_mask: Optional[torch.Tensor] = None,  # (B, N) → the trash page
+             ) -> PagedKVCache:
+    """Quantize and write ``B·N`` new tokens' K/V rows into their pages
+    (phased prefill and decode)."""
+    kq, vq = quantize_kv_write(cache, layer, k_new, v_new)
+    pages, offs = page_offsets(block_tables, positions, cache.page_size, pad_mask)
+    rows = interleave_kv(kq, vq)
+    paged_write_rows(cache.kv, layer, rows.reshape(-1, *rows.shape[2:]),
+                     pages.reshape(-1), offs.reshape(-1))
+    return cache
+
+
+def write_kv_flat(cache: PagedKVCache, layer: int,
+                  k_new: torch.Tensor,  # (T, n_kv, hd), one row per new token
+                  v_new: torch.Tensor,
+                  pages: torch.Tensor,  # (T,) destination page per token
+                  offs: torch.Tensor,  # (T,) in-page offset per token
+                  ) -> PagedKVCache:
+    """Token-flat write for the ragged (mixed prefill + decode) step."""
+    kq, vq = quantize_kv_write(cache, layer, k_new, v_new)
+    paged_write_rows(cache.kv, layer, interleave_kv(kq, vq), pages, offs)
+    return cache
+
+
+def gather_kv(cache: PagedKVCache, layer: int, block_tables: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each sequence's K and V in storage form, ``(B, max_pages·page_size,
+    n, hd)`` (``n`` packed pairs under int4).  Entries past a sequence's
+    length are stale; the attention mask must exclude them."""
+    b, mp = block_tables.shape
+    pages = cache.kv[layer][block_tables.long()]  # (B, mp, ps, 2n, hd)
+    seq = pages.reshape(b, mp * cache.page_size, *cache.kv.shape[3:])
+    return seq[:, :, 0::2], seq[:, :, 1::2]

@@ -13,6 +13,8 @@ import torch
 
 from gptq_v2_tpu_torch.ops import contiguous_attention as ca
 from gptq_v2_tpu_torch.ops import gptq_cuda, hessian_cuda, packing, w4a16
+from gptq_v2_tpu_torch.ops import paged_attention as pa
+from gptq_v2_tpu_torch.ops import paged_write as pw
 from gptq_v2_tpu_torch.quant import hessian as hs
 from gptq_v2_tpu_torch.quant import quantizer as qz
 from gptq_v2_tpu_torch.serving import kv_cache as kvc
@@ -234,3 +236,148 @@ def test_decode_attention_refuses_bad_input(dev):
         ca.contiguous_decode_attention(q.bfloat16()[:, :3], k, k, pos, 0)
     with pytest.raises(TypeError):
         ca.contiguous_decode_attention_p4(q.bfloat16(), k, k, pos, 0)
+
+
+def _pool(kind, n_pages, ps, n_kv, hd, seed, dev):
+    """A random page pool and its (k_scale, v_scale): bf16, int8 codes, or
+    adjacent-pair int4 bytes (any byte is two valid nibbles)."""
+    rng = np.random.default_rng(seed)
+    if kind == "bf16":
+        kv = torch.from_numpy(rng.standard_normal((n_pages, ps, 2 * n_kv, hd))
+                              .astype(np.float32)).to(dev, torch.bfloat16)
+        return kv, None, None
+    n_comb = n_kv if kind == "int4" else 2 * n_kv
+    kv = torch.from_numpy(rng.integers(-128, 128, (n_pages, ps, n_comb, hd))
+                          .astype(np.int8)).to(dev)
+    return (kv, 1 / 40, 1 / 30) if kind == "int8" else (kv, 1 / 3, 1 / 2.5)
+
+
+# (n_new, kv_len) per active sequence; two more sequences stay inactive
+PAGED_CASES = {
+    "decode": dict(seqs=((1, 1), (1, 77), (1, 300), (1, 16))),
+    "mixed": dict(seqs=((1, 90), (64, 64), (1, 31), (20, 150), (1, 2)), pad=9),
+    "window": dict(seqs=((1, 200), (33, 120), (1, 5)), pad=3, sliding_window=37),
+    "soft_cap": dict(seqs=((1, 40), (17, 17)), soft_cap=5.0),
+    "sinks": dict(seqs=((1, 250), (9, 60)), pad=1, sinks=True),
+    "all": dict(seqs=((1, 300), (40, 100), (1, 9)), pad=5, sliding_window=50,
+                soft_cap=8.0, sinks=True),
+}
+
+
+@pytest.mark.parametrize("case", list(PAGED_CASES))
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("groups,hd", [(1, 128), (4, 128), (2, 64), (8, 64)])
+def test_paged_attention_kernel(dev, case, kind, groups, hd):
+    """K6 against its plain version on ragged mixes: decode rows, prefill
+    chunks continuing a cached prefix, pad rows past cu_q_lens[num_seqs],
+    num_seqs below the table's sequences, window, soft cap, sinks, int8
+    scales, int4 pairs and GQA 1-8.  The plain version rounds the
+    probabilities to bf16 before PV and the kernel keeps them fp32:
+    tolerance 1e-2 of the largest output; pad rows are exactly zero."""
+    ps, mp, n_kv = 16, 20, 4
+    kw = dict(PAGED_CASES[case])
+    seqs = kw.pop("seqs")
+    n_pad = kw.pop("pad", 0)
+    s_seqs = len(seqs) + 2
+    kv, ks, vs = _pool(kind, 1 + s_seqs * mp, ps, n_kv, hd, seed=len(case), dev=dev)
+    rng = np.random.default_rng(groups)
+    tables = rng.permutation(np.arange(1, 1 + s_seqs * mp)).reshape(s_seqs, mp)
+    kv_lens = np.ones((s_seqs,), np.int32)
+    cu = np.zeros((s_seqs + 1,), np.int32)
+    for i, (n_new, kv_len) in enumerate(seqs):
+        kv_lens[i], cu[i + 1] = kv_len, cu[i] + n_new
+    cu[len(seqs) + 1:] = cu[len(seqs)]
+    t = int(cu[-1]) + n_pad
+    hq = n_kv * groups
+    q = torch.from_numpy(rng.standard_normal((t, hq, hd)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    if kw.pop("sinks", False):
+        kw["sinks"] = torch.from_numpy(rng.standard_normal(hq).astype(np.float32)).to(dev)
+    args = (q, kv, *(torch.from_numpy(a.astype(np.int32)).to(dev) for a in (
+        kv_lens, tables, cu, np.array([len(seqs)]))))
+    kw.update(k_scale=ks, v_scale=vs, sm_scale=hd ** -0.5, kv_int4=kind == "int4")
+    ref = pa.paged_ragged_attention_reference(*args, **kw).float()
+    n = pa.paged_ragged_attention.launches
+    out = pa.paged_ragged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert pa.paged_ragged_attention.launches == n + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref, rtol=0,
+                               atol=1e-2 * float(ref.abs().max()))
+    assert not out[int(cu[-1]):].any()
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_paged_decode_wrapper(dev, kind):
+    """The decode wrapper is K6 with one row per sequence; it matches the
+    decode plain version (lengths 1 to the table's full span)."""
+    ps, mp, n_kv, hd, b = 16, 8, 8, 128, 6
+    kv, ks, vs = _pool(kind, 1 + b * mp, ps, n_kv, hd, seed=11, dev=dev)
+    rng = np.random.default_rng(12)
+    tables = torch.from_numpy(rng.permutation(np.arange(1, 1 + b * mp)).reshape(b, mp)
+                              .astype(np.int32)).to(dev)
+    lengths = torch.tensor([1, 16, 17, 64, 100, 128], dtype=torch.int32, device=dev)
+    q = torch.from_numpy(rng.standard_normal((b, 2 * n_kv, hd)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    kw = dict(k_scale=ks, v_scale=vs, kv_int4=kind == "int4")
+    ref = pa.paged_decode_attention_reference(q, kv, lengths, tables, **kw).float()
+    n = pa.paged_ragged_attention.launches
+    out = pa.paged_decode_attention(q, kv, lengths, tables, **kw)
+    torch.cuda.synchronize()
+    assert pa.paged_ragged_attention.launches == n + 1
+    torch.testing.assert_close(out.float(), ref, rtol=0, atol=1e-2 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("t", [1, 8, 64])
+def test_paged_write_kernel(dev, kind, t):
+    """K9 bit-equal to the indexed store on distinct targets; pad rows aimed
+    at the trash slot (page 0, offset 0) race, so each element there comes
+    from one of them."""
+    n_layers, n_pages, ps, n_kv, hd = 3, 40, 16, 4, 128
+    pool, _, _ = _pool(kind, n_layers * n_pages, ps, n_kv, hd, seed=t, dev=dev)
+    pool = pool.reshape(n_layers, n_pages, *pool.shape[1:])
+    rng = np.random.default_rng(t)
+    slots = rng.choice(np.arange(ps, n_pages * ps), t, replace=False)  # pages >= 1
+    rows_src, _, _ = _pool(kind, 1, t + 3, n_kv, hd, seed=t + 1, dev=dev)
+    rows = rows_src[0].contiguous()
+    pages = torch.from_numpy(np.concatenate([slots // ps, [0, 0, 0]]).astype(np.int32)).to(dev)
+    offs = torch.from_numpy(np.concatenate([slots % ps, [0, 0, 0]]).astype(np.int32)).to(dev)
+    ref = pw.paged_write_reference(pool.clone(), 1, rows[:t], pages[:t], offs[:t])
+    n = pw.paged_write_rows.launches
+    out = pw.paged_write_rows(pool.clone(), 1, rows, pages, offs)
+    torch.cuda.synchronize()
+    assert pw.paged_write_rows.launches == n + 1
+    trash = out[1, 0, 0].clone()
+    assert (trash[None] == rows[t:]).any(0).all()
+    out[1, 0, 0] = ref[1, 0, 0]
+    assert torch.equal(out, ref)
+
+
+def test_paged_kernels_refuse_bad_input(dev):
+    kv = torch.zeros((5, 16, 8, 128), dtype=torch.bfloat16, device=dev)
+    q = torch.zeros((2, 4, 128), dtype=torch.bfloat16, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    meta = (torch.ones(2, **i32), torch.ones((2, 3), **i32), torch.arange(3, **i32),
+            torch.full((1,), 2, **i32))
+    with pytest.raises(TypeError):
+        pa.paged_ragged_attention(q.float(), kv, *meta)
+    with pytest.raises(TypeError):
+        pa.paged_ragged_attention(q, kv, *meta, kv_int4=True)
+    with pytest.raises(ValueError):
+        pa.paged_ragged_attention(q[..., :96].contiguous(), kv[..., :96].contiguous(), *meta)
+    with pytest.raises(ValueError):
+        pa.paged_ragged_attention(q[:, :3].contiguous(), kv, *meta)
+    with pytest.raises(ValueError):
+        pa.paged_ragged_attention(q, kv.transpose(0, 1), *meta)
+    pool = torch.zeros((2, 5, 16, 8, 128), dtype=torch.bfloat16, device=dev)
+    rows = torch.zeros((3, 8, 128), dtype=torch.bfloat16, device=dev)
+    idx = torch.zeros(3, **i32)
+    with pytest.raises(TypeError):
+        pw.paged_write_rows(pool, 0, rows.float(), idx, idx)
+    with pytest.raises(ValueError):
+        pw.paged_write_rows(pool, 0, rows.transpose(1, 2).contiguous().transpose(1, 2),
+                            idx, idx)
+    with pytest.raises(ValueError):  # 6-byte rows: not whole 16-byte words
+        pw.paged_write_rows(pool[..., :1, :3].contiguous(), 0, rows[:, :1, :3].contiguous(),
+                            idx, idx)

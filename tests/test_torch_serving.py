@@ -131,7 +131,11 @@ def test_serve_cli_runs_and_refuses_unported_flags(served):
     stats = tserve.main(argv + ["--device", "cpu"])
     assert stats["requests"] == 2 and stats["new_tokens"] == 6 and stats["tok_s"] > 0
     assert tserve.parse_serve_args(argv).device == "cuda"
-    for extra in (["--tp", "2"], ["--cache-kind", "paged"], ["--scheduler", "ragged"],
+    args = tserve.parse_serve_args(argv + ["--cache-kind", "paged", "--scheduler", "ragged",
+                                           "--token-budget", "8", "--prefix-cache", "true"])
+    assert (args.cache_kind, args.scheduler, args.token_budget, args.prefix_cache) == (
+        "paged", "ragged", 8, True)
+    for extra in (["--tp", "2"], ["--act-dtype", "int8"], ["--multi-step", "2"],
                   ["--kv-dtype", "fp8"]):
         with pytest.raises(SystemExit):
             tserve.parse_serve_args(argv + extra)
