@@ -5,7 +5,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
 1. Builds the hand-written kernels (``gptq_v2_tpu_torch/csrc/*.cu``, one
    ``nvcc`` per source, all started together).
-2. Drives four paths at Llama-2-7B width (hidden 4096, intermediate
+2. Drives six paths at Llama-2-7B width (hidden 4096, intermediate
    11008, 32 heads, vocab 32000, bf16) with random weights from a seed and
    the depth cut to ``DEPTH`` blocks, each with every launch count set to 0
    just before it and read just after:
@@ -36,7 +36,20 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
      decode step over a copy of the pool the run left must repeat the
      engine's token through K6 (exactly for the phased engine, whose step
      it replays; as a near-tie for the ragged ones) and pass the near-tie
-     rule through K6's plain version.
+     rule through K6's plain version;
+   * serve.w4a8: the W4A8 tier (``--act-dtype int8``, K8 for every block
+     linear, no K3) through ``serve.main`` (contiguous bf16 KV, phased) and
+     an engine with int8 KV, paged cache and the ragged scheduler: greedy
+     output must repeat, and the first decode step replayed with K8's plain
+     version must give the engine's token or a near-tie of it;
+   * serve.features (W4A16): ``--multi-step 4`` through ``serve.main``, and
+     phased-contiguous and ragged-paged engines with ``multi_step=4`` and
+     ``logprobs=True`` held to the single-step engines (tokens equal, or
+     at the first difference a logged near-tie of the plain bf16 forward
+     or of the packed forward over fresh K/V; logprobs within 1e-3);
+     top_k=1 at temperature 1 against greedy; a seeded top-p/min-p run
+     repeated, and multi-step against single-step; a run snapshotted after
+     8 ticks and restored on a fresh engine against the uninterrupted run.
 
    Every kernel of a path must launch in it.
 3. Holds each kernel against its plain PyTorch version at the paths'
@@ -69,7 +82,7 @@ ROOT = Path(__file__).resolve().parent
 
 # NVIDIA H100 SXM data sheet (dense): HBM bytes/s and peak FLOP/s by type
 HBM_BPS = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
 L2_BYTES = 50 << 20
 
 DEPTH = 4  # of 32 blocks: quantize + serve fit the time limit with room to spare
@@ -78,6 +91,8 @@ MODEL = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
              num_key_value_heads=32, max_position_embeddings=4096,
              rms_norm_eps=1e-5, rope_theta=10000.0, dtype="bfloat16")
 N_SEQ, SEQLEN, CALIB_BATCH = 16, 2048, 4
+M_ROWS = (1, 8, 32, 64, 1024)  # K3/K8 rows: decode batches, a ragged tick, prefill
+FUSED = ("self_attn.qkv_proj", "self_attn.o_proj", "mlp.gate_up_proj", "mlp.down_proj")
 PROMPT_LENS = (64, 96, 128, 160, 192, 224, 256, 80)
 NEW_TOKENS = 32
 
@@ -85,6 +100,7 @@ NEW_TOKENS = 32
 REPLACES = {"hessian": "gptq_v2_tpu/ops/hessian_pallas.py:91",
             "gptq": "gptq_v2_tpu/ops/gptq_pallas.py:206",
             "w4a16": "gptq_v2_tpu/ops/w4a16.py:201",
+            "w4a8": "gptq_v2_tpu/ops/w4a16.py:144",
             "gptq_step": "gptq_v2_tpu/ops/gptq_pallas.py:325",
             "attention": "gptq_v2_tpu/ops/contiguous_attention.py:117",
             "attention_p4": "gptq_v2_tpu/ops/contiguous_attention.py:271",
@@ -92,8 +108,26 @@ REPLACES = {"hessian": "gptq_v2_tpu/ops/hessian_pallas.py:91",
             "paged_write": "gptq_v2_tpu/ops/paged_write.py:63"}
 
 
+# engine tok/s by label, for the comparisons the later paths print
+RATES: dict = {}
+# the kernel wrappers with launch counts, set in main()
+WRAPPERS: dict = {}
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block (a replay held against a plain version)
+    leave every count as it was."""
+    counts = {k: fn.launches for k, fn in WRAPPERS.items()}
+    try:
+        yield
+    finally:
+        for k, fn in WRAPPERS.items():
+            fn.launches = counts[k]
 
 
 def bound(n_bytes: float, flops: float, kind: str):
@@ -228,6 +262,7 @@ def phase_main_path(torch, work: Path) -> dict:
     log(f"phase serve.main: ok, {time.time() - t0:.1f} s; benchmark "
         f"{stats['requests']} requests x {NEW_TOKENS} new tokens: "
         f"{stats['tok_s']:.1f} tok/s ({stats['wall_s']:.2f} s)")
+    RATES["serve.main contiguous W4A16"] = [stats["tok_s"]]
 
     eng = S.build_engine(S.parse_serve_args(serve_args))
     rng = np.random.default_rng(1)
@@ -241,6 +276,7 @@ def phase_main_path(torch, work: Path) -> dict:
         outs.append(eng.run(reqs))
         torch.cuda.synchronize()
         dt = time.time() - t0
+        RATES.setdefault("engine contiguous W4A16", []).append(len(reqs) * NEW_TOKENS / dt)
         log(f"phase engine run: {len(reqs)} requests, prompts {min(PROMPT_LENS)}-"
             f"{max(PROMPT_LENS)} tokens, {NEW_TOKENS} new each: {dt:.2f} s, "
             f"{len(reqs) * NEW_TOKENS / dt:.1f} tok/s")
@@ -366,12 +402,11 @@ def phase_w4a16(torch, timer, launches, layer0) -> list:
     from gptq_v2_tpu_torch.ops.packing import dequantize_dense
 
     out = []
-    for name in ("self_attn.qkv_proj", "self_attn.o_proj", "mlp.gate_up_proj",
-                 "mlp.down_proj"):
+    for name in FUSED:
         p = layer0[name]
         c, r = p.in_features, p.out_features
         w_dense = dequantize_dense(p, torch.bfloat16)
-        for m in (1, 8, 32, 1024):
+        for m in M_ROWS:
             x = torch.randn((m, c), device="cuda", dtype=torch.bfloat16)
             got = K.w4a16_matmul(x, p).float()
             ref = K.w4a16_reference(x, p).float()
@@ -395,6 +430,86 @@ def phase_w4a16(torch, timer, launches, layer0) -> list:
                 f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, x@W {lib_ms:.4f} ms, "
                 f"bound {b_ms:.4f} ms ({b_by})")
         del w_dense
+    return out
+
+
+def synthetic_packed(torch, bits: int, c: int, r: int, seed: int):
+    """A bf16 packed linear at a fused shape with act-order: uniformly random
+    int32 words (every code value occurs; at bits 8 codes above 200 too),
+    zeros among the codes, scales 0.005-0.025."""
+    from gptq_v2_tpu_torch.ops.packing import PackedLinear
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = 128
+    c_pad = -(-c // (32 // bits * g)) * (32 // bits * g)
+    qweight = torch.randint(-2 ** 31, 2 ** 31 - 1, (c_pad * bits // 32, r), device="cuda",
+                            generator=gen, dtype=torch.int32)
+    scales = (torch.rand((c_pad // g, r), device="cuda", generator=gen) * 0.02
+              + 0.005).to(torch.bfloat16)
+    zeros = torch.randint(0, 2 ** bits, (c_pad // g, r), device="cuda", generator=gen).to(
+        torch.bfloat16)
+    perm = torch.randperm(c, device="cuda", generator=gen)
+    return PackedLinear(qweight=qweight, scales=scales, zeros=zeros, perm=perm, group_size=g,
+                        in_features=c, bits=bits, act_bits=8)
+
+
+def phase_w4a8(torch, timer, launches, layer0) -> list:
+    """K8 at the four fused shapes: bits 4 on the main path's first block
+    (GPTQ codes, act-order), bits 2 and 8 on synthetic linears of the same
+    shapes (act-order; bits 8 with codes above 200), M in M_ROWS, bf16
+    scales; fp32 scales held at 1e-5 on the qkv shape.  ``ms`` is the
+    kernel launch on prepared int8 rows; the wrapper (gather, pad, per-row
+    quantization, kernel) is logged beside it."""
+    from gptq_v2_tpu_torch.ops import w4a16 as K
+    from gptq_v2_tpu_torch.ops.packing import dequantize_dense, unpack_codes
+
+    out = []
+    for bits in (4, 2, 8):
+        for si, name in enumerate(FUSED):
+            p = layer0[name]
+            if bits == 4:
+                p = dataclasses.replace(p, act_bits=8)
+            else:
+                p = synthetic_packed(torch, bits, p.in_features, p.out_features, 10 * bits + si)
+            c, r = p.in_features, p.out_features
+            if bits == 8 and int(unpack_codes(p.qweight[:128], 128, 8).max()) <= 200:
+                raise RuntimeError("the bits-8 linear has no code above 200")
+            w_dense = dequantize_dense(p, torch.bfloat16)
+            for m in M_ROWS:
+                x = torch.randn((m, c), device="cuda", dtype=torch.bfloat16)
+                xq, xs = K.quantize_activations_int8(K.stored_rows(x, p))
+                got = K.w4a8_kernel(xq, xs, p).float()
+                ref = K.w4a8_reference(xq, xs, p).float()
+                err = float((got - ref).abs().max())
+                # exact integer group dots in both; the fp32 group sum may
+                # associate otherwise and the bf16 output round either way
+                if err > 8e-3 * float(ref.abs().max()):
+                    raise RuntimeError(f"K8 {name} bits={bits} M={m}: max abs err {err}")
+                if bits == 4 and name == FUSED[0] and m in (8, 1024):
+                    p32 = dataclasses.replace(p, scales=p.scales.float(), zeros=p.zeros.float())
+                    e32 = float((K.w4a8_kernel(xq, xs, p32) - K.w4a8_reference(xq, xs, p32))
+                                .abs().max())
+                    m32 = float(K.w4a8_reference(xq, xs, p32).abs().max())
+                    if e32 > 1e-5 * m32:
+                        raise RuntimeError(f"K8 {name} M={m} fp32 scales: max abs err {e32}")
+                    log(f"phase K8 {name} M={m} fp32 scales: ok, rel err {e32 / m32:.2e}")
+                ms = timer(lambda: K.w4a8_kernel(xq, xs, p), 10)
+                wrap_ms = timer(lambda: K.w4a8_matmul(x, p), 10)
+                plain_ms = timer(lambda: K.w4a8_reference(xq, xs, p), 3)
+                lib_ms = timer(lambda: x @ w_dense, 10)
+                c_pad, g_pad = p.in_features_padded, p.scales.shape[0]
+                n_bytes = c_pad * r * bits // 8 + m * c_pad + 2 * g_pad * r * 2 + m * r * 2 + 4 * m
+                b_ms, b_by = bound(n_bytes, 2 * m * c_pad * r, "int8")
+                out.append(dict(name=f"w4a8_matmul [{name} C={c} R={r} M={m} bits={bits} bf16]",
+                                route="cuda", source="gptq_v2_tpu_torch/csrc/w4a8.cu",
+                                replaces=REPLACES["w4a8"], launches=launches["w4a8"],
+                                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                bound_by=b_by, library_ms=lib_ms))
+                log(f"phase K8 {name} bits={bits} M={m}: ok, rel err "
+                    f"{err / float(ref.abs().max()):.2e}, kernel {ms:.4f} ms (wrapper "
+                    f"{wrap_ms:.4f} ms), plain {plain_ms:.3f} ms, x@W {lib_ms:.4f} ms, "
+                    f"bound {b_ms:.4f} ms ({b_by})")
+            del w_dense
     return out
 
 
@@ -603,6 +718,7 @@ def serve_timed(torch, eng, prompts, label: str, uid0: int = 0):
     torch.cuda.synchronize()
     dt = time.time() - t0
     dn = {k: v - n0[k] for k, v in paged_counts().items()}
+    RATES.setdefault(f"engine {label} W4A16", []).append(len(reqs) * NEW_TOKENS / dt)
     log(f"phase serve.paged {label} run: {len(reqs)} requests x {NEW_TOKENS} new tokens, "
         f"{len(reqs) * NEW_TOKENS / dt:.1f} tok/s ({dt:.3f} s, {eng.steps - steps0} ticks); "
         "launches " + ", ".join(f"{k} {v}" for k, v in dn.items()))
@@ -755,6 +871,251 @@ def phase_serve_paged(torch, work: Path) -> None:
         f"greedy output repeats, first tokens equal to a fresh engine's on "
         f"{n_eq}/{N_SHARING} (the rest near-ties)")
     del fresh, dense
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def plain_w4a8():
+    """Every W4A8 linear through K8's plain version for the block (the
+    replay the serve.w4a8 path is held against); uncounted."""
+    from gptq_v2_tpu_torch.ops import w4a16 as K
+
+    kernel = K.w4a8_matmul
+
+    def plain(x, p):
+        xq, xs = K.quantize_activations_int8(K.stored_rows(x, p))
+        return K.w4a8_reference(xq, xs, p).reshape(*x.shape[:-1], p.out_features)
+
+    K.w4a8_matmul = plain
+    try:
+        with uncounted():
+            yield
+    finally:
+        K.w4a8_matmul = kernel
+
+
+def engine_runs(torch, eng, prompts, label: str, runs: int = 2, **req):
+    """``runs`` timed runs of ``prompts`` (NEW_TOKENS each, ``req`` the
+    sampling fields); returns the last run's outputs and requests and
+    records each run's tok/s under ``label``."""
+    from gptq_v2_tpu_torch.serving import Request
+
+    outs = []
+    for _ in range(runs):
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS, **req)
+                for i, p in enumerate(prompts)]
+        steps0 = eng.steps
+        torch.cuda.synchronize()
+        t0 = time.time()
+        outs.append(eng.run(reqs))
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        RATES.setdefault(label, []).append(len(reqs) * NEW_TOKENS / dt)
+        log(f"phase {label} run: {len(reqs)} requests x {NEW_TOKENS} new tokens, "
+            f"{len(reqs) * NEW_TOKENS / dt:.1f} tok/s ({dt:.3f} s, {eng.steps - steps0} ticks)")
+    if any(o != outs[0] for o in outs):
+        raise RuntimeError(f"{label}: output differs between runs")
+    if any(len(v) != NEW_TOKENS or not all(0 <= t < MODEL["vocab_size"] for t in v)
+           for v in outs[0].values()):
+        raise RuntimeError(f"{label}: malformed engine output")
+    return outs[-1], reqs
+
+
+def rates(label: str) -> str:
+    return " / ".join(f"{r:.1f}" for r in RATES.get(label, [])) or "-"
+
+
+def phase_serve_w4a8(torch, work: Path) -> None:
+    """The W4A8 tier: serve.main with --act-dtype int8 (contiguous bf16 KV,
+    phased), then engines built by serve.build_engine over the contiguous
+    cache and over int8 pages under the ragged scheduler; each engine's
+    greedy output repeats, and its first decode step, replayed over a copy
+    of the cache the run left with K8's plain version, gives its token or a
+    near-tie of the replay's logits."""
+    from gptq_v2_tpu_torch import serve as S
+    from gptq_v2_tpu_torch.serving import decode as D
+    from gptq_v2_tpu_torch.serving import kv_cache as kvc
+    from gptq_v2_tpu_torch.serving.engine import _bucket
+
+    serve_args = ["--model-dir", str(work / "model"), "--results",
+                  str(work / "results.npz"), "--max-batch", str(len(PROMPT_LENS)),
+                  "--max-seq-len", "512", "--act-dtype", "int8"]
+    t0 = time.time()
+    stats = S.main(serve_args + ["--prompt-tokens", "128", "--bench-tokens", str(NEW_TOKENS)])
+    log(f"phase serve.w4a8 serve.main: ok, {time.time() - t0:.1f} s; benchmark "
+        f"{stats['requests']} requests x {NEW_TOKENS} new tokens: W4A8 {stats['tok_s']:.1f} "
+        f"tok/s, W4A16 (path main, this run) {rates('serve.main contiguous W4A16')} tok/s")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, MODEL["vocab_size"], (n,)).tolist() for n in PROMPT_LENS]
+    uids = list(range(len(prompts)))
+    for label, flags, w4a16_label in (
+            ("contiguous bf16 KV", [], "engine contiguous W4A16"),
+            ("ragged int8 KV", RAGGED_FLAGS + ["--kv-dtype", "int8"], "engine ragged int8 W4A16")):
+        eng = S.build_engine(S.parse_serve_args(serve_args + flags))
+        paged = eng.block_tables is not None
+        tables = record_tables(eng) if paged else None
+        out, _ = engine_runs(torch, eng, prompts, f"serve.w4a8 {label}")
+        lens = torch.tensor(PROMPT_LENS, device="cuda")
+        first = torch.tensor([out[u][0] for u in uids], device="cuda")
+        s_b = min(_bucket(max(PROMPT_LENS) + 1, eng.page_size), eng.max_seq_len)
+        bt = None
+        with plain_w4a8():
+            if paged:
+                cache = dataclasses.replace(eng.cache, kv=eng.cache.kv.clone())
+                bt = torch.from_numpy(np.stack([tables[u] for u in uids])).to("cuda")
+            else:
+                cache = kvc.ContiguousKVCache(eng.cache.k.clone(), eng.cache.v.clone(),
+                                              eng.cache.k_scales, eng.cache.v_scales,
+                                              eng.cache.kv_bits)
+            logits = D.decode_step(eng.model, first, cache, lens, s_b,
+                                   block_tables=bt)[0].float()
+            del cache
+        exact = 0
+        for i, u in enumerate(uids):
+            tok = out[u][1]
+            exact += int(torch.argmax(logits[i])) == tok
+            if not near_tie(logits[i], tok):
+                raise RuntimeError(f"serve.w4a8 {label} request {u}: token {tok} disagrees with "
+                                   f"K8's plain version (argmax {int(torch.argmax(logits[i]))})")
+        log(f"phase serve.w4a8 {label}: ok, greedy output repeats; the first decode step "
+            f"through K8's plain version gives the engine's token on {exact}/{len(uids)}, "
+            f"near-ties on all; W4A8 {rates(f'serve.w4a8 {label}')} tok/s against W4A16 "
+            f"{rates(w4a16_label)} (same engine kind, this run)")
+        del eng
+        torch.cuda.empty_cache()
+
+
+def check_agree(label: str, got: dict, want: dict, prompts, judges: dict) -> int:
+    """Greedy outputs ``got`` against ``want`` (uid → tokens): at a
+    request's first differing token both tokens must be near-ties of one
+    of the ``judges`` (name → a function from tokens to the last
+    position's logits) over the shared prefix; later tokens follow from
+    it.  Logs each difference with each judge's gaps (top logit minus the
+    token's, over max|logit|); returns the number of requests with equal
+    outputs."""
+    n_eq = 0
+    for u, w in want.items():
+        g = got[u]
+        j = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is None and len(g) == len(w):
+            n_eq += 1
+            continue
+        if j is None:
+            raise RuntimeError(f"{label} request {u}: {len(g)} tokens, expected {len(w)}")
+        ok, gaps = False, []
+        for name, last in judges.items():
+            lg = last(prompts[u] + w[:j])
+            ok |= near_tie(lg, g[j]) and near_tie(lg, w[j])
+            gaps.append(f"{name} " + " / ".join(
+                f"{float(lg.max() - lg[t]) / float(lg.abs().max()):.2e}" for t in (g[j], w[j])))
+        msg = (f"{label} request {u}: token {j} is {g[j]}, expected {w[j]} (gaps: "
+               + "; ".join(gaps) + ")")
+        if not ok:
+            raise RuntimeError(msg + ", beyond the near-tie rule")
+        log(f"phase {msg}: a near-tie")
+    return n_eq
+
+
+def phase_serve_features(torch, work: Path) -> None:
+    """Multi-step ticks, logprobs, top-k/top-p/min-p and snapshot/restore
+    on W4A16 engines at 7B width (phased over the contiguous cache, ragged
+    over the paged cache with a 64-token budget)."""
+    from gptq_v2_tpu_torch import serve as S
+    from gptq_v2_tpu_torch.models import llama as L
+    from gptq_v2_tpu_torch.serving import Engine, Request, restore_requests
+    from gptq_v2_tpu_torch.serving.model import (dequantized_params, fuse_stage_linears,
+                                                 packed_forward_logits)
+
+    serve_args = ["--model-dir", str(work / "model"), "--results",
+                  str(work / "results.npz"), "--max-batch", str(len(PROMPT_LENS)),
+                  "--max-seq-len", "512"]
+    stats = S.main(serve_args + ["--multi-step", "4", "--prompt-tokens", "128",
+                                 "--bench-tokens", str(NEW_TOKENS)])
+    log(f"phase serve.features serve.main --multi-step 4: ok, {stats['tok_s']:.1f} tok/s; "
+        f"single-step (path main, this run) {rates('serve.main contiguous W4A16')} tok/s")
+    model = S._load_packed(str(work / "model"), str(work / "results.npz"), "cuda")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, MODEL["vocab_size"], (n,)).tolist() for n in PROMPT_LENS]
+    dense, fused = [], fuse_stage_linears(model)
+
+    def dense_last(tokens):
+        if not dense:
+            dense.append(dequantized_params(model, torch.bfloat16))
+        return L.forward_logits(model.cfg, dense[0], torch.tensor([tokens], device="cuda"))[
+            0, -1].float()
+
+    def packed_last(tokens):  # what a re-prefill computes: K3, fresh K/V
+        with uncounted():
+            return packed_forward_logits(fused, torch.tensor([tokens], device="cuda"))[
+                0, -1].float()
+
+    judges = {"plain bf16 forward": dense_last, "packed forward": packed_last}
+
+    common = dict(max_batch=len(PROMPT_LENS), max_seq_len=512)
+    kinds = {"phased": dict(),
+             "ragged": dict(cache_kind="paged", scheduler="ragged", token_budget=64)}
+    greedy = {}
+    for kind, kw in kinds.items():
+        outs = {}
+        for k in (1, 4):
+            label = f"serve.features {kind} multi_step={k}"
+            eng = Engine(model, **common, **kw, multi_step=k, logprobs=True)
+            outs[k] = engine_runs(torch, eng, prompts, label)
+            del eng
+        (o1, r1), (o4, r4) = outs[1], outs[4]
+        n_eq = check_agree(f"serve.features {kind} multi-step", o4, o1, prompts, judges)
+        lp_err = 0.0
+        for a, b in zip(r1, r4):
+            n = next((i for i, (x, y) in enumerate(zip(a.output, b.output)) if x != y),
+                     len(a.output))
+            if len(a.logprobs) != len(a.output) or len(b.logprobs) != len(b.output):
+                raise RuntimeError(f"{kind}: logprobs do not align with the outputs")
+            lp_err = max([lp_err] + [abs(x - y) for x, y in zip(a.logprobs[:n], b.logprobs[:n])])
+        if lp_err > 1e-3 or not all(np.isfinite(lp) and lp <= 0 for r in r4 for lp in r.logprobs):
+            raise RuntimeError(f"{kind}: multi-step logprobs off by {lp_err}")
+        greedy[kind] = o1
+        log(f"phase serve.features {kind}: ok, multi-step 4 output equal to single-step on "
+            f"{n_eq}/{len(prompts)} requests (the rest near-ties), logprobs max abs diff "
+            f"{lp_err:.2e}; tok/s single {rates(f'serve.features {kind} multi_step=1')}, "
+            f"multi-step 4 {rates(f'serve.features {kind} multi_step=4')}")
+
+    eng = Engine(model, **common)
+    topk, _ = engine_runs(torch, eng, prompts, "serve.features phased top_k=1 t=1", runs=1,
+                          temperature=1.0, top_k=1)
+    n_eq = check_agree("serve.features top_k=1", topk, greedy["phased"], prompts, judges)
+    log(f"phase serve.features top_k=1 at temperature 1: ok, equal to greedy on "
+        f"{n_eq}/{len(prompts)} requests")
+    sampled = {}
+    for label, k in (("a", 1), ("b", 1), ("multi-step 4", 4)):
+        eng = Engine(model, **common, seed=7, multi_step=k)
+        sampled[label], _ = engine_runs(torch, eng, prompts,
+                                        f"serve.features sampled seed 7 {label}", runs=1,
+                                        temperature=0.8, top_p=0.9, min_p=0.05)
+    if not sampled["a"] == sampled["b"] == sampled["multi-step 4"]:
+        raise RuntimeError("seeded sampling: the runs differ")
+    if sampled["a"] == greedy["phased"]:
+        raise RuntimeError("seeded sampling gave the greedy output")
+    log("phase serve.features sampled (t 0.8, top-p 0.9, min-p 0.05, seed 7): ok, repeats "
+        "under the seed and multi-step 4 draws the same tokens")
+
+    eng = Engine(model, **common)
+    for i, p in enumerate(prompts):
+        eng.add_request(Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS))
+    for _ in range(8):
+        eng.step()
+    snap = json.loads(json.dumps(eng.snapshot()))
+    del eng
+    reqs, prefixes = restore_requests(snap)
+    if len(reqs) != len(prompts) or not all(0 < len(v) < NEW_TOKENS for v in prefixes.values()):
+        raise RuntimeError(f"snapshot after 8 ticks: {len(reqs)} requests, "
+                           f"{sorted(len(v) for v in prefixes.values())} emitted")
+    eng = Engine(model, **common)
+    out = eng.run(reqs)
+    resumed = {u: prefixes[u] + out[u] for u in prefixes}
+    n_eq = check_agree("serve.features restore", resumed, greedy["phased"], prompts, judges)
+    log(f"phase serve.features snapshot/restore: ok, 8 ticks then a fresh engine; equal to the "
+        f"uninterrupted run on {n_eq}/{len(prompts)} requests (the rest near-ties)")
+    del eng, model, dense, fused
     torch.cuda.empty_cache()
 
 
@@ -1167,17 +1528,23 @@ def main() -> int:
     wall0 = time.time()
     phase_build()
 
-    wrappers = {"hessian": hessian_cuda.accumulate_hessian,
+    wrappers = WRAPPERS
+    wrappers.update({"hessian": hessian_cuda.accumulate_hessian,
                 "gptq": gptq_cuda.gptq_solve, "w4a16": w4a16.w4a16_matmul,
+                "w4a8": w4a16.w4a8_kernel,
                 "gptq_step": gptq_cuda.gptq_step,
                 "attention": contiguous_attention.contiguous_decode_attention,
                 "attention_p4": contiguous_attention.contiguous_decode_attention_p4,
                 "paged_attention": paged_attention.paged_ragged_attention,
-                "paged_write": paged_write.paged_write_rows}
+                "paged_write": paged_write.paged_write_rows})
     paths = (("main", phase_main_path, ("hessian", "gptq", "w4a16", "attention")),
              ("cli.quantize", phase_cli, ("hessian", "gptq_step", "w4a16", "attention")),
              ("serve.kv", phase_serve_kv, ("w4a16", "attention", "attention_p4")),
-             ("serve.paged", phase_serve_paged, ("w4a16", "paged_attention", "paged_write")))
+             ("serve.paged", phase_serve_paged, ("w4a16", "paged_attention", "paged_write")),
+             ("serve.w4a8", phase_serve_w4a8,
+              ("w4a8", "attention", "paged_attention", "paged_write")),
+             ("serve.features", phase_serve_features,
+              ("w4a16", "attention", "paged_attention", "paged_write")))
     work = ROOT / "outputs" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -1196,6 +1563,9 @@ def main() -> int:
             missing = [k for k in needed if not counts[name][k]]
             if missing:
                 raise RuntimeError(f"path {name}: {missing} never launched")
+            if name == "serve.w4a8" and counts[name]["w4a16"]:
+                raise RuntimeError(f"path serve.w4a8: K3 launched {counts[name]['w4a16']} "
+                                   "times; every block linear should run through K8")
         phase_attention_ab(torch, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1205,6 +1575,7 @@ def main() -> int:
     kernels = (phase_hessian(torch, timer, launches)
                + phase_gptq(torch, timer, launches)
                + phase_w4a16(torch, timer, launches, main_out["layer0"])
+               + phase_w4a8(torch, timer, launches, main_out["layer0"])
                + phase_gptq_step(torch, timer, launches)
                + phase_attention(torch, timer, launches)
                + phase_paged_attention(torch, timer, launches)

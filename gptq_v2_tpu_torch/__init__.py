@@ -1,7 +1,7 @@
 """gptq_v2_tpu_torch — the PyTorch/CUDA port of ``gptq_v2_tpu`` for NVIDIA H100.
 
 GPTQ post-training quantization of dense Llama-family models plus W4A16
-serving of the result, in PyTorch, with the JAX package's Pallas kernels
+(or W4A8) serving of the result, in PyTorch, with the JAX package's Pallas kernels
 rewritten by hand in CUDA C++ for Hopper (``csrc/``).  Module names mirror
 ``gptq_v2_tpu`` so each counterpart is easy to find:
 
@@ -12,7 +12,8 @@ rewritten by hand in CUDA C++ for Hopper (``csrc/``).  Module names mirror
   graph.py    the Llama quantization stage list
   pipeline.py block-sequential quantization pipeline
   main.py     results.npz save/load
-  serving/    packed model, contiguous KV cache, decode, engine
+  serving/    packed model, contiguous and paged KV caches, decode and
+              sampling, the continuous-batching engine
   serve.py    serving CLI
 
 Entry points compute on ``device="cuda"`` unless the caller passes another

@@ -25,8 +25,8 @@ from typing import Dict, Sequence
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-KERNELS = ("hessian", "gptq", "w4a16", "contiguous_attention", "paged_attention",
-           "paged_write")
+KERNELS = ("hessian", "gptq", "w4a16", "w4a8", "contiguous_attention",
+           "paged_attention", "paged_write")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

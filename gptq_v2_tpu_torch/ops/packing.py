@@ -38,6 +38,9 @@ class PackedLinear:
     group_size: int
     in_features: int
     bits: int = 4
+    # 16: activations in the compute dtype (K3); 8: per-row dynamic int8
+    # activations into int8 dots (the W4A8 tier, K8)
+    act_bits: int = 16
 
     @property
     def out_features(self) -> int:

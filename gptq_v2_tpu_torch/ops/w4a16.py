@@ -1,15 +1,22 @@
-"""K3 wrapper: fused dequant + matmul over packed low-bit weights.
+"""K3 and K8 wrappers: fused dequant + matmul over packed low-bit weights.
 
-Replaces ``gptq_v2_tpu/ops/w4a16.py::_kernel`` (entry ``w4a16_matmul``)
+K3 replaces ``gptq_v2_tpu/ops/w4a16.py::_kernel`` (entry ``w4a16_matmul``)
 with the hand-written CUDA kernel ``csrc/w4a16.cu``: weights stream from
 device memory as packed int32 words (C·R·bits/8 bytes), are unpacked plane
 by plane in shared memory, and each group contributes
 ``(x_i · q_i)·s − (Σx_i)·(z·s)`` to an fp32 accumulator.  What bounds it on
 the H100 and what the simple design does about it is noted in that source.
 
-The plain version is :func:`w4a16_reference` (``dequantize_dense`` then a
-matmul).  On a CPU tensor :func:`w4a16_matmul` runs it; on a CUDA tensor it
-launches the kernel or raises.
+K8 replaces ``_kernel_a8`` (the W4A8 tier, ``PackedLinear.act_bits == 8``)
+with ``csrc/w4a8.cu`` (launched by :func:`w4a8_kernel`): the activations
+are quantized per row to dynamic symmetric int8
+(:func:`quantize_activations_int8`, torch ops, as the JAX package runs them
+outside its kernel) and each group's dot is an exact int8 × int8 → int32
+sum, scaled in fp32 by the group's scale and the row's ``x_scale``.
+
+The plain versions are :func:`w4a16_reference` (``dequantize_dense`` then
+a matmul) and :func:`w4a8_reference`.  On a CPU tensor the wrappers run
+them; on a CUDA tensor they launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -19,11 +26,13 @@ import torch
 import torch.nn.functional as F
 
 from gptq_v2_tpu_torch.ops import _cuda
-from gptq_v2_tpu_torch.ops.packing import PackedLinear, dequantize_dense
+from gptq_v2_tpu_torch.ops.packing import PackedLinear, dequantize_dense, unpack_codes
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {"w4a16_matmul": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                + [ctypes.c_void_p]}
+_SIGNATURES_A8 = {"w4a8_matmul": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                  + [ctypes.c_void_p]}
 
 
 def w4a16_reference(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
@@ -33,23 +42,7 @@ def w4a16_reference(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
     return (x.float() @ w).to(x.dtype)
 
 
-def w4a16_matmul(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
-    """``y = x @ dequantize(p)`` for ``x`` ``(..., C)`` in original column
-    order; returns ``(..., R)`` in the scales' dtype (the activation is cast
-    to it first, as in the JAX package).
-
-    Applies the act-order gather to ``x`` and zero-pads the contraction to
-    the packing block, then launches the kernel."""
-    c = x.shape[-1]
-    if c != p.in_features:
-        raise ValueError(f"activation width {c} != in_features {p.in_features}")
-    if x.device != p.qweight.device:
-        raise ValueError(f"x on {x.device}, weights on {p.qweight.device}")
-    x = x.to(p.scales.dtype)
-    if x.device.type == "cpu":
-        return w4a16_reference(x, p)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+def _check_packed(p: PackedLinear) -> None:
     if p.scales.dtype not in _DTYPES or p.zeros.dtype != p.scales.dtype:
         raise TypeError(f"scales/zeros dtype {p.scales.dtype}/{p.zeros.dtype}: "
                         "the kernel takes float32 or bfloat16")
@@ -58,14 +51,46 @@ def w4a16_matmul(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
     if not (p.qweight.is_contiguous() and p.scales.is_contiguous()
             and p.zeros.is_contiguous()):
         raise ValueError("packed tensors must be contiguous")
-    lead = x.shape[:-1]
-    xb = x.reshape(-1, c)
+
+
+def stored_rows(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
+    """``x`` as ``(M, C_pad)`` rows in stored (act-order) column order,
+    zero-padded to the packing block."""
+    xb = x.reshape(-1, x.shape[-1])
     if p.perm is not None:
         xb = xb.index_select(1, p.perm)
     c_pad = p.in_features_padded
     if c_pad != xb.shape[1]:
         xb = F.pad(xb, (0, c_pad - xb.shape[1]))
-    xb = xb.contiguous()
+    return xb.contiguous()
+
+
+def _check_input(x: torch.Tensor, p: PackedLinear) -> None:
+    if x.shape[-1] != p.in_features:
+        raise ValueError(f"activation width {x.shape[-1]} != in_features {p.in_features}")
+    if x.device != p.qweight.device:
+        raise ValueError(f"x on {x.device}, weights on {p.qweight.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+
+
+def w4a16_matmul(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
+    """``y = x @ dequantize(p)`` for ``x`` ``(..., C)`` in original column
+    order; returns ``(..., R)`` in the scales' dtype (the activation is cast
+    to it first, as in the JAX package).  A W4A8 linear (``act_bits == 8``)
+    goes to :func:`w4a8_matmul`.
+
+    Applies the act-order gather to ``x`` and zero-pads the contraction to
+    the packing block, then launches the kernel."""
+    if p.act_bits == 8:
+        return w4a8_matmul(x, p)
+    _check_input(x, p)
+    x = x.to(p.scales.dtype)
+    if x.device.type == "cpu":
+        return w4a16_reference(x, p)
+    _check_packed(p)
+    lead = x.shape[:-1]
+    xb = stored_rows(x, p)
     m, r = xb.shape[0], p.out_features
     out = torch.empty((m, r), dtype=x.dtype, device=x.device)
     if m == 0:
@@ -73,7 +98,7 @@ def w4a16_matmul(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
     lib = _cuda.library("w4a16", _SIGNATURES)
     with torch.cuda.device(x.device):
         err = lib.w4a16_matmul(_cuda.ptr(xb), _cuda.ptr(p.qweight), _cuda.ptr(p.scales),
-                 _cuda.ptr(p.zeros), _cuda.ptr(out), m, c_pad, r, p.group_size,
+                 _cuda.ptr(p.zeros), _cuda.ptr(out), m, xb.shape[1], r, p.group_size,
                  p.bits, _DTYPES[x.dtype], _cuda.stream_ptr(x.device))
     _cuda.check(lib, err, "w4a16_matmul")
     w4a16_matmul.launches += 1
@@ -81,3 +106,78 @@ def w4a16_matmul(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
 
 
 w4a16_matmul.launches = 0
+
+
+def quantize_activations_int8(xb: torch.Tensor):
+    """Per-row dynamic symmetric int8 (JAX ``w4a16.py:287-294``): ``x_scale
+    = max(amax, 1e-12) / 127`` over the row in fp32, ``xq = clip(round(x /
+    x_scale), ±127)`` (round half to even).  Returns ``(xq (M, C) int8,
+    x_scale (M, 1) fp32)``; an all-zero (pad) row gives zeros.  Both
+    divisors are tensors: PyTorch's CUDA division by a host scalar
+    multiplies by its reciprocal, which is not bit-equal."""
+    xf = xb.float()
+    amax = torch.amax(torch.abs(xf), dim=1, keepdim=True)
+    x_scale = torch.clamp(amax, min=1e-12) / torch.full_like(amax, 127.0)
+    xq = torch.clamp(torch.round(xf / x_scale), -127, 127).to(torch.int8)
+    return xq, x_scale
+
+
+def w4a8_reference(xq: torch.Tensor, x_scale: torch.Tensor, p: PackedLinear) -> torch.Tensor:
+    """Plain version of K8 on quantized stored rows ``xq (M, C_pad)``: each
+    group's dot and row sum exact in float64, then K8's fp32 algebra in
+    group order, ``acc += dot·s − Σxq·zs`` with ``zs = z·s`` rounded to the
+    scales' dtype, and ``out = (acc · x_scale)`` in that dtype."""
+    g, dt = p.group_size, p.scales.dtype
+    codes = unpack_codes(p.qweight, g, p.bits).to(torch.float64)  # (R, C_pad)
+    xd = xq.to(torch.float64)
+    s = p.scales.float()
+    zs = (p.zeros.float() * s).to(dt).float()
+    acc = torch.zeros((xq.shape[0], p.out_features), dtype=torch.float32, device=xq.device)
+    for gi in range(p.scales.shape[0]):
+        xg = xd[:, gi * g:(gi + 1) * g]
+        dot = (xg @ codes[:, gi * g:(gi + 1) * g].T).float()
+        xs = xg.sum(dim=1, keepdim=True).float()
+        acc = acc + (dot * s[gi] - xs * zs[gi])
+    return (acc * x_scale.reshape(-1, 1)).to(dt)
+
+
+def w4a8_kernel(xq: torch.Tensor, x_scale: torch.Tensor, p: PackedLinear) -> torch.Tensor:
+    """Launch K8 on quantized stored rows ``xq (M, C_pad)`` int8 and
+    ``x_scale (M, 1)`` fp32, all on one CUDA device; returns ``(M, R)`` in
+    the scales' dtype."""
+    _check_packed(p)
+    if p.group_size % 4:
+        raise ValueError(f"group size {p.group_size}: K8 needs a multiple of 4")
+    m, c_pad = xq.shape
+    if (xq.dtype != torch.int8 or x_scale.dtype != torch.float32 or c_pad != p.in_features_padded
+            or x_scale.numel() != m or not (xq.is_contiguous() and x_scale.is_contiguous())):
+        raise ValueError("K8 takes contiguous (M, C_pad) int8 rows and (M, 1) fp32 scales")
+    out = torch.empty((m, p.out_features), dtype=p.scales.dtype, device=xq.device)
+    if m == 0:
+        return out
+    lib = _cuda.library("w4a8", _SIGNATURES_A8)
+    with torch.cuda.device(xq.device):
+        err = lib.w4a8_matmul(_cuda.ptr(xq), _cuda.ptr(x_scale), _cuda.ptr(p.qweight),
+                              _cuda.ptr(p.scales), _cuda.ptr(p.zeros), _cuda.ptr(out), m,
+                              c_pad, p.out_features, p.group_size, p.bits,
+                              _DTYPES[p.scales.dtype], _cuda.stream_ptr(xq.device))
+    _cuda.check(lib, err, "w4a8_matmul")
+    w4a8_kernel.launches += 1
+    return out
+
+
+w4a8_kernel.launches = 0
+
+
+def w4a8_matmul(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
+    """The W4A8 tier's ``y ≈ x @ dequantize(p)`` for ``x`` ``(..., C)`` in
+    original column order: the act-order gather and contraction pad of
+    :func:`w4a16_matmul`, per-row int8 quantization of the stored rows in
+    the activation's own dtype, then K8 (:func:`w4a8_kernel`).  Returns
+    ``(..., R)`` in the scales' dtype."""
+    _check_input(x, p)
+    lead, r = x.shape[:-1], p.out_features
+    xq, x_scale = quantize_activations_int8(stored_rows(x, p))
+    if x.device.type == "cpu":
+        return w4a8_reference(xq, x_scale, p).reshape(*lead, r)
+    return w4a8_kernel(xq, x_scale, p).reshape(*lead, r)

@@ -1,20 +1,23 @@
 """Serving CLI: load a checkpoint and quantization results, run the W4A16
-continuous-batching engine, report decode throughput (counterpart of
-``gptq_v2_tpu/serve.py``).
+(or W4A8) continuous-batching engine, report decode throughput
+(counterpart of ``gptq_v2_tpu/serve.py``).
 
 Run: ``python -m gptq_v2_tpu_torch.serve --model-dir ... --results
-outputs/results.npz [--kv-dtype native|int8|int4] [--cache-kind paged
-[--scheduler ragged [--token-budget N] [--prefix-cache true]]]
-[--benchmark true]``
+outputs/results.npz [--act-dtype native|int8] [--kv-dtype native|int8|int4]
+[--cache-kind paged [--scheduler ragged [--token-budget N]
+[--prefix-cache true]]] [--multi-step K] [--state-path FILE]
+[--profile-dir DIR] [--benchmark true]``
 
 Only the flags of the ported paths exist (one device); argparse refuses
-any other flag (``--tp``, ``--pp``, ``--draft-dir``, ``--multi-step``,
-``--act-dtype``, ``--mla-absorbed`` …) as unrecognized.
+any other flag (``--tp``, ``--pp``, ``--draft-dir``, ``--mla-absorbed``,
+``--coordinator`` …) as unrecognized.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import logging
+import os
 import sys
 import time
 
@@ -53,6 +56,18 @@ def parse_serve_args(argv=None):
     p.add_argument("--prefix-cache", type=str2bool, default=False,
                    help="shared-prefix KV page reuse (paged cache + ragged "
                         "scheduler)")
+    p.add_argument("--act-dtype", type=str, default="native",
+                   choices=["native", "int8"],
+                   help="int8 = the W4A8 tier: per-row dynamic int8 activations "
+                        "into int8 dots for every block linear")
+    p.add_argument("--multi-step", type=int, default=1,
+                   help="k decode steps per tick with one readback (phased "
+                        "ticks; the ragged scheduler's decode-only ticks)")
+    p.add_argument("--state-path", type=str, default="",
+                   help="crash-recovery snapshot file: unfinished requests are "
+                        "written every few ticks and resumed on startup")
+    p.add_argument("--profile-dir", type=str, default="",
+                   help="write a torch.profiler trace of the timed benchmark run")
     p.add_argument("--benchmark", type=str2bool, default=True,
                    help="run a synthetic decode-throughput benchmark")
     p.add_argument("--bench-tokens", type=int, default=64,
@@ -83,7 +98,8 @@ def build_engine(args):
                   max_seq_len=args.max_seq_len, kv_dtype=args.kv_dtype,
                   cache_kind=args.cache_kind, scheduler=args.scheduler,
                   token_budget=args.token_budget or None,
-                  prefix_cache=args.prefix_cache)
+                  prefix_cache=args.prefix_cache, act_dtype=args.act_dtype,
+                  multi_step=args.multi_step)
 
 
 def main(argv=None) -> dict:
@@ -106,12 +122,25 @@ def main(argv=None) -> dict:
         # the allocator before the timed run
         eng.run([Request(uid=-1, prompt=reqs[0].prompt[:],
                          max_new_tokens=args.bench_tokens)])
+        from gptq_v2_tpu_torch.utils import profile_trace
+
+        prefixes = {}
+        if args.state_path and os.path.exists(args.state_path):
+            # a crashed run left unfinished work: continue it (each prompt
+            # is prompt + emitted; the re-prefill rebuilds the lost cache)
+            from gptq_v2_tpu_torch.serving import restore_requests
+
+            with open(args.state_path) as f:
+                reqs, prefixes = restore_requests(json.load(f))
+            logging.info("resuming %d unfinished requests from %s", len(reqs),
+                         args.state_path)
         t0 = time.time()
-        eng.run(reqs)
+        with profile_trace(args.profile_dir):
+            out = eng.run(reqs, snapshot_path=args.state_path or None)
         dt = time.time() - t0
-        total = args.max_batch * args.bench_tokens
-        stats = {"requests": args.max_batch, "new_tokens": total,
-                 "wall_s": dt, "tok_s": total / dt}
+        total = sum(len(t) for t in out.values())  # a resumed run decodes fewer
+        stats = {"requests": len(reqs), "new_tokens": total,
+                 "wall_s": dt, "tok_s": total / dt, "resumed": len(prefixes)}
         logging.info("benchmark: %s", stats)
     return stats
 

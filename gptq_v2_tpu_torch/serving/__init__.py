@@ -1,4 +1,5 @@
-from gptq_v2_tpu_torch.serving.engine import Engine, Request
+from gptq_v2_tpu_torch.serving.engine import Engine, Request, restore_requests
 from gptq_v2_tpu_torch.serving.model import PackedLlama, quantize_params_to_packed
 
-__all__ = ["Engine", "Request", "PackedLlama", "quantize_params_to_packed"]
+__all__ = ["Engine", "Request", "PackedLlama", "quantize_params_to_packed",
+           "restore_requests"]

@@ -1,7 +1,8 @@
-"""Prefill, single-token decode and the ragged mixed step (counterpart of
-``gptq_v2_tpu/serving/decode.py``).
+"""Prefill, single-token decode, the ragged mixed step, their multi-step
+loops and per-row sampling (counterpart of ``gptq_v2_tpu/serving/decode.py``).
 
-Every block projection runs through K3 (``ops/w4a16.py``).  Over the
+Every block projection runs through K3 (``ops/w4a16.py``), or K8 in the
+W4A8 tier.  Over the
 contiguous cache, decode attention runs through K4 (bf16 and int8) or K7
 (packed int4), ``ops/contiguous_attention.py``; quantized caches fold the
 k-scale into q and apply the v-scale to the attention output, per layer or
@@ -13,6 +14,12 @@ to K6 as arguments; per-head (int4) scales are folded around it
 (:func:`fold_paged_kv_scales`).  On CPU tensors the kernels' plain versions
 run.  Prefill attends over its own fresh K/V and writes them quantized.
 Caches are updated in place.
+
+Sampling is per row: temperature, then top-k, top-p and min-p; with
+``return_logprobs`` each token comes packed with its raw-distribution
+logprob (one readback a tick).  The multi-step loops run k steps whose
+tokens stay on the device; they consume the generator exactly as k single
+steps do.
 """
 from __future__ import annotations
 
@@ -181,17 +188,67 @@ def ragged_step(model: PackedLlama,
                 sample_rows: torch.Tensor,  # (S,) row of each sequence's last token
                 temperatures: torch.Tensor,  # (S,) per sequence, <= 0 greedy
                 generator: Optional[torch.Generator] = None,
+                top_ks: Optional[torch.Tensor] = None,  # (S,) per sequence, 0 = off
+                top_ps: Optional[torch.Tensor] = None,  # (S,) 1 = off
+                min_ps: Optional[torch.Tensor] = None,  # (S,) 0 = off
+                return_logprobs: bool = False,
                 ) -> Tuple[torch.Tensor, kvc.PagedKVCache]:
     """Mixed prefill + decode in one forward (chunked prefill): one token
     per decoding sequence plus prompt chunks, written at host-computed
     ``(page, offset)`` slots (K9), then attended through K6 with causal
     masking inside each sequence's run.  Returns ``(next_tokens (S,),
-    cache)``; an entry is meaningful only for a sequence whose
+    cache)`` (``(S, 2)`` int32 token + logprob bits with
+    ``return_logprobs``); an entry is meaningful only for a sequence whose
     ``sample_rows`` row completes its prompt or decodes."""
     x = _ragged_forward(model, tokens, cache, positions, tok_pages, tok_offs,
                         block_tables, kv_lens, cu_q_lens, num_seqs)
     logits = head_logits(model.cfg, model.lm_head, x[sample_rows])
-    return sample_per_row(logits, temperatures, generator), cache
+    return sample_record(logits, temperatures, generator, (top_ks, top_ps, min_ps),
+                         return_logprobs), cache
+
+
+def ragged_multi_step(model: PackedLlama,
+                      tokens: torch.Tensor,  # (S,) current token per sequence (row order)
+                      cache: kvc.PagedKVCache,
+                      positions: torch.Tensor,  # (S,) position of each FIRST new token
+                      block_tables: torch.Tensor,  # (S, max_pages)
+                      kv_lens: torch.Tensor,  # (S,) context length incl. the first new token
+                      num_seqs: torch.Tensor,  # (1,) active sequences
+                      temperatures: torch.Tensor,  # (S,)
+                      generator: Optional[torch.Generator],
+                      n_steps: int,
+                      top_ks: Optional[torch.Tensor] = None,
+                      top_ps: Optional[torch.Tensor] = None,
+                      min_ps: Optional[torch.Tensor] = None,
+                      return_logprobs: bool = False,
+                      ) -> Tuple[torch.Tensor, kvc.PagedKVCache]:
+    """``n_steps`` decode-only ragged steps (every active sequence one row,
+    ``T = S``) with no host work between them: each step's ``(page,
+    offset)`` write targets derive on the device from the block tables and
+    the advancing positions (the page index clipped to the table; inactive
+    rows go to trash page 0, offset 0), its K/V writes go through K9 and its
+    attention through K6.  Admission reserved every sequence's pages through
+    ``prompt + max_new_tokens``, so the tables cover the chunk.  Returns
+    ``(out (n_steps, S) or (n_steps, S, 2), cache)``; one readback of
+    ``out`` serves the whole chunk."""
+    s, ps = tokens.shape[0], cache.page_size
+    dev = tokens.device
+    cu = torch.minimum(torch.arange(s + 1, dtype=torch.int32, device=dev), num_seqs[0])
+    row_active = torch.arange(s, device=dev) < num_seqs[0]
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def step_fn(i, toks):
+        pos = positions + i
+        page_idx = torch.clamp(pos // ps, 0, block_tables.shape[1] - 1)
+        pg = torch.gather(block_tables, 1, page_idx[:, None])[:, 0]
+        pg = torch.where(row_active, pg, zero)
+        of = torch.where(row_active, (pos % ps).to(torch.int32), zero)
+        x = _ragged_forward(model, toks, cache, pos, pg, of, block_tables, kv_lens + i, cu,
+                            num_seqs)
+        return head_logits(model.cfg, model.lm_head, x)
+
+    return _sample_loop(n_steps, tokens, step_fn, temperatures, generator,
+                        (top_ks, top_ps, min_ps), return_logprobs), cache
 
 
 def _ragged_forward(model, tokens, cache, positions, tok_pages, tok_offs, block_tables,
@@ -216,17 +273,102 @@ def _ragged_forward(model, tokens, cache, positions, tok_pages, tok_offs, block_
     return L.rms_norm(x[:, 0], model.norm, cfg.rms_norm_eps)
 
 
+def _warp_logits(lg: torch.Tensor,  # (B, V) f32, already temperature-scaled
+                 top_ks: Optional[torch.Tensor],  # (B,) int; <= 0 disables the row
+                 top_ps: Optional[torch.Tensor],  # (B,) f32; >= 1 disables the row
+                 min_ps: Optional[torch.Tensor] = None,  # (B,) f32; <= 0 disables
+                 ) -> torch.Tensor:
+    """Per-row top-k, then nucleus (top-p), then min-p filtering (the HF
+    warper order, each measured on the already-restricted distribution;
+    JAX ``decode._warp_logits``).  One shared descending sort serves the
+    first two; the thresholds keep ties (``>=``); min-p needs no sort
+    (``p_i / p_max >= min_p`` ⇔ ``lg_i >= max(lg) + log(min_p)``).  A row
+    with a filter disabled passes through unchanged."""
+    neg = torch.finfo(torch.float32).min
+    v = lg.shape[-1]
+    if top_ks is not None or top_ps is not None:
+        srt = torch.flip(torch.sort(lg, dim=-1).values, dims=(-1,))
+    if top_ks is not None:
+        k = torch.clamp(torch.where(top_ks > 0, top_ks, v), 1, v).long()
+        kth = torch.gather(srt, 1, (k - 1)[:, None])
+        lg = torch.where(lg >= kth, lg, neg)
+        srt = torch.where(torch.arange(v, device=lg.device)[None, :] < k[:, None], srt, neg)
+    if top_ps is not None:
+        p = torch.clamp(top_ps.float(), 0.0, 1.0)[:, None]
+        probs = torch.softmax(srt, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        # keep the smallest prefix whose mass reaches p: token j survives if
+        # the mass strictly before it is < p (so one token always survives)
+        keep = (cum - probs) < torch.clamp(p, min=1e-9)
+        last = keep.sum(dim=-1) - 1
+        thr = torch.gather(srt, 1, last[:, None])
+        lg = torch.where(lg >= thr, lg, neg)
+    if min_ps is not None:
+        mx = torch.amax(lg, dim=-1, keepdim=True)  # the max always survives
+        mp = min_ps.float()[:, None]
+        thr = torch.where(mp > 0.0, mx + torch.log(torch.clamp(mp, 1e-38, 1.0)),
+                          torch.full_like(mx, neg))
+        lg = torch.where(lg >= thr, lg, neg)
+    return lg
+
+
 def sample_per_row(logits: torch.Tensor,  # (B, V)
                    temperatures: torch.Tensor,  # (B,); <= 0 is greedy
                    generator: Optional[torch.Generator] = None,
+                   top_ks: Optional[torch.Tensor] = None,  # (B,) 0 = off
+                   top_ps: Optional[torch.Tensor] = None,  # (B,) 1 = off
+                   min_ps: Optional[torch.Tensor] = None,  # (B,) 0 = off
                    ) -> torch.Tensor:
     """Per-row temperature sampling: rows at temperature <= 0 take the
-    argmax, the others sample from ``softmax(logits / t)``."""
+    argmax, the others sample from ``softmax(logits / t)``, warped by their
+    own top-k / top-p / min-p when those are given (:func:`_warp_logits`)."""
     greedy = torch.argmax(logits, dim=-1)
     t = torch.clamp(temperatures.float(), min=1e-6)[:, None]
-    probs = torch.softmax(logits.float() / t, dim=-1)
-    sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    lg = logits.float() / t
+    if top_ks is not None or top_ps is not None or min_ps is not None:
+        lg = _warp_logits(lg, top_ks, top_ps, min_ps)
+    sampled = torch.multinomial(torch.softmax(lg, dim=-1), 1, generator=generator)[:, 0]
     return torch.where(temperatures <= 0.0, greedy, sampled)
+
+
+def chosen_logprob(logits: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
+    """log p(token) under the raw model distribution: the f32 log-softmax of
+    the unwarped, untempered logits (the OpenAI/vLLM logprobs convention)."""
+    lsm = torch.log_softmax(logits.float(), dim=-1)
+    return torch.gather(lsm, 1, toks.long()[:, None])[:, 0]
+
+
+def pack_tok_logprob(toks: torch.Tensor, lps: torch.Tensor) -> torch.Tensor:
+    """(B,) tokens + (B,) f32 logprobs → (B, 2) int32, the logprob's bits
+    reinterpreted, so a tick reads back one tensor."""
+    return torch.stack([toks.to(torch.int32), lps.float().view(torch.int32)], dim=1)
+
+
+def unpack_tok_logprob(packed: np.ndarray):
+    """Host-side inverse of :func:`pack_tok_logprob`."""
+    return packed[..., 0], np.ascontiguousarray(packed[..., 1]).view(np.float32)
+
+
+def sample_record(logits, temperatures, generator, warps, return_logprobs):
+    """Sample one token per row; with ``return_logprobs`` the tokens come
+    packed with their raw-distribution logprobs."""
+    toks = sample_per_row(logits, temperatures, generator, *warps)
+    return pack_tok_logprob(toks, chosen_logprob(logits, toks)) if return_logprobs else toks
+
+
+def _sample_loop(n_steps, tokens, step_fn, temperatures, generator, warps,
+                 return_logprobs) -> torch.Tensor:
+    """The k-step decode+sample scaffold behind both multi-step ticks:
+    ``step_fn(i, toks) -> logits`` runs the model on the previous step's
+    tokens, which never leave the device.  Returns the stacked records
+    ``(k, B)`` or ``(k, B, 2)``."""
+    outs, toks = [], tokens
+    for i in range(n_steps):
+        logits = step_fn(i, toks)
+        rec = sample_record(logits, temperatures, generator, warps, return_logprobs)
+        toks = rec[:, 0] if return_logprobs else rec
+        outs.append(rec)
+    return torch.stack(outs)
 
 
 def sample(logits: torch.Tensor, temperature: float = 0.0,
@@ -243,7 +385,36 @@ def decode_sample_step(model: PackedLlama, tokens: torch.Tensor, cache,
                        generator: Optional[torch.Generator] = None,
                        s_bucket: Optional[int] = None,
                        block_tables: Optional[torch.Tensor] = None,
+                       top_ks: Optional[torch.Tensor] = None,
+                       top_ps: Optional[torch.Tensor] = None,
+                       min_ps: Optional[torch.Tensor] = None,
+                       return_logprobs: bool = False,
                        ) -> Tuple[torch.Tensor, object]:
-    """Decode plus per-row sampling; returns ``(next_tokens, cache)``."""
+    """Decode plus per-row sampling; returns ``(next_tokens, cache)``
+    (``(B, 2)`` int32 token + logprob bits with ``return_logprobs``)."""
     logits, cache = decode_step(model, tokens, cache, positions, s_bucket, block_tables)
-    return sample_per_row(logits, temperatures, generator), cache
+    return sample_record(logits, temperatures, generator, (top_ks, top_ps, min_ps),
+                         return_logprobs), cache
+
+
+def decode_sample_loop(model: PackedLlama, tokens: torch.Tensor, cache,
+                       positions: torch.Tensor,  # (B,) position of the FIRST new token
+                       temperatures: torch.Tensor,
+                       generator: Optional[torch.Generator],
+                       n_steps: int,
+                       s_bucket: Optional[int] = None,  # must cover positions + n_steps
+                       block_tables: Optional[torch.Tensor] = None,
+                       top_ks: Optional[torch.Tensor] = None,
+                       top_ps: Optional[torch.Tensor] = None,
+                       min_ps: Optional[torch.Tensor] = None,
+                       return_logprobs: bool = False,
+                       ) -> Tuple[torch.Tensor, object]:
+    """``n_steps`` decode+sample steps on the device with one readback at
+    the end (JAX ``decode_sample_loop``): the same steps and the same
+    generator draws as ``n_steps`` calls of :func:`decode_sample_step`.
+    Returns ``(out (n_steps, B) or (n_steps, B, 2), cache)``."""
+    return _sample_loop(
+        n_steps, tokens,
+        lambda i, toks: decode_step(model, toks, cache, positions + i, s_bucket,
+                                    block_tables)[0],
+        temperatures, generator, (top_ks, top_ps, min_ps), return_logprobs), cache

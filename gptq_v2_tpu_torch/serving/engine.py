@@ -17,19 +17,30 @@
   content-addressed by a sha256 chain from position 0 and reused by later
   prompts with the same prefix, refcounted while in use and evicted LRU
   when the pool runs dry;
-* sampling is per-row temperature from one ``torch.Generator``;
+* sampling is per request: temperature, top-k, top-p and min-p, from one
+  ``torch.Generator``; ``logprobs`` records each emitted token's
+  raw-distribution logprob;
+* ``multi_step=k`` runs k decode steps per tick with one readback (phased
+  ticks; the ragged scheduler's decode-only ticks), discarding the tail of
+  a request that stops mid-chunk.  The k steps are still dispatched one
+  by one from the host, so it saves only the per-tick readback and
+  bookkeeping: not a speed setting until the loop is graph-captured;
 * ``kv_dtype`` ``native`` / ``int8`` / ``int4`` picks the cache storage,
   with per-layer (int8) or per-kv-head (int4) scales calibrated at build
-  time unless ``kv_scales`` gives them.
+  time unless ``kv_scales`` gives them;
+* ``act_dtype="int8"`` serves the W4A8 tier (K8 for every block linear);
+* :meth:`Engine.snapshot` / :func:`restore_requests` recover unfinished
+  requests after a crash (the JAX package's JSON format).
 
-Speculative decoding, multi-step ticks, logprobs, top-k/top-p/min-p and
-W4A8 are not ported yet.
+Speculative decoding is not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
 import logging
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -42,6 +53,7 @@ from gptq_v2_tpu_torch.serving.model import (
     PackedLlama,
     calibrate_kv_scales,
     fuse_stage_linears,
+    to_w4a8,
 )
 
 logger = logging.getLogger(__name__)
@@ -53,8 +65,13 @@ class Request:
     prompt: List[int]
     max_new_tokens: int = 64
     temperature: float = 0.0
+    top_k: int = 0  # 0 = off; sample from the k highest-logit tokens
+    top_p: float = 1.0  # 1.0 = off; nucleus mass
+    min_p: float = 0.0  # 0.0 = off; least probability relative to the top token
     stop_token_ids: Optional[List[int]] = None  # per-request extra EOS set
     output: List[int] = dataclasses.field(default_factory=list)
+    # raw-distribution log p(token) per output token (Engine(logprobs=True))
+    logprobs: List[float] = dataclasses.field(default_factory=list)
     done: bool = False
 
 
@@ -80,7 +97,8 @@ class Engine:
                  kv_dtype: str = "native", kv_scales=None,
                  cache_kind: str = "contiguous", scheduler: str = "phased",
                  n_pages: Optional[int] = None, token_budget: Optional[int] = None,
-                 prefix_cache: bool = False):
+                 prefix_cache: bool = False, act_dtype: str = "native",
+                 logprobs: bool = False, multi_step: int = 1):
         """Serve ``model`` on the device its tensors live on.
 
         q/k/v and gate/up are fused into one packed linear each and down's
@@ -97,7 +115,14 @@ class Engine:
         kv head; ``kv_scales`` supplies ``(k_scales, v_scales)``
         (:func:`~gptq_v2_tpu_torch.serving.model.calibrate_kv_scales`'s
         layout), else they are calibrated on a seeded synthetic forward of
-        the fused model."""
+        the fused model (of the W4A8 model under ``act_dtype="int8"``, which
+        turns every packed block linear to ``act_bits=8`` after the fusion).
+
+        ``logprobs`` records each emitted token's log-probability under the
+        raw model distribution (``Request.logprobs``), read back with the
+        token.  ``multi_step=k`` runs k decode steps per phased tick, or per
+        decode-only ragged tick, with one readback; a tick falls back to one
+        step when ``k`` more positions would pass ``max_seq_len``."""
         if kv_dtype not in ("native", "int8", "int4"):
             raise ValueError(f"kv_dtype {kv_dtype!r}")
         if cache_kind not in ("contiguous", "paged"):
@@ -109,7 +134,13 @@ class Engine:
         if prefix_cache and scheduler != "ragged":
             raise ValueError("prefix caching runs on the paged cache and the ragged "
                              "scheduler")
+        if act_dtype not in ("native", "int8"):
+            raise ValueError(f"act_dtype {act_dtype!r}")
+        if multi_step < 1:
+            raise ValueError(f"multi_step {multi_step}")
         model = fuse_stage_linears(model)
+        if act_dtype == "int8":
+            model = to_w4a8(model)
         self.model = model
         cfg = model.cfg
         self.device = model.embed_tokens.device
@@ -153,17 +184,27 @@ class Engine:
         self.queue: List[Request] = []
         self.eos_token_id = eos_token_id
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.logprobs = logprobs
+        self.multi_step = multi_step
+        # set by the first request that asks for top-k/top-p/min-p: until
+        # then no tick pays for the warps
+        self._sampling_full = False
         self.steps = 0
         self.decode_tokens = 0
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    def _tensors(self, arrays) -> tuple:
+        return tuple(None if a is None else self._tensor(a) for a in arrays)
+
     # ------------------------------------------------------------------ admin
     def add_request(self, req: Request) -> None:
         if len(req.prompt) + req.max_new_tokens > self.max_seq_len:
             raise ValueError(
                 f"request {req.uid} exceeds max_seq_len {self.max_seq_len}")
+        if req.top_k > 0 or req.top_p < 1.0 or req.min_p > 0.0:
+            self._sampling_full = True
         self.queue.append(req)
 
     def _pages_needed(self, req: Request) -> int:
@@ -237,17 +278,40 @@ class Engine:
                 self.model, self._tensor(tokens), self.cache,
                 self._tensor(lengths), self._tensor(slot_ids), block_tables=bt)
             temps = np.zeros((nb,), np.float32)
+            warps = self._warp_arrays(nb)
             for i, (_, req, _) in enumerate(group):
-                temps[i] = req.temperature
-            toks = D.sample_per_row(logits, self._tensor(temps),
-                                    self.generator).cpu().numpy()
+                self._set_sampling(i, req, temps, warps)
+            out = D.sample_record(logits, self._tensor(temps), self.generator,
+                                  self._tensors(warps), self.logprobs)
+            toks, lps = self._readback(out)
             for i, (si, _, _) in enumerate(group):
-                self._emit(si, int(toks[i]))
+                self._emit(si, int(toks[i]), None if lps is None else float(lps[i]))
 
     # ----------------------------------------------------------------- decode
-    def _emit(self, si: int, token: int) -> None:
+    def _warp_arrays(self, n: int):
+        """(top_ks, top_ps, min_ps) host buffers sized ``n`` (every row
+        disabled), or three Nones while no request has asked for a warp."""
+        if not self._sampling_full:
+            return None, None, None
+        return (np.zeros((n,), np.int64), np.ones((n,), np.float32),
+                np.zeros((n,), np.float32))
+
+    @staticmethod
+    def _set_sampling(i: int, req: Request, temps: np.ndarray, warps) -> None:
+        temps[i] = req.temperature
+        if warps[0] is not None:
+            warps[0][i], warps[1][i], warps[2][i] = req.top_k, req.top_p, req.min_p
+
+    def _readback(self, out: torch.Tensor):
+        """The tick's one device → host copy: ``(tokens, logprobs | None)``."""
+        arr = out.cpu().numpy()
+        return D.unpack_tok_logprob(arr) if self.logprobs else (arr, None)
+
+    def _emit(self, si: int, token: int, lp: Optional[float] = None) -> None:
         req = self.slots[si].request
         req.output.append(token)
+        if lp is not None:
+            req.logprobs.append(lp)
         self.last_tokens[si] = token
         stop = (self.eos_token_id is not None and token == self.eos_token_id
                 ) or (req.stop_token_ids is not None
@@ -260,7 +324,8 @@ class Engine:
         """One scheduler tick; its sampled tokens are the tick's one host
         sync.  Phased: admit new work, then one decode step for every slot
         (idle slots decode too: on the paged cache their zeroed tables send
-        the writes to the trash page).  Ragged: :meth:`_step_ragged`."""
+        the writes to the trash page), or ``multi_step`` of them while they
+        fit under ``max_seq_len``.  Ragged: :meth:`_step_ragged`."""
         if self.scheduler == "ragged":
             return self._step_ragged()
         self._admit()
@@ -269,22 +334,40 @@ class Engine:
             return
         positions = np.zeros((self.max_batch,), np.int64)
         temps = np.zeros((self.max_batch,), np.float32)
+        warps = self._warp_arrays(self.max_batch)
         for si in active:
             positions[si] = self.slots[si].length
-            temps[si] = self.slots[si].request.temperature
+            self._set_sampling(si, self.slots[si].request, temps, warps)
         max_pos = int(positions.max())
-        s_bucket = min(_bucket(max_pos + 1, lo=self.page_size), self.max_seq_len)
-        toks, self.cache = D.decode_sample_step(
-            self.model, self._tensor(self.last_tokens), self.cache,
-            self._tensor(positions), self._tensor(temps), self.generator,
-            s_bucket=s_bucket,
-            block_tables=None if self.block_tables is None else self._tensor(self.block_tables))
-        toks = toks.cpu().numpy()
+        k = self.multi_step if max_pos + self.multi_step <= self.max_seq_len else 1
+        s_bucket = min(_bucket(max_pos + k, lo=self.page_size), self.max_seq_len)
+        args = (self.model, self._tensor(self.last_tokens), self.cache,
+                self._tensor(positions), self._tensor(temps), self.generator)
+        kw = dict(s_bucket=s_bucket, block_tables=None if self.block_tables is None
+                  else self._tensor(self.block_tables), return_logprobs=self.logprobs)
+        top_ks, top_ps, min_ps = self._tensors(warps)
+        if k > 1:  # k steps, one readback; a mid-chunk stop drops the rest
+            out, self.cache = D.decode_sample_loop(*args, k, top_ks=top_ks, top_ps=top_ps,
+                                                   min_ps=min_ps, **kw)
+        else:
+            out, self.cache = D.decode_sample_step(*args, top_ks=top_ks, top_ps=top_ps,
+                                                   min_ps=min_ps, **kw)
+            out = out[None]
         self.steps += 1
-        for si in active:
-            self.slots[si].length += 1
-            self.decode_tokens += 1
-            self._emit(si, int(toks[si]))
+        self._emit_steps(*self._readback(out), [(si, si) for si in active])
+
+    def _emit_steps(self, toks: np.ndarray, lps: Optional[np.ndarray], cols) -> None:
+        """Emit a tick's ``(steps, rows)`` tokens step by step, row ``c``
+        for slot ``si`` per ``(c, si)`` of ``cols``; a request that stops
+        mid-chunk drops the rest of its chunk."""
+        for step in range(toks.shape[0]):
+            for c, si in cols:
+                if self.slots[si] is None:  # stopped earlier in the chunk
+                    continue
+                self.slots[si].length += 1
+                self.decode_tokens += 1
+                self._emit(si, int(toks[step, c]),
+                           None if lps is None else float(lps[step, c]))
 
     # ----------------------------------------------------------------- ragged
     def _prefix_chain(self, prompt: List[int], n_pages: int) -> List[bytes]:
@@ -359,7 +442,10 @@ class Engine:
     def _step_ragged(self) -> None:
         """One mixed prefill + decode tick (``decode.ragged_step``) in one
         of two shapes: ``max_batch`` rows when every sequence decodes,
-        ``token_budget`` rows when prompts stream."""
+        ``token_budget`` rows when prompts stream.  A decode-only tick runs
+        ``multi_step`` steps (:meth:`_step_ragged_multi`) while they fit
+        under ``max_seq_len``; a tick with prompt chunks stays single-step,
+        so chunked prefill is never delayed."""
         self._admit_ragged()
         active = [si for si in range(self.max_batch) if self.slots[si] is not None]
         if not active:
@@ -368,82 +454,177 @@ class Engine:
         decoding = [si for si in active
                     if self.slots[si].prefill_done >= len(self.slots[si].request.prompt)]
         prefilling = [si for si in active if si not in decoding]
+        if (self.multi_step > 1 and not prefilling and max(
+                self.slots[si].length for si in decoding) + self.multi_step <= self.max_seq_len):
+            return self._step_ragged_multi(decoding)
         t = self.token_budget if prefilling else s
 
-        tokens = np.zeros((t,), np.int64)
-        positions = np.zeros((t,), np.int64)
-        tok_pages = np.zeros((t,), np.int32)  # 0 = the trash page for padding
-        tok_offs = np.zeros((t,), np.int32)
-        kv_lens = np.ones((s,), np.int32)
-        cu = np.zeros((s + 1,), np.int32)
-        sample_rows = np.zeros((s,), np.int64)
-        temps = np.zeros((s,), np.float32)
-        bt_rows = np.zeros((s, self.max_pages_per_seq), np.int32)
-
-        row = 0
-        order = []  # (slot, n_new, completes_prefill)
-        remaining = t - len(decoding)
-        for si in decoding + prefilling:
+        tokens, positions, kv_lens, temps, warps, bt_rows = self._ragged_rows(t, decoding)
+        order = [(si, 1, True) for si in decoding]  # (slot, n_new, completes_prefill)
+        row, remaining = len(decoding), t - len(decoding)
+        for si in prefilling:
             slot = self.slots[si]
             req = slot.request
-            if si in decoding:
-                n_new = 1
-                tokens[row] = self.last_tokens[si]
-                positions[row] = slot.length
-                completes = True
-            else:
-                n_new = min(len(req.prompt) - slot.prefill_done, remaining)
-                if n_new <= 0:  # out of budget this tick
-                    continue
-                remaining -= n_new
-                start = slot.prefill_done
-                tokens[row:row + n_new] = req.prompt[start:start + n_new]
-                positions[row:row + n_new] = np.arange(start, start + n_new)
-                completes = start + n_new >= len(req.prompt)
+            n_new = min(len(req.prompt) - slot.prefill_done, remaining)
+            if n_new <= 0:  # out of budget this tick
+                continue
+            remaining -= n_new
+            start = slot.prefill_done
+            tokens[row:row + n_new] = req.prompt[start:start + n_new]
+            positions[row:row + n_new] = np.arange(start, start + n_new)
             i = len(order)
-            pos = positions[row:row + n_new]
-            tok_pages[row:row + n_new] = self.block_tables[si][pos // ps]
-            tok_offs[row:row + n_new] = pos % ps
-            kv_lens[i] = int(pos[-1]) + 1
-            cu[i + 1] = cu[i] + n_new
-            sample_rows[i] = row + n_new - 1
-            temps[i] = req.temperature
+            kv_lens[i] = start + n_new
+            self._set_sampling(i, req, temps, warps)
             bt_rows[i] = self.block_tables[si]
-            order.append((si, n_new, completes))
+            order.append((si, n_new, start + n_new >= len(req.prompt)))
             row += n_new
+        cu = np.zeros((s + 1,), np.int32)
+        cu[1:len(order) + 1] = np.cumsum([n for _, n, _ in order])
         cu[len(order) + 1:] = cu[len(order)]
+        sample_rows = np.zeros((s,), np.int64)
+        sample_rows[:len(order)] = cu[1:len(order) + 1] - 1
+        tok_pages = np.zeros((t,), np.int32)  # 0 = the trash page for padding
+        tok_offs = np.zeros((t,), np.int32)
+        for i, (si, _, _) in enumerate(order):
+            pos = positions[cu[i]:cu[i + 1]]
+            tok_pages[cu[i]:cu[i + 1]] = self.block_tables[si][pos // ps]
+            tok_offs[cu[i]:cu[i + 1]] = pos % ps
 
-        toks, self.cache = D.ragged_step(
+        top_ks, top_ps, min_ps = self._tensors(warps)
+        out, self.cache = D.ragged_step(
             self.model, self._tensor(tokens), self.cache, self._tensor(positions),
             self._tensor(tok_pages), self._tensor(tok_offs), self._tensor(bt_rows),
             self._tensor(kv_lens), self._tensor(cu),
             self._tensor(np.array([len(order)], np.int32)), self._tensor(sample_rows),
-            self._tensor(temps), self.generator)
-        toks = toks.cpu().numpy()
+            self._tensor(temps), self.generator, top_ks=top_ks, top_ps=top_ps,
+            min_ps=min_ps, return_logprobs=self.logprobs)
+        toks, lps = self._readback(out)
         self.steps += 1
         for i, (si, n_new, completes) in enumerate(order):
             slot = self.slots[si]
+            lp = None if lps is None else float(lps[i])
             if si in decoding:
                 slot.length += 1
                 self.decode_tokens += 1
-                self._emit(si, int(toks[i]))
+                self._emit(si, int(toks[i]), lp)
                 continue
             slot.prefill_done += n_new
             slot.length = slot.prefill_done
             if completes:  # the prompt is in: its first generated token
                 if self.prefix_cache:
                     self._prefix_register(si)  # before _emit may free the slot
-                self._emit(si, int(toks[i]))
+                self._emit(si, int(toks[i]), lp)
 
-    def run(self, requests: List[Request]) -> Dict[int, List[int]]:
-        """Serve ``requests`` to completion; returns uid → tokens."""
+    def _step_ragged_multi(self, decoding: List[int]) -> None:
+        """``multi_step`` decode-only ragged steps in one tick
+        (``decode.ragged_multi_step``), one readback."""
+        tokens, positions, kv_lens, temps, warps, bt_rows = self._ragged_rows(
+            self.max_batch, decoding)
+        top_ks, top_ps, min_ps = self._tensors(warps)
+        out, self.cache = D.ragged_multi_step(
+            self.model, self._tensor(tokens), self.cache, self._tensor(positions),
+            self._tensor(bt_rows), self._tensor(kv_lens),
+            self._tensor(np.array([len(decoding)], np.int32)), self._tensor(temps),
+            self.generator, self.multi_step, top_ks=top_ks, top_ps=top_ps, min_ps=min_ps,
+            return_logprobs=self.logprobs)
+        self.steps += 1
+        self._emit_steps(*self._readback(out), list(enumerate(decoding)))
+
+    def _ragged_rows(self, t: int, decoding: List[int]):
+        """Host buffers of a ragged tick with ``t`` token rows: ``(tokens,
+        positions)`` of length ``t``, ``(kv_lens, temps, warps, bt_rows)``
+        per sequence, filled in for the decode rows (row ``i`` is slot
+        ``decoding[i]``'s next token) and blank after them."""
+        s = self.max_batch
+        tokens = np.zeros((t,), np.int64)
+        positions = np.zeros((t,), np.int64)
+        kv_lens = np.ones((s,), np.int32)
+        temps = np.zeros((s,), np.float32)
+        warps = self._warp_arrays(s)
+        bt_rows = np.zeros((s, self.max_pages_per_seq), np.int32)
+        for i, si in enumerate(decoding):
+            slot = self.slots[si]
+            tokens[i] = self.last_tokens[si]
+            positions[i] = slot.length
+            kv_lens[i] = slot.length + 1
+            self._set_sampling(i, slot.request, temps, warps)
+            bt_rows[i] = self.block_tables[si]
+        return tokens, positions, kv_lens, temps, warps, bt_rows
+
+    # ------------------------------------------------------- crash recovery
+    def snapshot(self) -> dict:
+        """Host-side state for crash recovery: every unfinished request's
+        prompt, emitted tokens and sampling parameters, in flight and
+        queued alike (the JAX package's format, so either engine restores
+        the other's).  The KV cache is not captured: :func:`restore_requests`
+        continues each request from ``prompt + emitted``, whose re-prefill
+        rebuilds it."""
+        entries = []
+        for r in [s.request for s in self.slots if s is not None] + list(self.queue):
+            if r.done:
+                continue
+            entries.append(dict(
+                uid=r.uid, prompt=list(r.prompt), emitted=list(r.output),
+                max_new_tokens=r.max_new_tokens, temperature=r.temperature,
+                top_k=r.top_k, top_p=r.top_p, min_p=r.min_p,
+                stop_token_ids=r.stop_token_ids,
+                logprobs=list(r.logprobs)))
+        return {"version": 1, "requests": entries}
+
+    def run(self, requests: List[Request], snapshot_path: Optional[str] = None,
+            snapshot_every: int = 16) -> Dict[int, List[int]]:
+        """Serve ``requests`` to completion; returns uid → tokens.
+
+        ``snapshot_path``: write :meth:`snapshot` there every
+        ``snapshot_every`` ticks (atomically: a ``.tmp`` file, then
+        ``os.replace``) and remove it on clean completion, so a supervisor
+        can restart a crashed server without losing accepted work.  When
+        ``GPTQ_SERVE_HEARTBEAT`` names a file, every finished tick touches
+        it (liveness)."""
         for r in requests:
             self.add_request(r)
+        heartbeat = os.environ.get("GPTQ_SERVE_HEARTBEAT")
         t0 = time.time()
+        ticks = 0
         while self.queue or any(s is not None for s in self.slots):
             self.step()
+            ticks += 1
+            if heartbeat:
+                try:
+                    os.utime(heartbeat, None)
+                except OSError:
+                    open(heartbeat, "w").close()
+            if snapshot_path and ticks % snapshot_every == 0:
+                tmp = snapshot_path + ".tmp"
+                with open(tmp, "w") as f:
+                    json.dump(self.snapshot(), f)
+                os.replace(tmp, snapshot_path)
+        if snapshot_path and os.path.exists(snapshot_path):
+            os.remove(snapshot_path)  # clean completion
         dt = time.time() - t0
         if self.decode_tokens:
             logger.info("decoded %d tokens in %.2fs (%.1f tok/s aggregate)",
                         self.decode_tokens, dt, self.decode_tokens / dt)
         return {r.uid: r.output for r in requests}
+
+
+def restore_requests(snapshot: dict):
+    """Continuation requests from an :meth:`Engine.snapshot` (of either
+    package).  Returns ``(requests, prefixes)``: serve ``requests`` on a
+    fresh engine and report ``prefixes[uid] + output[uid]``; each prompt
+    is ``prompt + emitted``, so a greedy request ends as the uninterrupted
+    run would (up to near-ties: the re-prefill attends fresh K/V where the
+    interrupted decode read the cache)."""
+    reqs, prefixes = [], {}
+    for e in snapshot["requests"]:
+        emitted = e["emitted"]
+        prefixes[e["uid"]] = list(emitted)
+        remaining = e["max_new_tokens"] - len(emitted)
+        if remaining <= 0:
+            continue
+        reqs.append(Request(
+            uid=e["uid"], prompt=list(e["prompt"]) + list(emitted),
+            max_new_tokens=remaining, temperature=e["temperature"],
+            top_k=e["top_k"], top_p=e["top_p"], min_p=e["min_p"],
+            stop_token_ids=e["stop_token_ids"]))
+    return reqs, prefixes

@@ -2,7 +2,8 @@
 ``gptq_v2_tpu/serving/model.py``).
 
 Linear weights live as :class:`~gptq_v2_tpu_torch.ops.packing.PackedLinear`
-and every block projection runs through K3 (``ops/w4a16.py``); norms,
+and every block projection runs through K3 (``ops/w4a16.py``), or K8 in
+the W4A8 tier (:func:`to_w4a8`); norms,
 rope, attention, embeddings and the lm_head stay dense in the compute
 dtype.
 """
@@ -80,7 +81,7 @@ def _fusable(lp, names) -> Optional[List[PackedLinear]]:
         return None
     w0 = ws[0]
     if any(w.group_size != w0.group_size or w.bits != w0.bits
-           or w.in_features != w0.in_features
+           or w.act_bits != w0.act_bits or w.in_features != w0.in_features
            or w.qweight.shape[0] != w0.qweight.shape[0] for w in ws):
         return None
     if any((w.perm is None) != (w0.perm is None) for w in ws):
@@ -107,7 +108,8 @@ def fuse_layer_dict(lp: Dict[str, Any]) -> Dict[str, Any]:
             scales=torch.cat([w.scales for w in ws], dim=1),
             zeros=torch.cat([w.zeros for w in ws], dim=1),
             perm=ws[0].perm, group_size=ws[0].group_size,
-            in_features=ws[0].in_features, bits=ws[0].bits)
+            in_features=ws[0].in_features, bits=ws[0].bits,
+            act_bits=ws[0].act_bits)
     return lp
 
 
@@ -157,6 +159,18 @@ def fuse_stage_linears(model: PackedLlama) -> PackedLlama:
     every layer (the engine's default transform)."""
     layers = tuple(fold_down_perm_layer(fuse_layer_dict(lp)) for lp in model.layers)
     return dataclasses.replace(model, layers=layers)
+
+
+def to_w4a8(model: PackedLlama) -> PackedLlama:
+    """The W4A8 serving tier: every packed linear of the blocks takes
+    per-row dynamic int8 activations into K8's int8 dots (``act_bits=8``;
+    ``ops/w4a16.py::w4a8_matmul``).  The dense lm_head stays as it is
+    (logit quality), as in the JAX package."""
+    def conv(lp):
+        return {k: (dataclasses.replace(v, act_bits=8) if isinstance(v, PackedLinear) else v)
+                for k, v in lp.items()}
+
+    return dataclasses.replace(model, layers=tuple(conv(lp) for lp in model.layers))
 
 
 def _linear(w, x: torch.Tensor) -> torch.Tensor:

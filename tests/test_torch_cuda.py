@@ -7,6 +7,8 @@ the repo's conftest (which imports JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -107,6 +109,39 @@ def test_w4a16_kernel(dev, bits, m, dtype):
     # fp32 accumulation in both; bf16 output rounding dominates in bf16
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(out, ref, rtol=0, atol=tol * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("m", [1, 8, 40, 520])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w4a8_kernel(dev, bits, m, dtype):
+    """K8 against its plain version on the same quantized rows: act-order,
+    C = 208 padded to the packing block, codes over the whole range (bits 8
+    reaches the codes above 127 that wrap as int8 unless centred), and for
+    M > 2 two all-zero (pad) rows, which must come out exactly 0.  The group dots are
+    exact integers in both; the fp32 group sum may associate otherwise:
+    1e-5 of max|y| with fp32 scales, 8e-3 (a bf16 output ulp) with bf16."""
+    p = dataclasses.replace(_packed(bits, 208, 100, bits, dev, dtype), act_bits=8)
+    if bits == 8:
+        assert int(packing.unpack_codes(p.qweight, 16, 8).max()) > 200
+    x = _rand((m, 208), m, dtype, dev)
+    pad = [m // 2, m - 1] if m > 2 else []
+    x[pad] = 0.0
+    xq, xs = w4a16.quantize_activations_int8(w4a16.stored_rows(x, p))
+    p_cpu = dataclasses.replace(_packed(bits, 208, 100, bits, "cpu", dtype), act_bits=8)
+    xq_cpu, xs_cpu = w4a16.quantize_activations_int8(w4a16.stored_rows(x.cpu(), p_cpu))
+    torch.testing.assert_close(xq.cpu(), xq_cpu, rtol=0, atol=0)
+    torch.testing.assert_close(xs.cpu(), xs_cpu, rtol=0, atol=0)
+    ref = w4a16.w4a8_reference(xq, xs, p).float()
+    n3, n8 = w4a16.w4a16_matmul.launches, w4a16.w4a8_kernel.launches
+    out = w4a16.w4a16_matmul(x, p)
+    torch.cuda.synchronize()
+    assert (w4a16.w4a16_matmul.launches, w4a16.w4a8_kernel.launches) == (n3, n8 + 1)
+    assert out.dtype == dtype and out.shape == (m, 100)
+    out = out.float()
+    tol = 1e-5 if dtype == torch.float32 else 8e-3
+    torch.testing.assert_close(out, ref, rtol=0, atol=tol * float(ref.abs().max()))
+    assert not out[pad].any()
 
 
 @pytest.mark.parametrize("g", [32, 64, 128])

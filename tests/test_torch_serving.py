@@ -135,8 +135,10 @@ def test_serve_cli_runs_and_refuses_unported_flags(served):
                                            "--token-budget", "8", "--prefix-cache", "true"])
     assert (args.cache_kind, args.scheduler, args.token_budget, args.prefix_cache) == (
         "paged", "ragged", 8, True)
-    for extra in (["--tp", "2"], ["--act-dtype", "int8"], ["--multi-step", "2"],
-                  ["--kv-dtype", "fp8"]):
+    args = tserve.parse_serve_args(argv + ["--act-dtype", "int8", "--multi-step", "2"])
+    assert (args.act_dtype, args.multi_step) == ("int8", 2)
+    for extra in (["--tp", "2"], ["--kv-dtype", "fp8"], ["--draft-dir", "x"],
+                  ["--mla-absorbed", "true"]):
         with pytest.raises(SystemExit):
             tserve.parse_serve_args(argv + extra)
 
