@@ -58,7 +58,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    median of 5 CUDA-graph replays of >= 100 back-to-back launches over
    rotating input copies that together exceed twice the L2
    (``Timer.steady``); every other time is one event pair per launch
-   after an L2 flush (``Timer.__call__``).
+   after an L2 flush (``Timer.__call__``).  K3 is timed both ways, and so
+   is its library call.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -70,6 +71,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -206,9 +208,20 @@ def phase_build():
     t0 = time.time()
     report = _cuda.build_all()
     for name, r in report.items():
+        # -Xptxas=-v: per source the entry count, the most registers any
+        # entry uses, and every entry that spills (by its mangled name)
+        fn, regs, spills = "", [], []
         for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif "spill stores" in line:
+                n_spill = sum(int(w) for w in re.findall(r"(\d+) bytes spill", line))
+                if n_spill:
+                    spills.append(f"{fn}: {line.strip()}")
+            elif "Used" in line and "registers" in line:
+                regs.append(int(line.split("Used")[1].split("registers")[0]))
+        log(f"ptxas {name}: {len(regs)} entries, at most {max(regs, default=0)} registers, "
+            f"{len(spills)} spilling" + "".join(f"\n  spill {sp}" for sp in spills))
     log(f"phase build: ok, {time.time() - t0:.1f} s wall "
         + ", ".join(f"{n} {r['seconds']:.1f} s" for n, r in report.items()))
 
@@ -398,6 +411,13 @@ def phase_gptq(torch, timer, launches) -> list:
 
 
 def phase_w4a16(torch, timer, launches, layer0) -> list:
+    """K3 at the four fused shapes of the main path's first block, M in
+    M_ROWS (M <= 16 the split-K decode kernel, above the prefill kernel).
+    ``ms`` is one event pair per launch after an L2 flush, as in earlier
+    runs; the steady times (``Timer.steady`` over rotating copies of the
+    packed weights, and of the dense bf16 weight for ``x @ W``) are logged
+    beside it.  At M = 8 two launches must be bit-equal, and equal to the
+    same rows computed among 32 (the prefill path)."""
     from gptq_v2_tpu_torch.ops import w4a16 as K
     from gptq_v2_tpu_torch.ops.packing import dequantize_dense
 
@@ -406,6 +426,15 @@ def phase_w4a16(torch, timer, launches, layer0) -> list:
         p = layer0[name]
         c, r = p.in_features, p.out_features
         w_dense = dequantize_dense(p, torch.bfloat16)
+        p_bytes = sum(t.numel() * t.element_size() for t in (p.qweight, p.scales, p.zeros))
+
+        def packed_copy(i, p=p):
+            return p if i == 0 else dataclasses.replace(
+                p, qweight=p.qweight.clone(), scales=p.scales.clone(), zeros=p.zeros.clone())
+
+        def dense_copy(i, w=w_dense):
+            return w if i == 0 else w.clone()
+
         for m in M_ROWS:
             x = torch.randn((m, c), device="cuda", dtype=torch.bfloat16)
             got = K.w4a16_matmul(x, p).float()
@@ -414,9 +443,20 @@ def phase_w4a16(torch, timer, launches, layer0) -> list:
             # bf16: relative error <= 1e-2 of the output's largest entry
             if err > 1e-2 * float(ref.abs().max()):
                 raise RuntimeError(f"K3 {name} M={m}: max abs err {err}")
+            if m == 8:
+                once = K.w4a16_matmul(x, p)
+                if not torch.equal(once, K.w4a16_matmul(x, p)):
+                    raise RuntimeError(f"K3 {name} M=8: two launches differ")
+                # the decode path gives a row the prefill path's bits
+                if not torch.equal(once, K.w4a16_matmul(x.repeat(4, 1), p)[:m]):
+                    raise RuntimeError(f"K3 {name} M=8: decode rows differ from prefill rows")
             ms = timer(lambda: K.w4a16_matmul(x, p), 10)
             plain_ms = timer(lambda: K.w4a16_reference(x, p), 3)
             lib_ms = timer(lambda: x @ w_dense, 10)
+            steady_ms = timer.steady(
+                lambda i, x=x: (lambda q=packed_copy(i): K.w4a16_matmul(x, q)), p_bytes)
+            lib_steady_ms = timer.steady(
+                lambda i, x=x: (lambda w=dense_copy(i): x @ w), 2 * c * r)
             g_pad = p.scales.shape[0]
             n_bytes = (p.in_features_padded * r * p.bits // 8 + 2 * 2 * g_pad * r
                        + 2 * m * c + 2 * m * r + (8 * c if p.perm is not None else 0))
@@ -426,8 +466,11 @@ def phase_w4a16(torch, timer, launches, layer0) -> list:
                             replaces=REPLACES["w4a16"], launches=launches["w4a16"],
                             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                             bound_by=b_by, library_ms=lib_ms))
-            log(f"phase K3 {name} M={m}: ok, rel err {err / float(ref.abs().max()):.2e}, "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, x@W {lib_ms:.4f} ms, "
+            log(f"phase K3 {name} M={m}: ok, rel err {err / float(ref.abs().max()):.2e}"
+                + (", two launches bit-equal and equal to the prefill path's rows"
+                   if m == 8 else "")
+                + f", kernel {ms:.4f} ms (steady {steady_ms:.4f} ms), plain {plain_ms:.3f} ms, "
+                f"x@W {lib_ms:.4f} ms (steady {lib_steady_ms:.4f} ms), "
                 f"bound {b_ms:.4f} ms ({b_by})")
         del w_dense
     return out

@@ -2,10 +2,14 @@
 
 K3 replaces ``gptq_v2_tpu/ops/w4a16.py::_kernel`` (entry ``w4a16_matmul``)
 with the hand-written CUDA kernel ``csrc/w4a16.cu``: weights stream from
-device memory as packed int32 words (C·R·bits/8 bytes), are unpacked plane
-by plane in shared memory, and each group contributes
-``(x_i · q_i)·s − (Σx_i)·(z·s)`` to an fp32 accumulator.  What bounds it on
-the H100 and what the simple design does about it is noted in that source.
+device memory as packed int32 words (C·R·bits/8 bytes) and are summed in
+fp32 against ``x`` with ``zs = z·s`` rounded to the scales' dtype, as in
+JAX.  It has two paths, chosen by ``M`` alone: at ``M ≤ 16`` (decode) a
+kernel split over quantization groups that loads the words straight into
+registers and sums the groups' terms in group order across a thread-block
+cluster; above it a row-tiled kernel.  Both give a row the same bits.
+What bounds each on the H100 and what its design does about it is noted
+in that source.
 
 K8 replaces ``_kernel_a8`` (the W4A8 tier, ``PackedLinear.act_bits == 8``)
 with ``csrc/w4a8.cu`` (launched by :func:`w4a8_kernel`): the activations
@@ -14,8 +18,8 @@ are quantized per row to dynamic symmetric int8
 outside its kernel) and each group's dot is an exact int8 × int8 → int32
 sum, scaled in fp32 by the group's scale and the row's ``x_scale``.
 
-The plain versions are :func:`w4a16_reference` (``dequantize_dense`` then
-a matmul) and :func:`w4a8_reference`.  On a CPU tensor the wrappers run
+The plain versions are :func:`w4a16_reference` (``q·s − zs`` then a
+matmul) and :func:`w4a8_reference`.  On a CPU tensor the wrappers run
 them; on a CUDA tensor they launch the kernel or raise.
 """
 from __future__ import annotations
@@ -26,20 +30,34 @@ import torch
 import torch.nn.functional as F
 
 from gptq_v2_tpu_torch.ops import _cuda
-from gptq_v2_tpu_torch.ops.packing import PackedLinear, dequantize_dense, unpack_codes
+from gptq_v2_tpu_torch.ops.packing import PackedLinear, unpack_codes
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {"w4a16_matmul": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-               + [ctypes.c_void_p]}
+               + [ctypes.c_void_p],
+               "w4a16_decode": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+               + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]}
+# rows up to which K3 takes its split-K decode path, and the row counts it
+# is built for (the fewest that cover M is taken)
+DECODE_ROWS = 16
+_DECODE_TILES = (1, 4, 8, 16)
 _SIGNATURES_A8 = {"w4a8_matmul": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                   + [ctypes.c_void_p]}
 
 
 def w4a16_reference(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
-    """Plain version: ``x @ dequantize_dense(p)`` in fp32, cast back to the
-    activation dtype."""
-    w = dequantize_dense(p, torch.float32)
-    return (x.float() @ w).to(x.dtype)
+    """Plain version in the JAX kernel's algebra: ``W = q·s − zs`` in fp32
+    with ``zs = z·s`` rounded to the scales' dtype first (as
+    ``gptq_v2_tpu/ops/w4a16.py`` rounds it), then ``x @ W`` over stored
+    rows in fp32, cast back to the activation dtype."""
+    g = p.group_size
+    codes = unpack_codes(p.qweight, g, p.bits).float()  # (R, C_pad) stored order
+    s = p.scales.float()
+    zs = (p.zeros.float() * s).to(p.scales.dtype).float()
+    w = (codes * torch.repeat_interleave(s.T, g, dim=1)
+         - torch.repeat_interleave(zs.T, g, dim=1))
+    y = stored_rows(x, p).float() @ w.T
+    return y.to(x.dtype).reshape(*x.shape[:-1], p.out_features)
 
 
 def _check_packed(p: PackedLinear) -> None:
@@ -80,8 +98,10 @@ def w4a16_matmul(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
     to it first, as in the JAX package).  A W4A8 linear (``act_bits == 8``)
     goes to :func:`w4a8_matmul`.
 
-    Applies the act-order gather to ``x`` and zero-pads the contraction to
-    the packing block, then launches the kernel."""
+    The path depends on the row count alone: at ``M ≤ 16`` the decode
+    kernel, which gathers the act-order columns and zero-pads the
+    contraction itself; above, the prefill kernel on rows gathered and
+    padded here (:func:`stored_rows`).  Both give a row the same bits."""
     if p.act_bits == 8:
         return w4a8_matmul(x, p)
     _check_input(x, p)
@@ -89,17 +109,34 @@ def w4a16_matmul(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
     if x.device.type == "cpu":
         return w4a16_reference(x, p)
     _check_packed(p)
-    lead = x.shape[:-1]
-    xb = stored_rows(x, p)
-    m, r = xb.shape[0], p.out_features
+    lead, c, r = x.shape[:-1], p.in_features, p.out_features
+    xb = x.reshape(-1, c)
+    m = xb.shape[0]
     out = torch.empty((m, r), dtype=x.dtype, device=x.device)
     if m == 0:
         return out.reshape(*lead, r)
     lib = _cuda.library("w4a16", _SIGNATURES)
     with torch.cuda.device(x.device):
-        err = lib.w4a16_matmul(_cuda.ptr(xb), _cuda.ptr(p.qweight), _cuda.ptr(p.scales),
-                 _cuda.ptr(p.zeros), _cuda.ptr(out), m, xb.shape[1], r, p.group_size,
-                 p.bits, _DTYPES[x.dtype], _cuda.stream_ptr(x.device))
+        if m <= DECODE_ROWS:
+            xb = xb.contiguous()
+            perm = p.perm
+            if perm is not None and (perm.dtype != torch.int64 or not perm.is_contiguous()):
+                raise ValueError("perm must be a contiguous int64 tensor")
+            mr = next(t for t in _DECODE_TILES if t >= m)
+            xt = torch.empty((p.in_features_padded * mr,), dtype=torch.float32,
+                             device=x.device)
+            err = lib.w4a16_decode(
+                _cuda.ptr(xb), _cuda.ptr(perm) if perm is not None else None,
+                0 if perm is None else perm.shape[0], c, _cuda.ptr(xt), _cuda.ptr(p.qweight),
+                _cuda.ptr(p.scales), _cuda.ptr(p.zeros), _cuda.ptr(out), m,
+                p.in_features_padded, r, p.group_size, p.bits, _DTYPES[x.dtype],
+                _cuda.stream_ptr(x.device))
+        else:
+            xs = stored_rows(x, p)
+            err = lib.w4a16_matmul(
+                _cuda.ptr(xs), _cuda.ptr(p.qweight), _cuda.ptr(p.scales), _cuda.ptr(p.zeros),
+                _cuda.ptr(out), m, xs.shape[1], r, p.group_size, p.bits, _DTYPES[x.dtype],
+                _cuda.stream_ptr(x.device))
     _cuda.check(lib, err, "w4a16_matmul")
     w4a16_matmul.launches += 1
     return out.reshape(*lead, r)

@@ -82,33 +82,85 @@ def test_gptq_kernel(dev, g, sym, fb):
     assert float(out["error_sq_mean"]) == pytest.approx(float(ref["error_sq_mean"]), rel=1e-3)
 
 
-def _packed(bits, c, r, seed, dev, dtype):
+def _packed(bits, c, r, seed, dev, dtype, g=16, act_order=True):
     rng = np.random.default_rng(seed)
-    g = 16
     n_groups = c // g
     meta = {"qweight": rng.integers(0, 2 ** bits, (r, c)).astype(np.uint8),
             "scale": (rng.random((r, n_groups)) * 0.1 + 0.01).astype(np.float32),
             "qzero": rng.integers(0, 2 ** bits, (r, n_groups)).astype(np.uint8),
-            "perm": rng.permutation(c).astype(np.int16),
+            "perm": (rng.permutation(c) if act_order else np.arange(c)).astype(np.int16),
             "group_sizes": np.full(n_groups, g, np.int16),
             "group_bit_widths": np.full(n_groups, bits, np.uint8)}
     return packing.pack_quant_meta(meta, dtype, device=dev)
 
 
-@pytest.mark.parametrize("bits", [2, 4, 8])
-@pytest.mark.parametrize("m", [1, 5, 17, 520])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_w4a16_kernel(dev, bits, m, dtype):
-    p = _packed(bits, 208, 100, bits, dev, dtype)
-    x = _rand((m, 208), m, dtype, dev)
+def _check_w4a16(p, x):
     ref = w4a16.w4a16_reference(x, p).float()
     n = w4a16.w4a16_matmul.launches
     out = w4a16.w4a16_matmul(x, p).float()
     torch.cuda.synchronize()
     assert w4a16.w4a16_matmul.launches == n + 1
     # fp32 accumulation in both; bf16 output rounding dominates in bf16
-    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    tol = 1e-5 if x.dtype == torch.float32 else 1e-2
     torch.testing.assert_close(out, ref, rtol=0, atol=tol * float(ref.abs().max()))
+
+
+# m <= 16 takes the decode path (row tiles 1, 4, 8, 16), m > 16 the
+# prefill path
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("m", [1, 5, 8, 16, 17, 520])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w4a16_kernel(dev, bits, m, dtype):
+    _check_w4a16(_packed(bits, 208, 100, bits, dev, dtype), _rand((m, 208), m, dtype, dev))
+
+
+# C_pad over many packing blocks (clusters of several blocks; C = 28672 at
+# bits 2, 224 groups, gives each block two layers of groups and, at 16
+# rows, reads x from global memory); R off the 64-column tile, and R = 102
+# off the 16-byte word load (scalar loads); no act-order
+@pytest.mark.parametrize("bits,c,r,g,act_order", [
+    (2, 3000, 200, 16, True), (4, 3000, 200, 16, True), (8, 3000, 200, 16, True),
+    (4, 1000, 102, 16, True), (4, 1000, 200, 16, False), (2, 28672, 72, 128, True)])
+@pytest.mark.parametrize("m", [1, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w4a16_decode_shapes(dev, bits, c, r, g, act_order, m, dtype):
+    p = _packed(bits, c, r, bits + c, dev, dtype, g, act_order)
+    assert (p.perm is None) == (not act_order)
+    _check_w4a16(p, _rand((m, c), m, dtype, dev))
+
+
+@pytest.mark.parametrize("bits,c,r,g", [(2, 3000, 200, 16), (4, 3000, 200, 16),
+                                        (8, 3000, 200, 16), (4, 1000, 102, 16),
+                                        (2, 28672, 72, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w4a16_decode_rows_equal_prefill_rows(dev, bits, c, r, g, dtype):
+    """The decode path (M <= 16) sums in the prefill path's order: a row
+    comes out bit for bit alike decoded alone, among 5 or 16 rows, or among
+    40 (the prefill path)."""
+    p = _packed(bits, c, r, bits + c, dev, dtype, g)
+    x = _rand((40, c), 40, dtype, dev)
+    full = w4a16.w4a16_matmul(x, p)
+    for m in (1, 5, 16):
+        assert torch.equal(w4a16.w4a16_matmul(x[:m], p), full[:m])
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_w4a16_decode_deterministic_and_graphed(dev, bits):
+    """The decode path sums its splits in a fixed order: two launches are
+    bit-equal, and a launch captured in a CUDA graph replays to the eager
+    output."""
+    p = _packed(bits, 3000, 200, bits, dev, torch.bfloat16)
+    x = _rand((8, 3000), 8, torch.bfloat16, dev)
+    first = w4a16.w4a16_matmul(x, p)
+    second = w4a16.w4a16_matmul(x, p)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = w4a16.w4a16_matmul(x, p)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
 
 
 @pytest.mark.parametrize("bits", [2, 4, 8])

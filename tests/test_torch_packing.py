@@ -77,6 +77,30 @@ def test_w4a16_plain_matches_jax_kernel(bits, m):
     np.testing.assert_allclose(yt, yj, rtol=0, atol=1e-5 * np.abs(yj).max())
 
 
+def _bf16_ulp(y: np.ndarray) -> np.ndarray:
+    """One bf16 ulp at each entry's magnitude (16 fp32 ulps)."""
+    return np.spacing(np.abs(y).astype(np.float32)) * 2.0 ** 16
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("m", [1, 8])
+def test_w4a16_plain_rounds_zs_as_jax_kernel(bits, m):
+    # bf16 x, scales and zeros (zeros up to 2^bits - 1): the JAX kernel
+    # rounds z·s to bf16 before it; so must the port.  Both then sum in
+    # fp32 and round the output to bf16: at most one bf16 ulp apart.
+    meta = _meta(bits, 200, seed=30 + bits)
+    j = jp.pack_quant_meta(meta, jnp.bfloat16)
+    t = tp.pack_quant_meta({k: torch.from_numpy(v) for k, v in meta.items()},
+                           torch.bfloat16, device="cpu")
+    x = np.random.default_rng(40 + m).standard_normal((m, 200)).astype(np.float32)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    yj = np.asarray(jw.w4a16_matmul(jnp.asarray(x, jnp.bfloat16), j, interpret=True)
+                    .astype(jnp.float32))
+    yt = tw.w4a16_matmul(xt, t).float().numpy()
+    ulp = _bf16_ulp(np.maximum(np.abs(yj), np.abs(yt)))
+    assert np.all(np.abs(yt - yj) <= ulp), float(np.max(np.abs(yt - yj) / ulp))
+
+
 def test_w4a16_wrapper_plain_on_cpu():
     """On a CPU tensor the K3 wrapper is its plain version and launches
     nothing; leading dims pass through; a wrong width is refused."""
