@@ -94,6 +94,7 @@ MODEL = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
              rms_norm_eps=1e-5, rope_theta=10000.0, dtype="bfloat16")
 N_SEQ, SEQLEN, CALIB_BATCH = 16, 2048, 4
 M_ROWS = (1, 8, 32, 64, 1024)  # K3/K8 rows: decode batches, a ragged tick, prefill
+K3_ROWS = (1, 8, 32, 64, 512, 1024)  # and the phased engine's middle prefill bucket
 FUSED = ("self_attn.qkv_proj", "self_attn.o_proj", "mlp.gate_up_proj", "mlp.down_proj")
 PROMPT_LENS = (64, 96, 128, 160, 192, 224, 256, 80)
 NEW_TOKENS = 32
@@ -411,13 +412,16 @@ def phase_gptq(torch, timer, launches) -> list:
 
 
 def phase_w4a16(torch, timer, launches, layer0) -> list:
-    """K3 at the four fused shapes of the main path's first block, M in
-    M_ROWS (M <= 16 the split-K decode kernel, above the prefill kernel).
-    ``ms`` is one event pair per launch after an L2 flush, as in earlier
-    runs; the steady times (``Timer.steady`` over rotating copies of the
-    packed weights, and of the dense bf16 weight for ``x @ W``) are logged
-    beside it.  At M = 8 two launches must be bit-equal, and equal to the
-    same rows computed among 32 (the prefill path)."""
+    """K3 at the four fused shapes of the main path's first block (bf16,
+    INT4 g128: the tensor-core route), M in K3_ROWS (M <= 16 the split-K
+    decode kernel, above the prefill kernel; both form each group's term
+    through one mma.sync routine).  ``ms`` is one event pair per launch
+    after an L2 flush, as in earlier runs; the steady times
+    (``Timer.steady`` over rotating copies of the packed weights, and of the
+    dense bf16 weight for ``x @ W``) are logged beside it.  A row must have
+    the same bits at every M: at M = 8 two launches are bit-equal and equal
+    to the same rows computed among 32, and the first 8 rows of the M =
+    1024 activations alone equal those rows of the M = 1024 call."""
     from gptq_v2_tpu_torch.ops import w4a16 as K
     from gptq_v2_tpu_torch.ops.packing import dequantize_dense
 
@@ -435,9 +439,12 @@ def phase_w4a16(torch, timer, launches, layer0) -> list:
         def dense_copy(i, w=w_dense):
             return w if i == 0 else w.clone()
 
-        for m in M_ROWS:
+        if not K.tensor_core_route(p):
+            raise RuntimeError(f"K3 {name}: the main path's linear is off the tensor-core route")
+        for m in K3_ROWS:
             x = torch.randn((m, c), device="cuda", dtype=torch.bfloat16)
-            got = K.w4a16_matmul(x, p).float()
+            y = K.w4a16_matmul(x, p)
+            got = y.float()
             ref = K.w4a16_reference(x, p).float()
             err = float((got - ref).abs().max())
             # bf16: relative error <= 1e-2 of the output's largest entry
@@ -450,6 +457,8 @@ def phase_w4a16(torch, timer, launches, layer0) -> list:
                 # the decode path gives a row the prefill path's bits
                 if not torch.equal(once, K.w4a16_matmul(x.repeat(4, 1), p)[:m]):
                     raise RuntimeError(f"K3 {name} M=8: decode rows differ from prefill rows")
+            if m == 1024 and not torch.equal(K.w4a16_matmul(x[:8], p), y[:8]):
+                raise RuntimeError(f"K3 {name}: 8 rows alone differ from the same rows at M=1024")
             ms = timer(lambda: K.w4a16_matmul(x, p), 10)
             plain_ms = timer(lambda: K.w4a16_reference(x, p), 3)
             lib_ms = timer(lambda: x @ w_dense, 10)
@@ -468,7 +477,8 @@ def phase_w4a16(torch, timer, launches, layer0) -> list:
                             bound_by=b_by, library_ms=lib_ms))
             log(f"phase K3 {name} M={m}: ok, rel err {err / float(ref.abs().max()):.2e}"
                 + (", two launches bit-equal and equal to the prefill path's rows"
-                   if m == 8 else "")
+                   if m == 8 else ", its first 8 rows equal to the decode path's"
+                   if m == 1024 else "")
                 + f", kernel {ms:.4f} ms (steady {steady_ms:.4f} ms), plain {plain_ms:.3f} ms, "
                 f"x@W {lib_ms:.4f} ms (steady {lib_steady_ms:.4f} ms), "
                 f"bound {b_ms:.4f} ms ({b_by})")

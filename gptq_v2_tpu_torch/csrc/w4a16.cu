@@ -12,41 +12,57 @@
 //
 // Bound on the H100: bytes at decode (each packed word is read once:
 // C * R * bits / 8 bytes, ~8 MB for a 4096 x 4096 linear at 4 bits, 2.5 us
-// at 3.35 TB/s), operations at prefill (2 * M * C * R).
+// at 3.35 TB/s), operations at prefill (2 * M * C * R: 34 GFLOP for the same
+// linear at M = 1024, 35 us at 989 TFLOP/s in bf16).
 //
-// Decode path (M <= 16, C entry w4a16_decode): the grid must fill 132 SMs
-// although M is tiny, so the contraction is split, over quantization
-// groups.  A first small kernel (w4a16_gather_rows) writes x's rows in
-// stored (act-order) column order, transposed, in fp32 (xt).  A cluster of
-// up to 8 blocks then owns a column tile of 64 outputs; each block holds 16
-// groups at a time and stages their slice of xt in shared memory.  A
-// thread (4 columns, one group) walks the group's g word rows: one 16-byte
-// int4 load per row straight to registers, neighbouring threads on
-// neighbouring columns, several rows in flight; the two half-warps take
-// two planes of one packing block and so read the same words.  The k loop
-// has no barrier.  A code becomes a float without I2F: or-ed into the
-// mantissa of 2^23, minus 2^23 (one LOP3, one FADD; exact).  Each thread
-// forms its group's term exactly as the prefill kernel does (sums over
-// k = 0 .. g-1 from 0, then part * s - xs * zs) and parks it in shared
-// memory; after a cluster barrier each rank sums its share of the tile's
-// outputs over all groups in group order, reading its peers' terms
-// through distributed shared memory.  That is the prefill kernel's
-// sequential acc += term, so the two paths give a row the same bits, and
-// repeated launches are bit-equal: no float atomics, no workspace beyond
-// xt, graph-capturable.  Measured on the H100 it is still slower than the
-// library's dense bf16 product at M = 1-8 (PERF.md, kernel table): the arithmetic
-// per code is ~4 + M instructions on fp32 CUDA cores, and each group's sum
-// is one sequential chain, which caps the threads at R / 4 x groups (32K
-// for a 4096 x 4096 linear).
-// A faster split-K design with its own summation order was measured and
-// dropped: its last-bit differences from the prefill path moved a
-// near-tie past the serving gates of chip_smoke.py (PERF.md, section 6).
+// Two routes, chosen by the weights' dtype, bits and g, never by M:
 //
-// Prefill path (M > 16, w4a16_kernel) is still the simple one: a block
-// owns 64 rows x 64 columns and walks the whole contraction, staging the
-// (g, 64) word tile once per packing block and the (64, g) activation
-// slice per plane, and per group adds (x_i . q_i) * s - (sum x_i) * zs on
-// fp32 CUDA cores, not yet tensor cores.
+// Tensor-core route: bf16, bits 2 / 4 / 8, g % 16 == 0 and g <= 128
+// (entry w4a16_tc).  As the JAX kernel, a group's dot takes the codes in
+// the activation type (bf16, exact for every code 0..255) with fp32
+// accumulation.  One small kernel (w4a16_stage_rows) writes x's rows in
+// stored (act-order) column order, zero-padded, in bf16, and each (row,
+// group)'s sum xs in fp32, summed k = 0 .. g-1 in order.  Then one device
+// routine, group_dots, forms every group's dot in both kernels: a chain of
+// mma.sync.m16n8k16 (bf16 x bf16 -> fp32) over the group's k16 chunks in
+// k order from zero, B fragments made from four words per chunk and column
+// (which hold that chunk for all the block's groups; the weights are used
+// as packed, never repacked).  A group's term is group_term(dot, s, xs, zs)
+// = dot * s - xs * zs, and the terms are summed in group order from zero.
+// An mma's output element depends only on its row of A and its column of
+// B, so a row gets the same bits at every M, tile and lane by
+// construction: the decode kernel's rows equal the prefill kernel's.  Keep
+// it so: both kernels must go through group_dots.  A later move to wgmma,
+// whose accumulation order need not match mma.sync's, must move both.
+//
+// * Decode (M <= 16, w4a16_decode_tc): the grid must fill 132 SMs although
+//   M is tiny, so the contraction is split over groups as in the CUDA-core
+//   decode kernel below: a cluster of up to 8 blocks owns a 64-column tile,
+//   a block holds 16 groups at a time, and a warp two groups of one packing
+//   block (one m16 tile, rows past M zero) for 32 columns at a time.  Words
+//   go straight from device memory to registers in 16-byte loads, the next
+//   chunk's in flight while one is summed, no barrier in the k loop.  Terms
+//   are parked in shared memory and summed in group order across the
+//   cluster through distributed shared memory; no float atomics.
+// * Prefill (M > 16, w4a16_prefill_tc): a block owns 128 rows x 128
+//   columns, eight warps of 64 x 32.  Per packing block its (g, 128) words
+//   are staged once in shared memory with cp.async, and per group the
+//   (128, g) slice of x, both double-buffered one group ahead; A fragments
+//   by ldmatrix, B fragments made once per chunk and used by four m tiles.
+//   Terms are summed in group order in registers.
+//
+// CUDA-core route: fp32, and bf16 with g % 16 != 0 or g > 128 (entries
+// w4a16_decode at M <= 16 and w4a16_matmul above; these kernels are
+// unchanged).  Decode: a gather kernel writes xt (x in stored order,
+// transposed, fp32), and a cluster of up to 8 blocks per 64-column tile
+// splits the groups; a thread walks one group's g words for four columns
+// (16-byte loads to registers, codes to floats without I2F: or-ed into the
+// mantissa of 2^23, minus 2^23) and forms the prefill kernel's term in its
+// order; terms are summed in group order through distributed shared
+// memory.  Prefill: a block owns 64 rows x 64 columns and per group adds
+// (x_i . q_i) * s - (sum x_i) * zs on fp32 CUDA cores.
+//
+// Measured times against the bound and the library: PERF.md, kernel table.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -346,6 +362,450 @@ w4a16_kernel(const T* __restrict__ x, const int32_t* __restrict__ qw,
   }
 }
 
+// ------------------------------------------------------ tensor-core route
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TC_MAX_G = 128;     // the largest g whose prefill tiles fit
+constexpr int STAGE_COLS = 1024;  // stored columns per block of w4a16_stage_rows
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(full ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(s));
+}
+
+// d += A . B for one m16n8k16 tile, bf16 inputs, fp32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One plane's codes in the words of two k positions, as the bf16 pair
+// {code(lo), code(hi)} (the lower k in the low half, as mma's fragments
+// take it).  Exact: every code 0..255 is a bf16 integer.  At 2 and 4 bits a
+// byte permute puts the plane's half of both words side by side, and the
+// codes are or-ed into the mantissa of 128.0 (0x4300), minus 128 in bf16x2;
+// 8-bit codes do not fit that mantissa and go through fp32.  No I2F.
+template <int BITS>
+__device__ __forceinline__ uint32_t codes_bf16x2(uint32_t lo, uint32_t hi, int plane) {
+  __nv_bfloat162 v;
+  if constexpr (BITS == 8) {
+    v = __floats2bfloat162_rn(code_to_f32((lo >> (8 * plane)) & 0xFFu),
+                              code_to_f32((hi >> (8 * plane)) & 0xFFu));
+  } else {
+    constexpr int HALF = 16 / BITS;  // planes in each 16-bit half of a word
+    const uint32_t both =
+        __byte_perm(lo, hi, plane < HALF ? 0x5410u : 0x7632u) >> (BITS * (plane % HALF));
+    const uint32_t biased = (both & (((1u << BITS) - 1u) * 0x00010001u)) | 0x43004300u;
+    v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&biased), __float2bfloat162_rn(128.0f));
+  }
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The group-term routine both bf16 kernels go through.  For NP groups
+// (planes plane0 .. plane0 + NP - 1 of one packing block) and a warp's TM
+// m16 tiles x NT n8 tiles, d is each group's dot x_i . q_i: for each k16
+// chunk of the group in k order, load(kc, a, w) hands over the chunk's A
+// fragments (bf16 x, one set per group) and, per n tile, the four words of
+// the thread's column at k = 2t, 2t + 1, 2t + 8, 2t + 9 (t = lane % 4),
+// and one mma adds the chunk to each tile; d starts from zero.  Nothing
+// else enters an element's sum, so it does not depend on M, on the tile or
+// on the lane.  group_term then forms dot * s - xs * zs.
+template <int BITS, int NP, int TM, int NT, typename Load>
+__device__ __forceinline__ void group_dots(float (&d)[NP][TM][NT][4], int g, int plane0,
+                                           Load&& load) {
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int mt = 0; mt < TM; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[p][mt][nt][e] = 0.0f;
+  for (int kc = 0; kc < g / 16; ++kc) {
+    uint32_t a[NP][TM][4], w[NT][4];
+    load(kc, a, w);
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const uint32_t b0 = codes_bf16x2<BITS>(w[nt][0], w[nt][1], plane0 + p);
+        const uint32_t b1 = codes_bf16x2<BITS>(w[nt][2], w[nt][3], plane0 + p);
+#pragma unroll
+        for (int mt = 0; mt < TM; ++mt) mma_bf16(d[p][mt][nt], a[p][mt], b0, b1);
+      }
+  }
+}
+
+__device__ __forceinline__ float group_term(float dot, float s, float xs, float zs) {
+  return __fmaf_rn(dot, s, -__fmul_rn(xs, zs));
+}
+
+// 8 bf16 from p (entries at or past `valid` read 0), packed as loaded
+__device__ __forceinline__ uint4 load8_bf16(const bf16* p, int valid, bool vec) {
+  if (vec && valid >= 8) return __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
+  uint32_t v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t lo = 2 * i < valid ? __ldg(h + 2 * i) : 0u;
+    const uint32_t hi = 2 * i + 1 < valid ? __ldg(h + 2 * i + 1) : 0u;
+    v[i] = lo | (hi << 16);
+  }
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// entry i of 8 packed bf16, as a float (exact)
+__device__ __forceinline__ float bf16_at(const uint4& v, int i) {
+  const uint32_t w = i < 2 ? v.x : i < 4 ? v.y : i < 6 ? v.z : v.w;
+  return __uint_as_float(i % 2 ? (w & 0xFFFF0000u) : (w << 16));
+}
+
+// the scale of entry i and zs = z * s rounded to bf16, as JAX rounds it
+__device__ __forceinline__ void scale_zs(const uint4& s8, const uint4& z8, int i, float& s,
+                                         float& zs) {
+  s = bf16_at(s8, i);
+  zs = __bfloat162float(__float2bfloat16_rn(bf16_at(z8, i) * s));
+}
+
+// xg (m, c_pad) bf16 = x's rows in stored column order (x[i][perm[col]],
+// x[i][col] without act-order), zero past C; xsum (m, c_pad / g) fp32 =
+// each group's sum of those values, k = 0 .. g-1 in order.  Both bf16
+// kernels read these, so a row's xs is the same at every M.  Block (row,
+// run of STAGE_COLS / g groups).
+__global__ void __launch_bounds__(256)
+w4a16_stage_rows(const bf16* __restrict__ x, const int64_t* __restrict__ perm, int perm_len,
+                 int c, bf16* __restrict__ xg, float* __restrict__ xsum, int c_pad, int g) {
+  __shared__ float v[STAGE_COLS];
+  const int row = blockIdx.x, gpb = STAGE_COLS / g, grp0 = blockIdx.y * gpb;
+  const int n_groups = c_pad / g, n_here = min(gpb, n_groups - grp0);
+  const bf16* xr = x + static_cast<size_t>(row) * c;
+  bf16* dst = xg + static_cast<size_t>(row) * c_pad + grp0 * g;
+  for (int i = threadIdx.x; i < n_here * g; i += 256) {
+    const int col = grp0 * g + i;
+    const int src = perm != nullptr ? (col < perm_len ? static_cast<int>(perm[col]) : -1)
+                                    : (col < c ? col : -1);
+    const bf16 val = src >= 0 ? xr[src] : __float2bfloat16_rn(0.0f);
+    dst[i] = val;
+    v[i] = __bfloat162float(val);
+  }
+  __syncthreads();
+  if (threadIdx.x < n_here) {
+    float sum = 0.0f;
+    for (int k = 0; k < g; ++k) sum = __fadd_rn(sum, v[threadIdx.x * g + k]);
+    xsum[static_cast<size_t>(row) * n_groups + grp0 + threadIdx.x] = sum;
+  }
+}
+
+// Decode on the tensor cores: the CUDA-core decode kernel's split (a
+// cluster of up to 8 blocks per 64-column tile, block rank q holding groups
+// [q * 16 L, (q + 1) * 16 L), 16 at a time) with each group's term from
+// group_dots.  Warp w takes slots 2w and 2w + 1, two groups of one packing
+// block (16 groups per layer, an even number of planes), for columns 0-31
+// and then 32-63 of the tile; a thread loads 16-byte words of four columns
+// at its four k positions, the next chunk's while one is summed.  Terms
+// are parked in shared memory, then rank q sums its share of the tile's
+// outputs over all groups in group order, reading its peers' terms
+// through distributed shared memory.  flags: bit 0 16-byte word loads, bit
+// 1 16-byte scale loads.
+template <int BITS, int MR>
+__global__ void __launch_bounds__(D_THREADS, MR >= 16 ? 1 : 2)
+w4a16_decode_tc(const bf16* __restrict__ xg, const float* __restrict__ xsum,
+                const int32_t* __restrict__ qw, const bf16* __restrict__ scales,
+                const bf16* __restrict__ zeros, bf16* __restrict__ out, int m_rows, int c_pad,
+                int r, int g, int layers, int flags) {
+  constexpr int PLANES = 32 / BITS;
+  extern __shared__ __align__(16) float terms[];  // (16 L, MR, 64)
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int n_ranks = static_cast<int>(cluster.num_blocks());
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gid = lane / 4, t = lane % 4;
+  const int n0 = blockIdx.x * D_BN;
+  const int n_groups = c_pad / g, per_block = D_SLOTS * layers, n_kc = g / 16;
+  const bool vec = flags & 1, vec_s = flags & 2;
+
+  for (int layer = 0; layer < layers; ++layer) {
+    const int s_idx = layer * D_SLOTS + 2 * warp;  // this warp's first slot
+    const int grp = rank * per_block + s_idx;      // and its group; grp + 1 is the other
+    if (grp >= n_groups) continue;                 // n_groups is a multiple of planes
+    for (int h = 0; h < 2; ++h) {
+      const int nq = n0 + 32 * h + 4 * gid;  // the thread's four word columns
+      const int32_t* wrow = qw + static_cast<size_t>(grp / PLANES) * g * r + nq;
+      auto load_words = [&](int kc, int4 (&v)[4]) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int32_t* src =
+              wrow + static_cast<size_t>(16 * kc + 2 * t + (e & 1) + 8 * (e >> 1)) * r;
+          v[e] = make_int4(0, 0, 0, 0);
+          if (vec) {
+            if (nq < r) v[e] = __ldg(reinterpret_cast<const int4*>(src));
+          } else {
+            if (nq < r) v[e].x = __ldg(src);
+            if (nq + 1 < r) v[e].y = __ldg(src + 1);
+            if (nq + 2 < r) v[e].z = __ldg(src + 2);
+            if (nq + 3 < r) v[e].w = __ldg(src + 3);
+          }
+        }
+      };
+      auto load_x = [&](int kc, uint32_t (&a)[2][1][4]) {
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = gid + 8 * (e & 1);
+            const int col = (grp + p) * g + 16 * kc + 2 * t + 8 * (e >> 1);
+            a[p][0][e] = row < MR && row < m_rows ? __ldg(reinterpret_cast<const unsigned*>(
+                                            xg + static_cast<size_t>(row) * c_pad + col))
+                                      : 0u;
+          }
+      };
+      int4 wn[4];
+      uint32_t an[2][1][4];
+      load_words(0, wn);
+      load_x(0, an);
+      float d[2][1][4][4];
+      group_dots<BITS, 2, 1, 4>(
+          d, g, grp % PLANES, [&](int kc, uint32_t (&a)[2][1][4], uint32_t (&w)[4][4]) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              w[0][e] = static_cast<uint32_t>(wn[e].x);
+              w[1][e] = static_cast<uint32_t>(wn[e].y);
+              w[2][e] = static_cast<uint32_t>(wn[e].z);
+              w[3][e] = static_cast<uint32_t>(wn[e].w);
+            }
+#pragma unroll
+            for (int p = 0; p < 2; ++p)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) a[p][0][e] = an[p][0][e];
+            if (kc + 1 < n_kc) {
+              load_words(kc + 1, wn);
+              load_x(kc + 1, an);
+            }
+          });
+      // the thread holds rows gid and gid + 8 at tile columns cb .. cb + 7:
+      // d[.][0][nt][e] is row gid + 8 (e >> 1), column cb + nt + 4 (e & 1)
+      const int cb = 32 * h + 8 * t;
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const size_t at = static_cast<size_t>(grp + p) * r + n0 + cb;
+        const uint4 s8 = load8_bf16(scales + at, r - (n0 + cb), vec_s);
+        const uint4 z8 = load8_bf16(zeros + at, r - (n0 + cb), vec_s);
+        float* dst = terms + (s_idx + p) * MR * D_BN + cb;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int row = gid + 8 * hr;
+          if (row >= MR) continue;
+          const float xs =
+              row < m_rows ? __ldg(xsum + static_cast<size_t>(row) * n_groups + grp + p) : 0.0f;
+#pragma unroll
+          for (int c8 = 0; c8 < 8; ++c8) {
+            float s, zs;
+            scale_zs(s8, z8, c8, s, zs);
+            dst[row * D_BN + c8] = group_term(d[p][0][c8 % 4][2 * hr + c8 / 4], s, xs, zs);
+          }
+        }
+      }
+    }
+  }
+  cluster.sync();
+  // outputs o of the (MR, 64) tile, dealt to the ranks in turn
+  for (int o = rank * D_THREADS + threadIdx.x; o < MR * D_BN; o += n_ranks * D_THREADS) {
+    const int i = o / D_BN, nn = n0 + o % D_BN;
+    float acc = 0.0f;
+    for (int q = 0; q < n_ranks; ++q) {
+      const float* peer = cluster.map_shared_rank(terms, q);
+      const int n_here = min(per_block, n_groups - q * per_block);
+      for (int s_idx = 0; s_idx < n_here; ++s_idx)
+        acc = __fadd_rn(acc, peer[s_idx * MR * D_BN + o]);
+    }
+    if (i < m_rows && nn < r) out[static_cast<size_t>(i) * r + nn] = __float2bfloat16_rn(acc);
+  }
+  cluster.sync();  // no block leaves while a peer reads its terms
+}
+
+constexpr int P_THREADS = 256;  // eight warps
+
+// A prefill block tile: WN warps across, 8 / WN down, each warp TM m16
+// tiles x 4 n8 tiles (16 TM rows x 32 columns)
+template <int TM, int WN>
+struct PrefillTile {
+  static constexpr int BM = (8 / WN) * 16 * TM, BN = 32 * WN;
+  static constexpr int WSTRIDE = BN + 4;  // staged words per k row: 16 bytes of skew per row
+  // shared memory: two word tiles and two x tiles
+  static constexpr int smem(int g) { return 2 * g * WSTRIDE * 4 + 2 * BM * (g + 8) * 2; }
+};
+
+// Prefill on the tensor cores: a block owns BM rows x BN columns (128 x 128
+// in 64 x 32 warp tiles above 64 rows; 64 x 64 in 16 x 32 ones up to 64,
+// twice the blocks).  The groups are walked in order; the words of a
+// packing block (g x BN) are staged once, and the x slice of each group
+// (BM x g), by cp.async one group ahead into two buffers each.  Per group,
+// group_dots forms the dots (A by ldmatrix; a thread's 16-byte word loads
+// give four columns, so B fragments are made once per chunk for TM m tiles)
+// and acc += term, in group order, as the decode kernel's cluster sum.
+// flags as for decode, and bit 2 16-byte output stores.
+template <int BITS, int TM, int WN>
+__global__ void __launch_bounds__(P_THREADS, TM == 1 ? 2 : 1)
+w4a16_prefill_tc(const bf16* __restrict__ xg, const float* __restrict__ xsum,
+                 const int32_t* __restrict__ qw, const bf16* __restrict__ scales,
+                 const bf16* __restrict__ zeros, bf16* __restrict__ out, int m_rows, int c_pad,
+                 int r, int g, int flags) {
+  constexpr int PLANES = 32 / BITS, NT = 4;
+  using Tile = PrefillTile<TM, WN>;
+  constexpr int P_BM = Tile::BM, P_BN = Tile::BN, P_WSTRIDE = Tile::WSTRIDE;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int32_t* sw = reinterpret_cast<int32_t*>(smem_raw);          // 2 x (g, P_WSTRIDE) words
+  bf16* sx = reinterpret_cast<bf16*>(sw + 2 * g * P_WSTRIDE);  // 2 x (P_BM, g + 8) x
+  const int xstride = g + 8;  // 16 bytes of skew per row: ldmatrix rows in distinct banks
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gid = lane / 4, t = lane % 4;
+  const int wm = warp / WN, wn = warp % WN;
+  const int m0 = blockIdx.x * P_BM, n0 = blockIdx.y * P_BN;
+  const int n_groups = c_pad / g;
+  const bool vec = flags & 1, vec_s = flags & 2, vec_o = flags & 4;
+
+  auto stage_words = [&](int b, int buf) {
+    int32_t* dst = sw + buf * g * P_WSTRIDE;
+    const int32_t* src = qw + static_cast<size_t>(b) * g * r + n0;
+    if (vec) {
+      for (int i = threadIdx.x; i < g * (P_BN / 4); i += P_THREADS) {
+        const int k = i / (P_BN / 4), q = 4 * (i % (P_BN / 4));
+        const bool in = n0 + q < r;
+        cp_async16(dst + k * P_WSTRIDE + q, in ? src + static_cast<size_t>(k) * r + q : qw, in);
+      }
+    } else {
+      for (int i = threadIdx.x; i < g * P_BN; i += P_THREADS) {
+        const int k = i / P_BN, q = i % P_BN;
+        const bool in = n0 + q < r;
+        cp_async4(dst + k * P_WSTRIDE + q, in ? src + static_cast<size_t>(k) * r + q : qw, in);
+      }
+    }
+  };
+  auto stage_x = [&](int grp, int buf) {
+    bf16* dst = sx + buf * P_BM * xstride;
+    const int chunks = g / 8;  // 16-byte chunks per row
+    for (int i = threadIdx.x; i < P_BM * chunks; i += P_THREADS) {
+      const int row = i / chunks, q = 8 * (i % chunks);
+      const bool in = m0 + row < m_rows;
+      cp_async16(dst + row * xstride + q,
+                 in ? xg + static_cast<size_t>(m0 + row) * c_pad + grp * g + q : xg, in);
+    }
+  };
+
+  float acc[TM][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < TM; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+
+  const int cb = n0 + 32 * wn + 8 * t;  // the thread's 8 output columns
+  const int rb = m0 + 16 * TM * wm + gid;  // and its first row; rows rb + 8 j
+  stage_words(0, 0);
+  stage_x(0, 0);
+  cp_async_commit();
+  for (int grp = 0; grp < n_groups; ++grp) {
+    const int b = grp / PLANES;
+    if (grp + 1 < n_groups) {
+      if ((grp + 1) % PLANES == 0) stage_words(b + 1, (b + 1) & 1);
+      stage_x(grp + 1, (grp + 1) & 1);
+    }
+    cp_async_commit();
+    // the term's operands are on their way while the chain runs
+    const size_t at = static_cast<size_t>(grp) * r + cb;
+    const uint4 s8 = load8_bf16(scales + at, r - cb, vec_s);
+    const uint4 z8 = load8_bf16(zeros + at, r - cb, vec_s);
+    float xs[TM][2];
+#pragma unroll
+    for (int mt = 0; mt < TM; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = rb + 16 * mt + 8 * hr;
+        xs[mt][hr] = row < m_rows ? __ldg(xsum + static_cast<size_t>(row) * n_groups + grp) : 0.0f;
+      }
+    cp_async_wait<1>();  // this group's tiles have landed
+    __syncthreads();
+    const int32_t* wsrc = sw + (b & 1) * g * P_WSTRIDE + 32 * wn + 4 * gid;
+    const bf16* xsrc =
+        sx + (grp & 1) * P_BM * xstride + (16 * TM * wm + lane % 16) * xstride + 8 * (lane / 16);
+    float d[1][TM][NT][4];
+    group_dots<BITS, 1, TM, NT>(
+        d, g, grp % PLANES, [&](int kc, uint32_t (&a)[1][TM][4], uint32_t (&w)[NT][4]) {
+#pragma unroll
+          for (int mt = 0; mt < TM; ++mt)
+            ldmatrix_x4(a[0][mt], xsrc + 16 * mt * xstride + 16 * kc);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int k = 16 * kc + 2 * t + (e & 1) + 8 * (e >> 1);
+            const int4 v = *reinterpret_cast<const int4*>(wsrc + k * P_WSTRIDE);
+            w[0][e] = static_cast<uint32_t>(v.x);
+            w[1][e] = static_cast<uint32_t>(v.y);
+            w[2][e] = static_cast<uint32_t>(v.z);
+            w[3][e] = static_cast<uint32_t>(v.w);
+          }
+        });
+    // d[0][mt][nt][e]: row rb + 16 mt + 8 (e >> 1), column cb + nt + 4 (e & 1)
+#pragma unroll
+    for (int c8 = 0; c8 < 8; ++c8) {
+      float s, zs;
+      scale_zs(s8, z8, c8, s, zs);
+#pragma unroll
+      for (int mt = 0; mt < TM; ++mt)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          float& a = acc[mt][c8 % 4][2 * hr + c8 / 4];
+          a = __fadd_rn(a, group_term(d[0][mt][c8 % 4][2 * hr + c8 / 4], s, xs[mt][hr], zs));
+        }
+    }
+    __syncthreads();  // the buffers read here are the next prefetch's targets
+  }
+#pragma unroll
+  for (int mt = 0; mt < TM; ++mt)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = rb + 16 * mt + 8 * hr;
+      if (row >= m_rows) continue;
+      bf16* dst = out + static_cast<size_t>(row) * r + cb;
+      if (vec_o && cb + 8 <= r) {
+        uint32_t v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const __nv_bfloat162 pair =
+              __floats2bfloat162_rn(acc[mt][(2 * i) % 4][2 * hr + (2 * i) / 4],
+                                    acc[mt][(2 * i + 1) % 4][2 * hr + (2 * i + 1) / 4]);
+          v[i] = *reinterpret_cast<const uint32_t*>(&pair);
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int c8 = 0; c8 < 8; ++c8)
+          if (cb + c8 < r) dst[c8] = __float2bfloat16_rn(acc[mt][c8 % 4][2 * hr + c8 / 4]);
+      }
+    }
+}
+
 constexpr int MAX_DEVICES = 64;
 
 // Raises a kernel instance's dynamic shared-memory limit once per device
@@ -454,6 +914,70 @@ int dispatch(const void* x, const int32_t* qw, const void* s, const void* z, voi
   }
 }
 
+template <int BITS, int MR>
+int launch_decode_tc(const bf16* xg, const float* xs, const int32_t* qw, const bf16* s,
+                     const bf16* z, bf16* out, int m, int c_pad, int r, int g, int flags,
+                     cudaStream_t stream) {
+  // a cluster of up to 8 blocks holds all of a column tile's groups, 16
+  // per block per layer
+  const int n_groups = c_pad / g;
+  const int layers = (n_groups + D_SLOTS * D_CLUSTER_MAX - 1) / (D_SLOTS * D_CLUSTER_MAX);
+  const int size = (n_groups + D_SLOTS * layers - 1) / (D_SLOTS * layers);
+  const int smem = D_SLOTS * layers * MR * D_BN * static_cast<int>(sizeof(float));
+  if (smem > D_SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = w4a16_decode_tc<BITS, MR>;
+  static int smem_set[MAX_DEVICES] = {};
+  cudaError_t err = allow_smem(kern, smem, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr = {};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = size;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((r + D_BN - 1) / D_BN, size);
+  cfg.blockDim = dim3(D_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, xg, xs, qw, s, z, out, m, c_pad, r, g, layers, flags);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BITS, int TM, int WN>
+int launch_prefill_tc(const bf16* xg, const float* xs, const int32_t* qw, const bf16* s,
+                      const bf16* z, bf16* out, int m, int c_pad, int r, int g, int flags,
+                      cudaStream_t stream) {
+  using Tile = PrefillTile<TM, WN>;
+  const int smem = Tile::smem(g);
+  auto kern = w4a16_prefill_tc<BITS, TM, WN>;
+  static int smem_set[MAX_DEVICES] = {};
+  cudaError_t err = allow_smem(kern, smem, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // row tiles vary fastest: the blocks in flight share a column tile's words in L2
+  dim3 grid((m + Tile::BM - 1) / Tile::BM, (r + Tile::BN - 1) / Tile::BN);
+  kern<<<grid, P_THREADS, smem, stream>>>(xg, xs, qw, s, z, out, m, c_pad, r, g, flags);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rows 1, 4, 8 or 16 at decode (the fewest that cover m), else prefill in
+// 64 x 64 tiles up to 64 rows and 128 x 128 above
+template <int BITS>
+int dispatch_tc(const bf16* xg, const float* xs, const int32_t* qw, const bf16* s, const bf16* z,
+                bf16* out, int m, int c_pad, int r, int g, int flags, cudaStream_t stream) {
+#define K3_TC_DECODE(MR) \
+  launch_decode_tc<BITS, MR>(xg, xs, qw, s, z, out, m, c_pad, r, g, flags, stream)
+  if (m <= 1) return K3_TC_DECODE(1);
+  if (m <= 4) return K3_TC_DECODE(4);
+  if (m <= 8) return K3_TC_DECODE(8);
+  if (m <= 16) return K3_TC_DECODE(16);
+#undef K3_TC_DECODE
+  if (m <= 64) return launch_prefill_tc<BITS, 1, 2>(xg, xs, qw, s, z, out, m, c_pad, r, g, flags, stream);
+  return launch_prefill_tc<BITS, 4, 4>(xg, xs, qw, s, z, out, m, c_pad, r, g, flags, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -491,6 +1015,41 @@ int w4a16_decode(const void* x, const int64_t* perm, int perm_len, int c, float*
     return dispatch_decode<__nv_bfloat16>(x, perm, perm_len, c, xt, qw, s, z, out, m, c_pad, r,
                                           g, bits, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Tensor-core route, bf16, any m >= 1: x (m, c) in original column order,
+// perm as for w4a16_decode; xg (m, c_pad) bf16 and xs (m, c_pad / g) fp32
+// are workspace (x in stored order and its group sums); g % 16 == 0, g <=
+// 128.  m <= 16 takes the decode kernel, above the prefill kernel: both
+// form each group's term through group_dots, so a row has the same bits
+// at every m.  The other arguments as for w4a16_matmul.
+int w4a16_tc(const void* x, const int64_t* perm, int perm_len, int c, void* xg, float* xs,
+             const int32_t* qw, const void* s, const void* z, void* out, int m, int c_pad,
+             int r, int g, int bits, cudaStream_t stream) {
+  if (m <= 0 || c <= 0 || r <= 0 || g <= 0 || g % 16 != 0 || g > TC_MAX_G ||
+      (bits != 2 && bits != 4 && bits != 8) || c_pad % ((32 / bits) * g) != 0 ||
+      (perm != nullptr && perm_len > c_pad) || reinterpret_cast<uintptr_t>(xg) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int gpb = STAGE_COLS / g;
+  const dim3 stage_grid(m, (c_pad / g + gpb - 1) / gpb);
+  w4a16_stage_rows<<<stage_grid, 256, 0, stream>>>(static_cast<const bf16*>(x), perm, perm_len, c,
+                                                   static_cast<bf16*>(xg), xs, c_pad, g);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  // 16-byte words (r % 4 == 0), scales (r % 8 == 0) and output stores
+  const int flags = (r % 4 == 0 && aligned(qw) ? 1 : 0) |
+                    (r % 8 == 0 && aligned(s) && aligned(z) ? 2 : 0) |
+                    (r % 8 == 0 && aligned(out) ? 4 : 0);
+  const bf16* xgb = static_cast<const bf16*>(xg);
+  const bf16* sb = static_cast<const bf16*>(s);
+  const bf16* zb = static_cast<const bf16*>(z);
+  bf16* ob = static_cast<bf16*>(out);
+  switch (bits) {
+    case 2: return dispatch_tc<2>(xgb, xs, qw, sb, zb, ob, m, c_pad, r, g, flags, stream);
+    case 4: return dispatch_tc<4>(xgb, xs, qw, sb, zb, ob, m, c_pad, r, g, flags, stream);
+    default: return dispatch_tc<8>(xgb, xs, qw, sb, zb, ob, m, c_pad, r, g, flags, stream);
+  }
 }
 
 const char* gptq_cuda_error_string(int err) {

@@ -1,15 +1,18 @@
 """K3 and K8 wrappers: fused dequant + matmul over packed low-bit weights.
 
 K3 replaces ``gptq_v2_tpu/ops/w4a16.py::_kernel`` (entry ``w4a16_matmul``)
-with the hand-written CUDA kernel ``csrc/w4a16.cu``: weights stream from
-device memory as packed int32 words (C·R·bits/8 bytes) and are summed in
-fp32 against ``x`` with ``zs = z·s`` rounded to the scales' dtype, as in
-JAX.  It has two paths, chosen by ``M`` alone: at ``M ≤ 16`` (decode) a
-kernel split over quantization groups that loads the words straight into
-registers and sums the groups' terms in group order across a thread-block
-cluster; above it a row-tiled kernel.  Both give a row the same bits.
-What bounds each on the H100 and what its design does about it is noted
-in that source.
+with the hand-written CUDA kernels of ``csrc/w4a16.cu``: weights stream
+from device memory as packed int32 words (C·R·bits/8 bytes) and are summed
+in fp32 against ``x`` with ``zs = z·s`` rounded to the scales' dtype, as in
+JAX.  The route depends on the weights alone (:func:`tensor_core_route`):
+bf16 with ``g % 16 == 0`` and ``g ≤ 128`` runs on the tensor cores at every
+``M`` (``mma.sync`` bf16 → fp32, the codes in bf16 as the JAX kernel takes
+them); fp32, and bf16 with other group sizes, on fp32 CUDA cores.  Within a
+route, ``M ≤ 16`` (decode) takes a kernel split over quantization groups
+that sums the groups' terms in group order across a thread-block cluster,
+and larger ``M`` a row-tiled kernel; both form each group's term through the
+same code, so a row has the same bits at every ``M``.  What bounds each on
+the H100 and what its design does about it is noted in that source.
 
 K8 replaces ``_kernel_a8`` (the W4A8 tier, ``PackedLinear.act_bits == 8``)
 with ``csrc/w4a8.cu`` (launched by :func:`w4a8_kernel`): the activations
@@ -36,11 +39,15 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {"w4a16_matmul": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                + [ctypes.c_void_p],
                "w4a16_decode": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-               + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]}
-# rows up to which K3 takes its split-K decode path, and the row counts it
-# is built for (the fewest that cover M is taken)
+               + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+               "w4a16_tc": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+               + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
+# rows up to which K3 takes its split-K decode kernel, and the row counts
+# the CUDA-core one is built for (the fewest that cover M is taken)
 DECODE_ROWS = 16
 _DECODE_TILES = (1, 4, 8, 16)
+# the largest group the tensor-core route takes (its prefill tiles fit)
+TC_MAX_GROUP = 128
 _SIGNATURES_A8 = {"w4a8_matmul": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                   + [ctypes.c_void_p]}
 
@@ -83,6 +90,14 @@ def stored_rows(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
     return xb.contiguous()
 
 
+def tensor_core_route(p: PackedLinear) -> bool:
+    """Whether K3 runs ``p`` on the tensor cores: bf16 scales (the
+    activation is cast to them) and ``g % 16 == 0``, ``g ≤ 128``.  A
+    property of the weights, never of ``M``."""
+    g = p.group_size
+    return p.scales.dtype == torch.bfloat16 and g % 16 == 0 and g <= TC_MAX_GROUP
+
+
 def _check_input(x: torch.Tensor, p: PackedLinear) -> None:
     if x.shape[-1] != p.in_features:
         raise ValueError(f"activation width {x.shape[-1]} != in_features {p.in_features}")
@@ -98,10 +113,12 @@ def w4a16_matmul(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
     to it first, as in the JAX package).  A W4A8 linear (``act_bits == 8``)
     goes to :func:`w4a8_matmul`.
 
-    The path depends on the row count alone: at ``M ≤ 16`` the decode
-    kernel, which gathers the act-order columns and zero-pads the
-    contraction itself; above, the prefill kernel on rows gathered and
-    padded here (:func:`stored_rows`).  Both give a row the same bits."""
+    The route depends on the weights alone (:func:`tensor_core_route`),
+    the kernel within it on ``M``: at ``M ≤ 16`` the decode kernel.  The
+    tensor-core route and the CUDA-core decode kernel gather the act-order
+    columns and zero-pad the contraction themselves; the CUDA-core prefill
+    kernel takes rows gathered and padded here (:func:`stored_rows`).  Both
+    kernels of a route give a row the same bits."""
     if p.act_bits == 8:
         return w4a8_matmul(x, p)
     _check_input(x, p)
@@ -116,26 +133,35 @@ def w4a16_matmul(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
     if m == 0:
         return out.reshape(*lead, r)
     lib = _cuda.library("w4a16", _SIGNATURES)
+    c_pad, g = p.in_features_padded, p.group_size
+    tc = tensor_core_route(p)
     with torch.cuda.device(x.device):
-        if m <= DECODE_ROWS:
+        if tc or m <= DECODE_ROWS:
             xb = xb.contiguous()
             perm = p.perm
             if perm is not None and (perm.dtype != torch.int64 or not perm.is_contiguous()):
                 raise ValueError("perm must be a contiguous int64 tensor")
+            perm_args = (_cuda.ptr(perm) if perm is not None else None,
+                         0 if perm is None else perm.shape[0], c)
+        if tc:
+            xg = torch.empty((m, c_pad), dtype=torch.bfloat16, device=x.device)
+            xs = torch.empty((m, c_pad // g), dtype=torch.float32, device=x.device)
+            err = lib.w4a16_tc(
+                _cuda.ptr(xb), *perm_args, _cuda.ptr(xg), _cuda.ptr(xs), _cuda.ptr(p.qweight),
+                _cuda.ptr(p.scales), _cuda.ptr(p.zeros), _cuda.ptr(out), m, c_pad, r, g,
+                p.bits, _cuda.stream_ptr(x.device))
+        elif m <= DECODE_ROWS:
             mr = next(t for t in _DECODE_TILES if t >= m)
-            xt = torch.empty((p.in_features_padded * mr,), dtype=torch.float32,
-                             device=x.device)
+            xt = torch.empty((c_pad * mr,), dtype=torch.float32, device=x.device)
             err = lib.w4a16_decode(
-                _cuda.ptr(xb), _cuda.ptr(perm) if perm is not None else None,
-                0 if perm is None else perm.shape[0], c, _cuda.ptr(xt), _cuda.ptr(p.qweight),
-                _cuda.ptr(p.scales), _cuda.ptr(p.zeros), _cuda.ptr(out), m,
-                p.in_features_padded, r, p.group_size, p.bits, _DTYPES[x.dtype],
-                _cuda.stream_ptr(x.device))
+                _cuda.ptr(xb), *perm_args, _cuda.ptr(xt), _cuda.ptr(p.qweight),
+                _cuda.ptr(p.scales), _cuda.ptr(p.zeros), _cuda.ptr(out), m, c_pad, r, g,
+                p.bits, _DTYPES[x.dtype], _cuda.stream_ptr(x.device))
         else:
             xs = stored_rows(x, p)
             err = lib.w4a16_matmul(
                 _cuda.ptr(xs), _cuda.ptr(p.qweight), _cuda.ptr(p.scales), _cuda.ptr(p.zeros),
-                _cuda.ptr(out), m, xs.shape[1], r, p.group_size, p.bits, _DTYPES[x.dtype],
+                _cuda.ptr(out), m, c_pad, r, g, p.bits, _DTYPES[x.dtype],
                 _cuda.stream_ptr(x.device))
     _cuda.check(lib, err, "w4a16_matmul")
     w4a16_matmul.launches += 1

@@ -131,26 +131,40 @@ def test_w4a16_decode_shapes(dev, bits, c, r, g, act_order, m, dtype):
 
 @pytest.mark.parametrize("bits,c,r,g", [(2, 3000, 200, 16), (4, 3000, 200, 16),
                                         (8, 3000, 200, 16), (4, 1000, 102, 16),
-                                        (2, 28672, 72, 128)])
+                                        (2, 28672, 72, 128), (4, 4096, 200, 128),
+                                        (8, 2048, 136, 128), (4, 1000, 100, 40)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_w4a16_decode_rows_equal_prefill_rows(dev, bits, c, r, g, dtype):
-    """The decode path (M <= 16) sums in the prefill path's order: a row
-    comes out bit for bit alike decoded alone, among 5 or 16 rows, or among
-    40 (the prefill path)."""
+    """Both kernels of a route (M <= 16 decode, above prefill) give a row
+    the same bits: every row of a call at M = 1, 5, 16, 17, 64 or 520 equals
+    the same row of one call at M = 40 (the rows past 40 repeat the first
+    40).  bf16 at g % 16 == 0 runs on the tensor cores; fp32 and g = 40 on
+    CUDA cores."""
     p = _packed(bits, c, r, bits + c, dev, dtype, g)
-    x = _rand((40, c), 40, dtype, dev)
-    full = w4a16.w4a16_matmul(x, p)
-    for m in (1, 5, 16):
-        assert torch.equal(w4a16.w4a16_matmul(x[:m], p), full[:m])
+    x = _rand((40, c), 40, dtype, dev).repeat(13, 1)
+    full = w4a16.w4a16_matmul(x[:40], p)
+    for m in (1, 5, 16, 17, 64, 520):
+        assert torch.equal(w4a16.w4a16_matmul(x[:m], p), full.repeat(13, 1)[:m]), m
 
 
+@pytest.mark.parametrize("m", [1, 8, 64, 520])
+def test_w4a16_fused_width(dev, m):
+    """One fused width of the main path (C = 4096, R = 384, g = 128,
+    act-order, bf16: the tensor-core route) against the plain version;
+    bf16 output rounding dominates: 1e-2 of max|y|."""
+    p = _packed(4, 4096, 384, 4096, dev, torch.bfloat16, 128)
+    assert w4a16.tensor_core_route(p)
+    _check_w4a16(p, _rand((m, 4096), m, torch.bfloat16, dev))
+
+
+@pytest.mark.parametrize("m", [8, 64])
 @pytest.mark.parametrize("bits", [2, 4, 8])
-def test_w4a16_decode_deterministic_and_graphed(dev, bits):
-    """The decode path sums its splits in a fixed order: two launches are
-    bit-equal, and a launch captured in a CUDA graph replays to the eager
-    output."""
+def test_w4a16_decode_deterministic_and_graphed(dev, bits, m):
+    """Both kernels sum in a fixed order: two launches are bit-equal, and a
+    launch captured in a CUDA graph replays to the eager output (M = 8 the
+    decode kernel, M = 64 the prefill kernel)."""
     p = _packed(bits, 3000, 200, bits, dev, torch.bfloat16)
-    x = _rand((8, 3000), 8, torch.bfloat16, dev)
+    x = _rand((m, 3000), m, torch.bfloat16, dev)
     first = w4a16.w4a16_matmul(x, p)
     second = w4a16.w4a16_matmul(x, p)
     torch.cuda.synchronize()
