@@ -59,7 +59,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    rotating input copies that together exceed twice the L2
    (``Timer.steady``); every other time is one event pair per launch
    after an L2 flush (``Timer.__call__``).  K3 is timed both ways, and so
-   is its library call.
+   is its library call.  K1 must also keep H exactly symmetric and give
+   bit-equal results on two launches.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
@@ -323,6 +324,11 @@ def phase_main_path(torch, work: Path) -> dict:
 
 
 def phase_hessian(torch, timer, launches) -> list:
+    """K1 (bf16 X: the tensor-core kernel) at the main path's shape and at
+    all calibration tokens in one launch: within 1e-4 of max|H| of the plain
+    version, H exactly symmetric from a non-zero symmetric H0, two launches
+    bit-equal.  The library call is ``x.T @ x`` with an fp32 output in one
+    call (``aten::mm.dtype``)."""
     from gptq_v2_tpu_torch.ops import hessian_cuda as K
 
     out = []
@@ -341,21 +347,30 @@ def phase_hessian(torch, timer, launches) -> list:
         # T = 32768); 1e-4 of max|H|
         if err > 1e-4 * float(ref.abs().max()):
             raise RuntimeError(f"K1 T={t} D={d}: max abs err {err}")
+        del ref
+        hs = torch.randn((d, d), device="cuda")
+        hs = hs + hs.T
+        first = K.accumulate_hessian(hs.clone(), x)
+        again = K.accumulate_hessian(hs.clone(), x)
+        if not torch.equal(first, again) or not torch.equal(first, first.T):
+            raise RuntimeError(f"K1 T={t} D={d}: two launches differ or H != H^T")
+        del hs, first, again
         reps = 5 if d == 4096 else 3
         h = h0.clone()
         ms = timer(lambda: K.accumulate_hessian(h, x), reps)
         plain_ms = timer(lambda: K.accumulate_hessian_reference(h0, x), reps)
-        lib_ms = timer(lambda: x.T @ x, reps)
+        lib_ms = timer(lambda: torch.mm(x.T, x, out_dtype=torch.float32), reps)
         b_ms, b_by = bound(2 * t * d + 8 * d * d, t * d * (d + 1), "bf16")
         out.append(dict(name=f"hessian_accumulate [D={d} T={t} bf16]", route="cuda",
                         source="gptq_v2_tpu_torch/csrc/hessian.cu",
                         replaces=REPLACES["hessian"], launches=launches["hessian"],
                         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                         bound_by=b_by, library_ms=lib_ms))
-        log(f"phase K1 T={t} D={d}: ok, max abs err {err:.3e} (max|H| {float(ref.abs().max()):.3e}), "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, x.T@x {lib_ms:.3f} ms, "
-            f"bound {b_ms:.3f} ms ({b_by})")
-        del x, h0, h, got, ref
+        log(f"phase K1 T={t} D={d}: ok, max abs err {err:.3e} (max|H| "
+            f"{float(got.abs().max()):.3e}), H == H^T and two launches bit-equal; kernel "
+            f"{ms:.3f} ms ({t * d * (d + 1) / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+            f"mm(x.T, x, out_dtype=fp32) {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+        del x, h0, h, got
     return out
 
 

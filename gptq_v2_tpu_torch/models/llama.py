@@ -16,6 +16,7 @@ are not ported yet; :meth:`LlamaConfig.from_hf_dict` refuses them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 from pathlib import Path
@@ -225,21 +226,33 @@ def _scaled_inv_freq(cfg: LlamaConfig, inv_freq: np.ndarray) -> np.ndarray:
     return np.where(is_mid, mid, scaled)
 
 
+def _inv_freq(cfg: LlamaConfig) -> np.ndarray:
+    hd = cfg.head_dim_
+    inv_freq = 1.0 / (cfg.rope_theta ** (np.arange(0, hd, 2, dtype=np.float64) / hd))
+    return _scaled_inv_freq(cfg, inv_freq)
+
+
+@functools.lru_cache(maxsize=None)
+def device_inv_freq(cfg: LlamaConfig, device: torch.device) -> torch.Tensor:
+    """The rotary frequencies in fp32 on ``device``, built once per (config,
+    device), so a decode or ragged step uploads nothing."""
+    return torch.tensor(_inv_freq(cfg), dtype=torch.float32, device=device)
+
+
 def rope_cos_sin(cfg: LlamaConfig, positions, device=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rotary tables ``(N, head_dim)`` in fp32 (HF half-duplicated layout).
 
     Host positions (a sequence or numpy array) are computed in float64 and
     rounded once, as the JAX package does for concrete positions; a device
-    tensor of positions (decode) takes the fp32 path on its device."""
-    hd = cfg.head_dim_
-    inv_freq = 1.0 / (cfg.rope_theta ** (np.arange(0, hd, 2, dtype=np.float64) / hd))
-    inv_freq = _scaled_inv_freq(cfg, inv_freq)
+    tensor of positions (decode) takes the fp32 path on its device, with
+    :func:`device_inv_freq`."""
     if isinstance(positions, torch.Tensor):
-        inv = torch.tensor(inv_freq, dtype=torch.float32, device=positions.device)
+        inv = device_inv_freq(cfg, positions.device)
         freqs = positions.float()[:, None] * inv[None, :]
         emb = torch.cat([freqs, freqs], dim=-1)
         return torch.cos(emb), torch.sin(emb)
+    inv_freq = _inv_freq(cfg)
     pos = np.asarray(positions, dtype=np.float64)
     freqs = pos[:, None] * inv_freq[None, :]
     emb = np.concatenate([freqs, freqs], axis=-1)

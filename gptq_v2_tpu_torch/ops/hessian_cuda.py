@@ -2,8 +2,12 @@
 
 Replaces ``gptq_v2_tpu/ops/hessian_pallas.py::_kernel`` (entry
 ``accumulate_hessian``) with the hand-written CUDA kernel
-``csrc/hessian.cu``.  What bounds it on the H100 and what the simple
-design does about it is noted in that source.
+``csrc/hessian.cu``.  The route follows the activations' dtype: bf16 (and
+fp16, cast to bf16) runs on the tensor cores (``mma.sync`` bf16 → fp32,
+exact products as on the TPU's MXU), fp32 on the CUDA cores in fp32 FMAs
+(TF32 stays off in quantization).  ``accumulate_hessian.launches`` counts
+its launches.  What bounds it on the H100 and what the design does
+about it is noted in that source.
 
 On a CPU tensor :func:`accumulate_hessian` runs the plain version
 :func:`accumulate_hessian_reference`; on a CUDA tensor it launches the

@@ -134,13 +134,14 @@ def main(argv=None) -> dict:
                 reqs, prefixes = restore_requests(json.load(f))
             logging.info("resuming %d unfinished requests from %s", len(reqs),
                          args.state_path)
+        steps0 = eng.steps
         t0 = time.time()
-        with profile_trace(args.profile_dir):
+        with profile_trace(args.profile_dir) as trace:
             out = eng.run(reqs, snapshot_path=args.state_path or None)
         dt = time.time() - t0
         total = sum(len(t) for t in out.values())  # a resumed run decodes fewer
-        stats = {"requests": len(reqs), "new_tokens": total,
-                 "wall_s": dt, "tok_s": total / dt, "resumed": len(prefixes)}
+        stats = {"requests": len(reqs), "new_tokens": total, "ticks": eng.steps - steps0,
+                 "wall_s": dt, "tok_s": total / dt, "resumed": len(prefixes), **trace}
         logging.info("benchmark: %s", stats)
     return stats
 

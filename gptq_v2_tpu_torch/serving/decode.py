@@ -40,40 +40,33 @@ from gptq_v2_tpu_torch.serving.model import (
 )
 
 
-def fold_paged_kv_scales(qq: torch.Tensor, ks, vs):
+def fold_paged_kv_scales(qq: torch.Tensor, cache: kvc.PagedKVCache, li: int):
     """Per-kv-head scales on the paged path, folded outside K6: the
     k-scale multiplies each head's q group (every score of a q head uses
-    one kv head) and the v-scale the head's output slice.  ``ks``/``vs``
-    are one layer's entries: floats (passed through to the kernel) or
-    per-head tuples; a mixed scalar/tuple pair broadcasts the scalar over
-    the heads.  Returns ``(qq, k_scale, v_scale, out_fn)``; with tuples the
-    kernel scales become 1.0 and ``out_fn`` applies the v-scale to the
-    ``(..., Hq, hd)`` output (else it is None)."""
+    one kv head) and the v-scale the head's output slice.  Layer ``li``'s
+    entries are floats (passed through to the kernel) or per-head tuples; a
+    mixed scalar/tuple pair broadcasts the scalar over the heads.  The
+    per-q-head factors are the cache's device tensors
+    (:meth:`~kvc.PagedKVCache.q_head_scales`).  Returns ``(qq, k_scale,
+    v_scale, out_fn)``; with tuples the kernel scales become 1.0 and
+    ``out_fn`` applies the v-scale to the ``(..., Hq, hd)`` output (else it
+    is None)."""
+    ks = None if cache.k_scales is None else cache.k_scales[li]
+    vs = None if cache.v_scales is None else cache.v_scales[li]
     if ks is None or not (isinstance(ks, tuple) or isinstance(vs, tuple)):
         return qq, ks, vs, None
     hq = qq.shape[-2]
-    n_heads = len(ks) if isinstance(ks, tuple) else len(vs)
-    if not isinstance(ks, tuple):
-        ks = (float(ks),) * n_heads
-    if not isinstance(vs, tuple):
-        vs = (float(vs),) * n_heads
-
-    def per_q_head(s, t):
-        a = torch.tensor(s, dtype=torch.float32, device=t.device)
-        return torch.repeat_interleave(a, hq // len(s))[:, None].to(t.dtype)
 
     def out_fn(attn):
-        return attn * per_q_head(vs, attn)
+        return attn * cache.q_head_scales("v", li, hq, attn.dtype, per_head=True)
 
-    return qq * per_q_head(ks, qq), 1.0, 1.0, out_fn
+    return qq * cache.q_head_scales("k", li, hq, qq.dtype, per_head=True), 1.0, 1.0, out_fn
 
 
 def _attend_paged(cache: kvc.PagedKVCache, li: int, q: torch.Tensor, attend):
     """``attend(q, k_scale, v_scale)`` (a K6 call) with layer ``li``'s
     scales folded around it."""
-    ks = None if cache.k_scales is None else cache.k_scales[li]
-    vs = None if cache.v_scales is None else cache.v_scales[li]
-    q, ks, vs, out_fn = fold_paged_kv_scales(q, ks, vs)
+    q, ks, vs, out_fn = fold_paged_kv_scales(q, cache, li)
     out = attend(q, ks, vs)
     return out if out_fn is None else out_fn(out)
 
@@ -137,15 +130,6 @@ def decode_step(model: PackedLlama, tokens: torch.Tensor,  # (B,) last token per
     return head_logits(cfg, model.lm_head, x[:, 0]), cache
 
 
-def _head_scales(scale, t: torch.Tensor) -> torch.Tensor:
-    """A per-layer KV scale (float, or per-kv-head tuple repeated over its
-    q heads, kv-major) in ``t``'s dtype, broadcasting over ``(B, Hq, hd)``."""
-    a = torch.tensor(scale, dtype=torch.float32, device=t.device)
-    if a.dim():
-        a = torch.repeat_interleave(a, t.shape[-2] // a.shape[0])[:, None]
-    return a.to(t.dtype)
-
-
 def _decode_block(cfg, lp, x, cos, sin, cache, li, positions, s, block_tables):
     def attn_contiguous(q, k, v):
         # write this token's K/V first, then attend over the slot's region
@@ -153,13 +137,13 @@ def _decode_block(cfg, lp, x, cos, sin, cache, li, positions, s, block_tables):
         kvc.write_kv_contiguous(cache, li, k, v, positions[:, None])
         qq = q[:, 0]
         if cache.k_scales is not None:
-            qq = qq * _head_scales(cache.k_scales[li], qq)
+            qq = qq * cache.q_head_scales("k", li, qq.shape[-2], qq.dtype)
         attend = (ca.contiguous_decode_attention_p4 if cache.kv_bits == 4
                   else ca.contiguous_decode_attention)
         attn = attend(qq, cache.k, cache.v, positions, li, s_bucket=s,
                       sm_scale=cfg.sm_scale_)
         if cache.v_scales is not None:
-            attn = attn * _head_scales(cache.v_scales[li], attn)
+            attn = attn * cache.q_head_scales("v", li, attn.shape[-2], attn.dtype)
         return attn[:, None], None
 
     def attn_paged(q, k, v):
@@ -321,13 +305,21 @@ def sample_per_row(logits: torch.Tensor,  # (B, V)
                    ) -> torch.Tensor:
     """Per-row temperature sampling: rows at temperature <= 0 take the
     argmax, the others sample from ``softmax(logits / t)``, warped by their
-    own top-k / top-p / min-p when those are given (:func:`_warp_logits`)."""
+    own top-k / top-p / min-p when those are given (:func:`_warp_logits`).
+    The draw is ``torch.multinomial``'s own for one sample, made without its
+    host-side check, so an invalid distribution (NaN or inf logits) is not
+    rejected: it yields a token, as the greedy rows' argmax does."""
     greedy = torch.argmax(logits, dim=-1)
     t = torch.clamp(temperatures.float(), min=1e-6)[:, None]
     lg = logits.float() / t
     if top_ks is not None or top_ps is not None or min_ps is not None:
         lg = _warp_logits(lg, top_ks, top_ps, min_ps)
-    sampled = torch.multinomial(torch.softmax(lg, dim=-1), 1, generator=generator)[:, 0]
+    # torch.multinomial's own one-sample draw (the argmax of p over Exp(1)
+    # noise: the same generator draws, the same token), without its
+    # host-side check of p, so a step never waits for the device
+    p = torch.softmax(lg, dim=-1)
+    sampled = torch.argmax(p / torch.empty_like(p).exponential_(1, generator=generator),
+                           dim=-1)
     return torch.where(temperatures <= 0.0, greedy, sampled)
 
 

@@ -19,6 +19,9 @@ layer, or (int4, and int8 when given so) one float per kv head.  The
 contiguous int4 cache packs head pairs ``(h, h + n_kv/2)`` into a byte
 (:func:`pack_int4_rows`), the paged one adjacent heads ``(2p, 2p + 1)``
 (:func:`pack_int4_rows_adj`), each bit-identical to the JAX package's.
+Both caches build the scales' device tensors once, when they are made
+(:class:`_DeviceScales`), so a decode or ragged step copies nothing from
+the host.
 """
 from __future__ import annotations
 
@@ -34,8 +37,38 @@ from gptq_v2_tpu_torch.ops.paged_attention import unpack_int4_rows_adj  # noqa: 
 from gptq_v2_tpu_torch.ops.paged_write import paged_write_rows
 
 
+class _DeviceScales:
+    """The per-layer KV scales as tensors on the cache's device, built once
+    in ``__post_init__``: ``k_scale_t``/``v_scale_t`` hold each layer's
+    :func:`_scale` form, and :meth:`q_head_scales` derives the per-q-head
+    forms from them on the device and keeps them.  A step reads these and
+    never builds a tensor from host data."""
+
+    def __post_init__(self):
+        dev = self._storage.device
+        self.k_scale_t = _scale_tensors(self.k_scales, dev)
+        self.v_scale_t = _scale_tensors(self.v_scales, dev)
+        self._q_head_scale_t = {}
+
+    def q_head_scales(self, which: str, layer: int, hq: int, dtype: torch.dtype,
+                      per_head: bool = False) -> torch.Tensor:
+        """Layer ``layer``'s ``"k"`` or ``"v"`` scale in ``dtype``, repeated
+        over ``hq`` q heads kv-major as ``(hq, 1)``; a scalar stays 0-d
+        unless ``per_head``.  The fp32 values are :func:`_scale`'s, cast
+        once."""
+        key = (which, layer, hq, dtype, per_head)
+        t = self._q_head_scale_t.get(key)
+        if t is None:
+            a = (self.k_scale_t if which == "k" else self.v_scale_t)[layer]
+            if a.dim() or per_head:
+                a = a.reshape(-1)
+                a = a[:, None].expand(-1, hq // a.shape[0]).reshape(hq, 1)
+            t = self._q_head_scale_t[key] = a.to(dtype)
+        return t
+
+
 @dataclasses.dataclass
-class ContiguousKVCache:
+class ContiguousKVCache(_DeviceScales):
     """``k``/``v``: ``(n_layers, n_slots, max_len, n_kv, hd)``, or
     ``(…, n_kv/2, hd)`` int8 under ``kv_bits=4`` (:func:`pack_int4_rows`)."""
 
@@ -44,6 +77,10 @@ class ContiguousKVCache:
     k_scales: Optional[Tuple] = None  # per layer: float or per-kv-head tuple
     v_scales: Optional[Tuple] = None
     kv_bits: int = 16  # 16/32 = full precision, 8 = int8, 4 = packed int4
+
+    @property
+    def _storage(self) -> torch.Tensor:
+        return self.k
 
     @property
     def n_slots(self) -> int:
@@ -55,7 +92,7 @@ class ContiguousKVCache:
 
 
 @dataclasses.dataclass
-class PagedKVCache:
+class PagedKVCache(_DeviceScales):
     """``kv``: ``(n_layers, n_pages, page_size, 2·n_kv, hd)``; under
     ``kv_bits=4`` int8 ``(…, n_kv, hd)``, where combined index ``2p`` holds
     K and ``2p + 1`` V of the kv-head pair ``(2p, 2p + 1)``
@@ -67,6 +104,10 @@ class PagedKVCache:
     k_scales: Optional[Tuple] = None  # per layer: float or per-kv-head tuple
     v_scales: Optional[Tuple] = None
     kv_bits: int = 0
+
+    @property
+    def _storage(self) -> torch.Tensor:
+        return self.kv
 
 
 def init_contiguous_cache(n_layers: int, n_slots: int, max_len: int, n_kv: int,
@@ -150,6 +191,10 @@ def _scale(s, device) -> torch.Tensor:
     return a[:, None] if a.dim() else a
 
 
+def _scale_tensors(scales, device) -> Optional[Tuple[torch.Tensor, ...]]:
+    return None if scales is None else tuple(_scale(s, device) for s in scales)
+
+
 def quantize_kv_write(cache, layer: int, k: torch.Tensor,
                       v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """New K/V rows in the cache's storage form: symmetric codes
@@ -162,8 +207,7 @@ def quantize_kv_write(cache, layer: int, k: torch.Tensor,
         return k.to(dtype), v.to(dtype)
     int4 = cache.kv_bits == 4
     qmax = 7.0 if int4 else 127.0
-    ks = _scale(cache.k_scales[layer], k.device)
-    vs = _scale(cache.v_scales[layer], v.device)
+    ks, vs = cache.k_scale_t[layer], cache.v_scale_t[layer]
     kq = torch.clamp(torch.round(k.float() / ks), -qmax, qmax)
     vq = torch.clamp(torch.round(v.float() / vs), -qmax, qmax)
     if int4:

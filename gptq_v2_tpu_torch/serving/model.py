@@ -28,6 +28,11 @@ class PackedLlama:
     norm: torch.Tensor
     lm_head: torch.Tensor  # (D, V) dense (the reference never quantizes it)
 
+    def __post_init__(self):
+        # decode's rotary frequencies, built with the model so that no step
+        # uploads them
+        L.device_inv_freq(self.cfg, self.embed_tokens.device)
+
 
 def quantize_params_to_packed(cfg: L.LlamaConfig, params: L.Params,
                               quant_data: Dict[str, dict],

@@ -20,9 +20,12 @@ import torch
 def profile_trace(trace_dir: str | None):
     """Record a ``torch.profiler`` trace (CPU, and CUDA when a card is
     present) of the block into ``{trace_dir}/trace.json``; a no-op when
-    ``trace_dir`` is falsy."""
+    ``trace_dir`` is falsy.  Yields a dict that on exit holds the trace's
+    device time (``device_ms``, the sum of its CUDA ops' self time) and its
+    count of CUDA ops (``device_ops``); it stays empty when not tracing."""
+    summary: Dict[str, float] = {}
     if not trace_dir:
-        yield
+        yield summary
         return
     from torch.profiler import ProfilerActivity, profile
 
@@ -31,7 +34,11 @@ def profile_trace(trace_dir: str | None):
         acts.append(ProfilerActivity.CUDA)
     Path(trace_dir).mkdir(parents=True, exist_ok=True)
     with profile(activities=acts) as prof:
-        yield
+        yield summary
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    summary["device_ms"] = sum(e.self_device_time_total for e in dev) / 1e3
+    summary["device_ops"] = sum(e.count for e in dev)
     prof.export_chrome_trace(str(Path(trace_dir) / "trace.json"))
 
 

@@ -13,13 +13,16 @@ import numpy as np
 import pytest
 import torch
 
+from gptq_v2_tpu_torch.models import llama as L
 from gptq_v2_tpu_torch.ops import contiguous_attention as ca
 from gptq_v2_tpu_torch.ops import gptq_cuda, hessian_cuda, packing, w4a16
 from gptq_v2_tpu_torch.ops import paged_attention as pa
 from gptq_v2_tpu_torch.ops import paged_write as pw
 from gptq_v2_tpu_torch.quant import hessian as hs
 from gptq_v2_tpu_torch.quant import quantizer as qz
+from gptq_v2_tpu_torch.serving import decode
 from gptq_v2_tpu_torch.serving import kv_cache as kvc
+from gptq_v2_tpu_torch.serving import model as sm
 
 pytestmark = pytest.mark.cuda
 
@@ -36,21 +39,43 @@ def _rand(shape, seed, dtype=torch.float32, dev="cpu"):
     return torch.from_numpy(a).to(device=dev, dtype=dtype)
 
 
+# (37, 200), (256, 128), (1, 300): the first shapes; (1000, 256), (300, 384)
+# and (4097, 128) cross the tile (128) and the tensor-core kernel's stage
+# (32 token rows) edges; D = 203, 1001 and 131 (D % 8 != 0) leave X's rows
+# off 16-byte alignment, so the tensor-core kernel stages them by element
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("t,d", [(37, 200), (256, 128), (1, 300)])
+@pytest.mark.parametrize("t,d", [(37, 200), (256, 128), (1, 300), (1000, 256), (300, 384),
+                                 (4097, 128), (77, 203), (33, 1001), (130, 131)])
 def test_hessian_kernel(dev, dtype, t, d):
     x = _rand((t, d), 1, dtype, dev)
     h0 = _rand((d, d), 2, dev=dev)
     h0 = h0 + h0.T  # the kernel takes a symmetric H
     ref = hessian_cuda.accumulate_hessian_reference(h0.clone(), x.to(
         torch.bfloat16) if dtype == torch.float16 else x)
-    n = hessian_cuda.accumulate_hessian.launches
-    out = hessian_cuda.accumulate_hessian(h0.clone(), x)
+    fn = hessian_cuda.accumulate_hessian
+    n = fn.launches
+    out = fn(h0.clone(), x)
     torch.cuda.synchronize()
-    assert hessian_cuda.accumulate_hessian.launches == n + 1
+    assert fn.launches == n + 1
     # fp32 sums in another order: 1e-5 of the largest entry
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
     torch.testing.assert_close(out, out.T, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d", [(4097, 384), (300, 203), (1000, 256)])
+def test_hessian_kernel_repeatable_and_symmetric(dev, dtype, t, d):
+    """No split over T and no atomics: two launches on the same inputs are
+    bit-equal, and H stays exactly symmetric from a non-zero symmetric H0."""
+    x = _rand((t, d), 3, dtype, dev)
+    h0 = _rand((d, d), 4, dev=dev)
+    h0 = h0 + h0.T
+    a = hessian_cuda.accumulate_hessian(h0.clone(), x)
+    b = hessian_cuda.accumulate_hessian(h0.clone(), x)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(a, a.T)
+    assert not torch.equal(a, h0)
 
 
 def _inverse(c, seed, dev):
@@ -82,16 +107,19 @@ def test_gptq_kernel(dev, g, sym, fb):
     assert float(out["error_sq_mean"]) == pytest.approx(float(ref["error_sq_mean"]), rel=1e-3)
 
 
-def _packed(bits, c, r, seed, dev, dtype, g=16, act_order=True):
+def _meta(bits, c, r, seed, g=16, act_order=True):
     rng = np.random.default_rng(seed)
     n_groups = c // g
-    meta = {"qweight": rng.integers(0, 2 ** bits, (r, c)).astype(np.uint8),
+    return {"qweight": rng.integers(0, 2 ** bits, (r, c)).astype(np.uint8),
             "scale": (rng.random((r, n_groups)) * 0.1 + 0.01).astype(np.float32),
             "qzero": rng.integers(0, 2 ** bits, (r, n_groups)).astype(np.uint8),
             "perm": (rng.permutation(c) if act_order else np.arange(c)).astype(np.int16),
             "group_sizes": np.full(n_groups, g, np.int16),
             "group_bit_widths": np.full(n_groups, bits, np.uint8)}
-    return packing.pack_quant_meta(meta, dtype, device=dev)
+
+
+def _packed(bits, c, r, seed, dev, dtype, g=16, act_order=True):
+    return packing.pack_quant_meta(_meta(bits, c, r, seed, g, act_order), dtype, device=dev)
 
 
 def _check_w4a16(p, x):
@@ -482,3 +510,87 @@ def test_paged_kernels_refuse_bad_input(dev):
     with pytest.raises(ValueError):  # 6-byte rows: not whole 16-byte words
         pw.paged_write_rows(pool[..., :1, :3].contiguous(), 0, rows[:, :1, :3].contiguous(),
                             idx, idx)
+
+
+# --- serving steps without host synchronisation -----------------------------
+
+
+@pytest.fixture(scope="module")
+def tiny_packed(dev):
+    """Two blocks, 4 heads of 64 (K4, K6 and K7 take hd 64), every linear
+    INT4 g128 act-order from random codes (K3 on the tensor cores)."""
+    cfg = L.LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=4,
+                        max_position_embeddings=256, dtype="bfloat16")
+    params = L.init_params(cfg, seed=0, device=dev)
+    quant = {f"model.layers.{li}.{name}": _meta(4, w.shape[0], w.shape[1], 10 * li + k, g=128)
+             for li, lp in enumerate(params["layers"])
+             for k, (name, w) in enumerate(lp.items()) if w.dim() == 2}
+    return sm.quantize_params_to_packed(cfg, params, quant, device=dev)
+
+
+def _kv_scales(kv, n_layers, n_kv):
+    if kv == "int8":  # one float per layer
+        return (tuple(0.05 + 0.01 * li for li in range(n_layers)),) * 2
+    return (tuple(tuple(0.3 + 0.05 * h + 0.1 * li for h in range(n_kv))
+                  for li in range(n_layers)),) * 2
+
+
+@pytest.mark.parametrize("kv", ["int8", "int4"])
+@pytest.mark.parametrize("step", ["decode_step", "ragged_step"])
+def test_steps_make_no_blocking_copy(dev, tiny_packed, kv, step):
+    """A contiguous decode step and a paged ragged step (a 5-token prompt
+    chunk and two decode rows, one of them sampled) with int8 and int4 KV
+    run with no synchronising CUDA call: the KV scales and the rope
+    frequencies are device tensors built before the step, and sampling
+    makes multinomial's draw without its host-side check."""
+    model = tiny_packed
+    cfg = model.cfg
+    n_layers, n_kv, hd = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim_
+    ks, vs = _kv_scales(kv, n_layers, n_kv)
+    bits = dict(kv_bits=4) if kv == "int4" else {}
+    i64 = dict(dtype=torch.int64, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    if step == "decode_step":
+        cache = kvc.init_contiguous_cache(n_layers, 4, 64, n_kv, hd, dtype=torch.int8,
+                                          device=dev, k_scales=ks, v_scales=vs, **bits)
+        args = (torch.tensor([5, 77, 300, 2], **i64), cache, torch.tensor([3, 10, 0, 63], **i64))
+        run = decode.decode_step
+    else:
+        cache = kvc.init_cache(n_layers, 16, 16, n_kv, hd, dtype=torch.int8, device=dev,
+                               k_scales=ks, v_scales=vs, **bits)
+        args = (torch.tensor([11, 12, 13, 14, 15, 40, 41], **i64), cache,
+                torch.tensor([0, 1, 2, 3, 4, 20, 7], **i64),
+                torch.tensor([1, 1, 1, 1, 1, 4, 5], **i32),
+                torch.tensor([0, 1, 2, 3, 4, 4, 7], **i32),
+                torch.tensor([[1, 2, 0, 0], [3, 4, 0, 0], [5, 0, 0, 0]], **i32),
+                torch.tensor([5, 21, 8], **i32), torch.tensor([0, 5, 6, 7], **i32),
+                torch.tensor([3], **i32), torch.tensor([4, 5, 6], **i64),
+                torch.tensor([0.0, 0.8, 0.0], dtype=torch.float32, device=dev),
+                torch.Generator(device=dev).manual_seed(0))
+        run = decode.ragged_step
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, _ = run(model, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if step == "decode_step":
+        assert out.shape == (4, cfg.vocab_size) and bool(torch.isfinite(out).all())
+    else:
+        assert out.shape == (3,) and bool(((out >= 0) & (out < cfg.vocab_size)).all())
+
+
+def test_sample_per_row_matches_multinomial(dev):
+    """The sampled rows draw what torch.multinomial draws from the same
+    generator state, and leave the generator where it leaves it."""
+    logits = _rand((8, 1000), 5, dev=dev) * 3
+    temps = torch.full((8,), 0.7, device=dev)
+    g1 = torch.Generator(device=dev).manual_seed(11)
+    g2 = torch.Generator(device=dev).manual_seed(11)
+    for _ in range(4):
+        got = decode.sample_per_row(logits, temps, g1)
+        want = torch.multinomial(torch.softmax(logits / 0.7, dim=-1), 1, generator=g2)[:, 0]
+        assert torch.equal(got, want)
+    assert torch.equal(g1.get_state(), g2.get_state())

@@ -105,6 +105,21 @@ def test_sample_per_row_supports_and_passthrough():
         assert torch.equal(plain, warped)
 
 
+def test_sample_per_row_matches_multinomial_on_cpu():
+    """The sampled rows draw what torch.multinomial draws from the same
+    generator state, and leave the generator where it leaves it (the card's
+    counterpart is in tests/test_torch_cuda.py)."""
+    logits = torch.from_numpy(
+        np.random.default_rng(5).standard_normal((8, 1000)).astype(np.float32)) * 3
+    temps = torch.full((8,), 0.7)
+    g1, g2 = torch.Generator().manual_seed(11), torch.Generator().manual_seed(11)
+    for _ in range(4):
+        got = D.sample_per_row(logits, temps, g1)
+        want = torch.multinomial(torch.softmax(logits / 0.7, dim=-1), 1, generator=g2)[:, 0]
+        assert torch.equal(got, want)
+    assert torch.equal(g1.get_state(), g2.get_state())
+
+
 def test_chosen_logprob_and_packing_equal_jax():
     rng = np.random.default_rng(41)
     logits = (rng.standard_normal((5, 40)) * 3).astype(np.float32)
@@ -316,6 +331,8 @@ def test_snapshot_file_lifecycle_and_serve_resume(models, tmp_path, monkeypatch)
     assert stats["resumed"] == 1 and not os.path.exists(path)
     assert (stats["requests"], stats["new_tokens"]) == (1, 2)  # what this run decoded
     assert (tmp_path / "trace" / "trace.json").exists()
+    # no card here: the trace holds no device op
+    assert stats["ticks"] >= 1 and (stats["device_ops"], stats["device_ms"]) == (0, 0)
     args = tserve.parse_serve_args(argv)
     assert (args.act_dtype, args.multi_step) == ("int8", 2)
 

@@ -8,8 +8,10 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from gptq_v2_tpu.models import llama as JL
 from gptq_v2_tpu.ops import contiguous_attention as JCA
 from gptq_v2_tpu.serving import Engine as JEngine
 from gptq_v2_tpu.serving import Request as JRequest
@@ -65,6 +67,74 @@ def test_quantize_kv_write_bit_identical(kv_bits, per_head):
     TKV.write_kv_contiguous(tc, 1, _t(k), _t(v), _t(pos))
     np.testing.assert_array_equal(tc.k.numpy(), np.asarray(jc.k))
     np.testing.assert_array_equal(tc.v.numpy(), np.asarray(jc.v))
+
+
+def _per_call_scale(s):
+    """The scale tensor a step built from host data before the caches kept
+    device tensors (``kv_cache._scale`` on each call)."""
+    a = torch.tensor(s, dtype=torch.float32)
+    return a[:, None] if a.dim() else a
+
+
+def _per_call_q_heads(s, hq, dtype, per_head):
+    """The per-q-head form each call built: ``decode._head_scales`` (a
+    scalar stays 0-d), or ``fold_paged_kv_scales``'s ``per_q_head`` after
+    broadcasting a scalar over the kv heads (``per_head``)."""
+    if per_head and not isinstance(s, tuple):
+        s = (float(s),) * HKV
+    a = torch.tensor(s, dtype=torch.float32)
+    if a.dim():
+        a = torch.repeat_interleave(a, hq // a.shape[0])[:, None]
+    return a.to(dtype)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_step_scales_and_inv_freq_built_once(paged):
+    """The KV scales' and the rope frequencies' tensors, built once with the
+    cache and per (config, device), hold the values each step built from
+    host data before, and decode's rope still matches JAX's on the same
+    positions."""
+    rng = np.random.default_rng(7)
+    ks = (0.031, tuple(float(x) for x in rng.uniform(0.2, 0.6, HKV)))
+    vs = (tuple(float(x) for x in rng.uniform(0.2, 0.6, HKV)), 0.047)
+    if paged:
+        cache = TKV.init_cache(L_, 4, 8, HKV, HD, dtype=torch.int8, device="cpu",
+                               k_scales=ks, v_scales=vs)
+    else:
+        cache = TKV.init_contiguous_cache(L_, B, S, HKV, HD, dtype=torch.int8,
+                                          device="cpu", k_scales=ks, v_scales=vs)
+    for li in range(L_):
+        for which, sc, kept in (("k", ks[li], cache.k_scale_t), ("v", vs[li], cache.v_scale_t)):
+            assert torch.equal(kept[li], _per_call_scale(sc))
+            for hq, dtype, per_head in ((2 * HKV, torch.bfloat16, False),
+                                        (2 * HKV, torch.bfloat16, True),
+                                        (HKV, torch.float32, True)):
+                got = cache.q_head_scales(which, li, hq, dtype, per_head)
+                want = _per_call_q_heads(sc, hq, dtype, per_head)
+                assert got.dtype == want.dtype and got.shape == want.shape
+                assert torch.equal(got, want)
+                assert cache.q_head_scales(which, li, hq, dtype, per_head) is got
+
+    rope = tuple(sorted({"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+                         "high_freq_factor": 4.0,
+                         "original_max_position_embeddings": 64.0}.items()))
+    tcfg, jcfg = TL.LlamaConfig.tiny(rope_scaling=rope), JL.LlamaConfig.tiny(rope_scaling=rope)
+    inv = TL.device_inv_freq(tcfg, torch.device("cpu"))
+    assert TL.device_inv_freq(tcfg, torch.device("cpu")) is inv
+    hd = tcfg.head_dim_
+    base = 1.0 / (tcfg.rope_theta ** (np.arange(0, hd, 2, dtype=np.float64) / hd))
+    np.testing.assert_array_equal(inv.numpy(), np.float32(JL._scaled_inv_freq(
+        jcfg, base, jcfg.rope_theta)[0]))
+    pos = np.arange(0, 4000, 37)
+    tp = torch.from_numpy(pos)
+    per_call = torch.tensor(TL._inv_freq(tcfg), dtype=torch.float32)
+    freqs = tp.float()[:, None] * per_call[None, :]
+    emb = torch.cat([freqs, freqs], dim=-1)
+    jd = jax.jit(lambda p: JL.rope_cos_sin(jcfg, p))(jnp.asarray(pos))
+    for got, want, j in zip(TL.rope_cos_sin(tcfg, tp), (torch.cos(emb), torch.sin(emb)), jd):
+        assert torch.equal(got, want)
+        # fp32 cos/sin of the same fp32 angles in two libraries
+        np.testing.assert_allclose(got.numpy(), np.asarray(j), rtol=0, atol=1e-6)
 
 
 def test_pack_int4_rows_bit_identical():

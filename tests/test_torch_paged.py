@@ -196,7 +196,9 @@ def test_fold_paged_kv_scales_matches_jax(ks, vs):
     """Per-head, mixed scalar/tuple and scalar scales fold as in JAX."""
     q = np.random.default_rng(5).standard_normal((3, 1, 4, HD)).astype(np.float32)
     jq, jks, jvs, jfn = JD.fold_paged_kv_scales(jnp.asarray(q), ks, vs)
-    tq, tks, tvs, tfn = TD.fold_paged_kv_scales(_t(q), ks, vs)
+    cache = TKV.PagedKVCache(torch.zeros((1, 1, 1, 8, HD)), 1,
+                             None if ks is None else (ks,), None if vs is None else (vs,))
+    tq, tks, tvs, tfn = TD.fold_paged_kv_scales(_t(q), cache, 0)
     np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
     assert (tks, tvs) == (jks, jvs) and (tfn is None) == (jfn is None)
     if tfn is not None:
