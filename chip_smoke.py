@@ -2,6 +2,9 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+``--keep-checkpoint DIR`` leaves the main path's checkpoint (``model/`` and
+``results.npz``) in DIR, for ``python -m gptq_v2_tpu_torch.serve`` runs
+over it (``--profile-dir`` gives their device time and device ops).
 
 1. Builds the hand-written kernels (``gptq_v2_tpu_torch/csrc/*.cu``, one
    ``nvcc`` per source, all started together).
@@ -58,8 +61,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    median of 5 CUDA-graph replays of >= 100 back-to-back launches over
    rotating input copies that together exceed twice the L2
    (``Timer.steady``); every other time is one event pair per launch
-   after an L2 flush (``Timer.__call__``).  K3 is timed both ways, and so
-   is its library call.  K1 must also keep H exactly symmetric and give
+   after an L2 flush (``Timer.__call__``).  K3 and K8 are timed both
+   ways, and so are their library calls.  K8's staged rows must be
+   bit-equal to the plain quantization, and K3's and K8's rows the same at
+   every M.  K1 must also keep H exactly symmetric and give
    bit-equal results on two launches.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
@@ -68,6 +73,7 @@ result, without a CUDA device or without the package beside it.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import json
@@ -525,9 +531,17 @@ def phase_w4a8(torch, timer, launches, layer0) -> list:
     """K8 at the four fused shapes: bits 4 on the main path's first block
     (GPTQ codes, act-order), bits 2 and 8 on synthetic linears of the same
     shapes (act-order; bits 8 with codes above 200), M in M_ROWS, bf16
-    scales; fp32 scales held at 1e-5 on the qkv shape.  ``ms`` is the
-    kernel launch on prepared int8 rows; the wrapper (gather, pad, per-row
-    quantization, kernel) is logged beside it."""
+    scales; fp32 scales held at 1e-5 on the qkv shape.  Every linear is on
+    the int8 tensor-core route.  ``ms`` is the whole ``w4a8_matmul`` (the
+    staging kernel and the matmul in one call), as K3's row times
+    ``w4a16_matmul``; the staging kernel alone (``w4a8_stage``; the matmul
+    on staged rows is the difference) and the steady times (``Timer.steady``, K8 and ``x @ W``; at bits 4
+    every M, at bits 2 and 8 M = 8) are logged beside it.  Gates: the
+    staged rows bit-equal to ``quantize_activations_int8`` on the main
+    path's first block; a row has the same bits at every M: at M = 8 two
+    launches are bit-equal and equal to the same rows among 32, and the
+    first 8 rows of the M = 1024 activations alone equal those rows of the
+    M = 1024 call."""
     from gptq_v2_tpu_torch.ops import w4a16 as K
     from gptq_v2_tpu_torch.ops.packing import dequantize_dense, unpack_codes
 
@@ -542,40 +556,82 @@ def phase_w4a8(torch, timer, launches, layer0) -> list:
             c, r = p.in_features, p.out_features
             if bits == 8 and int(unpack_codes(p.qweight[:128], 128, 8).max()) <= 200:
                 raise RuntimeError("the bits-8 linear has no code above 200")
+            if not K.a8_tensor_core_route(p):
+                raise RuntimeError(f"K8 {name} bits={bits}: off the tensor-core route")
             w_dense = dequantize_dense(p, torch.bfloat16)
+            p_bytes = sum(t.numel() * t.element_size() for t in (p.qweight, p.scales, p.zeros))
+
+            def packed_copy(i, p=p):
+                return p if i == 0 else dataclasses.replace(
+                    p, qweight=p.qweight.clone(), scales=p.scales.clone(), zeros=p.zeros.clone())
+
+            def dense_copy(i, w=w_dense):
+                return w if i == 0 else w.clone()
+
             for m in M_ROWS:
                 x = torch.randn((m, c), device="cuda", dtype=torch.bfloat16)
                 xq, xs = K.quantize_activations_int8(K.stored_rows(x, p))
-                got = K.w4a8_kernel(xq, xs, p).float()
+                sq, ss, ssum = K.w4a8_stage(x, p)
+                if not (torch.equal(sq, xq) and torch.equal(ss, xs) and torch.equal(
+                        ssum, K.activation_group_sums(xq, p.group_size))):
+                    raise RuntimeError(f"K8 {name} bits={bits} M={m}: staged rows differ from "
+                                       "quantize_activations_int8")
+                y = K.w4a8_matmul(x, p)
+                got = y.float()
                 ref = K.w4a8_reference(xq, xs, p).float()
                 err = float((got - ref).abs().max())
                 # exact integer group dots in both; the fp32 group sum may
-                # associate otherwise and the bf16 output round either way
+                # round otherwise and the bf16 output round either way
                 if err > 8e-3 * float(ref.abs().max()):
                     raise RuntimeError(f"K8 {name} bits={bits} M={m}: max abs err {err}")
+                if m == 8:
+                    once = K.w4a8_matmul(x, p)
+                    if not torch.equal(once, K.w4a8_matmul(x, p)):
+                        raise RuntimeError(f"K8 {name} bits={bits} M=8: two launches differ")
+                    # the decode kernel gives a row the tile kernel's bits
+                    if not torch.equal(once, K.w4a8_matmul(x.repeat(4, 1), p)[:m]):
+                        raise RuntimeError(f"K8 {name} bits={bits} M=8: decode rows differ "
+                                           "from prefill rows")
+                if m == 1024 and not torch.equal(K.w4a8_matmul(x[:8], p), y[:8]):
+                    raise RuntimeError(f"K8 {name} bits={bits}: 8 rows alone differ from the "
+                                       "same rows at M=1024")
                 if bits == 4 and name == FUSED[0] and m in (8, 1024):
                     p32 = dataclasses.replace(p, scales=p.scales.float(), zeros=p.zeros.float())
-                    e32 = float((K.w4a8_kernel(xq, xs, p32) - K.w4a8_reference(xq, xs, p32))
-                                .abs().max())
-                    m32 = float(K.w4a8_reference(xq, xs, p32).abs().max())
+                    ref32 = K.w4a8_reference(xq, xs, p32)
+                    e32 = float((K.w4a8_matmul(x, p32) - ref32).abs().max())
+                    m32 = float(ref32.abs().max())
                     if e32 > 1e-5 * m32:
                         raise RuntimeError(f"K8 {name} M={m} fp32 scales: max abs err {e32}")
                     log(f"phase K8 {name} M={m} fp32 scales: ok, rel err {e32 / m32:.2e}")
-                ms = timer(lambda: K.w4a8_kernel(xq, xs, p), 10)
-                wrap_ms = timer(lambda: K.w4a8_matmul(x, p), 10)
+                ms = timer(lambda: K.w4a8_matmul(x, p), 10)
+                stage_ms = timer(lambda: K.w4a8_stage(x, p), 10)
                 plain_ms = timer(lambda: K.w4a8_reference(xq, xs, p), 3)
                 lib_ms = timer(lambda: x @ w_dense, 10)
+                steady = ""
+                if bits == 4 or m == 8:
+                    steady_ms = timer.steady(
+                        lambda i, x=x: (lambda q=packed_copy(i): K.w4a8_matmul(x, q)), p_bytes)
+                    lib_steady_ms = timer.steady(
+                        lambda i, x=x: (lambda w=dense_copy(i): x @ w), 2 * c * r)
+                    steady = (f" (steady {steady_ms:.4f} ms; x@W steady "
+                              f"{lib_steady_ms:.4f} ms)")
                 c_pad, g_pad = p.in_features_padded, p.scales.shape[0]
-                n_bytes = c_pad * r * bits // 8 + m * c_pad + 2 * g_pad * r * 2 + m * r * 2 + 4 * m
-                b_ms, b_by = bound(n_bytes, 2 * m * c_pad * r, "int8")
+                # x (bf16) and the perm read, each output written once
+                n_bytes = (c_pad * r * bits // 8 + 2 * g_pad * r * 2 + 2 * m * c
+                           + (8 * c if p.perm is not None else 0) + m * r * 2)
+                b_ms, b_by = bound(n_bytes, 2 * m * c * r, "int8")
                 out.append(dict(name=f"w4a8_matmul [{name} C={c} R={r} M={m} bits={bits} bf16]",
                                 route="cuda", source="gptq_v2_tpu_torch/csrc/w4a8.cu",
                                 replaces=REPLACES["w4a8"], launches=launches["w4a8"],
                                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                 bound_by=b_by, library_ms=lib_ms))
-                log(f"phase K8 {name} bits={bits} M={m}: ok, rel err "
-                    f"{err / float(ref.abs().max()):.2e}, kernel {ms:.4f} ms (wrapper "
-                    f"{wrap_ms:.4f} ms), plain {plain_ms:.3f} ms, x@W {lib_ms:.4f} ms, "
+                log(f"phase K8 {name} bits={bits} M={m}: ok, staged rows bit-equal, rel err "
+                    f"{err / float(ref.abs().max()):.2e}"
+                    + (", two launches bit-equal and equal to the prefill path's rows"
+                       if m == 8 else ", its first 8 rows equal to the decode path's"
+                       if m == 1024 else "")
+                    + f", w4a8_matmul {ms:.4f} ms{steady}, staging alone {stage_ms:.4f} ms "
+                    f"(matmul on staged rows {ms - stage_ms:.4f} ms), plain {plain_ms:.3f} ms, x@W {lib_ms:.4f} ms, "
                     f"bound {b_ms:.4f} ms ({b_by})")
             del w_dense
     return out
@@ -1568,7 +1624,12 @@ def phase_paged_write(torch, timer, launches) -> list:
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--keep-checkpoint", default="",
+                    help="move the main path's checkpoint (model/ and results.npz) to this "
+                    "directory at the end, for runs of serve.py over it")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -1636,6 +1697,13 @@ def main() -> int:
                                    "times; every block linear should run through K8")
         phase_attention_ab(torch, work)
     finally:
+        if args.keep_checkpoint:
+            keep = Path(args.keep_checkpoint)
+            shutil.rmtree(keep, ignore_errors=True)
+            keep.mkdir(parents=True)
+            for item in ("model", "results.npz"):
+                if (work / item).exists():
+                    shutil.move(str(work / item), str(keep / item))
         shutil.rmtree(work, ignore_errors=True)
     launches = {k: sum(c[k] for c in counts.values()) for k in wrappers}
 

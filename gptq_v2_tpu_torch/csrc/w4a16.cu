@@ -62,26 +62,14 @@
 // memory.  Prefill: a block owns 64 rows x 64 columns and per group adds
 // (x_i . q_i) * s - (sum x_i) * zs on fp32 CUDA cores.
 //
+// The decode split, its cluster sum in group order and the launch helpers
+// are csrc/dequant_matmul.cuh's, shared with K8 (csrc/w4a8.cu).
+//
 // Measured times against the bound and the library: PERF.md, kernel table.
 
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
-
-namespace cg = cooperative_groups;
+#include "dequant_matmul.cuh"
 
 namespace {
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float round_to(float v, float) { return v; }
-__device__ __forceinline__ float round_to(float v, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // A code (below 2^23) as a float without an int -> float convert: or-ed
 // into the mantissa of 2^23, minus 2^23.  Exact: the same float as
@@ -92,12 +80,8 @@ __device__ __forceinline__ float code_to_f32(unsigned code) {
 
 // ---------------------------------------------------------------- decode
 
-constexpr int D_QUADS = 16;                 // 4-column quads across a column tile
-constexpr int D_BN = 4 * D_QUADS;           // 64 columns per column tile
-constexpr int D_SLOTS = 16;                 // groups a block holds at once
-constexpr int D_THREADS = D_QUADS * D_SLOTS;  // 256
-constexpr int D_CLUSTER_MAX = 8;            // portable cluster size
-constexpr int D_SMEM_MAX = 232448;          // 227 KB a block may opt in to
+constexpr int D_QUADS = D_BN / 4;  // 4-column quads across a column tile
+static_assert(D_QUADS * D_SLOTS == D_THREADS, "a thread per (quad, slot)");
 
 // words a thread keeps in flight (16 bytes each), within the register budget
 __host__ __device__ constexpr int decode_words_in_flight(int mr) { return mr <= 1 ? 8 : 4; }
@@ -153,9 +137,7 @@ w4a16_decode_kernel(const float* __restrict__ xt, const int32_t* __restrict__ qw
   extern __shared__ __align__(16) float terms[];  // (16 L, MR, 64), then x
   float* xstage = terms + D_SLOTS * layers * MR * D_BN;  // (16, g, MR) when x_in_smem
 
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int n_ranks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
   const int lane = threadIdx.x % 32, quad = lane % D_QUADS;
   const int slot = (threadIdx.x / 32) * 2 + lane / D_QUADS;
   const int n0 = blockIdx.x * D_BN, n = n0 + 4 * quad;
@@ -259,19 +241,9 @@ w4a16_decode_kernel(const float* __restrict__ xt, const int32_t* __restrict__ qw
       for (int i = 0; i < MR; ++i) dst[i * D_BN + cc] = part[i][cc] * s - xs[i] * zs;
     }
   }
-  cluster.sync();
-  // outputs o of the (MR, 64) tile, dealt to the ranks in turn
-  for (int o = rank * D_THREADS + threadIdx.x; o < MR * D_BN; o += n_ranks * D_THREADS) {
-    const int i = o / D_BN, nn = n0 + o % D_BN;
-    float acc = 0.0f;
-    for (int q = 0; q < n_ranks; ++q) {
-      const float* peer = cluster.map_shared_rank(terms, q);
-      const int n_here = min(per_block, n_groups - q * per_block);
-      for (int s_idx = 0; s_idx < n_here; ++s_idx) acc += peer[s_idx * MR * D_BN + o];
-    }
-    if (i < m_rows && nn < r) store(out + static_cast<size_t>(i) * r + nn, acc);
-  }
-  cluster.sync();  // no block leaves while a peer reads its terms
+  cluster_sum<MR>(terms, n_groups, per_block, [&](int i, int col, float acc) {
+    if (i < m_rows && n0 + col < r) store(out + static_cast<size_t>(i) * r + n0 + col, acc);
+  });
 }
 
 // --------------------------------------------------------------- prefill
@@ -366,31 +338,7 @@ w4a16_kernel(const T* __restrict__ x, const int32_t* __restrict__ qw,
 
 using bf16 = __nv_bfloat16;
 
-constexpr int TC_MAX_G = 128;     // the largest g whose prefill tiles fit
 constexpr int STAGE_COLS = 1024;  // stored columns per block of w4a16_stage_rows
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(full ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(s));
-}
 
 // d += A . B for one m16n8k16 tile, bf16 inputs, fp32 accumulators
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -538,9 +486,7 @@ w4a16_decode_tc(const bf16* __restrict__ xg, const float* __restrict__ xsum,
   constexpr int PLANES = 32 / BITS;
   extern __shared__ __align__(16) float terms[];  // (16 L, MR, 64)
 
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int n_ranks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gid = lane / 4, t = lane % 4;
   const int n0 = blockIdx.x * D_BN;
   const int n_groups = c_pad / g, per_block = D_SLOTS * layers, n_kc = g / 16;
@@ -629,32 +575,18 @@ w4a16_decode_tc(const bf16* __restrict__ xg, const float* __restrict__ xsum,
       }
     }
   }
-  cluster.sync();
-  // outputs o of the (MR, 64) tile, dealt to the ranks in turn
-  for (int o = rank * D_THREADS + threadIdx.x; o < MR * D_BN; o += n_ranks * D_THREADS) {
-    const int i = o / D_BN, nn = n0 + o % D_BN;
-    float acc = 0.0f;
-    for (int q = 0; q < n_ranks; ++q) {
-      const float* peer = cluster.map_shared_rank(terms, q);
-      const int n_here = min(per_block, n_groups - q * per_block);
-      for (int s_idx = 0; s_idx < n_here; ++s_idx)
-        acc = __fadd_rn(acc, peer[s_idx * MR * D_BN + o]);
-    }
-    if (i < m_rows && nn < r) out[static_cast<size_t>(i) * r + nn] = __float2bfloat16_rn(acc);
-  }
-  cluster.sync();  // no block leaves while a peer reads its terms
+  cluster_sum<MR>(terms, n_groups, per_block, [&](int i, int col, float acc) {
+    if (i < m_rows && n0 + col < r) store(out + static_cast<size_t>(i) * r + n0 + col, acc);
+  });
 }
 
-constexpr int P_THREADS = 256;  // eight warps
-
-// A prefill block tile: WN warps across, 8 / WN down, each warp TM m16
-// tiles x 4 n8 tiles (16 TM rows x 32 columns)
+// A prefill block tile (PrefillWarps) with its staged words' row stride
 template <int TM, int WN>
-struct PrefillTile {
-  static constexpr int BM = (8 / WN) * 16 * TM, BN = 32 * WN;
-  static constexpr int WSTRIDE = BN + 4;  // staged words per k row: 16 bytes of skew per row
+struct PrefillTile : PrefillWarps<TM, WN> {
+  using Warps = PrefillWarps<TM, WN>;
+  static constexpr int WSTRIDE = Warps::BN + 4;  // staged words per k row: 16 bytes of skew per row
   // shared memory: two word tiles and two x tiles
-  static constexpr int smem(int g) { return 2 * g * WSTRIDE * 4 + 2 * BM * (g + 8) * 2; }
+  static constexpr int smem(int g) { return 2 * g * WSTRIDE * 4 + 2 * Warps::BM * (g + 8) * 2; }
 };
 
 // Prefill on the tensor cores: a block owns BM rows x BN columns (128 x 128
@@ -806,101 +738,62 @@ w4a16_prefill_tc(const bf16* __restrict__ xg, const float* __restrict__ xsum,
     }
 }
 
-constexpr int MAX_DEVICES = 64;
-
-// Raises a kernel instance's dynamic shared-memory limit once per device
-// (to the largest size asked for so far), not on every launch: decode
-// launches K3 once per linear per token.
-template <typename K>
-cudaError_t allow_smem(K kern, int smem, int (&smem_set)[MAX_DEVICES]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (smem > smem_set[dev]) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    smem_set[dev] = smem;
-  }
-  return cudaSuccess;
-}
-
 template <int BITS, int MR, typename T>
 int launch_decode(const void* x, const int64_t* perm, int perm_len, int c, float* xt,
                   const int32_t* qw, const void* s, const void* z, void* out, int m, int c_pad,
                   int r, int g, cudaStream_t stream) {
   w4a16_gather_rows<MR, T><<<(c_pad + 255) / 256, 256, 0, stream>>>(
       static_cast<const T*>(x), perm, perm_len, c, xt, m, c_pad);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  // a cluster of up to 8 blocks holds all of a column tile's groups, 16
-  // per block per layer
-  const int n_groups = c_pad / g;
-  const int layers = (n_groups + D_SLOTS * D_CLUSTER_MAX - 1) / (D_SLOTS * D_CLUSTER_MAX);
-  const int size = (n_groups + D_SLOTS * layers - 1) / (D_SLOTS * layers);
+  const DecodeSplit split = decode_split(c_pad / g);
   // terms, and the layer's x slice when it fits (else x is read from xt)
-  const int terms_bytes = D_SLOTS * layers * MR * D_BN * static_cast<int>(sizeof(float));
+  const int terms_bytes = D_SLOTS * split.layers * MR * D_BN * static_cast<int>(sizeof(float));
   const int x_bytes = D_SLOTS * g * MR * static_cast<int>(sizeof(float));
   const int x_in_smem = terms_bytes + x_bytes <= D_SMEM_MAX;
   const int smem = terms_bytes + (x_in_smem ? x_bytes : 0);
   if (smem > D_SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = w4a16_decode_kernel<BITS, MR, T>;
   static int smem_set[MAX_DEVICES] = {};
-  err = allow_smem(kern, smem, smem_set);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr = {};
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = 1;
-  attr.val.clusterDim.y = size;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((r + D_BN - 1) / D_BN, size);
-  cfg.blockDim = dim3(D_THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
   // 16-byte word loads need r % 4 == 0 and an aligned base
-  const int vec = r % 4 == 0 && reinterpret_cast<uintptr_t>(qw) % 16 == 0;
-  err = cudaLaunchKernelEx(&cfg, kern, static_cast<const float*>(xt), qw,
-                           static_cast<const T*>(s), static_cast<const T*>(z),
-                           static_cast<T*>(out), m, c_pad, r, g, layers, vec, x_in_smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  const int vec = r % 4 == 0 && aligned16(qw);
+  return launch_cluster(w4a16_decode_kernel<BITS, MR, T>, (r + D_BN - 1) / D_BN, split.size, smem,
+                        smem_set, stream, static_cast<const float*>(xt), qw,
+                        static_cast<const T*>(s), static_cast<const T*>(z), static_cast<T*>(out), m,
+                        c_pad, r, g, split.layers, vec, x_in_smem);
 }
 
 template <int BITS, int BM, typename T>
 int launch(const void* x, const int32_t* qw, const void* s, const void* z, void* out,
            int m, int c_pad, int r, int g, cudaStream_t stream) {
   const int smem = (g * BN + BM * g) * static_cast<int>(sizeof(float));
-  auto kern = w4a16_kernel<BITS, BM, T>;
   static int smem_set[MAX_DEVICES] = {};
-  cudaError_t err = allow_smem(kern, smem, smem_set);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((r + BN - 1) / BN, (m + BM - 1) / BM);
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), qw, static_cast<const T*>(s), static_cast<const T*>(z),
-      static_cast<T*>(out), m, c_pad, r, g);
-  return static_cast<int>(cudaGetLastError());
+  return launch_kernel(w4a16_kernel<BITS, BM, T>, dim3((r + BN - 1) / BN, (m + BM - 1) / BM),
+                       THREADS, smem, smem_set, stream, static_cast<const T*>(x), qw,
+                       static_cast<const T*>(s), static_cast<const T*>(z), static_cast<T*>(out),
+                       m, c_pad, r, g);
 }
 
 // decode rows 1, 4, 8 or 16: the fewest that cover m
+template <int BITS, typename T>
+int decode_bits(const void* x, const int64_t* perm, int perm_len, int c, float* xt,
+                const int32_t* qw, const void* s, const void* z, void* out, int m, int c_pad,
+                int r, int g, cudaStream_t stream) {
+  return decode_rows(m, [&](auto mr) {
+    return launch_decode<BITS, decltype(mr)::value, T>(x, perm, perm_len, c, xt, qw, s, z, out,
+                                                       m, c_pad, r, g, stream);
+  });
+}
+
 template <typename T>
 int dispatch_decode(const void* x, const int64_t* perm, int perm_len, int c, float* xt,
                     const int32_t* qw, const void* s, const void* z, void* out, int m, int c_pad,
                     int r, int g, int bits, cudaStream_t stream) {
-#define K3_DECODE(B, MR) \
-  launch_decode<B, MR, T>(x, perm, perm_len, c, xt, qw, s, z, out, m, c_pad, r, g, stream)
-#define K3_DECODE_ROWS(B) \
-  (m <= 1 ? K3_DECODE(B, 1) : m <= 4 ? K3_DECODE(B, 4) : m <= 8 ? K3_DECODE(B, 8) : K3_DECODE(B, 16))
   switch (bits) {
-    case 2: return K3_DECODE_ROWS(2);
-    case 4: return K3_DECODE_ROWS(4);
-    case 8: return K3_DECODE_ROWS(8);
+    case 2: return decode_bits<2, T>(x, perm, perm_len, c, xt, qw, s, z, out, m, c_pad, r, g, stream);
+    case 4: return decode_bits<4, T>(x, perm, perm_len, c, xt, qw, s, z, out, m, c_pad, r, g, stream);
+    case 8: return decode_bits<8, T>(x, perm, perm_len, c, xt, qw, s, z, out, m, c_pad, r, g, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef K3_DECODE_ROWS
-#undef K3_DECODE
 }
 
 template <typename T>
@@ -918,32 +811,13 @@ template <int BITS, int MR>
 int launch_decode_tc(const bf16* xg, const float* xs, const int32_t* qw, const bf16* s,
                      const bf16* z, bf16* out, int m, int c_pad, int r, int g, int flags,
                      cudaStream_t stream) {
-  // a cluster of up to 8 blocks holds all of a column tile's groups, 16
-  // per block per layer
-  const int n_groups = c_pad / g;
-  const int layers = (n_groups + D_SLOTS * D_CLUSTER_MAX - 1) / (D_SLOTS * D_CLUSTER_MAX);
-  const int size = (n_groups + D_SLOTS * layers - 1) / (D_SLOTS * layers);
-  const int smem = D_SLOTS * layers * MR * D_BN * static_cast<int>(sizeof(float));
+  const DecodeSplit split = decode_split(c_pad / g);
+  const int smem = D_SLOTS * split.layers * MR * D_BN * static_cast<int>(sizeof(float));
   if (smem > D_SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = w4a16_decode_tc<BITS, MR>;
   static int smem_set[MAX_DEVICES] = {};
-  cudaError_t err = allow_smem(kern, smem, smem_set);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr = {};
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = 1;
-  attr.val.clusterDim.y = size;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((r + D_BN - 1) / D_BN, size);
-  cfg.blockDim = dim3(D_THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kern, xg, xs, qw, s, z, out, m, c_pad, r, g, layers, flags);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch_cluster(w4a16_decode_tc<BITS, MR>, (r + D_BN - 1) / D_BN, split.size, smem,
+                        smem_set, stream, xg, xs, qw, s, z, out, m, c_pad, r, g, split.layers,
+                        flags);
 }
 
 template <int BITS, int TM, int WN>
@@ -951,31 +825,27 @@ int launch_prefill_tc(const bf16* xg, const float* xs, const int32_t* qw, const 
                       const bf16* z, bf16* out, int m, int c_pad, int r, int g, int flags,
                       cudaStream_t stream) {
   using Tile = PrefillTile<TM, WN>;
-  const int smem = Tile::smem(g);
-  auto kern = w4a16_prefill_tc<BITS, TM, WN>;
   static int smem_set[MAX_DEVICES] = {};
-  cudaError_t err = allow_smem(kern, smem, smem_set);
-  if (err != cudaSuccess) return static_cast<int>(err);
   // row tiles vary fastest: the blocks in flight share a column tile's words in L2
-  dim3 grid((m + Tile::BM - 1) / Tile::BM, (r + Tile::BN - 1) / Tile::BN);
-  kern<<<grid, P_THREADS, smem, stream>>>(xg, xs, qw, s, z, out, m, c_pad, r, g, flags);
-  return static_cast<int>(cudaGetLastError());
+  return launch_kernel(w4a16_prefill_tc<BITS, TM, WN>,
+                       dim3((m + Tile::BM - 1) / Tile::BM, (r + Tile::BN - 1) / Tile::BN),
+                       P_THREADS, Tile::smem(g), smem_set, stream, xg, xs, qw, s, z, out, m, c_pad,
+                       r, g, flags);
 }
 
-// rows 1, 4, 8 or 16 at decode (the fewest that cover m), else prefill in
-// 64 x 64 tiles up to 64 rows and 128 x 128 above
 template <int BITS>
 int dispatch_tc(const bf16* xg, const float* xs, const int32_t* qw, const bf16* s, const bf16* z,
                 bf16* out, int m, int c_pad, int r, int g, int flags, cudaStream_t stream) {
-#define K3_TC_DECODE(MR) \
-  launch_decode_tc<BITS, MR>(xg, xs, qw, s, z, out, m, c_pad, r, g, flags, stream)
-  if (m <= 1) return K3_TC_DECODE(1);
-  if (m <= 4) return K3_TC_DECODE(4);
-  if (m <= 8) return K3_TC_DECODE(8);
-  if (m <= 16) return K3_TC_DECODE(16);
-#undef K3_TC_DECODE
-  if (m <= 64) return launch_prefill_tc<BITS, 1, 2>(xg, xs, qw, s, z, out, m, c_pad, r, g, flags, stream);
-  return launch_prefill_tc<BITS, 4, 4>(xg, xs, qw, s, z, out, m, c_pad, r, g, flags, stream);
+  return dispatch_rows(
+      m,
+      [&](auto mr) {
+        return launch_decode_tc<BITS, decltype(mr)::value>(xg, xs, qw, s, z, out, m, c_pad, r, g,
+                                                           flags, stream);
+      },
+      [&](auto tm, auto wn) {
+        return launch_prefill_tc<BITS, decltype(tm)::value, decltype(wn)::value>(
+            xg, xs, qw, s, z, out, m, c_pad, r, g, flags, stream);
+      });
 }
 
 }  // namespace
@@ -1036,11 +906,10 @@ int w4a16_tc(const void* x, const int64_t* perm, int perm_len, int c, void* xg, 
                                                    static_cast<bf16*>(xg), xs, c_pad, g);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   // 16-byte words (r % 4 == 0), scales (r % 8 == 0) and output stores
-  const int flags = (r % 4 == 0 && aligned(qw) ? 1 : 0) |
-                    (r % 8 == 0 && aligned(s) && aligned(z) ? 2 : 0) |
-                    (r % 8 == 0 && aligned(out) ? 4 : 0);
+  const int flags = (r % 4 == 0 && aligned16(qw) ? 1 : 0) |
+                    (r % 8 == 0 && aligned16(s) && aligned16(z) ? 2 : 0) |
+                    (r % 8 == 0 && aligned16(out) ? 4 : 0);
   const bf16* xgb = static_cast<const bf16*>(xg);
   const bf16* sb = static_cast<const bf16*>(s);
   const bf16* zb = static_cast<const bf16*>(z);

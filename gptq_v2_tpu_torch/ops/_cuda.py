@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 for ``sm_90a`` into ``build/lib<name>-<hash>.so``, loaded with ``ctypes``.
-The hash of the source is part of the file name, so an edited kernel is
-rebuilt and a stale library is never loaded.  The build happens at first
+The hash of the source, and of each ``csrc/`` header it includes with
+``#include "..."``, is part of the file name, so an edited kernel or
+header is rebuilt and a stale library is never loaded.  The build happens at first
 use, inside the call that launches the kernel (``library``), or all at
 once in parallel (``build_all``); nothing is compiled when a module is
 imported.
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -32,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_LOCAL_INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.MULTILINE)
 
 
 def _nvcc() -> str:
@@ -48,6 +51,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in _LOCAL_INCLUDE.findall(src):
+        src += (CSRC_DIR / header.decode()).read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

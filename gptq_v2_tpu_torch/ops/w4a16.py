@@ -15,11 +15,17 @@ same code, so a row has the same bits at every ``M``.  What bounds each on
 the H100 and what its design does about it is noted in that source.
 
 K8 replaces ``_kernel_a8`` (the W4A8 tier, ``PackedLinear.act_bits == 8``)
-with ``csrc/w4a8.cu`` (launched by :func:`w4a8_kernel`): the activations
-are quantized per row to dynamic symmetric int8
-(:func:`quantize_activations_int8`, torch ops, as the JAX package runs them
-outside its kernel) and each group's dot is an exact int8 × int8 → int32
-sum, scaled in fp32 by the group's scale and the row's ``x_scale``.
+with ``csrc/w4a8.cu``.  :func:`w4a8_matmul` makes one call into it: a
+staging kernel gathers ``x`` into stored order, zero-pads it and quantizes
+each row to dynamic symmetric int8 (bit-equal to
+:func:`quantize_activations_int8` on :func:`stored_rows`), and writes each
+group's exact ``Σxq``; then each group's dot is an exact int8 × int8 →
+int32 sum, scaled in fp32 by the group's scale and the row's ``x_scale``.
+The route depends on the weights alone (:func:`a8_tensor_core_route`):
+``g % 16 == 0`` and ``g ≤ 128`` (fp32 or bf16 scales) runs on the int8
+tensor cores at every ``M`` (decode split over groups at ``M ≤ 16``, a
+tile kernel above, both through one group-dot routine, so a row has the
+same bits at every ``M``); other group sizes on a CUDA-core ``__dp4a`` kernel.
 
 The plain versions are :func:`w4a16_reference` (``q·s − zs`` then a
 matmul) and :func:`w4a8_reference`.  On a CPU tensor the wrappers run
@@ -49,7 +55,11 @@ _DECODE_TILES = (1, 4, 8, 16)
 # the largest group the tensor-core route takes (its prefill tiles fit)
 TC_MAX_GROUP = 128
 _SIGNATURES_A8 = {"w4a8_matmul": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                  + [ctypes.c_void_p]}
+                  + [ctypes.c_void_p],
+                  "w4a8_stage": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                  + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+                  "w4a8_linear": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                  + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]}
 
 
 def w4a16_reference(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
@@ -204,13 +214,89 @@ def w4a8_reference(xq: torch.Tensor, x_scale: torch.Tensor, p: PackedLinear) -> 
     return (acc * x_scale.reshape(-1, 1)).to(dt)
 
 
-def w4a8_kernel(xq: torch.Tensor, x_scale: torch.Tensor, p: PackedLinear) -> torch.Tensor:
-    """Launch K8 on quantized stored rows ``xq (M, C_pad)`` int8 and
-    ``x_scale (M, 1)`` fp32, all on one CUDA device; returns ``(M, R)`` in
-    the scales' dtype."""
+def activation_group_sums(xq: torch.Tensor, g: int) -> torch.Tensor:
+    """Each (row, group)'s exact ``Σxq`` of int8 rows ``xq (M, C_pad)`` as
+    int32 ``(M, C_pad / g)`` (JAX's ``x_sum_i``, ``w4a16.py:107-108``)."""
+    return xq.reshape(xq.shape[0], -1, g).sum(dim=2, dtype=torch.int32)
+
+
+def a8_tensor_core_route(p: PackedLinear) -> bool:
+    """Whether K8 runs ``p`` on the int8 tensor cores: ``g % 16 == 0`` and
+    ``g ≤ 128``, with fp32 or bf16 scales (the int8 dot does not depend on
+    them).  A property of the weights, never of ``M``; other group sizes
+    take the ``__dp4a`` kernel."""
+    g = p.group_size
+    return p.scales.dtype in _DTYPES and g % 16 == 0 and g <= TC_MAX_GROUP
+
+
+def _check_a8(p: PackedLinear) -> None:
     _check_packed(p)
     if p.group_size % 4:
         raise ValueError(f"group size {p.group_size}: K8 needs a multiple of 4")
+
+
+def _a8_rows(x: torch.Tensor, p: PackedLinear):
+    """``x`` as contiguous ``(M, C)`` rows in a dtype the staging kernel
+    reads (fp32 or bf16; any other is cast to fp32, as the plain version's
+    ``.float()`` does first), with the C entry's perm arguments."""
+    xb = x.reshape(-1, p.in_features)
+    if xb.dtype not in _DTYPES:
+        xb = xb.float()
+    xb = xb.contiguous()
+    perm = p.perm
+    if perm is not None and (perm.dtype != torch.int64 or not perm.is_contiguous()):
+        raise ValueError("perm must be a contiguous int64 tensor")
+    perm_args = (_cuda.ptr(perm) if perm is not None else None,
+                 0 if perm is None else perm.shape[0], p.in_features)
+    return xb, perm_args
+
+
+def _a8_workspace(m: int, p: PackedLinear, device):
+    c_pad = p.in_features_padded
+    return (torch.empty((m, c_pad), dtype=torch.int8, device=device),
+            torch.empty((m, 1), dtype=torch.float32, device=device),
+            torch.empty((m, c_pad // p.group_size), dtype=torch.int32, device=device))
+
+
+def w4a8_stage(x: torch.Tensor, p: PackedLinear):
+    """K8's staged activations for ``x (..., C)``: ``xq (M, C_pad)`` int8
+    in stored order, ``x_scale (M, 1)`` fp32 and each group's ``Σxq``
+    ``(M, C_pad / g)`` int32.  On a CUDA tensor the staging kernel alone
+    writes them (what :func:`w4a8_matmul` launches first); on a CPU tensor
+    the plain version computes them."""
+    _check_input(x, p)
+    if x.device.type == "cpu":
+        xq, x_scale = quantize_activations_int8(stored_rows(x, p))
+        return xq, x_scale, activation_group_sums(xq, p.group_size)
+    _check_a8(p)
+    xb, perm_args = _a8_rows(x, p)
+    m = xb.shape[0]
+    xq, x_scale, xsum = _a8_workspace(m, p, x.device)
+    if m == 0:
+        return xq, x_scale, xsum
+    lib = _cuda.library("w4a8", _SIGNATURES_A8)
+    with torch.cuda.device(x.device):
+        err = lib.w4a8_stage(_cuda.ptr(xb), *perm_args, _cuda.ptr(xq), _cuda.ptr(x_scale),
+                             _cuda.ptr(xsum), m, p.in_features_padded, p.group_size,
+                             _DTYPES[xb.dtype], _cuda.stream_ptr(x.device))
+    _cuda.check(lib, err, "w4a8_stage")
+    w4a8_stage.launches += 1
+    return xq, x_scale, xsum
+
+
+w4a8_stage.launches = 0
+
+
+def w4a8_kernel(xq: torch.Tensor, x_scale: torch.Tensor, p: PackedLinear) -> torch.Tensor:
+    """Launch K8's CUDA-core (``__dp4a``) matmul on prepared rows: ``xq (M,
+    C_pad)`` int8 in stored order and ``x_scale (M, 1)`` fp32, all on one
+    CUDA device, at any group size that is a multiple of 4; the route that
+    :func:`w4a8_matmul` takes off the tensor cores.  Returns ``(M, R)`` in
+    the scales' dtype.
+
+    ``w4a8_kernel.launches`` counts every launch of K8, this one's and
+    :func:`w4a8_matmul`'s."""
+    _check_a8(p)
     m, c_pad = xq.shape
     if (xq.dtype != torch.int8 or x_scale.dtype != torch.float32 or c_pad != p.in_features_padded
             or x_scale.numel() != m or not (xq.is_contiguous() and x_scale.is_contiguous())):
@@ -234,13 +320,35 @@ w4a8_kernel.launches = 0
 
 def w4a8_matmul(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
     """The W4A8 tier's ``y ≈ x @ dequantize(p)`` for ``x`` ``(..., C)`` in
-    original column order: the act-order gather and contraction pad of
-    :func:`w4a16_matmul`, per-row int8 quantization of the stored rows in
-    the activation's own dtype, then K8 (:func:`w4a8_kernel`).  Returns
-    ``(..., R)`` in the scales' dtype."""
+    original column order; returns ``(..., R)`` in the scales' dtype.
+
+    On a CPU tensor the plain version: the act-order gather and contraction
+    pad (:func:`stored_rows`), per-row int8 quantization in the
+    activation's own dtype (:func:`quantize_activations_int8`), then
+    :func:`w4a8_reference`.  On a CUDA tensor one call into K8 stages the
+    rows (the same bits) and runs the matmul on the route the weights take
+    (:func:`a8_tensor_core_route`); it counts one launch on
+    ``w4a8_kernel.launches``."""
     _check_input(x, p)
     lead, r = x.shape[:-1], p.out_features
-    xq, x_scale = quantize_activations_int8(stored_rows(x, p))
     if x.device.type == "cpu":
+        xq, x_scale = quantize_activations_int8(stored_rows(x, p))
         return w4a8_reference(xq, x_scale, p).reshape(*lead, r)
-    return w4a8_kernel(xq, x_scale, p).reshape(*lead, r)
+    _check_a8(p)
+    xb, perm_args = _a8_rows(x, p)
+    m = xb.shape[0]
+    out = torch.empty((m, r), dtype=p.scales.dtype, device=x.device)
+    if m == 0:
+        return out.reshape(*lead, r)
+    tc = a8_tensor_core_route(p)
+    xq, x_scale, xsum = _a8_workspace(m, p, x.device)
+    lib = _cuda.library("w4a8", _SIGNATURES_A8)
+    with torch.cuda.device(x.device):
+        err = lib.w4a8_linear(
+            _cuda.ptr(xb), *perm_args, _cuda.ptr(xq), _cuda.ptr(x_scale), _cuda.ptr(xsum),
+            _cuda.ptr(p.qweight), _cuda.ptr(p.scales), _cuda.ptr(p.zeros), _cuda.ptr(out), m,
+            p.in_features_padded, r, p.group_size, p.bits, _DTYPES[xb.dtype],
+            _DTYPES[p.scales.dtype], int(tc), _cuda.stream_ptr(x.device))
+    _cuda.check(lib, err, "w4a8_matmul")
+    w4a8_kernel.launches += 1
+    return out.reshape(*lead, r)

@@ -238,6 +238,152 @@ def test_w4a8_kernel(dev, bits, m, dtype):
     assert not out[pad].any()
 
 
+def _a8(bits, c, r, seed, dev, dtype, g=16, act_order=True):
+    return dataclasses.replace(_packed(bits, c, r, seed, dev, dtype, g, act_order), act_bits=8)
+
+
+def _a8_rows(m, c, seed, dtype, dev):
+    """Rows for the staging kernel: random, one all-zero row, one row of
+    small entries with one large entry (x_scale 2.5) and entries on .5
+    steps of it, which round half to even."""
+    x = _rand((m, c), seed, dev=dev) * 3
+    if m > 2:
+        x[1] = 0.0
+        x[2] = 1e-3
+        x[2, 7] = 127.0 * 2.5
+        x[2, 8:12] = 2.5 * torch.tensor([0.5, 1.5, 2.5, -0.5], device=dev)
+    return x.to(dtype)
+
+
+def _check_w4a8(p, x):
+    """K8's wrapper (staging + matmul in one launch) against its plain
+    version on the same rows: exact integer group dots in both, the fp32
+    group sum in another rounding: 1e-5 of max|y| with fp32 scales, 8e-3
+    (a bf16 output ulp) with bf16."""
+    xq, xs = w4a16.quantize_activations_int8(w4a16.stored_rows(x, p))
+    ref = w4a16.w4a8_reference(xq, xs, p).float()
+    n3, n8 = w4a16.w4a16_matmul.launches, w4a16.w4a8_kernel.launches
+    out = w4a16.w4a8_matmul(x, p)
+    torch.cuda.synchronize()
+    assert (w4a16.w4a16_matmul.launches, w4a16.w4a8_kernel.launches) == (n3, n8 + 1)
+    assert out.dtype == p.scales.dtype and out.shape == (x.shape[0], p.out_features)
+    tol = 1e-5 if p.scales.dtype == torch.float32 else 8e-3
+    torch.testing.assert_close(out.float(), ref, rtol=0, atol=tol * float(ref.abs().max()))
+    return out
+
+
+# every C is off its packing block; g = 40 takes the shared-add group
+# sums, g = 16 / 128 / 256 the shuffle reductions
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act_order", [True, False])
+@pytest.mark.parametrize("bits,g,c", [(4, 16, 208), (2, 128, 1152), (8, 128, 1152),
+                                      (4, 40, 200), (4, 256, 768)])
+@pytest.mark.parametrize("m", [1, 6, 130])
+def test_w4a8_stage_bit_equal(dev, xdtype, act_order, bits, g, c, m):
+    """The staging kernel's xq, x_scale and group sums are bit-equal to
+    ``quantize_activations_int8(stored_rows(x, p))`` and its group sums,
+    computed by torch ops on the card and on the CPU."""
+    p = _a8(bits, c, 24, 7, dev, torch.bfloat16, g, act_order)
+    assert c % (32 // bits * g)
+    x = _a8_rows(m, c, m, xdtype, dev)
+    n = w4a16.w4a8_stage.launches
+    xq, xs, xsum = w4a16.w4a8_stage(x, p)
+    torch.cuda.synchronize()
+    assert w4a16.w4a8_stage.launches == n + 1
+    for target in (dev, torch.device("cpu")):
+        pt = _a8(bits, c, 24, 7, target, torch.bfloat16, g, act_order)
+        want_q, want_s = w4a16.quantize_activations_int8(w4a16.stored_rows(x.to(target), pt))
+        assert torch.equal(xq.cpu(), want_q.cpu())
+        assert torch.equal(xs.cpu(), want_s.cpu())
+        assert torch.equal(xsum.cpu(), w4a16.activation_group_sums(want_q, g).cpu())
+    if m > 2:
+        assert not xq[1].any() and not xsum[1].any()
+
+
+# the int8 tensor-core route: m <= 16 the split-over-groups decode kernel
+# (row tiles 1, 4, 8, 16), m > 16 the tile kernel (64 x 64 up to 64, then
+# 128 x 128)
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("g,c", [(16, 208), (128, 1152)])
+@pytest.mark.parametrize("m", [1, 5, 8, 16, 17, 64, 520])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w4a8_tensor_core_route(dev, bits, g, c, m, dtype):
+    p = _a8(bits, c, 100, bits, dev, dtype, g)
+    assert w4a16.a8_tensor_core_route(p)
+    if bits == 8:
+        assert int(packing.unpack_codes(p.qweight, g, 8).max()) > 200
+    out = _check_w4a8(p, _a8_rows(m, c, m, torch.bfloat16, dev))
+    if m > 2:
+        assert not out[1].any()
+
+
+# C_pad over many packing blocks (clusters of several blocks: C = 28672 at
+# bits 2 is 224 groups, two layers a block); R off the 64-column tile, and
+# R = 102 off the 16-byte word load (scalar loads); no act-order
+@pytest.mark.parametrize("bits,c,r,g,act_order", [
+    (2, 3000, 200, 16, True), (4, 3000, 200, 16, True), (8, 3000, 200, 16, True),
+    (4, 1000, 102, 16, True), (4, 1000, 200, 16, False), (2, 28672, 72, 128, True),
+    (4, 4096, 200, 128, True), (8, 2048, 136, 48, True)])
+@pytest.mark.parametrize("m", [1, 8, 16, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w4a8_shapes(dev, bits, c, r, g, act_order, m, dtype):
+    p = _a8(bits, c, r, bits + c, dev, dtype, g, act_order)
+    assert (p.perm is None) == (not act_order) and w4a16.a8_tensor_core_route(p)
+    _check_w4a8(p, _rand((m, c), m, torch.bfloat16, dev))
+
+
+@pytest.mark.parametrize("bits,c,r,g", [(2, 3000, 200, 16), (4, 3000, 200, 16),
+                                        (8, 3000, 200, 16), (4, 1000, 102, 16),
+                                        (2, 28672, 72, 128), (4, 4096, 200, 128),
+                                        (8, 2048, 136, 48)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w4a8_decode_rows_equal_prefill_rows(dev, bits, c, r, g, dtype):
+    """Both kernels of the tensor-core route (M <= 16 decode, above the tile
+    kernel) give a row the same bits: every row of a call at M = 1, 5, 16,
+    17, 64 or 520 equals the same row of one call at M = 40 (the rows past
+    40 repeat the first 40)."""
+    p = _a8(bits, c, r, bits + c, dev, dtype, g)
+    x = _rand((40, c), 40, torch.bfloat16, dev).repeat(13, 1)
+    full = w4a16.w4a8_matmul(x[:40], p)
+    for m in (1, 5, 16, 17, 64, 520):
+        assert torch.equal(w4a16.w4a8_matmul(x[:m], p), full.repeat(13, 1)[:m]), m
+
+
+@pytest.mark.parametrize("m", [8, 64, 520])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_w4a8_deterministic_and_graphed(dev, bits, m):
+    """No atomics in the sums: two launches are bit-equal, and a launch
+    captured in a CUDA graph replays to the eager output (M = 8 the decode
+    kernel, 64 and 520 the tile kernel)."""
+    p = _a8(bits, 3000, 200, bits, dev, torch.bfloat16)
+    x = _rand((m, 3000), m, torch.bfloat16, dev)
+    first = w4a16.w4a8_matmul(x, p)
+    second = w4a16.w4a8_matmul(x, p)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = w4a16.w4a8_matmul(x, p)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+
+
+@pytest.mark.parametrize("g", [40, 256])
+@pytest.mark.parametrize("m", [1, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w4a8_off_route_group_size(dev, g, m, dtype):
+    """A group size off the tensor-core route (g % 16 != 0, or g > 128)
+    still runs the dp4a kernel: staged in the same launch, and prepared
+    rows through ``w4a8_kernel`` without group sums."""
+    p = _a8(4, 1000, 100, g, dev, dtype, g)
+    assert not w4a16.a8_tensor_core_route(p)
+    x = _rand((m, 1000), m, torch.bfloat16, dev)
+    out = _check_w4a8(p, x)
+    xq, xs, _ = w4a16.w4a8_stage(x, p)
+    assert torch.equal(w4a16.w4a8_kernel(xq, xs, p), out)
+
+
 @pytest.mark.parametrize("g", [32, 64, 128])
 @pytest.mark.parametrize("bits", [2, 4, 8])
 @pytest.mark.parametrize("fb", ["float16", None])

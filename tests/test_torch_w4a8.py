@@ -104,6 +104,60 @@ def test_w4a8_plain_matches_jax(m, bits, dtype):
                                atol=tol * np.abs(want).max())
 
 
+@pytest.mark.parametrize("g,want", [(16, True), (32, True), (128, True), (40, False),
+                                    (256, False)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_a8_tensor_core_route(g, want, dtype):
+    """K8's route is a property of the weights: ``g % 16 == 0`` and
+    ``g ≤ 128`` take the int8 tensor cores with fp32 or bf16 scales; other
+    group sizes the dp4a kernel."""
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    p = PK.PackedLinear(qweight=torch.zeros((g, 8), dtype=torch.int32),
+                        scales=torch.ones((8, 8), dtype=tdt), zeros=torch.zeros((8, 8), dtype=tdt),
+                        perm=None, group_size=g, in_features=8 * g, bits=4, act_bits=8)
+    assert K.a8_tensor_core_route(p) is want
+
+
+@pytest.mark.parametrize("g", [16, 40, 128])
+def test_activation_group_sums_match_jax(g):
+    """Each group's ``Σxq`` (what K8's staging kernel writes beside ``xq``)
+    equals JAX's ``x_sum_i`` (``ops/w4a16.py:107-108``: int32 sums of each
+    group's int8 columns) on the same numpy rows, at ±127 extremes."""
+    rng = np.random.default_rng(g)
+    xq = rng.integers(-127, 128, (5, 6 * g)).astype(np.int8)
+    xq[0] = 127
+    xq[1] = -127
+    got = K.activation_group_sums(torch.from_numpy(xq), g)
+    xj = jnp.asarray(xq)
+    want = np.stack([np.asarray(jnp.sum(xj[:, i * g:(i + 1) * g].astype(jnp.int32), axis=1))
+                     for i in range(6)], axis=1)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_w4a8_stage_on_cpu_is_the_plain_version(dtype):
+    """On a CPU tensor ``w4a8_stage`` computes the plain staging (stored
+    rows, per-row int8, group sums) and launches nothing; ``xq``/``x_scale``
+    are JAX's (stored order through ``perm``, C padded)."""
+    a = _linear_np(4, seed=4)
+    tp, jp = _both(a, 4, dtype)
+    x = np.random.default_rng(5).standard_normal((3, C)).astype(np.float32)
+    n = K.w4a8_stage.launches, K.w4a8_kernel.launches
+    xq, xs, xsum = K.w4a8_stage(torch.from_numpy(x), tp)
+    assert (K.w4a8_stage.launches, K.w4a8_kernel.launches) == n
+    assert xq.shape == (3, tp.in_features_padded) and xsum.shape == (3, tp.scales.shape[0])
+    np.testing.assert_array_equal(xsum.numpy(),
+                                  xq.numpy().astype(np.int32).reshape(3, -1, G).sum(-1))
+    xb = jnp.asarray(x)[:, jnp.asarray(a["perm"])]
+    xb = jnp.pad(xb, ((0, 0), (0, tp.in_features_padded - C)))
+    amax = jnp.max(jnp.abs(xb), axis=1, keepdims=True)
+    j_xs = jnp.maximum(amax, 1e-12) / 127.0
+    j_xq = jnp.clip(jnp.round(xb / j_xs), -127, 127).astype(jnp.int8)
+    np.testing.assert_array_equal(xq.numpy(), np.asarray(j_xq))
+    np.testing.assert_array_equal(xs.numpy(), np.asarray(j_xs))
+
+
 def test_w4a8_tracks_a16_and_keeps_pad_rows_zero():
     """The a8 tier tracks the a16 path to ~1% (per-row int8 activations),
     as the JAX package's ``TestW4A8.test_close_to_a16_path`` requires, and
