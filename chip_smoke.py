@@ -61,7 +61,9 @@ over it (``--profile-dir`` gives their device time and device ops).
    median of 5 CUDA-graph replays of >= 100 back-to-back launches over
    rotating input copies that together exceed twice the L2
    (``Timer.steady``); every other time is one event pair per launch
-   after an L2 flush (``Timer.__call__``).  K3 and K8 are timed both
+   after an L2 flush (``Timer.__call__``).  K4 and K7 are also timed past
+   the paths' shapes: at S = 4096 and at Llama-3-8B's GQA head layout (8
+   kv heads under 32 q heads).  K3 and K8 are timed both
    ways, and so are their library calls.  K8's staged rows must be
    bit-equal to the plain quantization, and K3's and K8's rows the same at
    every M.  K1 must also keep H exactly symmetric and give
@@ -1246,29 +1248,40 @@ def phase_serve_features(torch, work: Path) -> None:
 def phase_attention_ab(torch, work: Path) -> None:
     """End-to-end effect of K4: the bf16 engine's tok/s with K4 and with the
     plain attention in its place, in turns (plain, K4, K4, plain), on one
-    engine and one request set (prompts 64-256 tokens, 32 new each)."""
+    engine and one request set each: 8 requests (prompts 64-256 tokens, 32
+    new each) at ``--max-seq-len 512``, and one request (a 1536-token
+    prompt, 64 new) at ``--max-seq-len 2048``, where one slot's long context
+    is what the split over keys spreads across the card."""
     from gptq_v2_tpu_torch import serve as S
     from gptq_v2_tpu_torch.serving import Request
 
-    eng = S.build_engine(S.parse_serve_args(
-        ["--model-dir", str(work / "model"), "--results", str(work / "results.npz"),
-         "--max-batch", str(len(PROMPT_LENS)), "--max-seq-len", "512"]))
     rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, MODEL["vocab_size"], (n,)).tolist() for n in PROMPT_LENS]
-    rates = {"plain": [], "K4": []}
-    # the first plain and K4 runs warm up; the last four run in turns
-    for label in ("plain", "K4", "plain", "K4", "K4", "plain"):
-        reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
-                for i, p in enumerate(prompts)]
-        with plain_attention() if label == "plain" else contextlib.nullcontext():
-            torch.cuda.synchronize()
-            t0 = time.time()
-            eng.run(reqs)
-            torch.cuda.synchronize()
-        rates[label].append(len(reqs) * NEW_TOKENS / (time.time() - t0))
-    log("phase attention.ab: bf16 engine tok/s, plain attention "
-        + " / ".join(f"{r:.1f}" for r in rates["plain"][1:]) + ", K4 "
-        + " / ".join(f"{r:.1f}" for r in rates["K4"][1:]) + " (plain, K4, K4, plain)")
+    setups = (("B=8", len(PROMPT_LENS), 512, PROMPT_LENS, NEW_TOKENS),
+              ("B=1 long", 1, 2048, (1536,), 64))
+    for label, max_batch, max_seq, lens, new in setups:
+        t0 = time.time()
+        eng = S.build_engine(S.parse_serve_args(
+            ["--model-dir", str(work / "model"), "--results", str(work / "results.npz"),
+             "--max-batch", str(max_batch), "--max-seq-len", str(max_seq)]))
+        prompts = [rng.integers(0, MODEL["vocab_size"], (n,)).tolist() for n in lens]
+        rates = {"plain": [], "K4": []}
+        # the first plain and K4 runs warm up; the last four run in turns
+        for mode in ("plain", "K4", "plain", "K4", "K4", "plain"):
+            reqs = [Request(uid=i, prompt=p, max_new_tokens=new)
+                    for i, p in enumerate(prompts)]
+            with plain_attention() if mode == "plain" else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                t1 = time.time()
+                eng.run(reqs)
+                torch.cuda.synchronize()
+            rates[mode].append(len(reqs) * new / (time.time() - t1))
+        log(f"phase attention.ab {label} (prompts {min(lens)}-{max(lens)}, {new} new, "
+            f"--max-seq-len {max_seq}): bf16 engine tok/s, plain attention "
+            + " / ".join(f"{r:.1f}" for r in rates["plain"][1:]) + ", K4 "
+            + " / ".join(f"{r:.1f}" for r in rates["K4"][1:])
+            + f" (plain, K4, K4, plain); {time.time() - t0:.1f} s")
+        del eng
+        torch.cuda.empty_cache()
 
 
 def phase_gptq_step(torch, timer, launches) -> list:
@@ -1351,83 +1364,97 @@ def phase_gptq_step(torch, timer, launches) -> list:
 
 
 def phase_attention(torch, timer, launches) -> list:
-    """K4 (bf16, int8) and K7 (int4) at the serve paths' decode shapes:
-    Llama-2-7B's 32 kv heads of 128, a 512-row cache, B in {1, 8}, every
-    slot at position S-1."""
+    """K4 (bf16, int8) and K7 (int4) at the serve paths' decode shapes and
+    past them, every slot at position S-1, B in {1, 8}, 32 q heads of 128:
+    Llama-2-7B's 32 kv heads over a 512-row cache at S in {128, 512} (the
+    serve paths) and over a 4096-row cache at S = 4096 (the model's
+    ``max_position_embeddings``), and Llama-3-8B's 8 kv heads (GQA 4) at S
+    in {512, 4096}."""
     import torch.nn.functional as F
 
     from gptq_v2_tpu_torch.ops import contiguous_attention as K
     from gptq_v2_tpu_torch.serving import kv_cache as kvc
 
-    hkv, hd, s_max = MODEL["num_key_value_heads"], 128, 512
+    t0 = time.time()
+    hq, hd = MODEL["num_attention_heads"], 128
     sm = hd ** -0.5
+    # (kv heads, cache rows, S values read from it)
+    shapes = ((32, 512, (128, 512)), (32, 4096, (4096,)), (8, 512, (512,)), (8, 4096, (4096,)))
     out = []
     for kind in ("bf16", "int8", "int4"):
-        for b in (1, 8):
-            gen = torch.Generator(device="cuda").manual_seed(b)
-            kf, vf = (torch.randn((1, b, s_max, hkv, hd), device="cuda", generator=gen)
-                      for _ in range(2))
-            if kind == "bf16":
-                k, v, ks = kf.to(torch.bfloat16), vf.to(torch.bfloat16), 1.0
-            elif kind == "int8":
-                k, v = (torch.clamp(torch.round(a * 40), -127, 127).to(torch.int8)
-                        for a in (kf, vf))
-                ks = 1 / 40
-            else:
-                k, v = (kvc.pack_int4_rows(torch.clamp(torch.round(a * 2.5), -7, 7)
-                                           .to(torch.int32)) for a in (kf, vf))
-                ks = 1 / 2.5
-            del kf, vf
-            q = (torch.randn((b, hkv, hd), device="cuda", generator=gen) * ks
-                 ).to(torch.bfloat16)
-            if kind == "int4":
-                fn, plain, key = (K.contiguous_decode_attention_p4,
-                                  K.contiguous_decode_attention_xla4, "attention_p4")
-                kd, vd = (torch.cat(K.unpack_nibbles(a[0]), dim=-2) for a in (k, v))
-            else:
-                fn, plain, key = (K.contiguous_decode_attention,
-                                  K.contiguous_decode_attention_ref, "attention")
-                kd, vd = k[0], v[0]
-            # the library yardstick: SDPA over the cache as bf16 (B, H, S, hd)
-            kd, vd = (a.to(torch.bfloat16).transpose(1, 2) for a in (kd, vd))
-            for s in (128, 512):
-                pos = torch.full((b,), s - 1, dtype=torch.int32, device="cuda")
-                args = (q, k, v, pos, 0)
-                got = fn(*args, s_bucket=s, sm_scale=sm).float()
-                ref = plain(*args, s_bucket=s, sm_scale=sm).float()
-                err = float((got - ref).abs().max())
-                # the plain versions round the probabilities to bf16 before
-                # PV, the kernels keep them fp32: 1e-2 of the largest output
-                if err > 1e-2 * float(ref.abs().max()):
-                    raise RuntimeError(f"{key} {kind} B={b} S={s}: max abs err {err}")
-                elem = {"bf16": 2, "int8": 1, "int4": 0.5}[kind]
-                n_bytes = 2 * b * s * hkv * hd * elem + 2 * 2 * b * hkv * hd + 4 * b
+        for hkv, s_max, s_list in shapes:
+            for b in (1, 8):
+                seed = b if (hkv, s_max) == (32, 512) else b + s_max + hkv
+                gen = torch.Generator(device="cuda").manual_seed(seed)
+                kf, vf = (torch.randn((1, b, s_max, hkv, hd), device="cuda", generator=gen)
+                          for _ in range(2))
+                if kind == "bf16":
+                    k, v, ks = kf.to(torch.bfloat16), vf.to(torch.bfloat16), 1.0
+                elif kind == "int8":
+                    k, v = (torch.clamp(torch.round(a * 40), -127, 127).to(torch.int8)
+                            for a in (kf, vf))
+                    ks = 1 / 40
+                else:
+                    k, v = (kvc.pack_int4_rows(torch.clamp(torch.round(a * 2.5), -7, 7)
+                                               .to(torch.int32)) for a in (kf, vf))
+                    ks = 1 / 2.5
+                del kf, vf
+                q = (torch.randn((b, hq, hd), device="cuda", generator=gen) * ks
+                     ).to(torch.bfloat16)
+                if kind == "int4":
+                    fn, plain, key = (K.contiguous_decode_attention_p4,
+                                      K.contiguous_decode_attention_xla4, "attention_p4")
+                    kd, vd = (torch.cat(K.unpack_nibbles(a[0]), dim=-2) for a in (k, v))
+                else:
+                    fn, plain, key = (K.contiguous_decode_attention,
+                                      K.contiguous_decode_attention_ref, "attention")
+                    kd, vd = k[0], v[0]
+                # the library yardstick: SDPA over the cache as bf16 (B, H, S, hd)
+                kd, vd = (a.to(torch.bfloat16).transpose(1, 2) for a in (kd, vd))
+                for s in s_list:
+                    pos = torch.full((b,), s - 1, dtype=torch.int32, device="cuda")
+                    args = (q, k, v, pos, 0)
+                    got = fn(*args, s_bucket=s, sm_scale=sm).float()
+                    ref = plain(*args, s_bucket=s, sm_scale=sm).float()
+                    err = float((got - ref).abs().max())
+                    # the plain versions round the probabilities to bf16 before
+                    # PV, the kernels keep them fp32: 1e-2 of the largest output
+                    if err > 1e-2 * float(ref.abs().max()):
+                        raise RuntimeError(f"{key} {kind} B={b} S={s} Hkv={hkv}: "
+                                           f"max abs err {err}")
+                    elem = {"bf16": 2, "int8": 1, "int4": 0.5}[kind]
+                    n_bytes = 2 * b * s * hkv * hd * elem + 2 * 2 * b * hq * hd + 4 * b
 
-                def make_kernel(i, s=s, args=args):
-                    a = args if i == 0 else (q.clone(), k.clone(), v.clone(), pos.clone(), 0)
-                    return lambda: fn(*a, s_bucket=s, sm_scale=sm)
+                    def make_kernel(i, s=s, args=args):
+                        a = args if i == 0 else (q.clone(), k.clone(), v.clone(), pos.clone(), 0)
+                        return lambda: fn(*a, s_bucket=s, sm_scale=sm)
 
-                qd, kds, vds = q[:, :, None], kd[:, :, :s], vd[:, :, :s]
+                    qd, kds, vds = q[:, :, None], kd[:, :, :s], vd[:, :, :s]
 
-                def make_sdpa(i, a=(qd, kds, vds)):
-                    a = a if i == 0 else tuple(x.clone() for x in a)
-                    return lambda: F.scaled_dot_product_attention(*a, scale=sm)
+                    def make_sdpa(i, a=(qd, kds, vds)):
+                        a = a if i == 0 else tuple(x.clone() for x in a)
+                        return lambda: F.scaled_dot_product_attention(
+                            *a, scale=sm, enable_gqa=hkv != hq)
 
-                ms = timer.steady(make_kernel, n_bytes)
-                plain_ms = timer(lambda: plain(*args, s_bucket=s, sm_scale=sm), 5)
-                lib_ms = timer.steady(make_sdpa, 2 * b * s * hkv * hd * 2)
-                b_ms, b_by = bound(n_bytes, 4 * b * hkv * s * hd, "fp32")
-                name = "K7" if kind == "int4" else "K4"
-                out.append(dict(name=f"decode_attention [{kind} B={b} S={s} Hkv={hkv} hd={hd}]",
-                                route="cuda",
-                                source="gptq_v2_tpu_torch/csrc/contiguous_attention.cu",
-                                replaces=REPLACES[key], launches=launches[key],
-                                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                bound_by=b_by, library_ms=lib_ms))
-                log(f"phase {name} {kind} B={b} S={s}: ok, max abs err {err:.3e} "
-                    f"(max|out| {float(ref.abs().max()):.3e}), kernel {ms:.4f} ms, plain "
-                    f"{plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-            del k, v, kd, vd
+                    ms = timer.steady(make_kernel, n_bytes)
+                    plain_ms = timer(lambda: plain(*args, s_bucket=s, sm_scale=sm), 5)
+                    lib_ms = timer.steady(make_sdpa, 2 * b * s * hkv * hd * 2)
+                    b_ms, b_by = bound(n_bytes, 4 * b * hq * s * hd, "fp32")
+                    name = "K7" if kind == "int4" else "K4"
+                    heads = f"Hkv={hkv}" + ("" if hkv == hq else f" Hq={hq}")
+                    out.append(dict(name=f"decode_attention [{kind} B={b} S={s} {heads} hd={hd}]",
+                                    route="cuda",
+                                    source="gptq_v2_tpu_torch/csrc/contiguous_attention.cu",
+                                    replaces=REPLACES[key], launches=launches[key],
+                                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                    bound_by=b_by, library_ms=lib_ms))
+                    log(f"phase {name} {kind} B={b} S={s} {heads}: ok, max abs err {err:.3e} "
+                        f"(max|out| {float(ref.abs().max()):.3e}), kernel {ms:.4f} ms "
+                        f"({b_ms / ms:.0%} of the bound, {ms / lib_ms:.2f}x sdpa), plain "
+                        f"{plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+                del k, v, kd, vd
+                torch.cuda.empty_cache()
+    log(f"phase attention: {len(out)} rows, {time.time() - t0:.1f} s")
     return out
 
 

@@ -513,6 +513,104 @@ def test_decode_attention_refuses_bad_input(dev):
         ca.contiguous_decode_attention_p4(q.bfloat16(), k, k, pos, 0)
 
 
+def _attn_fns(kind):
+    """(kernel wrapper, plain version, kv_bits) of one cache kind."""
+    if kind == "int4":
+        return ca.contiguous_decode_attention_p4, ca.contiguous_decode_attention_xla4, 4
+    return ca.contiguous_decode_attention, ca.contiguous_decode_attention_ref, 8
+
+
+# a 2112-row cache read to s_bucket 2100, slots at 40 (one split), 1000 (15
+# splits and one of 41 keys), 2099 (33 splits, the last of 52 keys), 63
+# (one full split) and 64 (a full split and one of a single key)
+SPLIT_POS = (40, 1000, 2099, 63, 64)
+SPLIT_CASES = {
+    "plain": {},
+    # 2099 sees 1800..2099: the cache's first 28 stretches of 64 keys masked
+    "window": dict(window=300),
+    # chunks of 1000 start at 1000 and 2000, inside the 64-key stretches
+    # of the cache; 1000 is a slot's own position (a one-key chunk)
+    "chunk": dict(chunk=1000),
+    # the short slots leave most of the grid's 33 splits empty
+    "sinks": dict(sinks=True),
+    "all": dict(window=700, chunk=1000, soft_cap=8.0, sinks=True),
+}
+
+
+def _split_case(kind, case, groups, seed, dev, b=5, s=2112):
+    n_kv, hd = 4, 128
+    k, v, ks = _cache(kind, 1, b, s, n_kv, hd, seed=seed, dev=dev)
+    rng = np.random.default_rng(seed + 1)
+    q = (torch.from_numpy(rng.standard_normal((b, n_kv * groups, hd)).astype(np.float32))
+         * ks).to(dev, torch.bfloat16)
+    kw = dict(SPLIT_CASES[case], sm_scale=hd ** -0.5)
+    if kw.pop("sinks", False):
+        kw["sinks"] = torch.from_numpy(
+            rng.standard_normal(n_kv * groups).astype(np.float32)).to(dev)
+    return q, k, v, torch.tensor(SPLIT_POS[:b], device=dev), kw
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_decode_attention_split_edges(dev, case, kind):
+    """K4/K7 over many 64-key splits: one split, a partial last split and
+    33 splits; a window that masks whole leading stretches of the cache; a
+    chunk boundary inside a stretch; sinks over a grid that is mostly empty
+    splits for the short slots.  Against the plain versions and against the
+    split-merge twin, at 1e-2 of the largest output (the plain versions
+    round p to bf16 before PV; the kernels keep it fp32)."""
+    q, k, v, pos, kw = _split_case(kind, case, 2, 11, dev)
+    fn, plain, bits = _attn_fns(kind)
+    args = (q, k, v, pos, 0)
+    kw["s_bucket"] = 2100
+    out = fn(*args, **kw).float()
+    ref = plain(*args, **kw).float()
+    twin = ca.contiguous_decode_attention_split_ref(*args, **kw, kv_bits=bits).float()
+    torch.cuda.synchronize()
+    tol = 1e-2 * float(ref.abs().max())
+    torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+    torch.testing.assert_close(out, twin, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("case", ["plain", "all"])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_decode_attention_batch_invariant(dev, case, kind):
+    """A slot's output has the same bits launched alone (B = 1, s_bucket
+    just past its position), inside the batch of 5 at other positions, and
+    at s_bucket 2100 and 2112: its splits are anchored at its own first
+    visible key, and the grid's extra splits are empty."""
+    q, k, v, pos, kw = _split_case(kind, case, 4, 13, dev)
+    fn, _, _ = _attn_fns(kind)
+    batch = fn(q, k, v, pos, 0, s_bucket=2100, **kw)
+    assert torch.equal(fn(q, k, v, pos, 0, s_bucket=2112, **kw), batch)
+    for i, p in enumerate(SPLIT_POS):
+        one = (q[i:i + 1].contiguous(), k[:, i:i + 1].contiguous(),
+               v[:, i:i + 1].contiguous(), pos[i:i + 1], 0)
+        for s_bucket in (p + 1, 2100):
+            alone = fn(*one, s_bucket=s_bucket, **kw)
+            assert torch.equal(alone[0], batch[i]), (i, s_bucket)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_decode_attention_repeat_and_graph_replay(dev, kind):
+    """The merge sums the splits in a fixed order with no atomics: two
+    launches are bit-equal, and a launch captured in a CUDA graph replays to
+    the eager output bit for bit."""
+    q, k, v, pos, kw = _split_case(kind, "all", 4, 17, dev)
+    fn, _, _ = _attn_fns(kind)
+    args = (q, k, v, pos, 0)
+    first = fn(*args, s_bucket=2100, **kw)
+    second = fn(*args, s_bucket=2100, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn(*args, s_bucket=2100, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+
+
 def _pool(kind, n_pages, ps, n_kv, hd, seed, dev):
     """A random page pool and its (k_scale, v_scale): bf16, int8 codes, or
     adjacent-pair int4 bytes (any byte is two valid nibbles)."""

@@ -226,6 +226,56 @@ def test_k7_plain_matches_jax(feature, hq):
     np.testing.assert_allclose(got.numpy(), unpacked.numpy(), rtol=2e-5, atol=2e-5)
 
 
+SPLIT_FEATURES = dict(FEATURES, first_last=dict(pos="edges"))
+
+
+@pytest.mark.parametrize("keys_per_split", [1, 16, 2 * S])
+@pytest.mark.parametrize("feature", list(SPLIT_FEATURES))
+@pytest.mark.parametrize("cache_kind,hq", [("float", HKV), ("int8", 2 * HKV),
+                                           ("int4", 4 * HKV)])
+def test_split_ref_matches_jax(feature, cache_kind, hq, keys_per_split):
+    """The kernels' split-merge algebra (``contiguous_decode_attention_split_ref``:
+    fp32 (m, l, acc) per split of the visible keys, anchored at the first
+    visible key, merged in order, sinks once) against JAX
+    ``contiguous_decode_attention_ref`` (f32 or int8 cache) and
+    ``contiguous_decode_attention_xla4`` (int4 pairs), with one key a split,
+    16, and one split for every key: rtol 2e-5 and atol 2e-5 of the
+    largest output, as ``test_k4_plain_matches_jax``."""
+    q, k, v, pos = _inputs(hq, cache_kind, seed=3 + len(feature))
+    kw = dict(SPLIT_FEATURES[feature])
+    if kw.pop("pos", None) == "edges":
+        pos = np.array([0, S - 1, 0, 5], np.int32)
+    if kw.get("s_bucket"):
+        pos = np.minimum(pos, kw["s_bucket"] - 1)
+    sinks = kw.pop("sinks", False)
+    sink = np.random.default_rng(4).standard_normal(hq).astype(np.float32) if sinks else None
+    sm = dict(layer=1, sm_scale=0.125)
+    jfn = (JCA.contiguous_decode_attention_xla4 if cache_kind == "int4"
+           else JCA.contiguous_decode_attention_ref)
+    jref = np.asarray(jfn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos),
+                          **sm, **kw, **({} if sink is None else {"sinks": jnp.asarray(sink)})))
+    got = TCA.contiguous_decode_attention_split_ref(
+        _t(q), _t(k), _t(v), _t(pos), **sm, **kw,
+        **({} if sink is None else {"sinks": _t(sink)}),
+        kv_bits=4 if cache_kind == "int4" else 8, keys_per_split=keys_per_split)
+    np.testing.assert_allclose(got.numpy(), jref, rtol=2e-5, atol=2e-5 * np.abs(jref).max())
+
+
+def test_n_splits_from_host_integers():
+    """The split count covers the most keys any slot can see:
+    min(s_used, window, chunk), in splits of ``KEYS_PER_SPLIT``."""
+    kps = TCA.KEYS_PER_SPLIT
+    assert TCA.n_splits(1) == 1 and TCA.n_splits(kps) == 1 and TCA.n_splits(kps + 1) == 2
+    assert TCA.n_splits(512) == -(-512 // kps) and TCA.n_splits(4096) == -(-4096 // kps)
+    assert TCA.n_splits(4096, window=300) == -(-300 // kps)
+    assert TCA.n_splits(4096, chunk=100) == -(-100 // kps)
+    assert TCA.n_splits(50, window=300, chunk=1000) == 1
+    assert TCA.n_splits(4096, window=1000, chunk=200, keys_per_split=16) == 13
+    # Llama-2-7B's 32 kv heads (16 int4 pairs) at B = 1, S = 512: at least
+    # 128 blocks for K7, twice that for K4
+    assert 16 * TCA.n_splits(512) >= 128
+
+
 # --- engines over the int8 / int4 cache ------------------------------------
 
 
