@@ -61,9 +61,9 @@ over it (``--profile-dir`` gives their device time and device ops).
    median of 5 CUDA-graph replays of >= 100 back-to-back launches over
    rotating input copies that together exceed twice the L2
    (``Timer.steady``); every other time is one event pair per launch
-   after an L2 flush (``Timer.__call__``).  K4 and K7 are also timed past
-   the paths' shapes: at S = 4096 and at Llama-3-8B's GQA head layout (8
-   kv heads under 32 q heads).  K3 and K8 are timed both
+   after an L2 flush (``Timer.__call__``).  K4, K6 and K7 are also timed
+   past the paths' shapes: at S = 4096 and at Llama-3-8B's GQA head layout
+   (8 kv heads under 32 q heads).  K3 and K8 are timed both
    ways, and so are their library calls.  K8's staged rows must be
    bit-equal to the plain quantization, and K3's and K8's rows the same at
    every M.  K1 must also keep H exactly symmetric and give
@@ -1246,27 +1246,30 @@ def phase_serve_features(torch, work: Path) -> None:
 
 
 def phase_attention_ab(torch, work: Path) -> None:
-    """End-to-end effect of K4: the bf16 engine's tok/s with K4 and with the
-    plain attention in its place, in turns (plain, K4, K4, plain), on one
-    engine and one request set each: 8 requests (prompts 64-256 tokens, 32
-    new each) at ``--max-seq-len 512``, and one request (a 1536-token
-    prompt, 64 new) at ``--max-seq-len 2048``, where one slot's long context
-    is what the split over keys spreads across the card."""
+    """End-to-end effect of K4 and K6: the bf16 engine's tok/s with the
+    kernel and with the plain attention in its place, in turns (plain,
+    kernel, kernel, plain), on one engine and one request set each: 8
+    requests (prompts 64-256 tokens, 32 new each) at ``--max-seq-len 512``
+    (K4), and one request (a 1536-token prompt, 64 new) at ``--max-seq-len
+    2048``, where one sequence's long context is what the split over keys
+    spreads across the card: on the contiguous cache (K4) and on the paged
+    cache under the ragged scheduler at a 64-token budget (K6)."""
     from gptq_v2_tpu_torch import serve as S
     from gptq_v2_tpu_torch.serving import Request
 
     rng = np.random.default_rng(1)
-    setups = (("B=8", len(PROMPT_LENS), 512, PROMPT_LENS, NEW_TOKENS),
-              ("B=1 long", 1, 2048, (1536,), 64))
-    for label, max_batch, max_seq, lens, new in setups:
+    setups = (("B=8", "K4", [], len(PROMPT_LENS), 512, PROMPT_LENS, NEW_TOKENS),
+              ("B=1 long", "K4", [], 1, 2048, (1536,), 64),
+              ("B=1 long paged ragged", "K6", RAGGED_FLAGS, 1, 2048, (1536,), 64))
+    for label, kernel, flags, max_batch, max_seq, lens, new in setups:
         t0 = time.time()
         eng = S.build_engine(S.parse_serve_args(
             ["--model-dir", str(work / "model"), "--results", str(work / "results.npz"),
-             "--max-batch", str(max_batch), "--max-seq-len", str(max_seq)]))
+             "--max-batch", str(max_batch), "--max-seq-len", str(max_seq)] + flags))
         prompts = [rng.integers(0, MODEL["vocab_size"], (n,)).tolist() for n in lens]
-        rates = {"plain": [], "K4": []}
-        # the first plain and K4 runs warm up; the last four run in turns
-        for mode in ("plain", "K4", "plain", "K4", "K4", "plain"):
+        rates = {"plain": [], kernel: []}
+        # the first plain and kernel runs warm up; the last four run in turns
+        for mode in ("plain", kernel, "plain", kernel, kernel, "plain"):
             reqs = [Request(uid=i, prompt=p, max_new_tokens=new)
                     for i, p in enumerate(prompts)]
             with plain_attention() if mode == "plain" else contextlib.nullcontext():
@@ -1277,9 +1280,9 @@ def phase_attention_ab(torch, work: Path) -> None:
             rates[mode].append(len(reqs) * new / (time.time() - t1))
         log(f"phase attention.ab {label} (prompts {min(lens)}-{max(lens)}, {new} new, "
             f"--max-seq-len {max_seq}): bf16 engine tok/s, plain attention "
-            + " / ".join(f"{r:.1f}" for r in rates["plain"][1:]) + ", K4 "
-            + " / ".join(f"{r:.1f}" for r in rates["K4"][1:])
-            + f" (plain, K4, K4, plain); {time.time() - t0:.1f} s")
+            + " / ".join(f"{r:.1f}" for r in rates["plain"][1:]) + f", {kernel} "
+            + " / ".join(f"{r:.1f}" for r in rates[kernel][1:])
+            + f" (plain, {kernel}, {kernel}, plain); {time.time() - t0:.1f} s")
         del eng
         torch.cuda.empty_cache()
 
@@ -1531,10 +1534,13 @@ def phase_paged_attention(torch, timer, launches) -> list:
     {128, 512} (every sequence at S-1) for bf16, int8 and int4; the mixed
     tick of one 64-row prefill chunk, 7 decode rows and 9 pad rows; GQA 4
     (Llama-3-8B's 8 kv heads under 32 q heads); window, soft cap and sinks
-    on the mixed tick."""
+    on the mixed tick.  Past those shapes: decode at S = 4096, B in {1, 8},
+    for each cache kind, and GQA 4 at B = 1, S = 512, at B in {1, 8}, S =
+    4096, and on the mixed tick."""
     from gptq_v2_tpu_torch.ops import paged_attention as K
 
     sm = 128 ** -0.5
+    t0 = time.time()
     mixed = [(64, 192)] + [(1, n) for n in (100, 200, 300, 400, 500, 64, 512)]
     cases = [(f"decode {kind} B={b} S={s} Hkv=32", kind, [(1, s)] * b, 0, 32, {})
              for kind in ("bf16", "int8", "int4") for b in (1, 8) for s in (128, 512)]
@@ -1544,6 +1550,14 @@ def phase_paged_attention(torch, timer, launches) -> list:
     cases += [(f"mixed bf16 {name}, Hkv=32", "bf16", mixed, 9, 32, kw) for name, kw in (
         ("window 128", {"sliding_window": 128}), ("soft cap 30", {"soft_cap": 30.0}),
         ("sinks", {"sinks": True}))]
+    # past the serve paths: S = 4096 (the config's max_position_embeddings)
+    # and Llama-3-8B's GQA-4 head layout, where the split over keys matters
+    cases += [(f"decode {kind} B={b} S=4096 Hkv=32", kind, [(1, 4096)] * b, 0, 32, {})
+              for kind in ("bf16", "int8", "int4") for b in (1, 8)]
+    cases += [(f"decode bf16 B={b} S={s} GQA Hkv=8 Hq=32", "bf16", [(1, s)] * b, 0, 8, {})
+              for b, s in ((1, 512), (1, 4096), (8, 4096))]
+    cases += [("mixed bf16: 64-row chunk + 7 decode + 9 pad, GQA Hkv=8 Hq=32", "bf16", mixed,
+               9, 8, {})]
     out = []
     for seed, (label, kind, seqs, n_pad, hkv, kw) in enumerate(cases):
         hq = 32
@@ -1594,8 +1608,12 @@ def phase_paged_attention(torch, timer, launches) -> list:
         log(f"phase K6 {label}: ok, max abs err {err:.3e} (max|out| "
             f"{float(ref.abs().max()):.3e}), kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
             f"gather+sdpa {'-' if lib_ms is None else f'{lib_ms:.4f}'} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.2f} MB)")
+            f"{b_ms:.4f} ms ({b_by}, {n_bytes / 1e6:.2f} MB)"
+            + ("" if lib_ms is None else f", {ms / lib_ms:.2f}x gather+sdpa")
+            + f", {b_ms / ms:.0%} of the bound")
         del c, args, got, ref
+        torch.cuda.empty_cache()
+    log(f"phase K6: {len(out)} rows, {time.time() - t0:.1f} s")
     return out
 
 

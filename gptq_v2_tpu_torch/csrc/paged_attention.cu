@@ -1,11 +1,12 @@
 // K6: ragged paged attention -- mixed prefill and decode rows over the page
-// pool.
+// pool, split over the keys (flash-decoding) with a fixed-order merge.
 //
 // Replaces gptq_v2_tpu/ops/_ragged_sink_kernel.py::ragged_paged_attention_kernel
 // (grid and pl.pallas_call in ragged_paged_attention), which also stands in
 // for upstream jax.experimental...ragged_paged_attention (the same function
 // with no sinks).  Plain PyTorch version:
-// ops/paged_attention.py::paged_ragged_attention_reference.
+// ops/paged_attention.py::paged_ragged_attention_reference; the split-merge
+// algebra in plain torch: ::paged_ragged_attention_split_ref.
 //
 // Inputs: q (T, Hq, hd) bf16, rows grouped by sequence: sequence i owns rows
 // [cu[i], cu[i+1]) for i < num_seqs, the last of them at position
@@ -15,33 +16,75 @@
 // pair (2p, 2p+1), head 2p in the low nibble; block tables (S, pps): key j
 // of sequence i sits at page tables[i, j / ps], offset j % ps.
 //
-// One block per (query row t, unit u), a unit being a kv head (bf16, int8)
-// or an adjacent int4 pair, whose bytes are read once for both heads as K7
-// does.  The block serves every q head that reads the unit's rows: the
-// `groups` GQA heads of kv head u, or the 2·groups heads of the pair --
-// contiguous q heads in both cases.  The block finds its sequence by a
-// binary search over cu[0..num_seqs]; rows at or past cu[num_seqs] write
-// zeros (the plain version zeroes their probabilities).  The row's position
-// is tok_pos = kv_lens[seq] - n_new + local, and only keys j in
-// [lo, min(tok_pos, kv_lens[seq] - 1)] are read, lo raised by the sliding
-// window (j > tok_pos - window): causal inside the sequence's new run.
-// Four warps split those keys four at a time, each lane holding hd/32
-// elements of a row; scores are fp32 (bf16 and int8 products are exact in
-// fp32), scaled by sm_scale·k_scale, soft-capped, and folded into a per-warp
-// online softmax (running max, sum, fp32 p·V accumulator); the warps merge
-// in shared memory with the sink logit in the denominator, and the output
-// is scaled by v_scale.  Scalar int8 k/v scales arrive as arguments, as in
-// the TPU kernel; per-head int4 scales are folded outside
-// (serving/decode.py::fold_paged_kv_scales) and arrive as 1.0.  Unlike the
-// TPU kernel and the plain version, p stays fp32 for the PV product.
+// Bound on the H100: bytes.  A row reads each visible K/V row of its
+// sequence once and does about NH operations per byte (NH q heads share a
+// row), far below the card's ~20 fp32 operations per byte of HBM.  So the
+// design is about blocks and bytes in flight:
 //
-// Bound on the H100: bytes -- the visible K/V rows of every query row, at
-// ~2 operations per byte.  The simple design re-reads a prefill chunk's keys
-// once per row of the chunk (a 64-row chunk reads its prefix 64 times), and
-// at small batch has few blocks (T·Hkv).  The redesign that removes both,
-// for a later PR: tiles of rows of one sequence sharing each K/V page in
-// shared memory, QKᵀ and PV on the tensor cores (wgmma), and a split of
-// long key ranges over blocks.
+// * Split.  One block per (query row t, unit u, split z), a unit being a kv
+//   head (bf16, int8) or an adjacent int4 pair, whose bytes are read once
+//   for both heads.  The block serves every q head that reads the unit's
+//   rows: the `groups` GQA heads of kv head u, or the 2·groups heads of the
+//   pair -- the NH contiguous q heads from u·NH.  The block finds its
+//   sequence in one round trip: thread i loads cu[i], cu[i+1] and
+//   kv_lens[i] and the thread whose run holds t publishes them; rows at or
+//   past cu[num_seqs] (pad rows) have no sequence.  The row's position is
+//   tok_pos = kv_lens[seq] - n_new + local and its visible keys are
+//   [lo, hi], hi = min(tok_pos, kv_lens[seq] - 1, pps·ps - 1), lo raised by
+//   the sliding window (j > tok_pos - window): causal inside the
+//   sequence's new run.  Split z holds keys [lo + 64 z, lo + 64 z + 63] ∩
+//   [lo, hi].  Splits are anchored at the row's own lo, so a row's split
+//   boundaries, and its output bits, depend only on its own sequence,
+//   position and window: not on T, the other sequences or the table width.
+//   The grid's split count comes from host integers only,
+//   ceil(min(pps·ps, window) / 64); a block past its row's range (and
+//   every block of a pad row) writes an empty partial (m = -inf, l = 0)
+//   and returns.  At 64 keys a split, Llama-2-7B's B = 1 decode at S = 512
+//   launches 256 blocks (32 before the split) on 132 SMs.
+// * Bytes in flight.  The split's page ids (at most 5 for 16-row pages: 64
+//   keys anchored off a page boundary) are read from the block table once,
+//   into shared memory, and each key's row offset formed there.  Then the
+//   block stages the split's K rows and then its V rows with 16-byte
+//   cp.async, two commit groups: in the pool a key's K and V rows of one
+//   unit are adjacent, each a run of 16-byte chunks (256 bytes for bf16 at
+//   hd 128, 128 for int8 and int4 pairs).  The whole split (up to 32 KB) is
+//   in flight at once; scores start when K has landed, while V is still in
+//   flight.
+// * Scores (fp32; bf16, int8 and int4 products are exact in fp32): two
+//   threads per key, each over half of hd for all NH heads, K read from
+//   rows padded by 16 bytes (conflict-free 16-byte reads of 8 keys at
+//   once), q as fp32 in shared memory (a broadcast); the halves are added,
+//   scaled by qk_scale = sm_scale·k_scale and soft-capped.  Then per head
+//   an exact softmax over the split: m = max, p = exp(s - m) in fp32,
+//   l = Σ p.  p stays fp32 for PV (the TPU kernel and the plain version
+//   round it to the value dtype).
+// * PV: each thread owns one d for all NH heads over the split's keys (two
+//   key halves added in order at hd 64), one element of V per lane, p as a
+//   broadcast.  The split writes (m, l, acc[hd]) per q head to the scratch.
+// * Merge: a second kernel in the same C call (no tickets, no atomics, so a
+//   launch is graph-capturable and bit-repeatable), one block per (row, q
+//   head), one thread per d: M = max over splits and the sink logit;
+//   den = exp(sink - M) + Σ l_z exp(m_z - M), num = Σ acc_z exp(m_z - M),
+//   in split order 0…n-1, empty splits skipped; out = num / den · v_scale,
+//   or 0 for a row with no visible key (pad rows).  The sink joins exactly
+//   once, here.  The max is a block reduction and each split's factor
+//   exp(m_z - M) is formed once in shared memory, so only the in-order fold
+//   is serial, and its loads of acc are issued 16 at a time ahead of it.
+// * Scratch: the partials take rows · Hq · n_splits · (hd + 2) fp32, from
+//   torch.empty in the wrapper, capped at SCRATCH_CAP = 64 MiB (a 512-row
+//   prefill chunk at a 4096-key table would need 545 MB).  Where a call
+//   needs more, the C entry runs the split/merge pair over consecutive
+//   ranges of rows_per_range = max(1, SCRATCH_CAP / (Hq · n_splits ·
+//   (hd + 2) · 4)) rows on one stream, reusing the scratch; a range of rows
+//   changes no row's bits.
+//
+// Scalar int8 k/v scales arrive as arguments (qk_scale, v_scale), as in the
+// TPU kernel; per-head int4 scales are folded outside
+// (serving/decode.py::fold_paged_kv_scales) and arrive as 1.0, so the
+// kernel sees raw int8/int4 codes.  A prefill chunk still reads its
+// prefix once per row of the chunk (from L2); tiles of rows of one
+// sequence sharing each K/V page, with QKᵀ and PV on the tensor cores,
+// are the redesign that removes that.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -50,54 +93,38 @@
 
 namespace {
 
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int KPI = 4;  // keys per warp and step
+constexpr int THREADS = 128;  // 4 warps
+constexpr int KPS = 64;       // keys per split
+static_assert(THREADS == 2 * KPS, "scores take two threads a key");
+constexpr size_t SCRATCH_CAP = size_t(64) << 20;  // bytes of partials per launch
 
 enum Mode { BF16 = 0, INT8 = 1, INT4 = 2 };
 
 struct Args {
-  const __nv_bfloat16* q;  // (T, Hq, hd)
-  const void* kv;          // (P, ps, C, hd)
-  const int32_t* kv_lens;  // (S,)
-  const int32_t* tables;   // (S, pps)
-  const int32_t* cu;       // (S + 1,)
+  const __nv_bfloat16* q;   // (T, Hq, hd)
+  const unsigned char* kv;  // (P, ps, 2·n_units, hd) of bf16 or int8
+  const int32_t* kv_lens;   // (S,)
+  const int32_t* tables;    // (S, pps)
+  const int32_t* cu;        // (S + 1,)
   const int32_t* num_seqs;  // (1,)
-  const float* sinks;      // (Hq,) or null
-  __nv_bfloat16* out;      // (T, Hq, hd)
-  int n_seqs, pages_per_seq, page_size, n_units, groups, window;
+  const float* sinks;       // (Hq,) or null
+  __nv_bfloat16* out;       // (T, Hq, hd)
+  float* part_m;            // (rows_per_range, Hq, n_splits)
+  float* part_l;            // (rows_per_range, Hq, n_splits)
+  float* part_acc;          // (rows_per_range, Hq, n_splits, hd)
+  int row0;                 // first row of this launch's range
+  int n_seqs, pages_per_seq, page_size, n_units, groups, window, n_splits;
   float qk_scale, v_scale, soft_cap;  // soft_cap <= 0: off
 };
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
-struct alignas(N) Raw {
-  unsigned char b[N];
-};
-
-// one lane's EPL elements of a pool row, as floats; for INT4 the low
-// nibbles go to lo and the high nibbles to hi
-template <int MODE, int EPL>
-__device__ __forceinline__ void load_row(const void* base, size_t off, float (&lo)[EPL],
-                                         float (&hi)[EPL]) {
-  if (MODE == BF16) {
-    Raw<EPL * 2> r = *reinterpret_cast<const Raw<EPL * 2>*>(
-        static_cast<const __nv_bfloat16*>(base) + off);
-    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(r.b);
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) lo[e] = __bfloat162float(h[e]);
-  } else {
-    Raw<EPL> r = *reinterpret_cast<const Raw<EPL>*>(static_cast<const int8_t*>(base) + off);
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      int x = static_cast<int>(static_cast<signed char>(r.b[e]));
-      if (MODE == INT8) {
-        lo[e] = static_cast<float>(x);
-      } else {
-        lo[e] = static_cast<float>(static_cast<int>(static_cast<unsigned>(x) << 28) >> 28);
-        hi[e] = static_cast<float>(x >> 4);
-      }
-    }
-  }
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -105,158 +132,345 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
 }
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ int low_nibble(int x) {
+  return static_cast<int>(static_cast<unsigned>(x) << 28) >> 28;
+}
+
+// 16 bytes of a pool row as floats: 8 bf16 or 16 int8 values to lo; for
+// INT4 the 16 low nibbles to lo and the 16 high nibbles to hi
+template <int MODE>
+__device__ __forceinline__ void unpack16(const uint4& raw, float* lo, float* hi) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (MODE == BF16) {
+      lo[2 * i] = __uint_as_float(w[i] << 16);
+      lo[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int x = static_cast<int>(w[i] << (24 - 8 * j)) >> 24;  // byte j, sign-extended
+        if (MODE == INT8) {
+          lo[4 * i + j] = static_cast<float>(x);
+        } else {
+          lo[4 * i + j] = static_cast<float>(low_nibble(x));
+          hi[4 * i + j] = static_cast<float>(x >> 4);
+        }
+      }
+    }
+  }
+}
+
+// one element of a V row (INT4: both nibbles of one byte)
+template <int MODE>
+__device__ __forceinline__ void load_elem(const unsigned char* p, float& lo, float& hi) {
+  if (MODE == BF16) {
+    lo = __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
+  } else {
+    const int x = static_cast<signed char>(*p);
+    if (MODE == INT8) {
+      lo = static_cast<float>(x);
+    } else {
+      lo = static_cast<float>(low_nibble(x));
+      hi = static_cast<float>(x >> 4);
+    }
+  }
+}
 
 // NH q heads per block: `groups`, or 2·groups for an int4 pair (the low
 // nibble's head first)
-template <int MODE, int EPL, int NH>
-__global__ void __launch_bounds__(THREADS) paged_attention_kernel(Args a) {
-  constexpr int HD = 32 * EPL;
-  __shared__ float sm_m[WARPS][NH];
-  __shared__ float sm_l[WARPS][NH];
-  __shared__ float sm_acc[WARPS][NH][HD];
+template <int MODE, int HD, int NH>
+__global__ void __launch_bounds__(THREADS) split_kernel(Args a) {
+  constexpr int ROW = HD * (MODE == BF16 ? 2 : 1);  // bytes of one unit's K (or V) row
+  constexpr int CPR = ROW / 16;                     // 16-byte chunks a row
+  constexpr int EPC = MODE == BF16 ? 8 : 16;        // d's a chunk
+  constexpr int KROW = ROW + 16;                    // padded: 8 keys' chunk c in 8 bank groups
+  constexpr int KG = THREADS / HD;                  // PV key groups: 1 (hd 128) or 2 (hd 64)
+  __shared__ __align__(16) unsigned char ks[KPS * KROW];
+  __shared__ __align__(16) unsigned char vs[KPS * ROW];
+  __shared__ __align__(16) float qs[NH][HD];
+  __shared__ float sc[2][NH][KPS];
+  __shared__ __align__(16) float ps[KPS][NH];
+  __shared__ float red[KG > 1 ? NH : 1][HD];
+  __shared__ size_t koff[KPS];   // byte offset of each key's K row of this unit
+  __shared__ int32_t pages[KPS];  // the split's page ids, in order
+  __shared__ int row_info[4];     // the row's sequence (-1: a pad row), run start, n_new, kv_len
 
-  const int t = blockIdx.x, u = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int d0 = lane * EPL;
+  const int b = blockIdx.x, u = blockIdx.y, z = blockIdx.z;
+  const int t = threadIdx.x;
+  const int row = a.row0 + b;
   const int hq = (MODE == INT4 ? 2 * a.n_units : a.n_units) * a.groups;
-  const size_t head0 = static_cast<size_t>(t) * hq + static_cast<size_t>(u) * NH;
+  auto part = [&](int i) {
+    return (static_cast<size_t>(b) * hq + u * NH + i) * a.n_splits + z;
+  };
 
-  const int n_seqs = min(a.num_seqs[0], a.n_seqs);
-  if (n_seqs <= 0 || t >= a.cu[n_seqs]) {  // a pad row
-    for (int idx = threadIdx.x; idx < NH * HD; idx += THREADS)
-      a.out[head0 * HD + idx] = __float2bfloat16_rn(0.0f);
+  // the row's sequence in one round trip: every thread's loads go out together
+  if (t == 0) row_info[0] = -1;
+  __syncthreads();
+  const int active = a.num_seqs[0];
+  for (int i = t; i < a.n_seqs; i += THREADS) {
+    const int c0 = a.cu[i], c1 = a.cu[i + 1], len = a.kv_lens[i];
+    if (i < active && c0 <= row && row < c1) {  // runs are disjoint: one thread at most
+      row_info[0] = i;
+      row_info[1] = c0;
+      row_info[2] = c1 - c0;
+      row_info[3] = len;
+    }
+  }
+  __syncthreads();
+  const int seq = row_info[0];
+  int lo = 0, hi = -1;
+  if (seq >= 0) {
+    const int n_new = row_info[2], kv_len = row_info[3];
+    const int tok_pos = kv_len - n_new + (row - row_info[1]);
+    hi = min(min(tok_pos, kv_len - 1), a.pages_per_seq * a.page_size - 1);
+    lo = a.window > 0 ? max(0, tok_pos - a.window + 1) : 0;
+  }
+  const int j0 = lo + z * KPS;
+  const int n = min(KPS, hi - j0 + 1);
+  if (n <= 0) {  // past the row's keys, or a pad row: an empty partial
+    for (int i = t; i < NH; i += THREADS) {
+      a.part_m[part(i)] = -INFINITY;
+      a.part_l[part(i)] = 0.0f;
+    }
     return;
   }
-  int lo = 0, hi = n_seqs - 1;  // the last sequence whose rows start at or before t
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) / 2;
-    if (a.cu[mid] <= t) lo = mid;
-    else hi = mid - 1;
-  }
-  const int seq = lo;
-  const int n_new = a.cu[seq + 1] - a.cu[seq];
-  const int kv_len = a.kv_lens[seq];
-  const int tok_pos = kv_len - n_new + (t - a.cu[seq]);
-  const int hi_key = min(min(tok_pos, kv_len - 1), a.pages_per_seq * a.page_size - 1);
-  const int lo_key = a.window > 0 ? max(0, tok_pos - a.window + 1) : 0;
 
-  float qr[NH][EPL];
-#pragma unroll
-  for (int i = 0; i < NH; ++i) {
-    const __nv_bfloat16* qp = a.q + (head0 + i) * HD + d0;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) qr[i][e] = __bfloat162float(qp[e]);
-  }
-
-  float m[NH], l[NH], acc[NH][EPL];
-#pragma unroll
-  for (int i = 0; i < NH; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[i][e] = 0.0f;
-  }
-
+  // the split's page ids, once, then each key's row offset
+  const int ps_ = a.page_size;
+  const int pg0 = j0 / ps_;
+  const int n_pg = (j0 + n - 1) / ps_ - pg0 + 1;
   const int32_t* table = a.tables + static_cast<size_t>(seq) * a.pages_per_seq;
-  const size_t row_stride = static_cast<size_t>(2 * a.n_units) * HD;
-  const size_t page_stride = static_cast<size_t>(a.page_size) * row_stride;
-  const size_t k_off = static_cast<size_t>(2 * u) * HD + d0;  // V follows at + HD
-  for (int j0 = lo_key + warp * KPI; j0 <= hi_key; j0 += WARPS * KPI) {
-    float klo[KPI][EPL], khi[KPI][EPL], vlo[KPI][EPL], vhi[KPI][EPL];
-#pragma unroll
-    for (int s = 0; s < KPI; ++s) {
-      const int j = min(j0 + s, hi_key);  // keys past hi_key are masked below
-      const size_t off = static_cast<size_t>(table[j / a.page_size]) * page_stride +
-                         static_cast<size_t>(j % a.page_size) * row_stride + k_off;
-      load_row<MODE, EPL>(a.kv, off, klo[s], khi[s]);
-      load_row<MODE, EPL>(a.kv, off + HD, vlo[s], vhi[s]);
-    }
-#pragma unroll
-    for (int i = 0; i < NH; ++i) {
-      const bool upper = MODE == INT4 && i >= NH / 2;
-      float sc[KPI];
-      float smax = m[i];
-#pragma unroll
-      for (int s = 0; s < KPI; ++s) {
-        float part = 0.0f;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) part = fmaf(qr[i][e], upper ? khi[s][e] : klo[s][e], part);
-        float x = warp_sum(part) * a.qk_scale;
-        if (a.soft_cap > 0.0f) x = a.soft_cap * tanhf(x / a.soft_cap);
-        sc[s] = j0 + s <= hi_key ? x : -INFINITY;
-        smax = fmaxf(smax, sc[s]);
-      }
-      const float corr = expf(m[i] - smax);
-      l[i] *= corr;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[i][e] *= corr;
-#pragma unroll
-      for (int s = 0; s < KPI; ++s) {
-        const float p = expf(sc[s] - smax);
-        l[i] += p;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[i][e] = fmaf(p, upper ? vhi[s][e] : vlo[s][e], acc[i][e]);
-      }
-      m[i] = smax;
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < NH; ++i) {
-    if (lane == 0) {
-      sm_m[warp][i] = m[i];
-      sm_l[warp][i] = l[i];
-    }
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) sm_acc[warp][i][d0 + e] = acc[i][e];
+  for (int i = t; i < n_pg; i += THREADS) pages[i] = table[pg0 + i];
+  __syncthreads();
+  const size_t row_stride = static_cast<size_t>(2 * a.n_units) * ROW;
+  const size_t page_stride = static_cast<size_t>(ps_) * row_stride;
+  if (t < n) {
+    const int j = j0 + t;
+    koff[t] = static_cast<size_t>(pages[j / ps_ - pg0]) * page_stride +
+              static_cast<size_t>(j % ps_) * row_stride + static_cast<size_t>(2 * u) * ROW;
   }
   __syncthreads();
 
-  for (int idx = threadIdx.x; idx < NH * HD; idx += THREADS) {
-    const int i = idx / HD, d = idx % HD;
-    float mx = -INFINITY;
+  for (int c = t; c < n * CPR; c += THREADS)  // chunk c % CPR of key c / CPR
+    cp_async16(ks + (c / CPR) * KROW + (c % CPR) * 16, a.kv + koff[c / CPR] + (c % CPR) * 16);
+  cp_async_commit();
+  for (int c = t; c < n * CPR; c += THREADS)  // V follows K in the pool
+    cp_async16(vs + c * 16, a.kv + koff[c / CPR] + ROW + (c % CPR) * 16);
+  cp_async_commit();
+  for (int c = t; c < NH * HD; c += THREADS) {
+    const size_t src = (static_cast<size_t>(row) * hq + u * NH + c / HD) * HD + c % HD;
+    qs[c / HD][c % HD] = __bfloat162float(a.q[src]);
+  }
+  cp_async_wait<1>();  // K has landed; V may still be in flight
+  __syncthreads();
+
+  // scores: thread (key jj, half) over half of hd for every head
+  {
+    const int jj = t % KPS, half = t / KPS;
+    if (jj < n) {
+      float s[NH];
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sm_m[w][i]);
-    const float sink = a.sinks != nullptr ? a.sinks[head0 % hq + i] : -INFINITY;
-    mx = fmaxf(mx, sink);
-    float den = a.sinks != nullptr ? expf(sink - mx) : 0.0f, num = 0.0f;
+      for (int i = 0; i < NH; ++i) s[i] = 0.0f;
+      const unsigned char* krow = ks + jj * KROW + half * (ROW / 2);
+#pragma unroll 2
+      for (int c = 0; c < CPR / 2; ++c) {
+        const int d0 = half * (HD / 2) + c * EPC;
+        float klo[EPC], khi[EPC];
+        unpack16<MODE>(*reinterpret_cast<const uint4*>(krow + c * 16), klo, khi);
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float f = sm_m[w][i] == -INFINITY ? 0.0f : expf(sm_m[w][i] - mx);
-      den = fmaf(sm_l[w][i], f, den);
-      num = fmaf(sm_acc[w][i][d], f, num);
+        for (int i = 0; i < NH; ++i) {
+          const bool upper = MODE == INT4 && i >= NH / 2;
+          float acc = s[i];
+#pragma unroll
+          for (int e = 0; e < EPC; ++e) acc = fmaf(qs[i][d0 + e], upper ? khi[e] : klo[e], acc);
+          s[i] = acc;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NH; ++i) sc[half][i][jj] = s[i];
     }
-    a.out[(head0 + i) * HD + d] =
-        __float2bfloat16_rn(den > 0.0f ? num / den * a.v_scale : 0.0f);
+  }
+  __syncthreads();
+
+  // softmax over the split, one warp a head: m, p = exp(s - m), l
+  {
+    const int warp = t / 32, lane = t % 32;
+    for (int i = warp; i < NH; i += THREADS / 32) {
+      float s[KPS / 32], mx = -INFINITY;
+#pragma unroll
+      for (int v = 0; v < KPS / 32; ++v) {
+        const int jj = lane + 32 * v;
+        float x = -INFINITY;
+        if (jj < n) {
+          x = (sc[0][i][jj] + sc[1][i][jj]) * a.qk_scale;
+          if (a.soft_cap > 0.0f) x = a.soft_cap * tanhf(x / a.soft_cap);
+        }
+        s[v] = x;
+        mx = fmaxf(mx, x);
+      }
+      mx = warp_max(mx);
+      float l = 0.0f;
+#pragma unroll
+      for (int v = 0; v < KPS / 32; ++v) {
+        const int jj = lane + 32 * v;
+        const float p = jj < n ? expf(s[v] - mx) : 0.0f;
+        ps[jj][i] = p;
+        l += p;
+      }
+      l = warp_sum(l);
+      if (lane == 0) {
+        a.part_m[part(i)] = mx;
+        a.part_l[part(i)] = l;
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // PV: thread (d, key group) for every head, keys in order
+  {
+    const int d = t % HD, kg = t / HD;
+    const int k_end = min(n, (kg + 1) * (KPS / KG));
+    float acc[NH];
+#pragma unroll
+    for (int i = 0; i < NH; ++i) acc[i] = 0.0f;
+    for (int jj = kg * (KPS / KG); jj < k_end; ++jj) {
+      float vlo, vhi = 0.0f;
+      load_elem<MODE>(vs + jj * ROW + d * (MODE == BF16 ? 2 : 1), vlo, vhi);
+#pragma unroll
+      for (int i = 0; i < NH; ++i)
+        acc[i] = fmaf(ps[jj][i], MODE == INT4 && i >= NH / 2 ? vhi : vlo, acc[i]);
+    }
+    if (KG > 1) {
+      if (kg == 1) {
+#pragma unroll
+        for (int i = 0; i < NH; ++i) red[i][d] = acc[i];
+      }
+      __syncthreads();
+      if (kg == 0) {
+#pragma unroll
+        for (int i = 0; i < NH; ++i) acc[i] += red[i][d];
+      }
+    }
+    if (kg == 0) {
+#pragma unroll
+      for (int i = 0; i < NH; ++i) a.part_acc[part(i) * HD + d] = acc[i];
+    }
   }
 }
 
-template <int MODE, int EPL, int NH>
-cudaError_t launch_one(const Args& a, int n_rows, cudaStream_t stream) {
-  paged_attention_kernel<MODE, EPL, NH><<<dim3(n_rows, a.n_units), THREADS, 0, stream>>>(a);
-  return cudaGetLastError();
+// one block per (row, q head), one thread per d.  The max over the splits
+// is a block reduction (exact in any order) whose loads also keep the
+// first MERGE_Z splits' m and l in shared memory; each split's factor
+// exp(m_z - M) is formed once there, MERGE_Z splits at a time; then every
+// thread folds l_z and acc_z[d] in split order, its loads of acc issued
+// MERGE_BATCH at a time ahead of their fold.
+constexpr int MERGE_Z = 256;
+constexpr int MERGE_BATCH = 16;
+
+template <int HD>
+__global__ void __launch_bounds__(HD) merge_kernel(Args a, int hq) {
+  __shared__ float fz[MERGE_Z], lz[MERGE_Z], wmax[HD / 32];
+  const int b = blockIdx.x, qh = blockIdx.y, d = threadIdx.x;
+  const size_t base = (static_cast<size_t>(b) * hq + qh) * a.n_splits;
+  float mx = -INFINITY;
+  for (int z = d; z < a.n_splits; z += HD) {
+    const float m = a.part_m[base + z];
+    mx = fmaxf(mx, m);
+    if (z < MERGE_Z) {  // read back by this thread for the first chunk
+      fz[z] = m;
+      lz[z] = a.part_l[base + z];
+    }
+  }
+  mx = warp_max(mx);
+  if (d % 32 == 0) wmax[d / 32] = mx;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < HD / 32; ++w) mx = fmaxf(mx, wmax[w]);
+  const float sink = a.sinks != nullptr ? a.sinks[qh] : -INFINITY;
+  mx = fmaxf(mx, sink);
+  float den = a.sinks != nullptr ? expf(sink - mx) : 0.0f, num = 0.0f;
+  for (int z0 = 0; z0 < a.n_splits; z0 += MERGE_Z) {
+    const int nz = min(MERGE_Z, a.n_splits - z0);
+    if (z0 > 0) __syncthreads();  // the previous chunk's factors are read
+    for (int z = d; z < nz; z += HD) {
+      const float m = z0 == 0 ? fz[z] : a.part_m[base + z0 + z];
+      if (z0 > 0) lz[z] = a.part_l[base + z0 + z];
+      // an empty split adds nothing; its acc was never written
+      fz[z] = m == -INFINITY ? 0.0f : expf(m - mx);
+    }
+    __syncthreads();
+    const float* acc = a.part_acc + (base + z0) * HD + d;
+    for (int zb = 0; zb < nz; zb += MERGE_BATCH) {
+      float v[MERGE_BATCH];  // all loads of a batch issued before its fold
+#pragma unroll
+      for (int w = 0; w < MERGE_BATCH; ++w)
+        v[w] = zb + w < nz ? acc[static_cast<size_t>(zb + w) * HD] : 0.0f;
+#pragma unroll
+      for (int w = 0; w < MERGE_BATCH; ++w) {
+        const float f = zb + w < nz ? fz[zb + w] : 0.0f;
+        if (f != 0.0f) {
+          den = fmaf(lz[zb + w], f, den);
+          num = fmaf(v[w], f, num);
+        }
+      }
+    }
+  }
+  a.out[(static_cast<size_t>(a.row0 + b) * hq + qh) * HD + d] =
+      __float2bfloat16_rn(den > 0.0f ? num / den * a.v_scale : 0.0f);
+}
+
+// the split/merge pair over rows [0, n_rows), rows_per_range at a time
+template <int MODE, int HD, int NH>
+cudaError_t launch_one(Args a, int n_rows, int rows_per_range, cudaStream_t stream) {
+  const int hq = (MODE == INT4 ? 2 * a.n_units : a.n_units) * a.groups;
+  for (int r0 = 0; r0 < n_rows; r0 += rows_per_range) {
+    const int nr = n_rows - r0 < rows_per_range ? n_rows - r0 : rows_per_range;
+    a.row0 = r0;
+    split_kernel<MODE, HD, NH><<<dim3(nr, a.n_units, a.n_splits), THREADS, 0, stream>>>(a);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    merge_kernel<HD><<<dim3(nr, hq), HD, 0, stream>>>(a, hq);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // heads per block: groups ∈ {1, 2, 4, 8}, doubled for the int4 pairs
-template <int MODE, int EPL>
-cudaError_t launch_nh(const Args& a, int n_rows, cudaStream_t stream) {
+template <int MODE, int HD>
+cudaError_t launch_nh(const Args& a, int n_rows, int rpr, cudaStream_t stream) {
   constexpr int F = MODE == INT4 ? 2 : 1;
   switch (a.groups) {
-    case 1: return launch_one<MODE, EPL, F>(a, n_rows, stream);
-    case 2: return launch_one<MODE, EPL, 2 * F>(a, n_rows, stream);
-    case 4: return launch_one<MODE, EPL, 4 * F>(a, n_rows, stream);
-    case 8: return launch_one<MODE, EPL, 8 * F>(a, n_rows, stream);
+    case 1: return launch_one<MODE, HD, F>(a, n_rows, rpr, stream);
+    case 2: return launch_one<MODE, HD, 2 * F>(a, n_rows, rpr, stream);
+    case 4: return launch_one<MODE, HD, 4 * F>(a, n_rows, rpr, stream);
+    case 8: return launch_one<MODE, HD, 8 * F>(a, n_rows, rpr, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <int MODE>
-cudaError_t launch_hd(const Args& a, int n_rows, int hd, cudaStream_t stream) {
+cudaError_t launch_hd(const Args& a, int n_rows, int rpr, int hd, cudaStream_t stream) {
   switch (hd) {
-    case 64: return launch_nh<MODE, 2>(a, n_rows, stream);
-    case 128: return launch_nh<MODE, 4>(a, n_rows, stream);
+    case 64: return launch_nh<MODE, 64>(a, n_rows, rpr, stream);
+    case 128: return launch_nh<MODE, 128>(a, n_rows, rpr, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// the split count the grid needs: every row's visible keys fit in
+// min(pps·ps, window)
+int splits_for(int span, int window) {
+  if (window > 0 && window < span) span = window;
+  return (span + KPS - 1) / KPS;
 }
 
 }  // namespace
@@ -265,40 +479,57 @@ extern "C" {
 
 // K6.  q, out: (n_rows, Hq, hd) bf16; kv: (P, page_size, 2·n_units, hd)
 // bf16 (mode 0), int8 (mode 1) or adjacent-pair int4 (mode 2), n_units =
-// Hkv (modes 0, 1) or Hkv/2 (mode 2); kv_lens: (n_seqs,), tables: (n_seqs,
-// pages_per_seq), cu: (n_seqs + 1,), num_seqs: (1,), all int32; sinks: (Hq,)
-// fp32 or null.  qk_scale = sm_scale·k_scale; window 0 and soft_cap 0
-// switch those off.  hd must be 64 or 128 and Hq/Hkv 1, 2, 4 or 8.
+// Hkv (modes 0, 1) or Hkv/2 (mode 2), 16-byte aligned; kv_lens: (n_seqs,),
+// tables: (n_seqs, pages_per_seq), cu: (n_seqs + 1,), num_seqs: (1,), all
+// int32; sinks: (Hq,) fp32 or null.  qk_scale = sm_scale·k_scale; window 0
+// and soft_cap 0 switch those off.  hd must be 64 or 128 and Hq/Hkv 1, 2,
+// 4 or 8.  n_splits must be ceil(min(pages_per_seq·page_size, window) /
+// 64); scratch holds rows_per_range·Hq·n_splits·(hd + 2) fp32, and
+// rows_per_range must be 1 or keep that within 64 MiB (refused otherwise).
+// Per range of rows_per_range rows, two kernels on `stream`: the splits,
+// then the merge.
 int paged_attention(const void* q, const void* kv, const int32_t* kv_lens,
                     const int32_t* tables, const int32_t* cu, const int32_t* num_seqs,
-                    const float* sinks, void* out, int n_rows, int n_seqs, int pages_per_seq,
-                    int page_size, int n_units, int groups, int hd, int mode, float qk_scale,
+                    const float* sinks, void* out, void* scratch, int n_rows, int n_seqs,
+                    int pages_per_seq, int page_size, int n_units, int groups, int hd,
+                    int mode, int n_splits, int rows_per_range, float qk_scale,
                     float v_scale, float soft_cap, int window, cudaStream_t stream) {
   if (n_rows <= 0 || n_seqs <= 0 || pages_per_seq <= 0 || page_size <= 0 || n_units <= 0 ||
-      groups <= 0)
+      groups <= 0 || rows_per_range <= 0 ||
+      n_splits != splits_for(pages_per_seq * page_size, window))
     return static_cast<int>(cudaErrorInvalidValue);
+  const size_t hq = static_cast<size_t>(mode == INT4 ? 2 * n_units : n_units) * groups;
+  const size_t parts = static_cast<size_t>(rows_per_range) * hq * n_splits;
+  if (rows_per_range > 1 && parts * (hd + 2) * sizeof(float) > SCRATCH_CAP)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* s = static_cast<float*>(scratch);
   Args a;
   a.q = static_cast<const __nv_bfloat16*>(q);
-  a.kv = kv;
+  a.kv = static_cast<const unsigned char*>(kv);
   a.kv_lens = kv_lens;
   a.tables = tables;
   a.cu = cu;
   a.num_seqs = num_seqs;
   a.sinks = sinks;
   a.out = static_cast<__nv_bfloat16*>(out);
+  a.part_m = s;
+  a.part_l = s + parts;
+  a.part_acc = s + 2 * parts;
+  a.row0 = 0;
   a.n_seqs = n_seqs;
   a.pages_per_seq = pages_per_seq;
   a.page_size = page_size;
   a.n_units = n_units;
   a.groups = groups;
   a.window = window;
+  a.n_splits = n_splits;
   a.qk_scale = qk_scale;
   a.v_scale = v_scale;
   a.soft_cap = soft_cap;
   switch (mode) {
-    case BF16: return static_cast<int>(launch_hd<BF16>(a, n_rows, hd, stream));
-    case INT8: return static_cast<int>(launch_hd<INT8>(a, n_rows, hd, stream));
-    case INT4: return static_cast<int>(launch_hd<INT4>(a, n_rows, hd, stream));
+    case BF16: return static_cast<int>(launch_hd<BF16>(a, n_rows, rows_per_range, hd, stream));
+    case INT8: return static_cast<int>(launch_hd<INT8>(a, n_rows, rows_per_range, hd, stream));
+    case INT4: return static_cast<int>(launch_hd<INT4>(a, n_rows, rows_per_range, hd, stream));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -493,7 +493,8 @@ class Engine:
         top_ks, top_ps, min_ps = self._tensors(warps)
         out, self.cache = D.ragged_step(
             self.model, self._tensor(tokens), self.cache, self._tensor(positions),
-            self._tensor(tok_pages), self._tensor(tok_offs), self._tensor(bt_rows),
+            self._tensor(tok_pages), self._tensor(tok_offs),
+            self._table_bucket(bt_rows, int(kv_lens.max())),
             self._tensor(kv_lens), self._tensor(cu),
             self._tensor(np.array([len(order)], np.int32)), self._tensor(sample_rows),
             self._tensor(temps), self.generator, top_ks=top_ks, top_ps=top_ps,
@@ -521,14 +522,25 @@ class Engine:
         tokens, positions, kv_lens, temps, warps, bt_rows = self._ragged_rows(
             self.max_batch, decoding)
         top_ks, top_ps, min_ps = self._tensors(warps)
+        # ragged_multi_step clips its page indices to the table: the bucket
+        # covers the chunk's last position
         out, self.cache = D.ragged_multi_step(
             self.model, self._tensor(tokens), self.cache, self._tensor(positions),
-            self._tensor(bt_rows), self._tensor(kv_lens),
+            self._table_bucket(bt_rows, int(kv_lens.max()) + self.multi_step - 1),
+            self._tensor(kv_lens),
             self._tensor(np.array([len(decoding)], np.int32)), self._tensor(temps),
             self.generator, self.multi_step, top_ks=top_ks, top_ps=top_ps, min_ps=min_ps,
             return_logprobs=self.logprobs)
         self.steps += 1
         self._emit_steps(*self._readback(out), list(enumerate(decoding)))
+
+    def _table_bucket(self, bt_rows: np.ndarray, max_len: int) -> torch.Tensor:
+        """The tick's block tables cut to a power-of-two page count that
+        covers ``max_len`` positions, as the phased tick's ``s_bucket``:
+        K6 launches one split of 64 keys a row per 64 positions of the
+        table's width, and a row's bits do not depend on that width."""
+        s_bucket = min(_bucket(max_len, lo=self.page_size), self.max_seq_len)
+        return self._tensor(np.ascontiguousarray(bt_rows[:, :s_bucket // self.page_size]))
 
     def _ragged_rows(self, t: int, decoding: List[int]):
         """Host buffers of a ragged tick with ``t`` token rows: ``(tokens,

@@ -701,6 +701,163 @@ def test_paged_decode_wrapper(dev, kind):
     torch.testing.assert_close(out.float(), ref, rtol=0, atol=1e-2 * float(ref.abs().max()))
 
 
+def _ragged_call(kind, seqs, width, groups, seed, dev, n_pad=0, n_kv=4, hd=128, ps=16,
+                 q_rows=None, pool=None, tables=None):
+    """K6 inputs for ``seqs`` ((n_new, kv_len) per active sequence, one more
+    sequence inactive), each sequence's table ``width`` pages wide over a
+    random page order of its own, and ``n_pad`` pad rows: ``(args, kw)``.
+    ``q_rows`` (one row per new token), ``pool`` and ``tables`` (one row
+    per sequence) replace the random ones, so that calls of different
+    shapes can share them."""
+    s_seqs = len(seqs) + 1
+    if pool is None:
+        pool = _pool(kind, 1 + s_seqs * width, ps, n_kv, hd, seed=seed, dev=dev)
+    kv, ks, vs = pool
+    rng = np.random.default_rng(seed + 1)
+    if tables is None:
+        tables = rng.permutation(np.arange(1, 1 + s_seqs * width)).reshape(s_seqs, width)
+    kv_lens = np.ones((s_seqs,), np.int32)
+    cu = np.zeros((s_seqs + 1,), np.int32)
+    for i, (n_new, kv_len) in enumerate(seqs):
+        kv_lens[i], cu[i + 1] = kv_len, cu[i] + n_new
+    cu[-1] = cu[-2]
+    hq = n_kv * groups
+    if q_rows is None:
+        q_rows = torch.from_numpy(rng.standard_normal((int(cu[-1]), hq, hd)).astype(
+            np.float32)).to(dev, torch.bfloat16)
+    q = torch.cat([q_rows, torch.zeros((n_pad, hq, hd), dtype=q_rows.dtype, device=dev)])
+    args = (q, kv, *(torch.from_numpy(a.astype(np.int32)).to(dev) for a in (
+        kv_lens, tables, cu, np.array([len(seqs)]))))
+    return args, dict(k_scale=ks, v_scale=vs, sm_scale=hd ** -0.5, kv_int4=kind == "int4")
+
+
+# (n_new, kv_len): keys 1, 64 (one full split), 65 (a split of one key
+# more) and 2100 (33 splits, the last of 52 keys) on a 132-page table
+# (2112 keys, 33 splits a row); a 40-row chunk at positions 40..79, whose
+# rows see 41..80 keys, across the first split boundary
+PAGED_SPLIT_SEQS = ((1, 1), (1, 64), (1, 65), (1, 2100), (40, 80))
+PAGED_SPLIT_CASES = {
+    "plain": {},
+    # the 2100-key row sees 1800..2099: its first split starts inside a
+    # page and inside the table's 64-key stretches; chunk rows see 41..80
+    # keys under the window's 300, so the window cuts only the long row
+    "window": dict(sliding_window=300),
+    # the short rows leave most of the grid's 33 splits empty
+    "sinks": dict(sinks=True),
+    "all": dict(sliding_window=50, soft_cap=8.0, sinks=True),
+}
+
+
+def _sinks(kw, hq, seed, dev):
+    if kw.pop("sinks", False):
+        kw["sinks"] = torch.from_numpy(np.random.default_rng(seed).standard_normal(hq)
+                                       .astype(np.float32)).to(dev)
+    return kw
+
+
+@pytest.mark.parametrize("case", list(PAGED_SPLIT_CASES))
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_paged_attention_split_edges(dev, case, kind):
+    """K6 over many 64-key splits, GQA 4 (int4: 8 q heads a packed pair):
+    rows of 1, 64, 65 and 2100 keys, a window whose start falls inside a
+    split of the table, a prefill chunk straddling a split boundary, pad
+    rows, sinks over a grid of mostly empty splits.  Against the plain
+    version and the split-merge twin at 1e-2 of the largest output (both
+    round p to bf16 or keep it fp32 in other places); pad rows zero."""
+    args, kw = _ragged_call(kind, PAGED_SPLIT_SEQS, 132, 4, seed=21, dev=dev, n_pad=3)
+    kw = _sinks(dict(kw, **PAGED_SPLIT_CASES[case]), args[0].shape[1], 22, dev)
+    out = pa.paged_ragged_attention(*args, **kw).float()
+    ref = pa.paged_ragged_attention_reference(*args, **kw).float()
+    twin = pa.paged_ragged_attention_split_ref(*args, **kw).float()
+    torch.cuda.synchronize()
+    tol = 1e-2 * float(ref.abs().max())
+    torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+    torch.testing.assert_close(out, twin, rtol=0, atol=tol)
+    assert not out[-3:].any()
+
+
+@pytest.mark.parametrize("case", ["plain", "all"])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_paged_attention_batch_invariant(dev, case, kind):
+    """A decode row at 1000 keys has the same bits launched alone, beside
+    a 64-row prefill chunk, in a tick with 7 other sequences, and at table
+    widths of 63 and 132 pages: its splits are anchored at its own first
+    visible key, and the grid's extra splits are empty."""
+    hq, hd = 16, 128
+    gen = torch.Generator(device=dev).manual_seed(31)
+    q_row = torch.randn((1, hq, hd), device=dev, generator=gen).to(torch.bfloat16)
+    q_chunk = torch.randn((64, hq, hd), device=dev, generator=gen).to(torch.bfloat16)
+    q_others = torch.randn((7, hq, hd), device=dev, generator=gen).to(torch.bfloat16)
+    others = [(1, n) for n in (5, 2000, 700, 64, 1500, 129, 900)]
+    width = 132
+    pool = _pool(kind, 1 + 10 * width, 16, 4, hd, seed=32, dev=dev)
+    # sequence 0 is the row's, 1 the chunk's, 2-8 the others', 9 inactive
+    pages = np.random.default_rng(33).permutation(np.arange(1, 1 + 10 * width)).reshape(
+        10, width)
+    extra = _sinks(dict(PAGED_SPLIT_CASES[case]), hq, 34, dev)
+    # (sequences, their table rows, q rows, the row's index, table width)
+    layouts = {"alone": ([(1, 1000)], [0], q_row, 0, width),
+               "narrow": ([(1, 1000)], [0], q_row, 0, 63),
+               "beside chunk": ([(64, 300), (1, 1000)], [1, 0], torch.cat([q_chunk, q_row]),
+                                64, width),
+               "in a tick": (others[:3] + [(1, 1000)] + others[3:], [2, 3, 4, 0, 5, 6, 7, 8],
+                             torch.cat([q_others[:3], q_row, q_others[3:]]), 3, width)}
+    outs = {}
+    for name, (seqs, idx, q_rows, row, w) in layouts.items():
+        args, kw = _ragged_call(kind, seqs, w, 4, seed=35, dev=dev, q_rows=q_rows, pool=pool,
+                                tables=pages[idx + [9], :w])
+        outs[name] = pa.paged_ragged_attention(*args, **kw, **extra)[row]
+    for name, out in outs.items():
+        assert torch.equal(out, outs["alone"]), name
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_paged_attention_repeat_and_graph_replay(dev, kind):
+    """The merge sums the splits in a fixed order with no atomics: two
+    launches are bit-equal, and a launch captured in a CUDA graph replays to
+    the eager output bit for bit."""
+    args, kw = _ragged_call(kind, PAGED_SPLIT_SEQS, 132, 4, seed=41, dev=dev, n_pad=3)
+    kw = _sinks(dict(kw, **PAGED_SPLIT_CASES["all"]), args[0].shape[1], 42, dev)
+    first = pa.paged_ragged_attention(*args, **kw)
+    second = pa.paged_ragged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = pa.paged_ragged_attention(*args, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int4"])
+def test_paged_attention_scratch_ranges(dev, kind):
+    """100 decode rows over 4096-key tables (64 splits, 32 q heads of 128)
+    need 104 MB of partials, past the 64 MiB cap: one call runs two ranges
+    of rows and gives the bits of two calls of 50 rows each."""
+    n_kv, hd, width, n_pages, b = 32, 128, 256, 300, 100
+    assert pa.rows_per_range(b, n_kv, pa.paged_n_splits(width, 16), hd) < b
+    kv, ks, vs = _pool(kind, n_pages, 16, n_kv, hd, seed=51, dev=dev)
+    rng = np.random.default_rng(52)
+    i32 = dict(dtype=torch.int32, device=dev)
+    tables = torch.from_numpy(rng.integers(1, n_pages, (b, width)).astype(np.int32)).to(dev)
+    lengths = torch.from_numpy(rng.integers(1, width * 16 + 1, b).astype(np.int32)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((b, n_kv, hd)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    kw = dict(k_scale=ks, v_scale=vs, kv_int4=kind == "int4")
+
+    def call(rows):
+        n = rows.stop - rows.start
+        return pa.paged_ragged_attention(q[rows], kv, lengths[rows], tables[rows],
+                                         torch.arange(n + 1, **i32),
+                                         torch.full((1,), n, **i32), **kw)
+
+    whole = call(slice(0, b))
+    halves = torch.cat([call(slice(0, 50)), call(slice(50, b))])
+    torch.cuda.synchronize()
+    assert torch.equal(whole, halves)
+
+
 @pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
 @pytest.mark.parametrize("t", [1, 8, 64])
 def test_paged_write_kernel(dev, kind, t):

@@ -170,6 +170,77 @@ def test_k6_ragged_plain_matches_jax(feature, cache_kind, groups):
     np.testing.assert_array_equal(got.numpy()[7:], 0)  # pad rows
 
 
+_JAX_REFS = {}
+
+
+def _jax_ragged_ref(feature, cache_kind, groups):
+    """JAX ``paged_ragged_attention_reference`` on the ragged mix, once per
+    (feature, cache kind, groups), and the inputs it was given."""
+    key = (feature, cache_kind, groups)
+    hq = HKV * groups
+    args, kw = _ragged_inputs(cache_kind, hq, seed=groups * 10 + len(feature))
+    if key not in _JAX_REFS:
+        _JAX_REFS[key] = np.asarray(JPA.paged_ragged_attention_reference(
+            *(jnp.asarray(a) for a in args), **kw,
+            **_feature_kwargs(feature, hq, jnp.asarray)))
+    return _JAX_REFS[key], args, kw
+
+
+# keys per split: one key a split, 16 (several splits a row, boundaries
+# inside the prefill chunk), and one split for every key of the table
+SPLIT_SIZES = {"kps1": 1, "kps16": 16, "one_split": MP * PS}
+
+
+@pytest.mark.parametrize("feature", list(FEATURES))
+@pytest.mark.parametrize("cache_kind", ["float", "int8", "int4"])
+@pytest.mark.parametrize("kps,groups", [("kps1", 1), ("kps16", 2), ("one_split", 1),
+                                        ("one_split", 2)])
+def test_k6_split_twin_matches_jax(feature, cache_kind, kps, groups):
+    """The redesigned kernel's split-merge algebra
+    (``paged_ragged_attention_split_ref``: fp32 partials per split anchored
+    at each row's first visible key, merged in order, sinks once) against
+    JAX ``paged_ragged_attention_reference`` on the ragged mix: within 1e-5
+    of the largest output; pad rows zero."""
+    jref, args, kw = _jax_ragged_ref(feature, cache_kind, groups)
+    got = TPA.paged_ragged_attention_split_ref(
+        *(_t(a) for a in args), **kw, **_feature_kwargs(feature, HKV * groups, _t),
+        keys_per_split=SPLIT_SIZES[kps])
+    np.testing.assert_allclose(got.numpy(), jref, rtol=0, atol=1e-5 * np.abs(jref).max())
+    np.testing.assert_array_equal(got.numpy()[7:], 0)  # pad rows
+
+
+@pytest.mark.parametrize("cache_kind", ["float", "int4"])
+def test_k6_split_twin_row_ranges_bit_equal(cache_kind):
+    """Row ranges of 1, 3 and all rows (the kernel's scratch cap) give the
+    same bits: a row's partials and merge are its own."""
+    args, kw = _ragged_inputs(cache_kind, 2 * HKV, seed=5)
+    kw.update(_feature_kwargs("all", 2 * HKV, _t))
+    outs = [TPA.paged_ragged_attention_split_ref(*(_t(a) for a in args), **kw,
+                                                 keys_per_split=16, rows_per_range=r)
+            for r in (1, 3, None)]
+    assert torch.equal(outs[0], outs[2]) and torch.equal(outs[1], outs[2])
+
+
+@pytest.mark.parametrize("mp,ps,window,want", [(10, 4, None, 1), (32, 16, None, 8),
+                                               (33, 16, None, 9), (256, 16, 128, 2),
+                                               (256, 16, 4096, 64), (32, 16, 1, 1)])
+def test_k6_split_count_from_table_width_and_window(mp, ps, window, want):
+    """The grid's split count comes from host integers alone, ceil(min(table
+    width · page size, window) / 64); it reads no length or row count, and
+    a wider table (more splits, the extra ones empty) leaves the twin's
+    bits as they were."""
+    assert TPA.paged_n_splits(mp, ps, window) == want
+    args, kw = _ragged_inputs("int8", HKV, seed=6)
+    kw["sliding_window"] = window
+    q, kv, kv_lens, tables, cu, num_seqs = (_t(a) for a in args)
+    wide = torch.cat([tables, tables[:, :3]], dim=1)  # 3 more pages a sequence
+    narrow = TPA.paged_ragged_attention_split_ref(q, kv, kv_lens, tables, cu, num_seqs,
+                                                  **kw, keys_per_split=4)
+    widened = TPA.paged_ragged_attention_split_ref(q, kv, kv_lens, wide, cu, num_seqs,
+                                                   **kw, keys_per_split=4)
+    assert torch.equal(narrow, widened)
+
+
 @pytest.mark.parametrize("cache_kind", ["float", "int8", "int4"])
 def test_k6_decode_plain_matches_jax(cache_kind):
     """The one-row-per-sequence case against JAX
