@@ -63,7 +63,10 @@ over it (``--profile-dir`` gives their device time and device ops).
    (``Timer.steady``); every other time is one event pair per launch
    after an L2 flush (``Timer.__call__``).  K4, K6 and K7 are also timed
    past the paths' shapes: at S = 4096 and at Llama-3-8B's GQA head layout
-   (8 kv heads under 32 q heads).  K3 and K8 are timed both
+   (8 kv heads under 32 q heads).  K2 and K5 also log their two kernels'
+   device time (torch.profiler) and the tail product's rate, beside
+   ``torch.mm`` over the same tail shapes, and K5 fed K2's own scales and
+   zeros must give K2's codes and Σerr² bit for bit.  K3 and K8 are timed both
    ways, and so are their library calls.  K8's staged rows must be
    bit-equal to the plain quantization, and K3's and K8's rows the same at
    every M.  K1 must also keep H exactly symmetric and give
@@ -382,6 +385,53 @@ def phase_hessian(torch, timer, launches) -> list:
     return out
 
 
+def solver_split(torch, run, c: int, r: int, g: int, label: str) -> None:
+    """Log the device time of K2's/K5's two kernels over one call of
+    ``run`` (torch.profiler, summed by kernel name), and the tail
+    product's rate: 2·g·(C − i2)·R fp32 operations for each group with a
+    tail.  The profiler can drop a kernel's record: the call is traced
+    again, up to three times, until it holds every launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    want = {"column_loop": c // g, "tail_update": c // g - 1}
+    for attempt in range(1, 4):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        ms, n = dict.fromkeys(want, 0.0), dict.fromkeys(want, 0)
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            for k in want:
+                if k in e.key:
+                    ms[k] += e.self_device_time_total / 1e3
+                    n[k] += e.count
+        if n == want:
+            break
+    flops = sum(2 * g * (c - i2) * r for i2 in range(g, c, g))
+    tflops = flops / (ms["tail_update"] * 1e-3) / 1e12 if n == want else float("nan")
+    log(f"  {label} split: column loop {ms['column_loop']:.3f} ms ({n['column_loop']} "
+        f"launches, {1e3 * ms['column_loop'] / max(1, n['column_loop']):.2f} us each), "
+        f"tail {ms['tail_update']:.3f} ms ({n['tail_update']} launches), tail "
+        f"{tflops:.1f} TFLOP/s fp32; trace {attempt}"
+        + ("" if n == want else f", incomplete: {want} launches made"))
+
+
+def tail_mm_ms(torch, timer, hinv, c: int, r: int, g: int) -> float:
+    """Yardstick for the tail product alone: ``torch.mm`` in fp32 (TF32
+    off) over every group's tail shape, hinv[i1:i2, i2:]ᵀ (C − i2, g) @
+    E (g, R).  The port never calls it."""
+    e = torch.randn((g, r), device="cuda")
+    out = torch.empty((c - g, r), device="cuda")
+
+    def run():
+        for i2 in range(g, c, g):
+            torch.mm(hinv[i2 - g:i2, i2:].T, e, out=out[:c - i2])
+
+    return timer(run, 3)
+
+
 def phase_gptq(torch, timer, launches) -> list:
     from gptq_v2_tpu_torch.ops import gptq_cuda as K
     from gptq_v2_tpu_torch.quant import hessian as hs
@@ -420,6 +470,28 @@ def phase_gptq(torch, timer, launches) -> list:
                                f"{err} (max|quant| {qmax})")
         ms = timer(lambda: K.gptq_solve(w_t, inv.hessian_inv, g, 15.0), 3)
         n_groups = c // g
+        if label == "q_proj":
+            # K2 and K5 share their kernels: K5 fed K2's own scales and
+            # zeros must give K2's codes and Σerr² bit for bit
+            w_s, hinv = w_t.clone(), inv.hessian_inv.contiguous()
+            q_s = torch.empty((c, r), dtype=torch.uint8, device="cuda")
+            e2_s = torch.empty((n_groups, r), device="cuda")
+            for gi in range(n_groups):
+                K.gptq_step(w_s, hinv, gi, g, got["scale"][:, gi].contiguous(),
+                            got["qzero"][:, gi].contiguous(), 15.0, q_s, e2_s)
+            n_k5 = int((q_s.T.float() != got["qweight"]).sum())
+            e_k5 = float(torch.sum(e2_s) / (r * c))
+            if n_k5 or e_k5 != float(got["error_sq_mean"]):
+                raise RuntimeError(f"K5 fed K2's parameters: {n_k5} codes differ, "
+                                   f"Σerr² mean {e_k5!r} against {float(got['error_sq_mean'])!r}")
+            log(f"phase K2 {label}: K5 fed K2's scales and zeros gives K2's codes "
+                f"and Σerr² bit for bit ({n_groups} launches)")
+            del w_s, q_s, e2_s
+        solver_split(torch, lambda: K.gptq_solve(w_t, inv.hessian_inv, g, 15.0),
+                     c, r, g, f"K2 {label}")
+        mm_ms = tail_mm_ms(torch, timer, inv.hessian_inv, c, r, g)
+        log(f"  K2 {label} yardstick: torch.mm fp32 (TF32 off) over the {n_groups - 1} "
+            f"tail shapes {mm_ms:.3f} ms")
         b_ms, b_by = bound(4 * r * c + 4 * c * c + r * c + 3 * 4 * n_groups * r,
                            r * c * (c - 1), "fp32")
         out.append(dict(name=f"gptq_solve [{label} C={c} R={r} g={g} act-order]",
@@ -1343,6 +1415,7 @@ def phase_gptq_step(torch, timer, launches) -> list:
 
         w_s = torch.empty_like(w_t)
         ms = timer(run_kernel, 3)
+        solver_split(torch, run_kernel, c, r, g, f"K5 {label}")
         torch.cuda.synchronize()
         t0 = time.time()
         w_p = w_t.T.clone()

@@ -11,10 +11,18 @@ group-stepped.
   (min-max, MSE grid, EXL2 scale quantization, per-group bit widths) in
   torch between the steps.
 
-Both are the hand-written CUDA kernels of ``csrc/gptq.cu`` (a column loop
-kernel with the g-step quantize/feedback/rank-1 chain in shared memory, and
-a tiled fp32 tail-update product); what bounds them on the H100 and what
-the simple design does about it is noted in that source.
+Both run the two hand-written CUDA kernels of ``csrc/gptq.cu`` a group,
+on the caller's stream: the column loop (the g-step quantize/feedback/
+rank-1 chain, a row's running weights in the registers of the threads
+that share it, w_j passed by warp shuffle; bound by that dependent chain)
+and the tail product (a SIMT fp32 GEMM on 128 x 128 output tiles,
+cp.async-pipelined; bound by fp32 operations).  The column loop rounds every operation as the plain
+version does; the tail sums each output in one thread over k ascending.
+So the outputs do not depend on the launch shape (grid, rows).  No
+tensor cores: the H100 has no fp32 MMA, and TF32 would change the sums.
+The source's header says more.  The kernels read ``hinv`` and the error
+rows ``E`` by 16-byte copies: :func:`_aligned` and :func:`_error_scratch`
+give them 16-byte boundaries.
 
 The plain PyTorch versions are :func:`_step_reference` (one group) and
 :func:`_solve_uniform` (K2's, min-max over every group), counterparts of
@@ -130,6 +138,19 @@ def _check_solver_input(weight_t: torch.Tensor, hinv: torch.Tensor,
         raise TypeError("weight_t and hinv must be float32")
 
 
+def _aligned(hinv: torch.Tensor) -> torch.Tensor:
+    """``hinv`` contiguous on a 16-byte boundary (the tail product reads it
+    by 16-byte ``cp.async``); a copy only for an offset view."""
+    hinv = hinv.contiguous()
+    return hinv if hinv.data_ptr() % 16 == 0 else hinv.clone()
+
+
+def _error_scratch(g: int, r: int, device) -> torch.Tensor:
+    """The kernels' error rows E: ``(g, R)`` with each row padded to a
+    multiple of 4 floats, so every row starts on a 16-byte boundary."""
+    return torch.empty((g, (r + 3) // 4 * 4), dtype=torch.float32, device=device)
+
+
 def gptq_solve(weight_t: torch.Tensor, hinv: torch.Tensor, group_size: int,
                maxq: float, sym: bool = False,
                feedback_dtype: Optional[str] = "float16") -> dict:
@@ -149,9 +170,9 @@ def gptq_solve(weight_t: torch.Tensor, hinv: torch.Tensor, group_size: int,
     g = group_size
     n_groups = c // g
     w = weight_t.contiguous().clone()  # running weight state, updated in place
-    hinv = hinv.contiguous()
+    hinv = _aligned(hinv)
     q = torch.empty((c, r), dtype=torch.uint8, device=dev)
-    e = torch.empty((g, r), dtype=torch.float32, device=dev)
+    e = _error_scratch(g, r, dev)
     err2 = torch.empty((n_groups, r), dtype=torch.float32, device=dev)
     scale = torch.empty_like(err2)
     zero = torch.empty_like(err2)
@@ -210,10 +231,10 @@ def gptq_step(w_t: torch.Tensor, hinv: torch.Tensor, group_index: int,
         raise ValueError("K5 writes contiguous w_t, q_t and err2 in place")
     if err2.dtype != torch.float32:
         raise TypeError("err2 must be float32")
-    hinv = hinv.contiguous()  # a no-op in gptq_solve_stepped's loop
+    hinv = _aligned(hinv)  # a no-op in gptq_solve_stepped's loop
     scale = scale.float().contiguous()
     qzero = qzero.float().contiguous()
-    e = torch.empty((g, r), dtype=torch.float32, device=w_t.device)
+    e = _error_scratch(g, r, w_t.device)
     lib = _cuda.library("gptq", _SIGNATURES)
     with torch.cuda.device(w_t.device):
         err = lib.gptq_step(_cuda.ptr(w_t), _cuda.ptr(hinv), _cuda.ptr(q_t),

@@ -107,6 +107,90 @@ def test_gptq_kernel(dev, g, sym, fb):
     assert float(out["error_sq_mean"]) == pytest.approx(float(ref["error_sq_mean"]), rel=1e-3)
 
 
+def _k5_over_k2_params(w_t, hinv, g, out):
+    """Every group through K5 with K2's own scales and zeros: codes
+    ``(C, R)``, Σerr² ``(C/g, R)`` and the running weight."""
+    c, r = w_t.shape
+    w = w_t.clone()
+    q = torch.empty((c, r), dtype=torch.uint8, device=w.device)
+    e2 = torch.empty((c // g, r), device=w.device)
+    for gi in range(c // g):
+        gptq_cuda.gptq_step(w, hinv, gi, g, out["scale"][:, gi].contiguous(),
+                            out["qzero"][:, gi].contiguous(), 15.0, q, e2)
+    return q, e2, w
+
+
+@pytest.mark.parametrize("g", [32, 64, 128])
+@pytest.mark.parametrize("c,r", [(512, 300), (512, 301)])
+def test_gptq_k5_fed_k2_params_is_k2(dev, g, c, r):
+    """K2 and K5 run the same kernels: K5 fed each group's K2 scales and
+    zeros gives K2's codes and Σerr² bit for bit."""
+    inv = _inverse(c, 9, dev)
+    w_t = _rand((r, c), 10, dev=dev)[:, inv.perm].T.contiguous()
+    out = gptq_cuda.gptq_solve(w_t, inv.hessian_inv, g, 15.0)
+    q, e2, _ = _k5_over_k2_params(w_t, inv.hessian_inv, g, out)
+    torch.cuda.synchronize()
+    assert torch.equal(q.T.float(), out["qweight"])
+    assert float(torch.sum(e2) / (r * c)) == float(out["error_sq_mean"])
+
+
+# R = 100 and 4100 are multiples of neither the tail's 128-row tile nor
+# the column loop's 32-row block; R = 301 also leaves W's rows off 16-byte
+# alignment (the tail's scalar read-modify-write and E's padded rows).
+# C = 512 gives the early groups tails of several tiles and the last group
+# none; C = 2048 at R = 4100 gives grids from 33 x 15 tiles down to 33 x 1.
+@pytest.mark.parametrize("g", [32, 64, 128])
+@pytest.mark.parametrize("c,r", [(512, 100), (512, 301), (512, 4100), (2048, 4100)])
+def test_gptq_kernel_edge_shapes(dev, g, c, r):
+    """K2 against its plain version on the card (the tail product sums in
+    another order than torch's, which may flip a code at a boundary)."""
+    inv = _inverse(c, 11, dev)
+    w_t = _rand((r, c), 12, dev=dev)[:, inv.perm].T.contiguous()
+    out = gptq_cuda.gptq_solve(w_t, inv.hessian_inv, g, 15.0)
+    ref = gptq_cuda._solve_uniform(w_t.T, inv.hessian_inv, 15.0, g, False, "float16")
+    torch.cuda.synchronize()
+    assert (out["qweight"] != ref["qweight"]).float().mean().item() <= 1e-3
+    assert float(out["error_sq_mean"]) == pytest.approx(
+        float(torch.mean(ref["error"] ** 2)), rel=1e-3)
+
+
+@pytest.mark.parametrize("g", [32, 128])
+def test_gptq_rows_independent_of_launch_shape(dev, g):
+    """Rows are independent and every sum keeps one order whatever the
+    launch shape: the first 300 rows of an R = 8200 solve (65 tiles
+    across the rows, 257 loop blocks) equal a solve of those 300 rows
+    alone (3 tiles, the last one partial; 10 loop blocks), bit for bit."""
+    c, r, n = 4096, 8200, 300
+    inv = _inverse(c, 13, dev)
+    w_t = _rand((r, c), 14, dev=dev)[:, inv.perm].T.contiguous()
+    big = gptq_cuda.gptq_solve(w_t, inv.hessian_inv, g, 15.0)
+    small = gptq_cuda.gptq_solve(w_t[:, :n].contiguous(), inv.hessian_inv, g, 15.0)
+    for key in ("qweight", "scale", "qzero"):
+        assert torch.equal(big[key][:n], small[key]), key
+    q_b, e_b, w_b = _k5_over_k2_params(w_t, inv.hessian_inv, g, big)
+    q_s, e_s, w_s = _k5_over_k2_params(w_t[:, :n].contiguous(), inv.hessian_inv, g, small)
+    torch.cuda.synchronize()
+    assert torch.equal(q_b[:, :n], q_s)
+    assert torch.equal(e_b[:, :n], e_s)
+    assert torch.equal(w_b[:, :n], w_s)
+
+
+@pytest.mark.parametrize("g", [64, 128])
+def test_gptq_kernels_repeat_bit_equal(dev, g):
+    """Two launches on the same inputs are bit-equal: K2's outputs, and
+    K5's codes, Σerr² and running weight."""
+    c, r = 1024, 4100
+    inv = _inverse(c, 15, dev)
+    w_t = _rand((r, c), 16, dev=dev)[:, inv.perm].T.contiguous()
+    a = gptq_cuda.gptq_solve(w_t, inv.hessian_inv, g, 15.0)
+    b = gptq_cuda.gptq_solve(w_t, inv.hessian_inv, g, 15.0)
+    for key in ("qweight", "quant", "scale", "qzero", "error_sq_mean"):
+        assert torch.equal(a[key], b[key]), key
+    for x, y in zip(_k5_over_k2_params(w_t, inv.hessian_inv, g, a),
+                    _k5_over_k2_params(w_t, inv.hessian_inv, g, a)):
+        assert torch.equal(x, y)
+
+
 def _meta(bits, c, r, seed, g=16, act_order=True):
     rng = np.random.default_rng(seed)
     n_groups = c // g

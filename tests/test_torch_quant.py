@@ -203,6 +203,20 @@ def test_solver_wrapper_refuses_bad_input():
         gptq_cuda.gptq_solve(w, torch.zeros((64, 64)), 48, 15.0)
 
 
+def test_solver_buffers_on_16_byte_boundaries():
+    """The kernels read hinv and E by 16-byte copies: E's rows are padded
+    to a multiple of 4 floats, and an offset view of hinv is copied."""
+    for r in (100, 301, 4100):
+        e = gptq_cuda._error_scratch(32, r, "cpu")
+        assert e.shape == (32, (r + 3) // 4 * 4) and e.stride(0) % 4 == 0
+    base = torch.arange(65 * 64, dtype=torch.float32)
+    view = base[1:].view(-1)[:64 * 64].view(64, 64)
+    got = gptq_cuda._aligned(view)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, view)
+    full = base[:64 * 64].view(64, 64)
+    assert gptq_cuda._aligned(full) is full
+
+
 # --- EXL2 scales, MSE grid search, K5's group-stepped solver -------------
 
 
