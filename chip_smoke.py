@@ -54,7 +54,8 @@ over it (``--profile-dir`` gives their device time and device ops).
      repeated, and multi-step against single-step; a run snapshotted after
      8 ticks and restored on a fresh engine against the uninterrupted run.
 
-   Every kernel of a path must launch in it.
+   Every kernel of a path must launch in it, and every paged write of an
+   engine run (one a layer and forward) must be one K9 launch.
 3. Holds each kernel against its plain PyTorch version at the paths'
    shapes and times kernel, plain version and one library call.  K4, K6,
    K7 and K9 take microseconds: their kernel and library times are the
@@ -69,7 +70,9 @@ over it (``--profile-dir`` gives their device time and device ops).
    zeros must give K2's codes and Σerr² bit for bit.  K3 and K8 are timed both
    ways, and so are their library calls.  K8's staged rows must be
    bit-equal to the plain quantization, and K3's and K8's rows the same at
-   every M.  K1 must also keep H exactly symmetric and give
+   every M.  K9's fused write must leave the pool bit-equal to its plain
+   version (quantize, page lookup, interleave, indexed store), which is
+   timed beside it: steady, eager, device ops and host wall a call.  K1 must also keep H exactly symmetric and give
    bit-equal results on two launches.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line
@@ -884,7 +887,7 @@ def paged_counts() -> dict:
     from gptq_v2_tpu_torch.ops import paged_attention, paged_write, w4a16
 
     return {"K6": paged_attention.paged_ragged_attention.launches,
-            "K9": paged_write.paged_write_rows.launches,
+            "K9": paged_write.paged_write_kv.launches,
             "K3": w4a16.w4a16_matmul.launches}
 
 
@@ -902,9 +905,38 @@ def record_tables(eng) -> dict:
     return tables
 
 
+@contextlib.contextmanager
+def counted_paged_writes():
+    """Counts the paged cache's writes (``kv_cache.write_kv`` and
+    ``write_kv_flat``, which the decode paths call once a layer)."""
+    from gptq_v2_tpu_torch.serving import kv_cache as kvc
+
+    calls = {"writes": 0}
+    saved = kvc.write_kv, kvc.write_kv_flat
+
+    def counted(fn):
+        def write(*args, **kwargs):
+            calls["writes"] += 1
+            return fn(*args, **kwargs)
+        return write
+
+    kvc.write_kv, kvc.write_kv_flat = counted(saved[0]), counted(saved[1])
+    try:
+        yield calls
+    finally:
+        kvc.write_kv, kvc.write_kv_flat = saved
+
+
+def check_one_launch_a_write(label: str, k9_launches: int, writes: int) -> None:
+    if k9_launches != writes or writes % DEPTH:
+        raise RuntimeError(f"{label}: {writes} paged writes made {k9_launches} K9 launches; "
+                           f"each write of each of the {DEPTH} layers should be one")
+
+
 def serve_timed(torch, eng, prompts, label: str, uid0: int = 0):
-    """One engine run over ``prompts`` (NEW_TOKENS each); checks the output
-    and that K6, K9 and K3 launched in it; returns uid → tokens."""
+    """One engine run over ``prompts`` (NEW_TOKENS each); checks the output,
+    that K6, K9 and K3 launched in it and that every paged write (one a
+    layer and forward) was one K9 launch; returns uid → tokens."""
     from gptq_v2_tpu_torch.serving import Request
 
     reqs = [Request(uid=uid0 + i, prompt=p, max_new_tokens=NEW_TOKENS)
@@ -912,14 +944,17 @@ def serve_timed(torch, eng, prompts, label: str, uid0: int = 0):
     n0, steps0 = paged_counts(), eng.steps
     torch.cuda.synchronize()
     t0 = time.time()
-    out = eng.run(reqs)
+    with counted_paged_writes() as writes:
+        out = eng.run(reqs)
     torch.cuda.synchronize()
     dt = time.time() - t0
     dn = {k: v - n0[k] for k, v in paged_counts().items()}
+    check_one_launch_a_write(label, dn["K9"], writes["writes"])
     RATES.setdefault(f"engine {label} W4A16", []).append(len(reqs) * NEW_TOKENS / dt)
     log(f"phase serve.paged {label} run: {len(reqs)} requests x {NEW_TOKENS} new tokens, "
         f"{len(reqs) * NEW_TOKENS / dt:.1f} tok/s ({dt:.3f} s, {eng.steps - steps0} ticks); "
-        "launches " + ", ".join(f"{k} {v}" for k, v in dn.items()))
+        "launches " + ", ".join(f"{k} {v}" for k, v in dn.items())
+        + f"; {writes['writes']} paged writes, one K9 launch each")
     if not all(dn.values()):
         raise RuntimeError(f"{label}: a kernel of the paged path never launched: {dn}")
     if any(len(v) != NEW_TOKENS or not all(0 <= t < MODEL["vocab_size"] for t in v)
@@ -1096,21 +1131,27 @@ def engine_runs(torch, eng, prompts, label: str, runs: int = 2, **req):
     """``runs`` timed runs of ``prompts`` (NEW_TOKENS each, ``req`` the
     sampling fields); returns the last run's outputs and requests and
     records each run's tok/s under ``label``."""
+    from gptq_v2_tpu_torch.ops import paged_write
     from gptq_v2_tpu_torch.serving import Request
 
     outs = []
     for _ in range(runs):
         reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS, **req)
                 for i, p in enumerate(prompts)]
-        steps0 = eng.steps
+        steps0, k9 = eng.steps, paged_write.paged_write_kv.launches
         torch.cuda.synchronize()
         t0 = time.time()
-        outs.append(eng.run(reqs))
+        with counted_paged_writes() as writes:
+            outs.append(eng.run(reqs))
         torch.cuda.synchronize()
         dt = time.time() - t0
+        check_one_launch_a_write(label, paged_write.paged_write_kv.launches - k9,
+                                 writes["writes"])
         RATES.setdefault(label, []).append(len(reqs) * NEW_TOKENS / dt)
         log(f"phase {label} run: {len(reqs)} requests x {NEW_TOKENS} new tokens, "
-            f"{len(reqs) * NEW_TOKENS / dt:.1f} tok/s ({dt:.3f} s, {eng.steps - steps0} ticks)")
+            f"{len(reqs) * NEW_TOKENS / dt:.1f} tok/s ({dt:.3f} s, {eng.steps - steps0} ticks"
+            + (f"; {writes['writes']} paged writes, one K9 launch each)" if writes["writes"]
+               else ")"))
     if any(o != outs[0] for o in outs):
         raise RuntimeError(f"{label}: output differs between runs")
     if any(len(v) != NEW_TOKENS or not all(0 <= t < MODEL["vocab_size"] for t in v)
@@ -1691,13 +1732,100 @@ def phase_paged_attention(torch, timer, launches) -> list:
 
 
 def phase_paged_write(torch, timer, launches) -> list:
-    """K9 at the serve.paged path's shapes: 8 decode rows and a 64-row flat
-    write into a 7B-width pool (4 layers, 257 pages of 16), distinct
-    targets, bf16, int8 and int4 rows: bit-equal to the indexed store."""
+    """K9 at the paged serve paths' shapes, 7B width (32 kv heads of 128,
+    a 4-layer pool of 257 pages of 16): the fused write (``paged_write_kv``)
+    from bf16 K and a strided V view of a fused qkv output, bf16, int8
+    (scalar and per-head scales) and int4 (per-head) pools, decode B=8
+    through block tables and a 64-token flat write through ``(pages,
+    offsets)``, bit-equal to its plain version (the composed path: quantize,
+    page_offsets, interleave, indexed store), timed beside it in a graph
+    (steady), eager (events) and as eager host wall per call; then the raw
+    row entry (``paged_write_rows``) on ready-made rows, bit-equal to the
+    indexed store.  Distinct targets, so no row races."""
     from gptq_v2_tpu_torch.ops import paged_write as K
+    from gptq_v2_tpu_torch.serving.kv_cache import _scale
 
     n_pages, ps, hkv, hd = 257, 16, 32, 128
+    kw = hkv * hd
     out = []
+    for kind, (scales, bits) in (("bf16", (None, 0)), ("int8 scalar", ((0.031, 0.027), 0)),
+                                 ("int8 per-head", ("h", 0)), ("int4 per-head", ("h", 4))):
+        if scales == "h":
+            base = 0.3 if bits == 4 else 0.03
+            scales = tuple(tuple(base * (1 + 0.01 * h + 0.1 * j) for h in range(hkv))
+                           for j in range(2))
+        ks, vs = (None, None) if scales is None else (_scale(s, "cuda") for s in scales)
+        dtype = torch.bfloat16 if scales is None else torch.int8
+        n_comb = hkv if bits == 4 else 2 * hkv
+        pool = torch.zeros((DEPTH, n_pages, ps, n_comb, hd), dtype=dtype, device="cuda")
+        for t, label in ((8, "decode B=8, block tables"), (64, "flat write T=64")):
+            gen = torch.Generator(device="cuda").manual_seed(t)
+
+            def inputs(i, t=t, gen=gen):
+                qkv = torch.randn((t, 1, 3 * kw), device="cuda", generator=gen).to(
+                    torch.bfloat16)
+                k = qkv[..., kw:2 * kw].reshape(t, 1, hkv, hd).contiguous()  # rope output
+                v = qkv[..., 2 * kw:].reshape(t, 1, hkv, hd)  # a view, as the model's
+                slots = torch.randperm((n_pages - 1) * ps, device="cuda", generator=gen)[:t] + ps
+                if t != 8:
+                    return (k[:, 0], v[:, 0], dict(pages=(slots // ps).to(torch.int32),
+                                                   offsets=(slots % ps).to(torch.int32)))
+                # one sequence a row: its page table holds the slot's page at the
+                # row's position, which sits in table entry 0..31
+                pos = torch.randint(0, 32 * ps, (t, 1), device="cuda", generator=gen)
+                tables = torch.randint(1, n_pages, (t, 32), device="cuda", generator=gen,
+                                       dtype=torch.int32)
+                tables[torch.arange(t, device="cuda"), pos[:, 0] // ps] = (
+                    slots // ps).to(torch.int32)
+                pos = pos - pos % ps + slots[:, None] % ps
+                return k, v, dict(block_tables=tables, positions=pos)
+
+            k, v, target = inputs(0)
+            args = (ks, vs, bits)
+            got = K.paged_write_kv(pool.clone(), 1, k, v, *args, **target)
+            ref = K.paged_write_kv_reference(pool.clone(), 1, k, v, *args, **target)
+            if not torch.equal(got, ref):
+                raise RuntimeError(f"K9 fused {kind} {label}: the pool differs from the "
+                                   "plain version's")
+            del got, ref
+            idx_bytes = (8 * t if t != 8 else (8 + 4) * t)  # pages+offsets; positions+entry
+            scale_bytes = sum(4 * s.numel() for s in (ks, vs) if s is not None)
+            n_bytes = (2 * k.numel() * k.element_size()  # K and V read once
+                       + t * n_comb * hd * pool.element_size()  # the storage rows
+                       + idx_bytes + scale_bytes)
+
+            def make(i, fn):
+                k_i, v_i, target_i = inputs(i)
+                return lambda: fn(pool, 1, k_i, v_i, *args, **target_i)
+
+            ms = timer.steady(lambda i: make(i, K.paged_write_kv), n_bytes)
+            composed_ms = timer.steady(lambda i: make(i, K.paged_write_kv_reference), n_bytes)
+            plain_ms = timer(lambda: K.paged_write_kv_reference(pool, 1, k, v, *args, **target),
+                             10)
+            ops, names, wall = {}, {}, {}
+            for name, fn in (("kernel", K.paged_write_kv),
+                             ("composed", K.paged_write_kv_reference)):
+                ops[name], names[name] = device_ops(
+                    torch, lambda fn=fn: fn(pool, 1, k, v, *args, **target))
+                wall[name] = host_wall_us(torch, lambda fn=fn: fn(pool, 1, k, v, *args,
+                                                                   **target))
+            if ops["kernel"] > 1.0:
+                raise RuntimeError(f"K9 fused {kind} {label}: {ops['kernel']} device ops a "
+                                   f"call ({names['kernel']}), not 1")
+            b_ms, b_by = bound(n_bytes, 0, "bf16")
+            out.append(dict(name=f"paged_write_kv [{kind} {label}, {hkv}x{hd} bf16 K/V]",
+                            route="cuda", source="gptq_v2_tpu_torch/csrc/paged_write.cu",
+                            replaces=REPLACES["paged_write"], launches=launches["paged_write"],
+                            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=None))
+            log(f"phase K9 fused {kind} {label}: ok, bit-equal to the composed path; kernel "
+                f"steady {ms:.4f} ms, {ops['kernel']:.2f} device ops a call {names['kernel']}, "
+                f"host wall {wall['kernel']:.1f} us a call; "
+                f"composed steady {composed_ms:.4f} ms, {ops['composed']:.2f} device ops a call "
+                f"{names['composed']}, host wall "
+                f"{wall['composed']:.1f} us a call, events {plain_ms:.4f} ms; bound "
+                f"{b_ms:.5f} ms ({b_by}, {n_bytes} bytes)")
+        del pool
     for kind in ("bf16", "int8", "int4"):
         n_comb = hkv if kind == "int4" else 2 * hkv
         dtype = torch.bfloat16 if kind == "bf16" else torch.int8
@@ -1742,6 +1870,35 @@ def phase_paged_write(torch, timer, launches) -> list:
     return out
 
 
+def device_ops(torch, fn, reps: int = 50):
+    """Device ops (CUDA kernels and copies) a call of ``fn`` launches, by
+    torch.profiler over ``reps`` calls, and their names.  A window of one
+    call undercounts (kernels at its edges go missing), so the count is the
+    window's over ``reps``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.count for e in dev) / reps, sorted({e.key[:40] for e in dev})
+
+
+def host_wall_us(torch, fn, reps: int = 200) -> float:
+    """Eager wall time per call in µs, host dispatch included: ``reps``
+    calls back to back, then one synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--keep-checkpoint", default="",
@@ -1783,7 +1940,7 @@ def main(argv=None) -> int:
                 "attention": contiguous_attention.contiguous_decode_attention,
                 "attention_p4": contiguous_attention.contiguous_decode_attention_p4,
                 "paged_attention": paged_attention.paged_ragged_attention,
-                "paged_write": paged_write.paged_write_rows})
+                "paged_write": paged_write.paged_write_kv})
     paths = (("main", phase_main_path, ("hessian", "gptq", "w4a16", "attention")),
              ("cli.quantize", phase_cli, ("hessian", "gptq_step", "w4a16", "attention")),
              ("serve.kv", phase_serve_kv, ("w4a16", "attention", "attention_p4")),

@@ -12,13 +12,16 @@ Two layouts, both dataclasses of tensors that the write functions update
   position ``t`` of a sequence lives at page ``block_table[t //
   page_size]``, offset ``t % page_size``.  Page 0 is the trash page: pad
   tokens and inactive slots write there and nothing reads it.  Every write
-  goes through K9 (``ops/paged_write.py``).
+  is one K9 launch a layer (``ops/paged_write.py::paged_write_kv``), which
+  quantizes, packs and interleaves the rows itself.
 
 int8 and int4 store symmetric codes against static scales: one float per
 layer, or (int4, and int8 when given so) one float per kv head.  The
 contiguous int4 cache packs head pairs ``(h, h + n_kv/2)`` into a byte
 (:func:`pack_int4_rows`), the paged one adjacent heads ``(2p, 2p + 1)``
-(:func:`pack_int4_rows_adj`), each bit-identical to the JAX package's.
+(:func:`pack_int4_rows_adj`), each bit-identical to the JAX package's; the
+rounding and the adjacent packing are defined once, in
+``ops/paged_write.py``.
 Both caches build the scales' device tensors once, when they are made
 (:class:`_DeviceScales`), so a decode or ragged step copies nothing from
 the host.
@@ -34,7 +37,12 @@ import torch
 from gptq_v2_tpu_torch.models.llama import _to_tensor
 from gptq_v2_tpu_torch.ops.contiguous_attention import unpack_nibbles
 from gptq_v2_tpu_torch.ops.paged_attention import unpack_int4_rows_adj  # noqa: F401
-from gptq_v2_tpu_torch.ops.paged_write import paged_write_rows
+from gptq_v2_tpu_torch.ops.paged_write import (  # noqa: F401
+    interleave_kv,
+    pack_int4_rows_adj,
+    paged_write_kv,
+    storage_rows,
+)
 
 
 class _DeviceScales:
@@ -175,15 +183,6 @@ def unpack_int4_rows(p8: torch.Tensor) -> torch.Tensor:
     return torch.cat(unpack_nibbles(p8), dim=-2)
 
 
-def pack_int4_rows_adj(q4: torch.Tensor) -> torch.Tensor:
-    """``(…, n_kv, hd)`` int32 codes in [-7, 7] → ``(…, n_kv/2, hd)`` int8
-    in the adjacent-pair layout of the paged cache: byte ``[p, d]`` holds
-    kv head ``2p`` in its low nibble and ``2p + 1`` in its high nibble."""
-    lo = q4[..., 0::2, :] & 0xF
-    hi = q4[..., 1::2, :] << 4
-    return (lo | hi).to(torch.int8)
-
-
 def _scale(s, device) -> torch.Tensor:
     """A per-layer scale entry as a tensor broadcasting over
     ``(…, n_kv, hd)``: 0-d for a float, ``(n_kv, 1)`` for a tuple."""
@@ -197,23 +196,24 @@ def _scale_tensors(scales, device) -> Optional[Tuple[torch.Tensor, ...]]:
 
 def quantize_kv_write(cache, layer: int, k: torch.Tensor,
                       v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """New K/V rows in the cache's storage form: symmetric codes
-    ``clamp(round(x / scale))`` for int8 (±127) and packed int4 (±7, head
-    pairs on the contiguous cache, adjacent pairs on the paged one); a cast
-    for full precision."""
+    """New K/V rows in the cache's storage form (:func:`storage_rows`):
+    symmetric codes ``clamp(round(x / scale))`` for int8 (±127) and packed
+    int4 (±7, head pairs on the contiguous cache, adjacent pairs on the
+    paged one); a cast for full precision."""
     paged = isinstance(cache, PagedKVCache)
     dtype = cache.kv.dtype if paged else cache.k.dtype
-    if dtype != torch.int8:
-        return k.to(dtype), v.to(dtype)
-    int4 = cache.kv_bits == 4
-    qmax = 7.0 if int4 else 127.0
-    ks, vs = cache.k_scale_t[layer], cache.v_scale_t[layer]
-    kq = torch.clamp(torch.round(k.float() / ks), -qmax, qmax)
-    vq = torch.clamp(torch.round(v.float() / vs), -qmax, qmax)
-    if int4:
-        pack = pack_int4_rows_adj if paged else pack_int4_rows
-        return pack(kq.to(torch.int32)), pack(vq.to(torch.int32))
-    return kq.to(torch.int8), vq.to(torch.int8)
+    ks, vs = _write_scales(cache, layer)
+    pack = pack_int4_rows_adj if paged else pack_int4_rows
+    return (storage_rows(k, ks, dtype, cache.kv_bits, pack),
+            storage_rows(v, vs, dtype, cache.kv_bits, pack))
+
+
+def _write_scales(cache, layer: int):
+    """Layer ``layer``'s K and V scale tensors (:func:`_scale` form), or
+    ``(None, None)`` for a cache without scales."""
+    if cache.k_scale_t is None:
+        return None, None
+    return cache.k_scale_t[layer], cache.v_scale_t[layer]
 
 
 def write_kv_contiguous(cache: ContiguousKVCache, layer: int,
@@ -235,26 +235,6 @@ def write_kv_contiguous(cache: ContiguousKVCache, layer: int,
     return cache
 
 
-def page_offsets(block_tables: torch.Tensor, positions: torch.Tensor, page_size: int,
-                 pad_mask: Optional[torch.Tensor] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(B, max_pages)`` block tables and ``(B, N)`` logical positions →
-    ``(pages, offsets)``, each ``(B, N)``.  With ``pad_mask``, padded tokens
-    go to page 0, offset 0 (the trash page)."""
-    pages = torch.gather(block_tables, 1, (positions // page_size).long())
-    offsets = positions % page_size
-    if pad_mask is not None:
-        pages = torch.where(pad_mask, 0, pages)
-        offsets = torch.where(pad_mask, 0, offsets)
-    return pages, offsets
-
-
-def interleave_kv(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``(…, n, hd)`` K and V → ``(…, 2n, hd)`` combined rows (K even, V
-    odd)."""
-    return torch.stack((k, v), dim=-2).reshape(*k.shape[:-2], 2 * k.shape[-2], k.shape[-1])
-
-
 def write_kv(cache: PagedKVCache, layer: int,
              k_new: torch.Tensor,  # (B, N, n_kv, hd)
              v_new: torch.Tensor,
@@ -263,12 +243,9 @@ def write_kv(cache: PagedKVCache, layer: int,
              pad_mask: Optional[torch.Tensor] = None,  # (B, N) → the trash page
              ) -> PagedKVCache:
     """Quantize and write ``B·N`` new tokens' K/V rows into their pages
-    (phased prefill and decode)."""
-    kq, vq = quantize_kv_write(cache, layer, k_new, v_new)
-    pages, offs = page_offsets(block_tables, positions, cache.page_size, pad_mask)
-    rows = interleave_kv(kq, vq)
-    paged_write_rows(cache.kv, layer, rows.reshape(-1, *rows.shape[2:]),
-                     pages.reshape(-1), offs.reshape(-1))
+    (phased prefill and decode): one K9 launch."""
+    paged_write_kv(cache.kv, layer, k_new, v_new, *_write_scales(cache, layer), cache.kv_bits,
+                   block_tables=block_tables, positions=positions, pad_mask=pad_mask)
     return cache
 
 
@@ -278,9 +255,10 @@ def write_kv_flat(cache: PagedKVCache, layer: int,
                   pages: torch.Tensor,  # (T,) destination page per token
                   offs: torch.Tensor,  # (T,) in-page offset per token
                   ) -> PagedKVCache:
-    """Token-flat write for the ragged (mixed prefill + decode) step."""
-    kq, vq = quantize_kv_write(cache, layer, k_new, v_new)
-    paged_write_rows(cache.kv, layer, interleave_kv(kq, vq), pages, offs)
+    """Token-flat write for the ragged (mixed prefill + decode) step: one K9
+    launch."""
+    paged_write_kv(cache.kv, layer, k_new, v_new, *_write_scales(cache, layer), cache.kv_bits,
+                   pages=pages, offsets=offs)
     return cache
 
 

@@ -997,6 +997,163 @@ def test_paged_kernels_refuse_bad_input(dev):
                             idx, idx)
 
 
+# --- K9's fused write: quantize, pack, interleave and the page lookup --------
+
+# pool dtype, input dtype, kv_bits, k scale, v scale ("h": one per kv head)
+K9_STORES = {
+    "bf16": (torch.bfloat16, torch.bfloat16, 0, None, None),
+    "bf16_from_fp32": (torch.bfloat16, torch.float32, 0, None, None),
+    "fp32": (torch.float32, torch.float32, 0, None, None),
+    "fp32_from_bf16": (torch.float32, torch.bfloat16, 0, None, None),
+    "int8": (torch.int8, torch.bfloat16, 0, 0.03125, 0.027),
+    "int8_per_head": (torch.int8, torch.bfloat16, 0, "h", "h"),
+    "int8_fp32_in": (torch.int8, torch.float32, 0, "h", 0.041),
+    "int4": (torch.int8, torch.bfloat16, 4, "h", "h"),
+    "int4_scalar": (torch.int8, torch.float32, 4, 0.25, 0.37),
+    "int4_mixed": (torch.int8, torch.bfloat16, 4, 0.5, "h"),
+}
+K9_LAYERS, K9_PAGES, K9_PS, K9_NKV, K9_HD, K9_PADS = 3, 40, 16, 4, 128, 3
+# per-head scales; the powers of two make (n + 1/2)·s an exact tie
+K9_HEAD_SCALES = {0: (0.03125, 0.027, 0.0625, 0.041), 4: (0.25, 0.3, 0.5, 0.37)}
+
+
+def _k9_inputs(store, lead, seed, dev):
+    """K (dense) and V (a strided view of a fused qkv-like tensor) of shape
+    ``lead + (n_kv, hd)`` with exact ties at (n + 1/2)·s and values past the
+    clamp, and the scales in ``kv_cache._scale`` form."""
+    pool_dtype, in_dtype, bits, ks, vs = K9_STORES[store]
+    rng = np.random.default_rng(seed)
+    kw = K9_NKV * K9_HD
+    a = (rng.standard_normal((*lead, 4 * kw)) * 2).astype(np.float32)
+    a[..., ::97] *= 40  # past the clamp
+    scales = []
+    for j, s in enumerate((ks, vs)):
+        s = K9_HEAD_SCALES[bits] if s == "h" else s
+        scales.append(None if s is None else kvc._scale(s, dev))
+        if s is not None:
+            per = np.broadcast_to(np.asarray(s, np.float32), (K9_NKV,))
+            ties = (np.arange(-8, 8, dtype=np.float32) + 0.5)[None] * per[:, None]
+            blk = a[..., (2 + j) * kw:(3 + j) * kw].reshape(*lead, K9_NKV, K9_HD)
+            blk[..., :16] = ties
+            a[..., (2 + j) * kw:(3 + j) * kw] = blk.reshape(*lead, kw)
+    qkv = torch.from_numpy(a).to(dev, in_dtype)
+    k = qkv[..., 2 * kw:3 * kw].reshape(*lead, K9_NKV, K9_HD).contiguous()
+    v = qkv[..., 3 * kw:].reshape(*lead, K9_NKV, K9_HD)  # strided, not copied
+    return k, v, scales[0], scales[1]
+
+
+def _k9_case(store, t, form, idx_dtype, dev):
+    """A pool, K/V for ``t`` real rows plus pad rows aimed at the trash slot,
+    and the write's target arguments."""
+    pool_dtype, _, bits, _, _ = K9_STORES[store]
+    n_comb = K9_NKV if bits == 4 else 2 * K9_NKV
+    rng = np.random.default_rng(t)
+    if pool_dtype == torch.int8:
+        pool = torch.from_numpy(rng.integers(-128, 128, (K9_LAYERS, K9_PAGES, K9_PS, n_comb,
+                                                          K9_HD)).astype(np.int8)).to(dev)
+    else:
+        pool = torch.from_numpy(rng.standard_normal((K9_LAYERS, K9_PAGES, K9_PS, n_comb, K9_HD))
+                                .astype(np.float32)).to(dev, pool_dtype)
+    ix = dict(dtype=idx_dtype, device=dev)
+    if form == "flat":
+        slots = rng.choice(np.arange(K9_PS, K9_PAGES * K9_PS), t, replace=False)
+        pages = np.concatenate([slots // K9_PS, [0] * K9_PADS])
+        offs = np.concatenate([slots % K9_PS, [0] * K9_PADS])
+        k, v, ks, vs = _k9_inputs(store, (t + K9_PADS,), t, dev)
+        target = dict(pages=torch.tensor(pages, **ix), offsets=torch.tensor(offs, **ix))
+        pad = torch.arange(t + K9_PADS, device=dev) >= t
+        return pool, k, v, ks, vs, bits, target, (k[pad], v[pad])
+    n_seq = {1: 1, 8: 8, 64: 2}[t]
+    n_real = t // n_seq
+    n = n_real + K9_PADS  # the last K9_PADS tokens of every sequence are padding
+    start = rng.integers(0, 20, n_seq)
+    mp = -(-(int(start.max()) + n) // K9_PS)
+    perm = rng.permutation(np.arange(1, K9_PAGES))[:n_seq * mp].reshape(n_seq, mp)
+    tables = torch.zeros((n_seq, mp + 2), **ix)
+    tables[:, :mp] = torch.tensor(perm, **ix)
+    positions = torch.tensor(start[:, None] + np.arange(n)[None], **ix)
+    pad = torch.arange(n, device=dev)[None].expand(n_seq, n) >= n_real
+    k, v, ks, vs = _k9_inputs(store, (n_seq, n), t, dev)
+    target = dict(block_tables=tables[:, :mp + 1], positions=positions, pad_mask=pad)
+    return pool, k, v, ks, vs, bits, target, (k[pad], v[pad])
+
+
+def _k9_check_trash(out, ref, pad_k, pad_v, ks, vs, bits):
+    """Each element of the trash slot comes from one of the pad rows; the
+    rest of the pool equals the plain version's."""
+    pad_rows = pw.interleave_kv(pw.storage_rows(pad_k, ks, out.dtype, bits),
+                                pw.storage_rows(pad_v, vs, out.dtype, bits))
+    assert (out[1, 0, 0][None] == pad_rows).any(0).all()
+    out[1, 0, 0] = ref[1, 0, 0]
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("form", ["flat", "table"])
+@pytest.mark.parametrize("t", [1, 8, 64])
+@pytest.mark.parametrize("store", list(K9_STORES))
+def test_paged_write_kv_kernel(dev, store, t, form, idx_dtype):
+    """The fused K9 write bit-equal to its plain version (quantize,
+    page_offsets, interleave, indexed store), one launch a write, from a
+    strided V, in both target forms and index dtypes."""
+    pool, k, v, ks, vs, bits, target, (pad_k, pad_v) = _k9_case(store, t, form, idx_dtype, dev)
+    ref = pw.paged_write_kv_reference(pool.clone(), 1, k, v, ks, vs, bits, **target)
+    n, n_rows = pw.paged_write_kv.launches, pw.paged_write_rows.launches
+    out = pw.paged_write_kv(pool.clone(), 1, k, v, ks, vs, bits, **target)
+    torch.cuda.synchronize()
+    assert pw.paged_write_kv.launches == n + 1 and pw.paged_write_rows.launches == n_rows
+    assert not k.is_contiguous() or not v.is_contiguous()
+    _k9_check_trash(out, ref, pad_k, pad_v, ks, vs, bits)
+
+
+@pytest.mark.parametrize("store", ["bf16", "int8_per_head", "int4_mixed"])
+def test_paged_write_kv_graph_replay(dev, store):
+    """The launch captures in a CUDA graph and replays bit-equal to eager,
+    new inputs copied into the captured ones."""
+    pool, k, v, ks, vs, bits, target, _ = _k9_case(store, 64, "table", torch.int64, dev)
+    target["pad_mask"] = torch.zeros_like(target["pad_mask"])
+    k2, v2, _, _ = _k9_inputs(store, tuple(k.shape[:2]), 99, dev)
+    eager = pw.paged_write_kv(pool.clone(), 1, k2, v2, ks, vs, bits, **target)
+    live = pool.clone()
+    pw.paged_write_kv(live.clone(), 1, k, v, ks, vs, bits, **target)  # built before capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        pw.paged_write_kv(live, 1, k, v, ks, vs, bits, **target)
+    k.copy_(k2)
+    v.copy_(v2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(live, eager)
+
+
+def test_paged_write_kv_refuses_bad_input(dev):
+    pool, k, v, ks, vs, bits, target, _ = _k9_case("int4", 8, "flat", torch.int32, dev)
+    with pytest.raises(TypeError):  # K and V of two dtypes
+        pw.paged_write_kv(pool, 0, k, v.float(), ks, vs, bits, **target)
+    with pytest.raises(TypeError):  # an fp16 input
+        pw.paged_write_kv(pool, 0, k.half(), v.half(), ks, vs, bits, **target)
+    with pytest.raises(ValueError):  # each token's (n_kv, hd) block not dense
+        pw.paged_write_kv(pool, 0, k.transpose(1, 2).contiguous().transpose(1, 2), v, ks, vs,
+                          bits, **target)
+    with pytest.raises(ValueError):  # odd n_kv under int4
+        pw.paged_write_kv(pool[..., :3, :].contiguous(), 0, k[:, :3], v[:, :3], ks[:3], vs[:3],
+                          bits, **target)
+    for missing in ((None, vs), (ks, None)):  # int4 and int8 need both scales
+        with pytest.raises(ValueError):
+            pw.paged_write_kv(pool, 0, k, v, *missing, bits, **target)
+        with pytest.raises(ValueError):
+            pw.paged_write_kv(torch.zeros((2, 5, 16, 8, 128), dtype=torch.int8, device=dev), 0,
+                              k, v, *missing, 0, **target)
+    with pytest.raises(ValueError):  # both target forms at once
+        pw.paged_write_kv(pool, 0, k, v, ks, vs, bits, block_tables=target["pages"][None],
+                          positions=target["pages"][None], **target)
+    with pytest.raises(TypeError):  # float positions
+        pw.paged_write_kv(pool, 0, k[None], v[None], ks, vs, bits,
+                          block_tables=torch.ones((1, 4), dtype=torch.int32, device=dev),
+                          positions=torch.zeros((1, k.shape[0]), device=dev))
+
+
 # --- serving steps without host synchronisation -----------------------------
 
 
@@ -1065,6 +1222,43 @@ def test_steps_make_no_blocking_copy(dev, tiny_packed, kv, step):
         assert out.shape == (4, cfg.vocab_size) and bool(torch.isfinite(out).all())
     else:
         assert out.shape == (3,) and bool(((out >= 0) & (out < cfg.vocab_size)).all())
+
+
+@pytest.mark.parametrize("kv", ["native", "int8", "int4"])
+def test_paged_steps_write_once_a_layer(dev, tiny_packed, kv):
+    """Paged prefill, decode and ragged steps each make one K9 launch a
+    layer (the fused write), and none of the raw row entry."""
+    model = tiny_packed
+    cfg = model.cfg
+    n_layers, n_kv, hd = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim_
+    if kv == "native":
+        cache = kvc.init_cache(n_layers, 16, 16, n_kv, hd, device=dev)
+    else:
+        ks, vs = _kv_scales(kv, n_layers, n_kv)
+        cache = kvc.init_cache(n_layers, 16, 16, n_kv, hd, dtype=torch.int8, device=dev,
+                               k_scales=ks, v_scales=vs, **(dict(kv_bits=4) if kv == "int4"
+                                                            else {}))
+    i32 = dict(dtype=torch.int32, device=dev)
+    i64 = dict(dtype=torch.int64, device=dev)
+    tables = torch.tensor([[1, 2, 0, 0], [3, 4, 0, 0]], **i32)
+    steps = (
+        lambda: decode.prefill(model, torch.tensor([[5, 6, 7, 8], [9, 10, 0, 0]], **i64),
+                               cache, torch.tensor([4, 2], **i64), block_tables=tables),
+        lambda: decode.decode_step(model, torch.tensor([3, 4], **i64), cache,
+                                   torch.tensor([4, 2], **i64), 32, block_tables=tables),
+        lambda: decode.ragged_step(
+            model, torch.tensor([11, 12, 13], **i64), cache, torch.tensor([5, 3, 4], **i64),
+            torch.tensor([1, 3, 3], **i32), torch.tensor([5, 3, 4], **i32), tables,
+            torch.tensor([6, 5], **i32), torch.tensor([0, 1, 3], **i32),
+            torch.tensor([2], **i32), torch.tensor([0, 2], **i64),
+            torch.zeros(2, dtype=torch.float32, device=dev),
+            torch.Generator(device=dev).manual_seed(0)))
+    for step in steps:
+        n, n_rows = pw.paged_write_kv.launches, pw.paged_write_rows.launches
+        step()
+        torch.cuda.synchronize()
+        assert pw.paged_write_kv.launches == n + n_layers
+        assert pw.paged_write_rows.launches == n_rows
 
 
 def test_sample_per_row_matches_multinomial(dev):
