@@ -10,8 +10,9 @@ over it (``--profile-dir`` gives their device time and device ops).
    ``nvcc`` per source, all started together).
 2. Drives six paths at Llama-2-7B width (hidden 4096, intermediate
    11008, 32 heads, vocab 32000, bf16) with random weights from a seed and
-   the depth cut to ``DEPTH`` blocks, each with every launch count set to 0
-   just before it and read just after:
+   the depth cut to ``DEPTH`` blocks, and four family paths at published
+   widths (``gptq_v2_tpu_torch/models/families.py``), each with every
+   launch count set to 0 just before it and read just after:
 
    * main: writes a checkpoint with the port's safetensors writer, loads
      it, GPTQ-quantizes it (INT4, group 128, act-order; K1, K2) on seeded
@@ -54,8 +55,26 @@ over it (``--profile-dir`` gives their device time and device ops).
      repeated, and multi-step against single-step; a run snapshotted after
      8 ticks and restored on a fresh engine against the uninterrupted run.
 
-   Every kernel of a path must launch in it, and every paged write of an
-   engine run (one a layer and forward) must be one K9 launch.
+   * qwen2.5: Qwen2.5-7B (hidden 3584, intermediate 18944, 28 q heads
+     over 4 kv heads, q/k/v biases, vocab 152064), depth cut to
+     ``QWEN_DEPTH``: a checkpoint; ``main`` default, ``--mse`` with
+     ``--save-dir`` and its resumed run (no solver launch, equal ppl and
+     codes); ``serve`` with contiguous bf16 KV and paged ragged int8 KV
+     (K1, K2, K5, K3, K4, K6, K9);
+   * families: Qwen3-8B, Mistral-7B, GLM-4-9B (also over int4 KV: K7 at
+     16 q heads a kv head), OLMo-2-7B, Granite-3.1-8B, SmolLM3-3B (4 blocks:
+     its NoPE layer 3) and Phi-3-medium, one block each: ``init_params`` →
+     ``quantize_model`` → ``Engine``;
+   * window: Mistral-7B widths with the window cut to 512 under 1536-token
+     prompts, contiguous (K4) and paged ragged (K6), every new token judged;
+   * full depth: Qwen2.5-7B's 28 blocks from ``random_packed_llama``, paged
+     ragged bf16.
+
+   The family paths' engines must repeat their greedy output and pass the
+   near-tie rule against a plain bf16 forward over weights in K3's own
+   algebra (``kernel_dense``).  Every kernel of a path must launch in it,
+   and every paged write of an engine run (one a layer and forward) must
+   be one K9 launch.
 3. Holds each kernel against its plain PyTorch version at the paths'
    shapes and times kernel, plain version and one library call.  K4, K6,
    K7 and K9 take microseconds: their kernel and library times are the
@@ -64,8 +83,10 @@ over it (``--profile-dir`` gives their device time and device ops).
    (``Timer.steady``); every other time is one event pair per launch
    after an L2 flush (``Timer.__call__``).  K4, K6 and K7 are also timed
    past the paths' shapes: at S = 4096 and at Llama-3-8B's GQA head layout
-   (8 kv heads under 32 q heads).  K2 and K5 also log their two kernels'
-   device time (torch.profiler) and the tail product's rate, beside
+   (8 kv heads under 32 q heads); and at Qwen2.5-7B's 7 and GLM-4-9B's 16
+   q heads a kv head.  K1, K3 and K8 also run at Qwen2.5-7B's widths.
+   K2 and K5 also log their two kernels' device time (torch.profiler)
+   and the tail product's rate, beside
    ``torch.mm`` over the same tail shapes, and K5 fed K2's own scales and
    zeros must give K2's codes and Σerr² bit for bit.  K3 and K8 are timed both
    ways, and so are their library calls.  K8's staged rows must be
@@ -338,8 +359,8 @@ def phase_main_path(torch, work: Path) -> dict:
 
 
 def phase_hessian(torch, timer, launches) -> list:
-    """K1 (bf16 X: the tensor-core kernel) at the main path's shape and at
-    all calibration tokens in one launch: within 1e-4 of max|H| of the plain
+    """K1 (bf16 X: the tensor-core kernel) at the main path's shape, at
+    all calibration tokens in one launch, and at the qwen2.5 path's D: within 1e-4 of max|H| of the plain
     version, H exactly symmetric from a non-zero symmetric H0, two launches
     bit-equal.  The library call is ``x.T @ x`` with an fp32 output in one
     call (``aten::mm.dtype``)."""
@@ -349,8 +370,10 @@ def phase_hessian(torch, timer, launches) -> list:
     # T = CALIB_BATCH·SEQLEN is the shape of every main-path launch (one per
     # calibration batch and stage); T = N_SEQ·SEQLEN, all calibration tokens
     # in one launch, is kept as a yardstick
+    # D = 3584 and 18944: the qwen2.5 path's stage inputs (Qwen2.5-7B)
     for t, d in ((CALIB_BATCH * SEQLEN, 4096), (CALIB_BATCH * SEQLEN, 11008),
-                 (N_SEQ * SEQLEN, 4096), (N_SEQ * SEQLEN, 11008)):
+                 (N_SEQ * SEQLEN, 4096), (N_SEQ * SEQLEN, 11008),
+                 (CALIB_BATCH * SEQLEN, 3584), (CALIB_BATCH * SEQLEN, 18944)):
         x = torch.randn((t, d), device="cuda", dtype=torch.bfloat16)
         h0 = torch.zeros((d, d), device="cuda")
         got = K.accumulate_hessian(h0.clone(), x)
@@ -369,7 +392,7 @@ def phase_hessian(torch, timer, launches) -> list:
         if not torch.equal(first, again) or not torch.equal(first, first.T):
             raise RuntimeError(f"K1 T={t} D={d}: two launches differ or H != H^T")
         del hs, first, again
-        reps = 5 if d == 4096 else 3
+        reps = 5 if d < 8192 else 3
         h = h0.clone()
         ms = timer(lambda: K.accumulate_hessian(h, x), reps)
         plain_ms = timer(lambda: K.accumulate_hessian_reference(h0, x), reps)
@@ -509,9 +532,10 @@ def phase_gptq(torch, timer, launches) -> list:
     return out
 
 
-def phase_w4a16(torch, timer, launches, layer0) -> list:
+def phase_w4a16(torch, timer, launches, layer0, qwen0) -> list:
     """K3 at the four fused shapes of the main path's first block (bf16,
-    INT4 g128: the tensor-core route), M in K3_ROWS (M <= 16 the split-K
+    INT4 g128: the tensor-core route), M in K3_ROWS, and of the qwen2.5
+    path's (C = 3584 and 18944, 28 and 148 groups), M in QWEN_ROWS (M <= 16 the split-K
     decode kernel, above the prefill kernel; both form each group's term
     through one mma.sync routine).  ``ms`` is one event pair per launch
     after an L2 flush, as in earlier runs; the steady times
@@ -524,8 +548,9 @@ def phase_w4a16(torch, timer, launches, layer0) -> list:
     from gptq_v2_tpu_torch.ops.packing import dequantize_dense
 
     out = []
-    for name in FUSED:
-        p = layer0[name]
+    for tag, name, rows in ([("", n, K3_ROWS) for n in FUSED]
+                            + [("qwen2.5 ", n, QWEN_ROWS) for n in FUSED]):
+        p = (qwen0 if tag else layer0)[name]
         c, r = p.in_features, p.out_features
         w_dense = dequantize_dense(p, torch.bfloat16)
         p_bytes = sum(t.numel() * t.element_size() for t in (p.qweight, p.scales, p.zeros))
@@ -538,8 +563,8 @@ def phase_w4a16(torch, timer, launches, layer0) -> list:
             return w if i == 0 else w.clone()
 
         if not K.tensor_core_route(p):
-            raise RuntimeError(f"K3 {name}: the main path's linear is off the tensor-core route")
-        for m in K3_ROWS:
+            raise RuntimeError(f"K3 {tag}{name}: the path's linear is off the tensor-core route")
+        for m in rows:
             x = torch.randn((m, c), device="cuda", dtype=torch.bfloat16)
             y = K.w4a16_matmul(x, p)
             got = y.float()
@@ -568,12 +593,12 @@ def phase_w4a16(torch, timer, launches, layer0) -> list:
             n_bytes = (p.in_features_padded * r * p.bits // 8 + 2 * 2 * g_pad * r
                        + 2 * m * c + 2 * m * r + (8 * c if p.perm is not None else 0))
             b_ms, b_by = bound(n_bytes, 2 * m * c * r, "bf16")
-            out.append(dict(name=f"w4a16_matmul [{name} C={c} R={r} M={m} bf16]",
+            out.append(dict(name=f"w4a16_matmul [{tag}{name} C={c} R={r} M={m} bf16]",
                             route="cuda", source="gptq_v2_tpu_torch/csrc/w4a16.cu",
                             replaces=REPLACES["w4a16"], launches=launches["w4a16"],
                             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                             bound_by=b_by, library_ms=lib_ms))
-            log(f"phase K3 {name} M={m}: ok, rel err {err / float(ref.abs().max()):.2e}"
+            log(f"phase K3 {tag}{name} M={m}: ok, rel err {err / float(ref.abs().max()):.2e}"
                 + (", two launches bit-equal and equal to the prefill path's rows"
                    if m == 8 else ", its first 8 rows equal to the decode path's"
                    if m == 1024 else "")
@@ -604,10 +629,11 @@ def synthetic_packed(torch, bits: int, c: int, r: int, seed: int):
                         in_features=c, bits=bits, act_bits=8)
 
 
-def phase_w4a8(torch, timer, launches, layer0) -> list:
+def phase_w4a8(torch, timer, launches, layer0, qwen0) -> list:
     """K8 at the four fused shapes: bits 4 on the main path's first block
     (GPTQ codes, act-order), bits 2 and 8 on synthetic linears of the same
-    shapes (act-order; bits 8 with codes above 200), M in M_ROWS, bf16
+    shapes (act-order; bits 8 with codes above 200), M in M_ROWS, and bits
+    4 on the qwen2.5 path's first block, M in QWEN_ROWS; bf16
     scales; fp32 scales held at 1e-5 on the qkv shape.  Every linear is on
     the int8 tensor-core route.  ``ms`` is the whole ``w4a8_matmul`` (the
     staging kernel and the matmul in one call), as K3's row times
@@ -623,9 +649,9 @@ def phase_w4a8(torch, timer, launches, layer0) -> list:
     from gptq_v2_tpu_torch.ops.packing import dequantize_dense, unpack_codes
 
     out = []
-    for bits in (4, 2, 8):
+    for tag, bits in (("", 4), ("", 2), ("", 8), ("qwen2.5 ", 4)):
         for si, name in enumerate(FUSED):
-            p = layer0[name]
+            p = (qwen0 if tag else layer0)[name]
             if bits == 4:
                 p = dataclasses.replace(p, act_bits=8)
             else:
@@ -645,7 +671,7 @@ def phase_w4a8(torch, timer, launches, layer0) -> list:
             def dense_copy(i, w=w_dense):
                 return w if i == 0 else w.clone()
 
-            for m in M_ROWS:
+            for m in (QWEN_ROWS if tag else M_ROWS):
                 x = torch.randn((m, c), device="cuda", dtype=torch.bfloat16)
                 xq, xs = K.quantize_activations_int8(K.stored_rows(x, p))
                 sq, ss, ssum = K.w4a8_stage(x, p)
@@ -672,7 +698,7 @@ def phase_w4a8(torch, timer, launches, layer0) -> list:
                 if m == 1024 and not torch.equal(K.w4a8_matmul(x[:8], p), y[:8]):
                     raise RuntimeError(f"K8 {name} bits={bits}: 8 rows alone differ from the "
                                        "same rows at M=1024")
-                if bits == 4 and name == FUSED[0] and m in (8, 1024):
+                if bits == 4 and not tag and name == FUSED[0] and m in (8, 1024):
                     p32 = dataclasses.replace(p, scales=p.scales.float(), zeros=p.zeros.float())
                     ref32 = K.w4a8_reference(xq, xs, p32)
                     e32 = float((K.w4a8_matmul(x, p32) - ref32).abs().max())
@@ -697,12 +723,12 @@ def phase_w4a8(torch, timer, launches, layer0) -> list:
                 n_bytes = (c_pad * r * bits // 8 + 2 * g_pad * r * 2 + 2 * m * c
                            + (8 * c if p.perm is not None else 0) + m * r * 2)
                 b_ms, b_by = bound(n_bytes, 2 * m * c * r, "int8")
-                out.append(dict(name=f"w4a8_matmul [{name} C={c} R={r} M={m} bits={bits} bf16]",
+                out.append(dict(name=f"w4a8_matmul [{tag}{name} C={c} R={r} M={m} bits={bits} bf16]",
                                 route="cuda", source="gptq_v2_tpu_torch/csrc/w4a8.cu",
                                 replaces=REPLACES["w4a8"], launches=launches["w4a8"],
                                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                 bound_by=b_by, library_ms=lib_ms))
-                log(f"phase K8 {name} bits={bits} M={m}: ok, staged rows bit-equal, rel err "
+                log(f"phase K8 {tag}{name} bits={bits} M={m}: ok, staged rows bit-equal, rel err "
                     f"{err / float(ref.abs().max()):.2e}"
                     + (", two launches bit-equal and equal to the prefill path's rows"
                        if m == 8 else ", its first 8 rows equal to the decode path's"
@@ -1127,8 +1153,9 @@ def plain_w4a8():
         K.w4a8_matmul = kernel
 
 
-def engine_runs(torch, eng, prompts, label: str, runs: int = 2, **req):
-    """``runs`` timed runs of ``prompts`` (NEW_TOKENS each, ``req`` the
+def engine_runs(torch, eng, prompts, label: str, runs: int = 2, new: int = NEW_TOKENS,
+                vocab: int = MODEL["vocab_size"], **req):
+    """``runs`` timed runs of ``prompts`` (``new`` tokens each, ``req`` the
     sampling fields); returns the last run's outputs and requests and
     records each run's tok/s under ``label``."""
     from gptq_v2_tpu_torch.ops import paged_write
@@ -1136,7 +1163,7 @@ def engine_runs(torch, eng, prompts, label: str, runs: int = 2, **req):
 
     outs = []
     for _ in range(runs):
-        reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS, **req)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=new, **req)
                 for i, p in enumerate(prompts)]
         steps0, k9 = eng.steps, paged_write.paged_write_kv.launches
         torch.cuda.synchronize()
@@ -1147,14 +1174,14 @@ def engine_runs(torch, eng, prompts, label: str, runs: int = 2, **req):
         dt = time.time() - t0
         check_one_launch_a_write(label, paged_write.paged_write_kv.launches - k9,
                                  writes["writes"])
-        RATES.setdefault(label, []).append(len(reqs) * NEW_TOKENS / dt)
-        log(f"phase {label} run: {len(reqs)} requests x {NEW_TOKENS} new tokens, "
-            f"{len(reqs) * NEW_TOKENS / dt:.1f} tok/s ({dt:.3f} s, {eng.steps - steps0} ticks"
+        RATES.setdefault(label, []).append(len(reqs) * new / dt)
+        log(f"phase {label} run: {len(reqs)} requests x {new} new tokens, "
+            f"{len(reqs) * new / dt:.1f} tok/s ({dt:.3f} s, {eng.steps - steps0} ticks"
             + (f"; {writes['writes']} paged writes, one K9 launch each)" if writes["writes"]
                else ")"))
     if any(o != outs[0] for o in outs):
         raise RuntimeError(f"{label}: output differs between runs")
-    if any(len(v) != NEW_TOKENS or not all(0 <= t < MODEL["vocab_size"] for t in v)
+    if any(len(v) != new or not all(0 <= t < vocab for t in v)
            for v in outs[0].values()):
         raise RuntimeError(f"{label}: malformed engine output")
     return outs[-1], reqs
@@ -1457,6 +1484,9 @@ def phase_gptq_step(torch, timer, launches) -> list:
         w_s = torch.empty_like(w_t)
         ms = timer(run_kernel, 3)
         solver_split(torch, run_kernel, c, r, g, f"K5 {label}")
+        mm_ms = tail_mm_ms(torch, timer, hinv, c, r, g)
+        log(f"  K5 {label} yardstick: torch.mm fp32 (TF32 off) over the {c // g - 1} "
+            f"tail shapes {mm_ms:.3f} ms")
         torch.cuda.synchronize()
         t0 = time.time()
         w_p = w_t.T.clone()
@@ -1482,26 +1512,28 @@ def phase_gptq_step(torch, timer, launches) -> list:
 
 def phase_attention(torch, timer, launches) -> list:
     """K4 (bf16, int8) and K7 (int4) at the serve paths' decode shapes and
-    past them, every slot at position S-1, B in {1, 8}, 32 q heads of 128:
+    past them, every slot at position S-1, B in {1, 8}, q heads of 128:
     Llama-2-7B's 32 kv heads over a 512-row cache at S in {128, 512} (the
     serve paths) and over a 4096-row cache at S = 4096 (the model's
-    ``max_position_embeddings``), and Llama-3-8B's 8 kv heads (GQA 4) at S
-    in {512, 4096}."""
+    ``max_position_embeddings``), Llama-3-8B's 8 kv heads (GQA 4) at S in
+    {512, 4096}, and at S = 512 Qwen2.5-7B's 4 kv heads under 28 q heads
+    (7 a group) and GLM-4-9B's 2 under 32 (16 a group)."""
     import torch.nn.functional as F
 
     from gptq_v2_tpu_torch.ops import contiguous_attention as K
     from gptq_v2_tpu_torch.serving import kv_cache as kvc
 
     t0 = time.time()
-    hq, hd = MODEL["num_attention_heads"], 128
+    hd = 128
     sm = hd ** -0.5
-    # (kv heads, cache rows, S values read from it)
-    shapes = ((32, 512, (128, 512)), (32, 4096, (4096,)), (8, 512, (512,)), (8, 4096, (4096,)))
+    # (kv heads, q heads, cache rows, S values read from it)
+    shapes = ((32, 32, 512, (128, 512)), (32, 32, 4096, (4096,)), (8, 32, 512, (512,)),
+              (8, 32, 4096, (4096,)), (4, 28, 512, (512,)), (2, 32, 512, (512,)))
     out = []
     for kind in ("bf16", "int8", "int4"):
-        for hkv, s_max, s_list in shapes:
+        for hkv, hq, s_max, s_list in shapes:
             for b in (1, 8):
-                seed = b if (hkv, s_max) == (32, 512) else b + s_max + hkv
+                seed = (b if (hkv, s_max) == (32, 512) else b + s_max + hkv) + (hq != 32)
                 gen = torch.Generator(device="cuda").manual_seed(seed)
                 kf, vf = (torch.randn((1, b, s_max, hkv, hd), device="cuda", generator=gen)
                           for _ in range(2))
@@ -1537,7 +1569,7 @@ def phase_attention(torch, timer, launches) -> list:
                     # the plain versions round the probabilities to bf16 before
                     # PV, the kernels keep them fp32: 1e-2 of the largest output
                     if err > 1e-2 * float(ref.abs().max()):
-                        raise RuntimeError(f"{key} {kind} B={b} S={s} Hkv={hkv}: "
+                        raise RuntimeError(f"{key} {kind} B={b} S={s} Hkv={hkv} Hq={hq}: "
                                            f"max abs err {err}")
                     elem = {"bf16": 2, "int8": 1, "int4": 0.5}[kind]
                     n_bytes = 2 * b * s * hkv * hd * elem + 2 * 2 * b * hq * hd + 4 * b
@@ -1672,9 +1704,13 @@ def phase_paged_attention(torch, timer, launches) -> list:
               for b, s in ((1, 512), (1, 4096), (8, 4096))]
     cases += [("mixed bf16: 64-row chunk + 7 decode + 9 pad, GQA Hkv=8 Hq=32", "bf16", mixed,
                9, 8, {})]
+    cases = [(*c, 32) for c in cases]
+    # Qwen2.5-7B's 7 q heads a kv head and GLM-4-9B's 16 (two blocks a kv head)
+    cases += [(f"decode {kind} B={b} S=512 GQA Hkv={hkv} Hq={hq}", kind, [(1, 512)] * b, 0,
+               hkv, {}, hq) for hkv, hq in ((4, 28), (2, 32))
+              for kind in ("bf16", "int8", "int4") for b in (1, 8)]
     out = []
-    for seed, (label, kind, seqs, n_pad, hkv, kw) in enumerate(cases):
-        hq = 32
+    for seed, (label, kind, seqs, n_pad, hkv, kw, hq) in enumerate(cases):
         c = paged_case(torch, kind, seqs, n_pad, hkv, hq, seed)
         kw = dict(kw, k_scale=c["scale"], v_scale=c["scale"], sm_scale=sm, kv_int4=c["int4"])
         if kw.pop("sinks", False):
@@ -1870,6 +1906,286 @@ def phase_paged_write(torch, timer, launches) -> list:
     return out
 
 
+# --- the dense families ------------------------------------------------------
+
+QWEN_DEPTH = 4  # of Qwen2.5-7B's 28 blocks: the CLI path fits the time limit
+QWEN_ROWS = (1, 8, 1024)  # K3/K8 rows at its widths: decode batches, prefill
+FAMILY_DEPTH = {"smollm3": 4}  # its layer 3 is NoPE; the others run 1 block
+FAMILY_PROMPTS = (48, 64, 80, 96, 112, 128, 144, 160)
+FAMILY_NEW = 16
+WINDOW, WINDOW_PROMPT, WINDOW_SEQ = 512, 1536, 2048  # Mistral's window, cut
+SMI = ""  # the card's name and power limit, set in main()
+
+
+def family_cfg(model_type: str, **cut):
+    """The port's config of a family's published config dict
+    (``models/families.py``), with ``cut`` applied (depth, window)."""
+    from gptq_v2_tpu_torch.models import families
+    from gptq_v2_tpu_torch.models import llama as L
+
+    return L.LlamaConfig.from_hf_dict(families.published(model_type, **cut))
+
+
+def kernel_dense(torch, model) -> dict:
+    """Dense bf16 params of a packed model in K3's own algebra
+    (``ops/w4a16.py::kernel_weight``: ``q·s − zs`` with ``zs = z·s``
+    rounded to bf16, as the JAX kernel rounds it), the plain forward's
+    weights for the near-tie rule.  ``dequantize_dense``'s ``(q − z)·s``
+    differs from it by each group's ``zs`` rounding, which activations of
+    large mean (the v bias passes through attention into o_proj's input)
+    turn into a few percent of the logits at Qwen2.5 widths."""
+    from gptq_v2_tpu_torch.ops.packing import PackedLinear
+    from gptq_v2_tpu_torch.ops.w4a16 import kernel_weight
+
+    def dense(w):
+        return (kernel_weight(w) if isinstance(w, PackedLinear) else w).to(torch.bfloat16)
+
+    return {"embed_tokens": dense(model.embed_tokens), "norm": dense(model.norm),
+            "lm_head": dense(model.lm_head),
+            "layers": [{n: dense(w) for n, w in lp.items()} for lp in model.layers]}
+
+
+def judge_tokens(torch, cfg, dense, prompts, outs, label: str, every: bool = False) -> str:
+    """The near-tie rule against the plain bf16 forward over ``dense``
+    (:func:`kernel_dense`): each request's first new token, or with
+    ``every`` each new token with the engine's earlier tokens as context.
+    Raises on a token outside the rule; returns a summary."""
+    from gptq_v2_tpu_torch.models import llama as L
+
+    exact = total = 0
+    for i, p in enumerate(prompts):
+        toks = outs[i]
+        seq = list(p) + (list(toks[:-1]) if every else [])
+        logits = L.forward_logits(cfg, dense, torch.tensor([seq], device="cuda"))[0].float()
+        for j in range(len(toks) if every else 1):
+            row = logits[len(p) - 1 + j]
+            exact += int(torch.argmax(row)) == toks[j]
+            total += 1
+            if not near_tie(row, toks[j]):
+                raise RuntimeError(
+                    f"{label} request {i} token {j}: {toks[j]} disagrees with the plain "
+                    f"forward (argmax {int(torch.argmax(row))}, logit gap "
+                    f"{float(row.max() - row[toks[j]]):.4g} of max|logit| "
+                    f"{float(row.abs().max()):.4g})")
+        del logits
+    return (f"{'every' if every else 'first'} new token equal to the plain bf16 forward's "
+            f"argmax on {exact}/{total}, within the near-tie tolerance on all")
+
+
+def phase_qwen(torch, work: Path) -> dict:
+    """Qwen2.5-7B at its published widths (q/k/v biases, 28 q heads over 4
+    kv heads, untied head), depth cut to QWEN_DEPTH: a checkpoint through
+    the port's writer; ``main`` default, then ``--mse`` with ``--save-dir``
+    and a resumed run; ``serve`` with contiguous bf16 KV and with paged
+    ragged int8 KV, each engine run twice and judged by the near-tie rule."""
+    from gptq_v2_tpu_torch import main as M
+    from gptq_v2_tpu_torch import serve as S
+    from gptq_v2_tpu_torch.data import cache_key
+    from gptq_v2_tpu_torch.models import llama as L
+    from gptq_v2_tpu_torch.models.loader import save_hf_model
+    from gptq_v2_tpu_torch.ops import gptq_cuda, hessian_cuda
+
+    cfg = family_cfg("qwen2", num_hidden_layers=QWEN_DEPTH)
+    log(f"qwen2.5 path: Qwen/Qwen2.5-7B widths (hidden {cfg.hidden_size}, intermediate "
+        f"{cfg.intermediate_size}, {cfg.num_attention_heads} q heads over "
+        f"{cfg.num_key_value_heads} kv heads, vocab {cfg.vocab_size}, q/k/v biases, bf16); "
+        f"depth cut to {QWEN_DEPTH} of 28 blocks so quantization and serving fit the run's "
+        "time limit; random weights (seed 0)")
+    root = work / "qwen"
+    t0 = time.time()
+    save_hf_model(cfg, L.init_params(cfg, seed=0), root / "model")
+    log(f"phase qwen checkpoint: ok, {time.time() - t0:.1f} s "
+        f"({sum(f.stat().st_size for f in (root / 'model').iterdir()) / 2**30:.2f} GiB)")
+    cache = root / "datasets"
+    cache.mkdir()
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (N_SEQ, SEQLEN))
+    np.savez(cache / f"{cache_key('c4', 'train', SEQLEN, N_SEQ, 0)}.npz",
+             tokens=toks.astype(np.int64))
+    base = ["--model-dir", str(root / "model"), "--seqlen", str(SEQLEN),
+            "--data-train-n-samples", str(N_SEQ), "--data-cache-dir", str(cache),
+            "--batch-size", str(CALIB_BATCH), "--eval-sets", "train"]
+    solvers = (hessian_cuda.accumulate_hessian, gptq_cuda.gptq_solve, gptq_cuda.gptq_step)
+    runs = {}
+    for label, extra in (("default", ["--save-model-path", str(root / "results.npz")]),
+                         ("mse", ["--mse", "true", "--save-dir", str(root / "layers"),
+                                  "--save-model-path", str(root / "mse.npz")]),
+                         ("mse resumed", ["--mse", "true", "--save-dir", str(root / "layers"),
+                                          "--save-model-path", str(root / "mse.npz")])):
+        n0 = [f.launches for f in solvers]
+        t0 = time.time()
+        out = M.main(base + extra)
+        torch.cuda.synchronize()
+        dn = [f.launches - n for f, n in zip(solvers, n0)]
+        runs[label] = (out, dn)
+        ppl = out["ppls"]["train"]
+        if not np.isfinite(ppl) or len(out["results"]["data"]) != 7 * QWEN_DEPTH:
+            raise RuntimeError(f"qwen main {label}: ppl {ppl!r}, "
+                               f"{len(out['results']['data'])} layers")
+        log(f"phase qwen main {label}: ok, {time.time() - t0:.1f} s wall, quantize "
+            f"{out['quant_s']:.2f} s for {QWEN_DEPTH} blocks, ppl(train) {ppl!r}; "
+            f"K1/K2/K5 launches {dn}")
+    if not (runs["default"][1][0] and runs["default"][1][1]) or runs["default"][1][2]:
+        raise RuntimeError(f"qwen main default did not run K1 and K2: {runs['default'][1]}")
+    if not runs["mse"][1][2] or runs["mse"][1][1] or any(runs["mse resumed"][1]):
+        raise RuntimeError(f"qwen --mse launches {runs['mse'][1]}, resumed "
+                           f"{runs['mse resumed'][1]}")
+    d1, d2 = runs["mse"][0]["results"]["data"], runs["mse resumed"][0]["results"]["data"]
+    if runs["mse"][0]["ppls"] != runs["mse resumed"][0]["ppls"] or not all(
+            torch.equal(d1[n]["qweight"], d2[n]["qweight"]) for n in d1):
+        raise RuntimeError("qwen --mse resumed: ppl or codes differ from the first run's")
+    log(f"phase qwen resume: ok, all {len(d1)} layers resumed, ppl and codes equal")
+
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).tolist() for n in PROMPT_LENS]
+    serve_args = ["--model-dir", str(root / "model"), "--results", str(root / "results.npz"),
+                  "--max-batch", str(len(PROMPT_LENS)), "--max-seq-len", "512"]
+    dense = layer0 = None
+    for label, extra in (("contiguous bf16", []),
+                         ("paged ragged int8", ["--cache-kind", "paged", "--scheduler",
+                                                "ragged", "--token-budget", "64",
+                                                "--kv-dtype", "int8"])):
+        t0 = time.time()
+        stats = S.main(serve_args + extra + ["--prompt-tokens", "128",
+                                             "--bench-tokens", str(NEW_TOKENS)])
+        log(f"phase qwen serve.main {label}: ok, {time.time() - t0:.1f} s; benchmark "
+            f"{stats['requests']} requests x {NEW_TOKENS} new tokens: {stats['tok_s']:.1f} "
+            f"tok/s on {SMI}")
+        eng = S.build_engine(S.parse_serve_args(serve_args + extra))
+        out, _ = engine_runs(torch, eng, prompts, f"qwen {label}", vocab=cfg.vocab_size)
+        r = RATES[f"qwen {label}"]
+        if dense is None:
+            dense, layer0 = kernel_dense(torch, eng.model), eng.model.layers[0]
+        log(f"phase qwen engine {label}: ok, {len(prompts)} requests x {NEW_TOKENS} new "
+            f"tokens, greedy output repeats, {r[0]:.1f} / {r[1]:.1f} tok/s on {SMI}; "
+            + judge_tokens(torch, cfg, dense, prompts, out, f"qwen {label}"))
+        del eng
+    del dense
+    torch.cuda.empty_cache()
+    return {"layer0": layer0}
+
+
+def phase_families(torch, work: Path) -> dict:
+    """Every other family at its published widths, in memory: init_params
+    → quantize_model → Engine (contiguous bf16 KV; GLM-4 also int4 KV),
+    8 requests x FAMILY_NEW new tokens, run twice and judged by the
+    near-tie rule; depth 1 block (SmolLM3 4, so its NoPE layer 3 runs)."""
+    from gptq_v2_tpu_torch import pipeline as P
+    from gptq_v2_tpu_torch.models import families
+    from gptq_v2_tpu_torch.models import llama as L
+    from gptq_v2_tpu_torch.serving import Engine
+    from gptq_v2_tpu_torch.serving import model as TM
+
+    for fam in ("qwen3", "mistral", "glm4", "olmo2", "granite", "smollm3", "phi3"):
+        depth = FAMILY_DEPTH.get(fam, 1)
+        cfg = family_cfg(fam, num_hidden_layers=depth)
+        t0 = time.time()
+        params = L.init_params(cfg, seed=0)
+        calib = np.random.default_rng(5).integers(0, cfg.vocab_size, (8, 512))
+        res = P.quantize_model(cfg, params, calib, P.QuantConfig(), batch_size=4)
+        errs = [m["gptq_error"] for m in res["metrics"].values()]
+        if len(res["data"]) != 7 * depth or not all(np.isfinite(errs)):
+            raise RuntimeError(f"{fam}: quantization output malformed")
+        model = TM.quantize_params_to_packed(cfg, params, res["data"])
+        del params
+        rng = np.random.default_rng(6)
+        prompts = [rng.integers(0, cfg.vocab_size, (n,)).tolist() for n in FAMILY_PROMPTS]
+        heads = f"{cfg.num_attention_heads}/{cfg.num_key_value_heads}"
+        log(f"family {fam}: {families.SOURCES[fam]} widths (hidden {cfg.hidden_size}, "
+            f"intermediate {cfg.intermediate_size}, q/kv heads {heads}, vocab "
+            f"{cfg.vocab_size}), depth cut to {depth} of "
+            f"{families.published(fam)['num_hidden_layers']} blocks; quantized in "
+            f"{time.time() - t0:.1f} s")
+        dense = None
+        # GLM-4's 2 kv heads are one int4 head pair: K7 at 16 q heads a kv head
+        for kv in ("native", "int4") if fam == "glm4" else ("native",):
+            eng = Engine(model, max_batch=len(FAMILY_PROMPTS), max_seq_len=256, kv_dtype=kv)
+            label = f"{fam}" + (" int4 KV" if kv == "int4" else "")
+            out, _ = engine_runs(torch, eng, prompts, label, new=FAMILY_NEW,
+                                 vocab=cfg.vocab_size)
+            r = RATES[label]
+            if dense is None:
+                dense = kernel_dense(torch, eng.model)
+            # the contiguous prefill attends its own fresh K/V: the first
+            # token is the bf16 cache's under int4 KV too
+            log(f"phase family {label}: ok, greedy output repeats, {len(prompts)} requests x "
+                f"{FAMILY_NEW} new tokens {r[0]:.1f} / {r[1]:.1f} tok/s on {SMI}; "
+                + judge_tokens(torch, cfg, dense, prompts, out, label))
+            del eng
+        del model, dense
+        torch.cuda.empty_cache()
+    return {}
+
+
+def phase_window(torch, work: Path) -> dict:
+    """Mistral-7B widths with the window cut from 4096 to WINDOW so that a
+    WINDOW_PROMPT-token prompt crosses it (the published window never trims
+    at smoke lengths): quantized, then served contiguous (K4's window) and
+    paged ragged (K6's window), every new token judged by the near-tie rule
+    with the engine's earlier tokens as context."""
+    from gptq_v2_tpu_torch import pipeline as P
+    from gptq_v2_tpu_torch.models import llama as L
+    from gptq_v2_tpu_torch.serving import Engine
+    from gptq_v2_tpu_torch.serving import model as TM
+
+    cfg = family_cfg("mistral", num_hidden_layers=2, sliding_window=WINDOW)
+    log(f"window path: Mistral-7B widths, the window cut from 4096 to {WINDOW} so a "
+        f"{WINDOW_PROMPT}-token prompt crosses it; depth cut to 2 of 32 blocks")
+    params = L.init_params(cfg, seed=1)
+    calib = np.random.default_rng(7).integers(0, cfg.vocab_size, (4, SEQLEN))
+    res = P.quantize_model(cfg, params, calib, P.QuantConfig(), batch_size=2)
+    model = TM.quantize_params_to_packed(cfg, params, res["data"])
+    del params
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab_size, (WINDOW_PROMPT,)).tolist() for _ in range(2)]
+    dense = None
+    for label, kw in (("contiguous", {}),
+                      ("paged ragged", dict(cache_kind="paged", scheduler="ragged",
+                                            token_budget=256))):
+        eng = Engine(model, max_batch=2, max_seq_len=WINDOW_SEQ, **kw)
+        out, _ = engine_runs(torch, eng, prompts, f"window {label}", new=FAMILY_NEW,
+                             vocab=cfg.vocab_size)
+        r = RATES[f"window {label}"]
+        if dense is None:
+            dense = kernel_dense(torch, eng.model)
+        log(f"phase window {label}: ok, 2 requests x {FAMILY_NEW} new tokens after "
+            f"{WINDOW_PROMPT}, greedy output repeats, {r[0]:.1f} / {r[1]:.1f} tok/s on {SMI}; "
+            + judge_tokens(torch, cfg, dense, prompts, out, f"window {label}", every=True))
+        del eng
+    del dense, model
+    torch.cuda.empty_cache()
+    return {}
+
+
+def phase_full_depth(torch, work: Path) -> dict:
+    """Qwen2.5-7B at its full 28 blocks from ``random_packed_llama``
+    (synthetic packed weights drawn on the card): the paged ragged bf16
+    engine, 8 requests x NEW_TOKENS, run twice; first tokens judged by the
+    near-tie rule against the plain forward over the dequantized weights."""
+    from gptq_v2_tpu_torch.serving import Engine
+    from gptq_v2_tpu_torch.serving import model as TM
+
+    cfg = family_cfg("qwen2")
+    t0 = time.time()
+    model = TM.random_packed_llama(cfg, seed=0)
+    torch.cuda.synchronize()
+    log(f"full-depth path: Qwen2.5-7B, all {cfg.num_hidden_layers} blocks, "
+        f"random_packed_llama (seed 0) in {time.time() - t0:.1f} s")
+    eng = Engine(model, max_batch=len(PROMPT_LENS), max_seq_len=512, cache_kind="paged",
+                 scheduler="ragged", token_budget=64)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).tolist() for n in PROMPT_LENS]
+    out, _ = engine_runs(torch, eng, prompts, "full depth", vocab=cfg.vocab_size)
+    r = RATES["full depth"]
+    dense = kernel_dense(torch, eng.model)
+    verdict = judge_tokens(torch, cfg, dense, prompts, out, "full depth")
+    log(f"phase full depth: ok, paged ragged bf16, {len(prompts)} requests x {NEW_TOKENS} "
+        f"new tokens, greedy output repeats, {r[0]:.1f} / {r[1]:.1f} tok/s on {SMI}; "
+        + verdict)
+    del eng, model, dense
+    torch.cuda.empty_cache()
+    return {}
+
+
 def device_ops(torch, fn, reps: int = 50):
     """Device ops (CUDA kernels and copies) a call of ``fn`` launches, by
     torch.profiler over ``reps`` calls, and their names.  A window of one
@@ -1924,6 +2240,8 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     log(smi)
+    global SMI
+    SMI = smi
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
     # numerics contract of every quantization path: no TF32 anywhere
@@ -1942,6 +2260,13 @@ def main(argv=None) -> int:
                 "paged_attention": paged_attention.paged_ragged_attention,
                 "paged_write": paged_write.paged_write_kv})
     paths = (("main", phase_main_path, ("hessian", "gptq", "w4a16", "attention")),
+             ("qwen2.5", phase_qwen, ("hessian", "gptq", "gptq_step", "w4a16", "attention",
+                                      "paged_attention", "paged_write")),
+             ("families", phase_families, ("hessian", "gptq", "w4a16", "attention",
+                                           "attention_p4")),
+             ("window", phase_window, ("hessian", "gptq", "w4a16", "attention",
+                                       "paged_attention", "paged_write")),
+             ("full depth", phase_full_depth, ("w4a16", "paged_attention", "paged_write")),
              ("cli.quantize", phase_cli, ("hessian", "gptq_step", "w4a16", "attention")),
              ("serve.kv", phase_serve_kv, ("w4a16", "attention", "attention_p4")),
              ("serve.paged", phase_serve_paged, ("w4a16", "paged_attention", "paged_write")),
@@ -1962,6 +2287,8 @@ def main(argv=None) -> int:
             counts[name] = {k: fn.launches for k, fn in wrappers.items()}
             if name == "main":
                 main_out = result
+            if name == "qwen2.5":
+                qwen_out = result
             log(f"path {name}: {time.time() - t0:.1f} s, launches "
                 + ", ".join(f"{k} {v}" for k, v in counts[name].items()))
             missing = [k for k in needed if not counts[name][k]]
@@ -1985,8 +2312,8 @@ def main(argv=None) -> int:
     timer = Timer(torch)
     kernels = (phase_hessian(torch, timer, launches)
                + phase_gptq(torch, timer, launches)
-               + phase_w4a16(torch, timer, launches, main_out["layer0"])
-               + phase_w4a8(torch, timer, launches, main_out["layer0"])
+               + phase_w4a16(torch, timer, launches, main_out["layer0"], qwen_out["layer0"])
+               + phase_w4a8(torch, timer, launches, main_out["layer0"], qwen_out["layer0"])
                + phase_gptq_step(torch, timer, launches)
                + phase_attention(torch, timer, launches)
                + phase_paged_attention(torch, timer, launches)

@@ -34,6 +34,14 @@
 //   (32 KB at hd 128) fit static shared memory with room for 5 blocks an
 //   SM, and at S = 4096 the partials (hd + 2 floats per q head and split)
 //   stay under 13% of the int4 rows' bytes.
+// * Group counts.  A block serves GB q heads of each kv head it reads, GB
+//   the largest divisor of groups = Hq/Hkv that is at most 8, so every
+//   group count runs (Qwen2.5-7B's 7, GLM-4's 16).  Above 8 the group is
+//   cut into groups/GB chunks, one block each, and a chunk's blocks read
+//   the same K/V rows (from L2 after the first): at NH = 16 bf16 heads the
+//   block's static shared memory would pass 48 KB (ks 17 408, vs 16 384,
+//   qs 8 192, sc 8 192, ps 4 096 bytes).  Heads never mix inside a block,
+//   so a head's output bits do not depend on GB.
 // * Bytes in flight.  The block stages its split's K rows and then its V
 //   rows into shared memory with 16-byte cp.async, two commit groups, one
 //   row per 256 (bf16) or 128 (int8, int4 pairs) bytes of the lanes: a
@@ -87,6 +95,7 @@ struct Args {
   float* part_l;           // (B, Hq, n_splits)
   float* part_acc;         // (B, Hq, n_splits, hd)
   int layer, n_slots, s_max, s_used, hc, groups, window, chunk, n_splits;
+  int n_chunks;  // blocks a kv head (pair): groups / GB
   float sm_scale, soft_cap;  // soft_cap <= 0: off
 };
 
@@ -164,9 +173,11 @@ __device__ __forceinline__ void key_range(const Args& a, int b, int& lo, int& hi
   if (a.chunk > 0) lo = max(lo, (pos / a.chunk) * a.chunk);
 }
 
-// NH q heads per block: `groups` (K4) or 2·groups (K7, low-nibble heads first)
+// NH q heads per block: GB of the group of kv head h (K4), or GB of each of
+// the pair's two groups (K7, low-nibble heads first); GB divides groups
 template <int MODE, int HD, int NH>
 __global__ void __launch_bounds__(THREADS) split_kernel(Args a) {
+  constexpr int GB = MODE == INT4 ? NH / 2 : NH;
   constexpr int ROW = HD * (MODE == BF16 ? 2 : 1);  // bytes of one kv head's (pair's) row
   constexpr int CPR = ROW / 16;                     // 16-byte chunks a row
   constexpr int EPC = MODE == BF16 ? 8 : 16;        // d's a chunk
@@ -179,13 +190,14 @@ __global__ void __launch_bounds__(THREADS) split_kernel(Args a) {
   __shared__ __align__(16) float ps[KPS][NH];
   __shared__ float red[KG > 1 ? NH : 1][HD];
 
-  const int b = blockIdx.x, h = blockIdx.y, z = blockIdx.z;
+  const int b = blockIdx.x, h = blockIdx.y / a.n_chunks, z = blockIdx.z;
+  const int g0 = (blockIdx.y % a.n_chunks) * GB;  // the chunk's first head of a group
   const int t = threadIdx.x;
   const int hq = (MODE == INT4 ? 2 * a.hc : a.hc) * a.groups;
   // global q head of local head i
   auto qhead = [&](int i) {
-    if (MODE == INT4) return (h + (i / a.groups) * a.hc) * a.groups + i % a.groups;
-    return h * a.groups + i;
+    if (MODE == INT4) return (h + (i / GB) * a.hc) * a.groups + g0 + i % GB;
+    return h * a.groups + g0 + i;
   };
   auto part = [&](int i) {
     return (static_cast<size_t>(b) * hq + qhead(i)) * a.n_splits + z;
@@ -380,7 +392,8 @@ __global__ void __launch_bounds__(HD) merge_kernel(Args a, int hq) {
 
 template <int MODE, int HD, int NH>
 cudaError_t launch_one(const Args& a, cudaStream_t stream) {
-  split_kernel<MODE, HD, NH><<<dim3(a.n_slots, a.hc, a.n_splits), THREADS, 0, stream>>>(a);
+  split_kernel<MODE, HD, NH>
+      <<<dim3(a.n_slots, a.hc * a.n_chunks, a.n_splits), THREADS, 0, stream>>>(a);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int hq = (MODE == INT4 ? 2 * a.hc : a.hc) * a.groups;
@@ -388,14 +401,27 @@ cudaError_t launch_one(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// heads per block: groups ∈ {1, 2, 4, 8}, doubled for the int4 pairs
+// heads per block: GB = the largest divisor of groups up to 8, doubled
+// for the int4 pairs
+int heads_per_block(int groups) {
+  int gb = 8;
+  while (groups % gb) --gb;
+  return gb;
+}
+
 template <int MODE, int HD>
-cudaError_t launch_nh(const Args& a, cudaStream_t stream) {
+cudaError_t launch_nh(Args a, cudaStream_t stream) {
   constexpr int F = MODE == INT4 ? 2 : 1;
-  switch (a.groups) {
+  const int gb = heads_per_block(a.groups);
+  a.n_chunks = a.groups / gb;
+  switch (gb) {
     case 1: return launch_one<MODE, HD, F>(a, stream);
     case 2: return launch_one<MODE, HD, 2 * F>(a, stream);
+    case 3: return launch_one<MODE, HD, 3 * F>(a, stream);
     case 4: return launch_one<MODE, HD, 4 * F>(a, stream);
+    case 5: return launch_one<MODE, HD, 5 * F>(a, stream);
+    case 6: return launch_one<MODE, HD, 6 * F>(a, stream);
+    case 7: return launch_one<MODE, HD, 7 * F>(a, stream);
     case 8: return launch_one<MODE, HD, 8 * F>(a, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -446,6 +472,7 @@ int make_args(Args& a, const void* q, const void* k, const void* v, const int32_
   a.window = window;
   a.chunk = chunk;
   a.n_splits = n_splits;
+  a.n_chunks = 1;
   a.sm_scale = sm_scale;
   a.soft_cap = soft_cap;
   return 0;
@@ -460,8 +487,8 @@ extern "C" {
 // < s_used; sinks: (Hq,) fp32 or null; scratch: B·Hq·n_splits·(hd + 2)
 // fp32, n_splits = ceil(min(s_used, window, chunk) / 64) (refused
 // otherwise).  window/chunk 0 and soft_cap 0 switch those off.  hd must be
-// 64 or 128 and Hq/Hkv 1, 2, 4 or 8.  Two kernels on `stream`: the splits,
-// then the merge.
+// 64 or 128; any Hq/Hkv.  Two kernels on `stream`: the splits, then the
+// merge.
 int contiguous_attention(const void* q, const void* k, const void* v, const int32_t* pos,
                          const float* sinks, void* out, void* scratch, int layer,
                          int n_slots, int s_max, int s_used, int n_kv, int groups, int hd,

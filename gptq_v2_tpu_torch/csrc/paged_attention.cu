@@ -25,7 +25,7 @@
 //   head (bf16, int8) or an adjacent int4 pair, whose bytes are read once
 //   for both heads.  The block serves every q head that reads the unit's
 //   rows: the `groups` GQA heads of kv head u, or the 2·groups heads of the
-//   pair -- the NH contiguous q heads from u·NH.  The block finds its
+//   pair (cut into chunks above 8 a group, below).  The block finds its
 //   sequence in one round trip: thread i loads cu[i], cu[i+1] and
 //   kv_lens[i] and the thread whose run holds t publishes them; rows at or
 //   past cu[num_seqs] (pad rows) have no sequence.  The row's position is
@@ -41,6 +41,13 @@
 //   every block of a pad row) writes an empty partial (m = -inf, l = 0)
 //   and returns.  At 64 keys a split, Llama-2-7B's B = 1 decode at S = 512
 //   launches 256 blocks (32 before the split) on 132 SMs.
+// * Group counts.  A block serves GB q heads of each kv head of its unit,
+//   GB the largest divisor of groups = Hq/Hkv that is at most 8, so every
+//   group count runs (Qwen2.5-7B's 7, GLM-4's 16).  Above 8 the group is
+//   cut into groups/GB chunks, one block each (a bf16 block at NH = 16
+//   would pass 48 KB of static shared memory); a chunk's blocks read the
+//   same rows.  Heads never mix inside a block, so a head's output bits do
+//   not depend on GB.
 // * Bytes in flight.  The split's page ids (at most 5 for 16-row pages: 64
 //   keys anchored off a page boundary) are read from the block table once,
 //   into shared memory, and each key's row offset formed there.  Then the
@@ -114,6 +121,7 @@ struct Args {
   float* part_acc;          // (rows_per_range, Hq, n_splits, hd)
   int row0;                 // first row of this launch's range
   int n_seqs, pages_per_seq, page_size, n_units, groups, window, n_splits;
+  int n_chunks;  // blocks a unit: groups / GB
   float qk_scale, v_scale, soft_cap;  // soft_cap <= 0: off
 };
 
@@ -183,10 +191,11 @@ __device__ __forceinline__ void load_elem(const unsigned char* p, float& lo, flo
   }
 }
 
-// NH q heads per block: `groups`, or 2·groups for an int4 pair (the low
-// nibble's head first)
+// NH q heads per block: GB of the group of kv head u, or GB of each of the
+// int4 pair's two groups (the low nibble's head first); GB divides groups
 template <int MODE, int HD, int NH>
 __global__ void __launch_bounds__(THREADS) split_kernel(Args a) {
+  constexpr int GB = MODE == INT4 ? NH / 2 : NH;
   constexpr int ROW = HD * (MODE == BF16 ? 2 : 1);  // bytes of one unit's K (or V) row
   constexpr int CPR = ROW / 16;                     // 16-byte chunks a row
   constexpr int EPC = MODE == BF16 ? 8 : 16;        // d's a chunk
@@ -202,12 +211,18 @@ __global__ void __launch_bounds__(THREADS) split_kernel(Args a) {
   __shared__ int32_t pages[KPS];  // the split's page ids, in order
   __shared__ int row_info[4];     // the row's sequence (-1: a pad row), run start, n_new, kv_len
 
-  const int b = blockIdx.x, u = blockIdx.y, z = blockIdx.z;
+  const int b = blockIdx.x, u = blockIdx.y / a.n_chunks, z = blockIdx.z;
+  const int g0 = (blockIdx.y % a.n_chunks) * GB;  // the chunk's first head of a group
   const int t = threadIdx.x;
   const int row = a.row0 + b;
   const int hq = (MODE == INT4 ? 2 * a.n_units : a.n_units) * a.groups;
+  // global q head of local head i: kv head u (or 2u, 2u + 1 of a pair)
+  auto qhead = [&](int i) {
+    if (MODE == INT4) return (2 * u + i / GB) * a.groups + g0 + i % GB;
+    return u * a.groups + g0 + i;
+  };
   auto part = [&](int i) {
-    return (static_cast<size_t>(b) * hq + u * NH + i) * a.n_splits + z;
+    return (static_cast<size_t>(b) * hq + qhead(i)) * a.n_splits + z;
   };
 
   // the row's sequence in one round trip: every thread's loads go out together
@@ -265,7 +280,7 @@ __global__ void __launch_bounds__(THREADS) split_kernel(Args a) {
     cp_async16(vs + c * 16, a.kv + koff[c / CPR] + ROW + (c % CPR) * 16);
   cp_async_commit();
   for (int c = t; c < NH * HD; c += THREADS) {
-    const size_t src = (static_cast<size_t>(row) * hq + u * NH + c / HD) * HD + c % HD;
+    const size_t src = (static_cast<size_t>(row) * hq + qhead(c / HD)) * HD + c % HD;
     qs[c / HD][c % HD] = __bfloat162float(a.q[src]);
   }
   cp_async_wait<1>();  // K has landed; V may still be in flight
@@ -434,7 +449,8 @@ cudaError_t launch_one(Args a, int n_rows, int rows_per_range, cudaStream_t stre
   for (int r0 = 0; r0 < n_rows; r0 += rows_per_range) {
     const int nr = n_rows - r0 < rows_per_range ? n_rows - r0 : rows_per_range;
     a.row0 = r0;
-    split_kernel<MODE, HD, NH><<<dim3(nr, a.n_units, a.n_splits), THREADS, 0, stream>>>(a);
+    split_kernel<MODE, HD, NH>
+        <<<dim3(nr, a.n_units * a.n_chunks, a.n_splits), THREADS, 0, stream>>>(a);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     merge_kernel<HD><<<dim3(nr, hq), HD, 0, stream>>>(a, hq);
@@ -444,14 +460,27 @@ cudaError_t launch_one(Args a, int n_rows, int rows_per_range, cudaStream_t stre
   return cudaSuccess;
 }
 
-// heads per block: groups ∈ {1, 2, 4, 8}, doubled for the int4 pairs
+// heads per block: GB = the largest divisor of groups up to 8, doubled for
+// the int4 pairs
+int heads_per_block(int groups) {
+  int gb = 8;
+  while (groups % gb) --gb;
+  return gb;
+}
+
 template <int MODE, int HD>
-cudaError_t launch_nh(const Args& a, int n_rows, int rpr, cudaStream_t stream) {
+cudaError_t launch_nh(Args a, int n_rows, int rpr, cudaStream_t stream) {
   constexpr int F = MODE == INT4 ? 2 : 1;
-  switch (a.groups) {
+  const int gb = heads_per_block(a.groups);
+  a.n_chunks = a.groups / gb;
+  switch (gb) {
     case 1: return launch_one<MODE, HD, F>(a, n_rows, rpr, stream);
     case 2: return launch_one<MODE, HD, 2 * F>(a, n_rows, rpr, stream);
+    case 3: return launch_one<MODE, HD, 3 * F>(a, n_rows, rpr, stream);
     case 4: return launch_one<MODE, HD, 4 * F>(a, n_rows, rpr, stream);
+    case 5: return launch_one<MODE, HD, 5 * F>(a, n_rows, rpr, stream);
+    case 6: return launch_one<MODE, HD, 6 * F>(a, n_rows, rpr, stream);
+    case 7: return launch_one<MODE, HD, 7 * F>(a, n_rows, rpr, stream);
     case 8: return launch_one<MODE, HD, 8 * F>(a, n_rows, rpr, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -482,8 +511,8 @@ extern "C" {
 // Hkv (modes 0, 1) or Hkv/2 (mode 2), 16-byte aligned; kv_lens: (n_seqs,),
 // tables: (n_seqs, pages_per_seq), cu: (n_seqs + 1,), num_seqs: (1,), all
 // int32; sinks: (Hq,) fp32 or null.  qk_scale = sm_scale·k_scale; window 0
-// and soft_cap 0 switch those off.  hd must be 64 or 128 and Hq/Hkv 1, 2,
-// 4 or 8.  n_splits must be ceil(min(pages_per_seq·page_size, window) /
+// and soft_cap 0 switch those off.  hd must be 64 or 128; any Hq/Hkv.
+// n_splits must be ceil(min(pages_per_seq·page_size, window) /
 // 64); scratch holds rows_per_range·Hq·n_splits·(hd + 2) fp32, and
 // rows_per_range must be 1 or keep that within 64 MiB (refused otherwise).
 // Per range of rows_per_range rows, two kernels on `stream`: the splits,
@@ -523,6 +552,7 @@ int paged_attention(const void* q, const void* kv, const int32_t* kv_lens,
   a.groups = groups;
   a.window = window;
   a.n_splits = n_splits;
+  a.n_chunks = 1;
   a.qk_scale = qk_scale;
   a.v_scale = v_scale;
   a.soft_cap = soft_cap;

@@ -3,7 +3,10 @@
 The hidden states of every evaluation window stay on ``device``; decoder
 layers stream to it one at a time.  ppl = ``exp(mean shifted
 cross-entropy)``, each batch's mean NLL weighted by its batch size (the
-reference's bookkeeping); logits in the model dtype, log-softmax in fp32.
+reference's bookkeeping); logits in the model dtype through
+``models.llama.lm_logits`` (so Granite's ``logits_scaling`` divides them, as
+in HF), log-softmax in fp32.  Each layer takes its own window and rope
+table.
 """
 from __future__ import annotations
 
@@ -18,21 +21,24 @@ def evaluate_ppl(cfg: L.LlamaConfig, params: L.Params, encodings: np.ndarray,
                  batch_size: int = 8, device="cuda") -> float:
     """Perplexity of ``params`` on ``encodings`` ``(n_seq, seqlen)``."""
     n_seq, seqlen = encodings.shape
-    cos, sin = L.rope_cos_sin(cfg, np.arange(seqlen), device)
+    ropes = L.rope_tables(cfg, np.arange(seqlen), device)
     tokens = torch.as_tensor(np.asarray(encodings), dtype=torch.long)
     embed_w = params["embed_tokens"].to(device)
     xs = [L.embed_lookup(cfg, embed_w, tokens[b:b + batch_size].to(device))
           for b in range(0, n_seq, batch_size)]
     del embed_w
-    for layer in params["layers"]:
+    for li, layer in enumerate(params["layers"]):
         lp = {k: v.to(device) for k, v in layer.items()}
-        xs = [L.block_apply(cfg, lp, xb, cos, sin)[0] for xb in xs]
+        cos, sin = ropes[cfg.layer_rope(li)]
+        xs = [L.block_apply(cfg, lp, xb, cos, sin, window=cfg.layer_window(li))[0]
+              for xb in xs]
         del lp
+    head = {"lm_head": params["lm_head"].to(device)}
     norm_w = params["norm"].to(device)
-    lm_head = params["lm_head"].to(device)
     total, weight = 0.0, 0
     for b, xb in enumerate(xs):
-        logits = (L.rms_norm(xb, norm_w, cfg.rms_norm_eps) @ lm_head)[:, :-1].float()
+        hidden = L.rms_norm(xb, norm_w, cfg.rms_norm_eps)
+        logits = L.lm_logits(cfg, head, hidden)[:, :-1].float()
         labels = tokens[b * batch_size:(b + 1) * batch_size, 1:].to(device)
         logp = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(logp, -1, labels[..., None])[..., 0]

@@ -1,17 +1,22 @@
-"""Functional Llama decoder in PyTorch (counterpart of
-``gptq_v2_tpu/models/llama.py``), Llama-1/2/3 only: GQA and ``linear`` /
-``llama3`` rope scaling.
+"""Functional Llama-family decoder in PyTorch (counterpart of
+``gptq_v2_tpu/models/llama.py``): Llama-1/2/3 and the dense families whose
+block is a switch of the Llama block -- Mistral (sliding window), Qwen2/2.5
+(q/k/v biases), Qwen3 (head-dim q/k norms), GLM-4 (partial rotary, sandwich
+norms, fused gate/up), OLMo-2 (post-norm only, flat q/k norms), Granite
+(four scalar multipliers), SmolLM3 (NoPE layers) and Phi-3 (fused qkv and
+gate/up checkpoints); ``linear``, ``llama3`` and ``yarn`` rope scaling.
 
 Parameters are a plain dict of tensors; linear weights are stored
-``(in_features, out_features)`` so a projection is ``x @ W``, and names
-mirror HF module paths (``self_attn.q_proj`` …).  Numerics follow HF Llama
-and the JAX package: RMSNorm in fp32 then cast, rotary tables in fp32
-(float64 on the host for whole-sequence positions), attention scores and
-softmax in fp32.  The decoder block exposes capture points at each
-linear's input for the quantization pipeline.
+``(in_features, out_features)`` so a projection is ``x @ W`` (plus the
+``{name}.bias`` vector where the family has one), and names mirror HF
+module paths (``self_attn.q_proj`` …).  Numerics follow HF and the JAX
+package: RMSNorm in fp32 then cast, rotary tables in fp32 (float64 on the
+host for whole-sequence positions), attention scores and softmax in fp32.
+The decoder block exposes capture points at each linear's input for the
+quantization pipeline.
 
-The other families of the JAX package (Mistral, Qwen, Gemma, MoE, MLA, …)
-are not ported yet; :meth:`LlamaConfig.from_hf_dict` refuses them.
+The other families of the JAX package (Gemma-2/3, MoE, MLA, GPT-OSS,
+Llama-4) are not ported yet; :meth:`LlamaConfig.from_hf_dict` refuses them.
 """
 from __future__ import annotations
 
@@ -26,6 +31,15 @@ import numpy as np
 import torch
 
 Params = Dict[str, Any]
+
+# the model types from_hf_dict reads (JAX ``LlamaConfig.from_hf_dict``)
+FAMILIES = ("llama", "mistral", "qwen2", "qwen3", "glm4", "olmo2", "granite",
+            "smollm3", "phi3")
+# the JAX package's other families, refused until their slice is ported
+# (ROADMAP queue 1, item 10)
+_NOT_PORTED = ("gemma2", "gemma3", "gemma3_text", "mixtral", "qwen3_moe",
+               "deepseek_v3", "gpt_oss", "llama4", "llama4_text")
+_LAYER_TYPES = ("sliding_attention", "full_attention")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,12 +57,46 @@ class LlamaConfig:
     tie_word_embeddings: bool = False
     dtype: str = "float16"
     # HF ``rope_scaling`` as sorted (key, value) pairs; None = no scaling.
-    # Supported rope types: "linear", "llama3".
+    # Supported rope types: "linear", "llama3", "yarn".
     rope_scaling: Optional[Tuple[Tuple[str, Any], ...]] = None
+    qkv_bias: bool = False  # Qwen2, GLM-4; HF llama `attention_bias` sets both
+    o_bias: bool = False
+    qk_norm: bool = False  # Qwen3: head-dim RMSNorm on q/k before rope
+    # OLMo-2: RMSNorm over all heads' features of q/k, before the head reshape
+    qk_norm_flat: bool = False
+    sliding_window: Optional[int] = None  # Mistral (Qwen/SmolLM3 behind a flag)
+    # per-layer attention kind ("sliding_attention" | "full_attention");
+    # None = ``sliding_window`` (if set) on every layer
+    layer_types: Optional[Tuple[str, ...]] = None
+    nope_layers: Optional[Tuple[int, ...]] = None  # SmolLM3: layers with no rope
+    # GLM-4: rope covers this fraction of head_dim, the rest passes through
+    partial_rotary_factor: float = 1.0
+    # Phi-3 checkpoints store fused qkv_proj / gate_up_proj, GLM-4 a fused
+    # gate_up_proj; the loader splits them into the per-projection names
+    fused_qkv_gate_up: bool = False
+    fused_gate_up: bool = False
+    # GLM-4: the checkpoint pairs rope dims even/odd; the loader
+    # de-interleaves each head's rotary prefix of the q/k out-features
+    # once, so the runtime keeps the half-rotation
+    rope_interleaved: bool = False
+    sandwich_norms: bool = False  # GLM-4: post-attn + pre/post-MLP norms
+    postnorm_only: bool = False  # OLMo-2: sublayer outputs normed, no input norms
+    # Granite: embeds *= , sublayer outputs *= , sm_scale = , logits /=
+    embed_multiplier: Optional[float] = None
+    residual_multiplier: Optional[float] = None
+    attn_multiplier: Optional[float] = None
+    logits_divider: Optional[float] = None
+    model_type: str = "llama"  # the family to_hf_dict writes back
 
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.hidden_size // self.num_attention_heads
+
+    @property
+    def rope_dim_(self) -> int:
+        """Rotated dims a head (the rope tables' width): a GLM-4 prefix,
+        else the whole head."""
+        return int(self.head_dim_ * self.partial_rotary_factor)
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -56,17 +104,44 @@ class LlamaConfig:
 
     @property
     def sm_scale_(self) -> float:
+        """Attention score scale: Granite's ``attention_multiplier``, else
+        ``1/sqrt(head_dim)``."""
+        if self.attn_multiplier is not None:
+            return self.attn_multiplier
         return 1.0 / math.sqrt(self.head_dim_)
+
+    def layer_window(self, layer_idx: int) -> Optional[int]:
+        """Sliding window of one layer (None = global attention)."""
+        if self.sliding_window is None:
+            return None
+        if self.layer_types is None:
+            return self.sliding_window
+        return (self.sliding_window if self.layer_types[layer_idx] == "sliding_attention"
+                else None)
+
+    @property
+    def num_ropes(self) -> int:
+        """Rope tables a forward needs: the global one, plus SmolLM3's NoPE
+        identity."""
+        return 1 + bool(self.nope_layers)
+
+    def layer_rope(self, layer_idx: int) -> int:
+        """Index into :func:`rope_tables` for one layer: 0 the global table,
+        1 the NoPE identity of a no-rope layer."""
+        return int(bool(self.nope_layers) and layer_idx in self.nope_layers)
 
     @classmethod
     def from_hf_dict(cls, d: dict) -> "LlamaConfig":
         model_type = d.get("model_type", "llama")
-        if model_type != "llama":
+        if model_type in _NOT_PORTED:
             raise NotImplementedError(
-                f"model_type {model_type!r}: the port covers Llama only")
-        for key in ("attention_bias", "mlp_bias"):
-            if d.get(key):
-                raise NotImplementedError(f"{key}=True is not ported")
+                f"model_type {model_type!r} is not ported yet (ROADMAP queue 1, item 10: "
+                "Gemma-2/3 and Phi-3-mini with head dims 256 and 96, then MoE, MLA, "
+                "GPT-OSS and Llama-4)")
+        if model_type not in FAMILIES:
+            raise NotImplementedError(f"model_type {model_type!r}")
+        if d.get("mlp_bias"):
+            raise NotImplementedError("mlp_bias=True is not ported")
         if d.get("hidden_act", "silu") != "silu":
             raise NotImplementedError(f"hidden_act {d['hidden_act']!r}")
         rope_scaling = None
@@ -74,17 +149,40 @@ class LlamaConfig:
         if rs is not None:
             rope_type = rs.get("rope_type", rs.get("type", "default"))
             if rope_type != "default":
-                if rope_type not in ("linear", "llama3"):
+                if rope_type not in ("linear", "llama3", "yarn"):
                     raise NotImplementedError(f"rope_scaling type {rope_type!r}")
                 norm = {k: (v if isinstance(v, str) else float(v))
                         for k, v in rs.items() if k != "type" and v is not None}
                 norm["rope_type"] = rope_type
                 rope_scaling = tuple(sorted(norm.items()))
+        n_layers = d["num_hidden_layers"]
+        glm4 = model_type == "glm4"
+        granite = model_type == "granite"
+        # HF LlamaConfig.attention_bias covers q/k/v/o; Qwen2 hard-codes
+        # bias on q/k/v only, GLM-4 biases q/k/v and never o
+        attention_bias = bool(d.get("attention_bias", False))
+        sliding = d.get("sliding_window")
+        if model_type in ("qwen2", "qwen3", "smollm3") and not d.get("use_sliding_window",
+                                                                     False):
+            sliding = None  # these families gate the window behind a flag
+        nope_layers = None
+        if model_type == "smollm3":
+            # HF no_rope_layers: 1 = rope on for that layer, 0 = NoPE
+            nr = d.get("no_rope_layers")
+            if nr is None:
+                iv = d.get("no_rope_layer_interval", 4)
+                nr = [int(bool((i + 1) % iv)) for i in range(n_layers)]
+            nope_layers = tuple(i for i, v in enumerate(nr) if not v) or None
+        layer_types = d.get("layer_types")
+        if layer_types is not None:
+            layer_types = tuple(layer_types)
+            if any(t not in _LAYER_TYPES for t in layer_types):
+                raise NotImplementedError(f"layer_types {sorted(set(layer_types))}")
         return cls(
             vocab_size=d["vocab_size"],
             hidden_size=d["hidden_size"],
             intermediate_size=d["intermediate_size"],
-            num_hidden_layers=d["num_hidden_layers"],
+            num_hidden_layers=n_layers,
             num_attention_heads=d["num_attention_heads"],
             num_key_value_heads=d.get("num_key_value_heads",
                                       d["num_attention_heads"]),
@@ -95,6 +193,25 @@ class LlamaConfig:
             tie_word_embeddings=d.get("tie_word_embeddings", False),
             dtype=d.get("torch_dtype") or d.get("dtype") or "float16",
             rope_scaling=rope_scaling,
+            qkv_bias=attention_bias or model_type == "qwen2",
+            o_bias=attention_bias and not glm4,
+            qk_norm=model_type == "qwen3",
+            qk_norm_flat=model_type == "olmo2",
+            sliding_window=sliding,
+            layer_types=layer_types,
+            nope_layers=nope_layers,
+            partial_rotary_factor=(float(d.get("partial_rotary_factor", 1.0)) if glm4
+                                   else 1.0),
+            fused_qkv_gate_up=model_type == "phi3",
+            fused_gate_up=glm4,
+            rope_interleaved=glm4,
+            sandwich_norms=glm4,
+            postnorm_only=model_type == "olmo2",
+            embed_multiplier=d.get("embedding_multiplier") if granite else None,
+            residual_multiplier=d.get("residual_multiplier") if granite else None,
+            attn_multiplier=d.get("attention_multiplier") if granite else None,
+            logits_divider=d.get("logits_scaling") if granite else None,
+            model_type=model_type,
         )
 
     @classmethod
@@ -103,8 +220,10 @@ class LlamaConfig:
             return cls.from_hf_dict(json.load(f))
 
     def to_hf_dict(self) -> dict:
-        """The ``config.json`` contents this config reads back from."""
-        d = {"model_type": "llama", "vocab_size": self.vocab_size,
+        """The ``config.json`` contents this config reads back from (its
+        family's HF keys; :meth:`from_hf_dict` of it gives this config)."""
+        mt = self.model_type
+        d = {"model_type": mt, "vocab_size": self.vocab_size,
              "hidden_size": self.hidden_size,
              "intermediate_size": self.intermediate_size,
              "num_hidden_layers": self.num_hidden_layers,
@@ -113,11 +232,29 @@ class LlamaConfig:
              "max_position_embeddings": self.max_position_embeddings,
              "rope_theta": self.rope_theta, "rms_norm_eps": self.rms_norm_eps,
              "tie_word_embeddings": self.tie_word_embeddings,
-             "torch_dtype": self.dtype}
+             "torch_dtype": self.dtype,
+             # the one bias switch of the family (see from_hf_dict)
+             "attention_bias": self.qkv_bias if mt == "glm4" else self.o_bias}
         if self.head_dim is not None:
             d["head_dim"] = self.head_dim
         if self.rope_scaling is not None:
             d["rope_scaling"] = dict(self.rope_scaling)
+        if self.sliding_window is not None:
+            d["sliding_window"] = self.sliding_window
+            if mt in ("qwen2", "qwen3", "smollm3"):
+                d["use_sliding_window"] = True
+        if self.layer_types is not None:
+            d["layer_types"] = list(self.layer_types)
+        if mt == "smollm3":
+            nope = set(self.nope_layers or ())
+            d["no_rope_layers"] = [int(i not in nope) for i in range(self.num_hidden_layers)]
+        if mt == "glm4":
+            d["partial_rotary_factor"] = self.partial_rotary_factor
+        if mt == "granite":
+            d.update(embedding_multiplier=self.embed_multiplier,
+                     residual_multiplier=self.residual_multiplier,
+                     attention_multiplier=self.attn_multiplier,
+                     logits_scaling=self.logits_divider)
         return d
 
     @classmethod
@@ -133,9 +270,11 @@ class LlamaConfig:
 
 
 def layer_param_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
+    """One block's parameter shapes (every layer of these families has the
+    same)."""
     d, hd = cfg.hidden_size, cfg.head_dim_
     nq, nkv, i = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.intermediate_size
-    return {
+    shapes = {
         "input_layernorm": (d,),
         "self_attn.q_proj": (d, nq * hd),
         "self_attn.k_proj": (d, nkv * hd),
@@ -146,6 +285,24 @@ def layer_param_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
         "mlp.up_proj": (d, i),
         "mlp.down_proj": (i, d),
     }
+    if cfg.sandwich_norms:  # GLM-4: four norms a block
+        shapes["pre_feedforward_layernorm"] = (d,)
+        shapes["post_feedforward_layernorm"] = (d,)
+    if cfg.postnorm_only:  # OLMo-2: only the two post-sublayer norms
+        del shapes["input_layernorm"]
+        shapes["post_feedforward_layernorm"] = (d,)
+    if cfg.qk_norm:  # Qwen3: head-dim norms shared across heads
+        shapes["self_attn.q_norm"] = (hd,)
+        shapes["self_attn.k_norm"] = (hd,)
+    if cfg.qk_norm_flat:  # OLMo-2: norms over all heads' features
+        shapes["self_attn.q_norm"] = (nq * hd,)
+        shapes["self_attn.k_norm"] = (nkv * hd,)
+    if cfg.qkv_bias:
+        for n in ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"):
+            shapes[n + ".bias"] = (shapes[n][1],)
+    if cfg.o_bias:
+        shapes["self_attn.o_proj.bias"] = (d,)
+    return shapes
 
 
 def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda") -> Params:
@@ -198,6 +355,13 @@ def params_from_numpy(cfg: LlamaConfig, tree: Params, device="cuda") -> Params:
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def in_dtype(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype`` as a Python float (JAX rounds a Python
+    scalar to the array's dtype before it multiplies), once per pair."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
@@ -205,15 +369,46 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return weight * normed.to(x.dtype)
 
 
-def _scaled_inv_freq(cfg: LlamaConfig, inv_freq: np.ndarray) -> np.ndarray:
-    """HF ``rope_scaling``: ``linear`` divides every frequency; ``llama3``
-    keeps high frequencies, divides low ones and interpolates between."""
+def _scaled_inv_freq(cfg: LlamaConfig, inv_freq: np.ndarray) -> Tuple[np.ndarray, float]:
+    """HF ``rope_scaling``; returns ``(inv_freq, attention_factor)`` (the
+    factor multiplies the cos/sin tables: 1.0 except for yarn).  ``linear``
+    divides every frequency; ``llama3`` keeps high frequencies, divides low
+    ones and interpolates between; ``yarn`` blends interpolated and
+    extrapolated frequencies over a correction ramp and scales attention by
+    the mscale (HF ``_compute_yarn_parameters``)."""
     if cfg.rope_scaling is None:
-        return inv_freq
+        return inv_freq, 1.0
     rs = dict(cfg.rope_scaling)
     factor = rs["factor"]
     if rs["rope_type"] == "linear":
-        return inv_freq / factor
+        return inv_freq / factor, 1.0
+    if rs["rope_type"] == "yarn":
+        dim = 2 * len(inv_freq)
+        orig_max = rs.get("original_max_position_embeddings") or cfg.max_position_embeddings
+        attn_factor = rs.get("attention_factor")
+
+        def get_mscale(scale, m=1.0):
+            return 0.1 * m * math.log(scale) + 1.0 if scale > 1 else 1.0
+
+        if attn_factor is None:
+            ms, msd = rs.get("mscale"), rs.get("mscale_all_dim")
+            attn_factor = (get_mscale(factor, ms) / get_mscale(factor, msd)
+                           if ms and msd else get_mscale(factor))
+        beta_fast = rs.get("beta_fast") or 32.0
+        beta_slow = rs.get("beta_slow") or 1.0
+
+        def corr_dim(n_rot):
+            return dim * math.log(orig_max / (n_rot * 2 * math.pi)) / (2 * math.log(cfg.rope_theta))
+
+        low, high = corr_dim(beta_fast), corr_dim(beta_slow)
+        if rs.get("truncate", 1.0):  # HF default True
+            low, high = math.floor(low), math.ceil(high)
+        low, high = max(low, 0), min(high, dim - 1)
+        if low == high:
+            high += 0.001
+        ramp = np.clip((np.arange(dim // 2, dtype=np.float64) - low) / (high - low), 0.0, 1.0)
+        extrap_f = 1.0 - ramp
+        return (inv_freq / factor) * (1 - extrap_f) + inv_freq * extrap_f, float(attn_factor)
     orig_max = rs["original_max_position_embeddings"]
     low_f, high_f = rs["low_freq_factor"], rs["high_freq_factor"]
     low_wavelen = orig_max / low_f
@@ -223,13 +418,23 @@ def _scaled_inv_freq(cfg: LlamaConfig, inv_freq: np.ndarray) -> np.ndarray:
     smooth = (orig_max / wavelen - low_f) / (high_f - low_f)
     mid = (1.0 - smooth) * inv_freq / factor + smooth * inv_freq
     is_mid = (wavelen <= low_wavelen) & (wavelen >= high_wavelen)
-    return np.where(is_mid, mid, scaled)
+    return np.where(is_mid, mid, scaled), 1.0
+
+
+@functools.lru_cache(maxsize=None)
+def _rope(cfg: LlamaConfig) -> Tuple[np.ndarray, float]:
+    """``(inv_freq, attention_factor)`` over the rotated dims, scaled; built
+    once per config (read-only), so a decode or ragged step computes none."""
+    rd = cfg.rope_dim_
+    inv_freq = 1.0 / (cfg.rope_theta ** (np.arange(0, rd, 2, dtype=np.float64) / rd))
+    inv_freq, attn_f = _scaled_inv_freq(cfg, inv_freq)
+    inv_freq = np.array(inv_freq)
+    inv_freq.setflags(write=False)
+    return inv_freq, attn_f
 
 
 def _inv_freq(cfg: LlamaConfig) -> np.ndarray:
-    hd = cfg.head_dim_
-    inv_freq = 1.0 / (cfg.rope_theta ** (np.arange(0, hd, 2, dtype=np.float64) / hd))
-    return _scaled_inv_freq(cfg, inv_freq)
+    return _rope(cfg)[0]
 
 
 @functools.lru_cache(maxsize=None)
@@ -241,23 +446,38 @@ def device_inv_freq(cfg: LlamaConfig, device: torch.device) -> torch.Tensor:
 
 def rope_cos_sin(cfg: LlamaConfig, positions, device=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Rotary tables ``(N, head_dim)`` in fp32 (HF half-duplicated layout).
+    """Rotary tables ``(N, rope_dim)`` in fp32 (HF half-duplicated layout),
+    times yarn's attention factor where the config has one.
 
     Host positions (a sequence or numpy array) are computed in float64 and
     rounded once, as the JAX package does for concrete positions; a device
     tensor of positions (decode) takes the fp32 path on its device, with
     :func:`device_inv_freq`."""
+    inv_freq, attn_f = _rope(cfg)
     if isinstance(positions, torch.Tensor):
         inv = device_inv_freq(cfg, positions.device)
         freqs = positions.float()[:, None] * inv[None, :]
         emb = torch.cat([freqs, freqs], dim=-1)
-        return torch.cos(emb), torch.sin(emb)
-    inv_freq = _inv_freq(cfg)
+        if attn_f == 1.0:
+            return torch.cos(emb), torch.sin(emb)
+        return torch.cos(emb) * attn_f, torch.sin(emb) * attn_f
     pos = np.asarray(positions, dtype=np.float64)
     freqs = pos[:, None] * inv_freq[None, :]
     emb = np.concatenate([freqs, freqs], axis=-1)
-    return (torch.tensor(np.cos(emb), dtype=torch.float32, device=device),
-            torch.tensor(np.sin(emb), dtype=torch.float32, device=device))
+    return (torch.tensor(np.cos(emb) * attn_f, dtype=torch.float32, device=device),
+            torch.tensor(np.sin(emb) * attn_f, dtype=torch.float32, device=device))
+
+
+def rope_tables(cfg: LlamaConfig, positions, device=None
+                ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
+    """Every rotary table a forward needs: ``tables[cfg.layer_rope(li)]`` is
+    layer ``li``'s ``(cos, sin)``.  SmolLM3 adds the NoPE identity (cos 1,
+    sin 0), so a no-rope layer runs every rope-threaded path unchanged."""
+    tables = (rope_cos_sin(cfg, positions, device),)
+    if cfg.nope_layers:
+        c0, s0 = tables[0]
+        tables += ((torch.ones_like(c0), torch.zeros_like(s0)),)
+    return tables
 
 
 def _rotate_half(x: torch.Tensor) -> torch.Tensor:
@@ -266,7 +486,12 @@ def _rotate_half(x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x: (B, N, H, hd); cos/sin: (N, hd) shared or (B, N, hd) per row."""
+    """x: (B, N, H, hd); cos/sin: (N, rd) shared or (B, N, rd) per row.
+    ``rd < hd`` (GLM-4's partial rotary) rotates the first ``rd`` dims and
+    passes the rest through."""
+    rd = cos.shape[-1]
+    if rd != x.shape[-1]:
+        return torch.cat([apply_rope(x[..., :rd], cos, sin), x[..., rd:]], dim=-1)
     if cos.dim() == 2:
         c, s = cos[None, :, None, :], sin[None, :, None, :]
     else:
@@ -283,6 +508,7 @@ def soft_cap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal_offset: Optional[int] = 0,
               key_mask: Optional[torch.Tensor] = None,
+              window: Optional[int] = None,
               sm_scale: Optional[float] = None,
               logit_cap: Optional[float] = None,
               sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -290,10 +516,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fp32.  q (B, N, Hq, hd), k/v (B, S, Hkv, hd) → (B, N, Hq, hd).
 
     ``causal_offset``: query i attends keys ``<= i + offset`` (None: no
-    causal mask); ``key_mask`` (B, S) masks invalid cache slots;
-    ``logit_cap`` soft-caps the scores; ``sinks`` (Hq,) per-head sink
-    logits join each softmax and their mass is dropped (the denominator
-    gains ``exp(sink - max)``)."""
+    causal mask); ``window`` keeps only the last ``window`` of those
+    (``j > i + offset - window``, HF sliding-window semantics);
+    ``key_mask`` (B, S) masks invalid cache slots; ``logit_cap`` soft-caps
+    the scores; ``sinks`` (Hq,) per-head sink logits join each softmax and
+    their mass is dropped (the denominator gains ``exp(sink - max)``)."""
     b, n, hq, hd = q.shape
     s, hkv = k.shape[1], k.shape[2]
     groups = hq // hkv
@@ -308,6 +535,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         qi = torch.arange(n, device=q.device)[:, None]
         kj = torch.arange(s, device=q.device)[None, :]
         mask = kj <= qi + causal_offset
+        if window is not None:
+            mask &= kj > qi + causal_offset - window
         scores = scores.masked_fill(~mask[None, None, None], neg)
     if key_mask is not None:
         scores = scores.masked_fill(~key_mask[:, None, None, None, :], neg)
@@ -325,14 +554,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def block_core(cfg: LlamaConfig, lp: Params, x: torch.Tensor, cos, sin,
                lin: Callable, attn_fn: Callable):
-    """The Llama block skeleton shared by every forward path (dense,
-    packed, cache decode).  ``lin(name, h)`` applies a linear (plain,
-    packed, capturing); ``attn_fn(q, k, v) -> (attn, aux)`` attends.
-    Consumes the fused ``self_attn.qkv_proj`` / ``mlp.gate_up_proj`` names
-    when present (serving).  Returns ``(hidden, aux)``."""
+    """The block skeleton shared by every forward path (dense, packed,
+    cache decode), with the family switches of the JAX ``block_core``:
+    q/k norms (Qwen3 per head, OLMo-2 flat), GLM-4's sandwich norms,
+    OLMo-2's post-norm-only block, Granite's residual multiplier.
+    ``lin(name, h)`` applies a linear and its bias (plain, packed,
+    capturing); ``attn_fn(q, k, v) -> (attn, aux)`` attends.  Consumes the
+    fused ``self_attn.qkv_proj`` / ``mlp.gate_up_proj`` names when present
+    (serving).  Returns ``(hidden, aux)``."""
     b, n = x.shape[0], x.shape[1]
     hd, eps = cfg.head_dim_, cfg.rms_norm_eps
-    h = rms_norm(x, lp["input_layernorm"], eps)
+    h = x if cfg.postnorm_only else rms_norm(x, lp["input_layernorm"], eps)
     if "self_attn.qkv_proj" in lp:
         qkv = lin("self_attn.qkv_proj", h)
         groups = cfg.num_attention_heads // cfg.num_key_value_heads
@@ -342,17 +574,39 @@ def block_core(cfg: LlamaConfig, lp: Params, x: torch.Tensor, cos, sin,
         qf = lin("self_attn.q_proj", h)
         kf = lin("self_attn.k_proj", h)
         v = lin("self_attn.v_proj", h)
-    q = apply_rope(qf.reshape(b, n, -1, hd), cos, sin)
-    k = apply_rope(kf.reshape(b, n, -1, hd), cos, sin)
+    if cfg.qk_norm_flat:  # OLMo-2: over all heads' features, before the reshape
+        qf = rms_norm(qf, lp["self_attn.q_norm"], eps)
+        kf = rms_norm(kf, lp["self_attn.k_norm"], eps)
+    q = qf.reshape(b, n, -1, hd)
+    k = kf.reshape(b, n, -1, hd)
+    if cfg.qk_norm:  # Qwen3: head-dim norm before rope
+        q = rms_norm(q, lp["self_attn.q_norm"], eps)
+        k = rms_norm(k, lp["self_attn.k_norm"], eps)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
     attn, aux = attn_fn(q, k, v.reshape(b, n, -1, hd))
-    x = x + lin("self_attn.o_proj", attn.reshape(b, n, -1))
-    h = rms_norm(x, lp["post_attention_layernorm"], eps)
+    o = lin("self_attn.o_proj", attn.reshape(b, n, -1))
+    if cfg.sandwich_norms or cfg.postnorm_only:
+        o = rms_norm(o, lp["post_attention_layernorm"], eps)
+    if cfg.residual_multiplier is not None:  # Granite
+        o = o * in_dtype(cfg.residual_multiplier, o.dtype)
+    x = x + o
+    if cfg.postnorm_only:  # OLMo-2: the MLP reads the raw residual
+        h = x
+    else:
+        h = rms_norm(x, lp["pre_feedforward_layernorm" if cfg.sandwich_norms
+                         else "post_attention_layernorm"], eps)
     if "mlp.gate_up_proj" in lp:
         gate, up = torch.chunk(lin("mlp.gate_up_proj", h), 2, dim=-1)
     else:
         gate = lin("mlp.gate_proj", h)
         up = lin("mlp.up_proj", h)
-    return x + lin("mlp.down_proj", torch.nn.functional.silu(gate) * up), aux
+    mlp = lin("mlp.down_proj", torch.nn.functional.silu(gate) * up)
+    if cfg.sandwich_norms or cfg.postnorm_only:
+        mlp = rms_norm(mlp, lp["post_feedforward_layernorm"], eps)
+    if cfg.residual_multiplier is not None:  # Granite
+        mlp = mlp * in_dtype(cfg.residual_multiplier, mlp.dtype)
+    return x + mlp, aux
 
 
 class _Captured(Exception):
@@ -361,13 +615,14 @@ class _Captured(Exception):
 
 
 def block_apply(cfg: LlamaConfig, lp: Params, x: torch.Tensor, cos, sin,
-                capture: Sequence[str] = ()
+                capture: Sequence[str] = (), window: Optional[int] = None
                 ) -> Tuple[Optional[torch.Tensor], Dict[str, torch.Tensor]]:
     """One decoder block.  Returns ``(hidden, {name: linear_input})``.
 
     ``capture`` names linears whose inputs to return — the stage hook the
     quantization pipeline accumulates Hessians from.  With captures the
-    forward stops as soon as all are taken and ``hidden`` is None."""
+    forward stops as soon as all are taken and ``hidden`` is None.
+    ``window`` is this layer's sliding window (``cfg.layer_window(li)``)."""
     caps: Dict[str, torch.Tensor] = {}
 
     def lin(name: str, h: torch.Tensor) -> torch.Tensor:
@@ -375,10 +630,12 @@ def block_apply(cfg: LlamaConfig, lp: Params, x: torch.Tensor, cos, sin,
             caps[name] = h
             if len(caps) == len(capture):
                 raise _Captured
-        return h @ lp[name]
+        y = h @ lp[name]
+        bias = lp.get(name + ".bias")
+        return y if bias is None else y + bias
 
     def attn_fn(q, k, v):
-        return attention(q, k, v, sm_scale=cfg.sm_scale_), None
+        return attention(q, k, v, window=window, sm_scale=cfg.sm_scale_), None
 
     if not capture:
         return block_core(cfg, lp, x, cos, sin, lin, attn_fn)[0], caps
@@ -391,23 +648,28 @@ def block_apply(cfg: LlamaConfig, lp: Params, x: torch.Tensor, cos, sin,
 
 def embed_lookup(cfg: LlamaConfig, embed_w: torch.Tensor,
                  tokens: torch.Tensor) -> torch.Tensor:
-    del cfg  # Llama has no embedding normalizer
-    return embed_w[tokens]
+    """Token embedding, times Granite's multiplier (in the model dtype)."""
+    x = embed_w[tokens]
+    if cfg.embed_multiplier is not None:
+        x = x * in_dtype(cfg.embed_multiplier, x.dtype)
+    return x
 
 
 def forward_hidden(cfg: LlamaConfig, params: Params,
                    tokens: torch.Tensor) -> torch.Tensor:
     """Embedding + all decoder blocks + final norm.  tokens: (B, N)."""
-    cos, sin = rope_cos_sin(cfg, np.arange(tokens.shape[1]), tokens.device)
+    ropes = rope_tables(cfg, np.arange(tokens.shape[1]), tokens.device)
     x = embed_lookup(cfg, params["embed_tokens"], tokens)
-    for lp in params["layers"]:
-        x, _ = block_apply(cfg, lp, x, cos, sin)
+    for li, lp in enumerate(params["layers"]):
+        cos, sin = ropes[cfg.layer_rope(li)]
+        x, _ = block_apply(cfg, lp, x, cos, sin, window=cfg.layer_window(li))
     return rms_norm(x, params["norm"], cfg.rms_norm_eps)
 
 
 def lm_logits(cfg: LlamaConfig, params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    del cfg
-    return hidden @ params["lm_head"]
+    """The lm_head, divided by Granite's ``logits_scaling``."""
+    logits = hidden @ params["lm_head"]
+    return logits if cfg.logits_divider is None else logits / cfg.logits_divider
 
 
 def forward_logits(cfg: LlamaConfig, params: Params,

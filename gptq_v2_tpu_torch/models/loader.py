@@ -1,10 +1,24 @@
 """HF checkpoint loading (counterpart of ``gptq_v2_tpu/models/loader.py``):
-``.safetensors`` shards → the port's param dict, Llama only.
+``.safetensors`` shards → the port's param dict, for every family
+:class:`~gptq_v2_tpu_torch.models.llama.LlamaConfig` reads.
 
 Linear weights are transposed from HF ``(out, in)`` to the port's
-``(in, out)`` layout; embeddings and norms pass through.  Shards are read
-with the port's own reader (``safetensors_io``).  :func:`save_hf_model`
-writes the inverse, a one-shard HF directory.
+``(in, out)`` layout; embeddings, norms and biases pass through.  Shards
+are read with the port's own reader (``safetensors_io``).  The family
+remaps, in HF layout (the JAX loader's):
+
+* Phi-3 stores ``qkv_proj`` (rows ``[q | k | v]``) and ``gate_up_proj``
+  (rows ``[gate | up]``); GLM-4 stores ``gate_up_proj``.  They are row-split
+  into the per-projection names.
+* GLM-4 names its norms ``post_self_attn_layernorm`` (after attention),
+  ``post_attention_layernorm`` (before the MLP) and ``post_mlp_layernorm``.
+* GLM-4 pairs each head's rotary dims even/odd.  The rotary prefix of every
+  q/k head's out-features (weights and biases) is de-interleaved at load,
+  a permutation that leaves ``q·k`` unchanged, so the runtime keeps the
+  half-rotation.
+
+:func:`save_hf_model` writes the inverse, a one-shard HF directory that
+:func:`load_hf_model` reads back to the same params.
 """
 from __future__ import annotations
 
@@ -12,10 +26,18 @@ import json
 from pathlib import Path
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from gptq_v2_tpu_torch.models import safetensors_io as st
 from gptq_v2_tpu_torch.models.llama import LlamaConfig, Params, layer_param_shapes
+
+# GLM-4's HF names of the port's sandwich norms
+_GLM_NORMS = {"post_attention_layernorm": "post_self_attn_layernorm",
+              "pre_feedforward_layernorm": "post_attention_layernorm",
+              "post_feedforward_layernorm": "post_mlp_layernorm"}
+_QKV = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj")
+_GATE_UP = ("mlp.gate_proj", "mlp.up_proj")
 
 
 def _hf_key(name: str, layer_idx) -> str:
@@ -23,28 +45,82 @@ def _hf_key(name: str, layer_idx) -> str:
         return {"embed_tokens": "model.embed_tokens.weight",
                 "norm": "model.norm.weight",
                 "lm_head": "lm_head.weight"}[name]
+    if name.endswith(".bias"):
+        return f"model.layers.{layer_idx}.{name}"
     return f"model.layers.{layer_idx}.{name}.weight"
+
+
+def _fused(cfg: LlamaConfig) -> Dict[str, Tuple[str, ...]]:
+    """The family's fused HF tensors: fused name → its row parts in order."""
+    fused = {}
+    if cfg.fused_qkv_gate_up:
+        fused["self_attn.qkv_proj"] = _QKV
+    if cfg.fused_qkv_gate_up or cfg.fused_gate_up:
+        fused["mlp.gate_up_proj"] = _GATE_UP
+    return fused
+
+
+def _hf_name(cfg: LlamaConfig, name: str) -> str:
+    """The HF module name of one of the port's block params (norm renames)."""
+    if cfg.fused_gate_up and cfg.sandwich_norms and name in _GLM_NORMS:
+        return _GLM_NORMS[name]
+    return name
+
+
+def rope_row_perm(cfg: LlamaConfig, n_heads: int) -> np.ndarray:
+    """GLM-4: the row order of a q/k projection (HF out-features) that
+    de-interleaves each head's rotary prefix: even dims first, then odd,
+    then the pass-through tail."""
+    hd, rd = cfg.head_dim_, cfg.rope_dim_
+    dim = np.concatenate([np.arange(0, rd, 2), np.arange(1, rd, 2), np.arange(rd, hd)])
+    return (np.arange(n_heads)[:, None] * hd + dim[None, :]).reshape(-1)
+
+
+def _rope_rows(cfg: LlamaConfig, name: str):
+    """The de-interleave row order for a q/k weight or bias, else None."""
+    if not cfg.rope_interleaved:
+        return None
+    base = name[:-len(".bias")] if name.endswith(".bias") else name
+    if base == "self_attn.q_proj":
+        return rope_row_perm(cfg, cfg.num_attention_heads)
+    if base == "self_attn.k_proj":
+        return rope_row_perm(cfg, cfg.num_key_value_heads)
+    return None
 
 
 def params_from_flat(cfg: LlamaConfig, flat: Dict[str, torch.Tensor],
                      device="cuda") -> Params:
     """Params from HF-named tensors (HF layout)."""
     dt = cfg.torch_dtype
+    parts: Dict[str, Tuple[str, int, int]] = {}  # part name → (fused name, row lo, hi)
+    for fused, names in _fused(cfg).items():
+        shapes = layer_param_shapes(cfg)
+        lo = 0
+        for n in names:
+            parts[n] = (fused, lo, lo + shapes[n][1])
+            lo += shapes[n][1]
 
-    def linear(key):
-        return flat[key].T.contiguous().to(device=device, dtype=dt)
+    def get(name: str, li: int) -> torch.Tensor:
+        if name in parts:
+            fused, lo, hi = parts[name]
+            w = flat[_hf_key(fused, li)][lo:hi]
+        else:
+            w = flat[_hf_key(_hf_name(cfg, name), li)]
+        rows = _rope_rows(cfg, name)
+        return w if rows is None else w[torch.from_numpy(rows)]
 
-    def vector(key):
-        return flat[key].to(device=device, dtype=dt)
+    def place(w: torch.Tensor, linear: bool) -> torch.Tensor:
+        w = w.T.contiguous() if linear else w
+        return w.to(device=device, dtype=dt)
 
-    layers = []
-    for i in range(cfg.num_hidden_layers):
-        layers.append({name: (vector if len(shape) == 1 else linear)(_hf_key(name, i))
-                       for name, shape in layer_param_shapes(cfg).items()})
-    embed = vector(_hf_key("embed_tokens", None))
-    lm_head = embed.T if cfg.tie_word_embeddings else linear(_hf_key("lm_head", None))
+    shapes = layer_param_shapes(cfg)
+    layers = [{name: place(get(name, i), len(shape) == 2) for name, shape in shapes.items()}
+              for i in range(cfg.num_hidden_layers)]
+    embed = place(flat[_hf_key("embed_tokens", None)], False)
+    lm_head = (embed.T if cfg.tie_word_embeddings
+               else place(flat[_hf_key("lm_head", None)], True))
     return {"embed_tokens": embed, "layers": layers,
-            "norm": vector(_hf_key("norm", None)), "lm_head": lm_head}
+            "norm": place(flat[_hf_key("norm", None)], False), "lm_head": lm_head}
 
 
 def load_hf_model(model_dir, device="cuda") -> Tuple[LlamaConfig, Params]:
@@ -62,7 +138,9 @@ def load_hf_model(model_dir, device="cuda") -> Tuple[LlamaConfig, Params]:
 
 
 def save_hf_model(cfg: LlamaConfig, params: Params, model_dir) -> None:
-    """Write ``config.json`` + one ``model.safetensors`` in HF layout."""
+    """Write ``config.json`` + one ``model.safetensors`` in HF layout: the
+    family's fused tensors, norm names and interleaved rotary rows, the
+    inverse of :func:`params_from_flat`."""
     model_dir = Path(model_dir)
     model_dir.mkdir(parents=True, exist_ok=True)
     with open(model_dir / "config.json", "w") as f:
@@ -71,8 +149,18 @@ def save_hf_model(cfg: LlamaConfig, params: Params, model_dir) -> None:
             _hf_key("norm", None): params["norm"]}
     if not cfg.tie_word_embeddings:
         flat[_hf_key("lm_head", None)] = params["lm_head"].T
+    fused = _fused(cfg)
     for i, lp in enumerate(params["layers"]):
+        hf = {}
         for name, w in lp.items():
-            flat[_hf_key(name, i)] = w.T if w.dim() == 2 else w
+            w = w.T if w.dim() == 2 else w
+            rows = _rope_rows(cfg, name)
+            if rows is not None:  # re-interleave: the inverse row order
+                w = w[torch.from_numpy(np.argsort(rows))]
+            hf[name] = w
+        for fused_name, names in fused.items():
+            hf[fused_name] = torch.cat([hf.pop(n) for n in names], dim=0)
+        for name, w in hf.items():
+            flat[_hf_key(_hf_name(cfg, name), i)] = w.contiguous()
     st.save_file(flat, model_dir / "model.safetensors",
                  metadata={"format": "pt"})

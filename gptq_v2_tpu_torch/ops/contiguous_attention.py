@@ -48,7 +48,6 @@ _SIGNATURES = {
     "contiguous_attention_p4": _ARGS + _TAIL,
 }
 HEAD_DIMS = (64, 128)
-GROUPS = (1, 2, 4, 8)  # q heads per kv head the kernels take
 KEYS_PER_SPLIT = 64  # the kernels' split (csrc KPS); the C entries refuse another count
 
 
@@ -206,9 +205,8 @@ def _launch(entry: str, q, k_cache, v_cache, positions, layer, s, sm_scale,
     if hd not in HEAD_DIMS or k_cache.shape[4] != hd:
         raise ValueError(f"head dim {hd} (cache {k_cache.shape[4]}); the kernels "
                          f"take {HEAD_DIMS}")
-    if hq % n_kv or hq // n_kv not in GROUPS:
-        raise ValueError(f"{hq} q heads over {n_kv} kv heads; the kernels take "
-                         f"{GROUPS} q heads per kv head")
+    if hq % n_kv:
+        raise ValueError(f"{hq} q heads over {n_kv} kv heads: not a whole group a kv head")
     if positions.shape != (b,) or k_cache.shape[1] != b:
         raise ValueError(f"positions {tuple(positions.shape)} / cache slots "
                          f"{k_cache.shape[1]} for batch {b}")

@@ -39,8 +39,8 @@ from typing import Optional
 import torch
 
 from gptq_v2_tpu_torch.ops import _cuda
-from gptq_v2_tpu_torch.ops.contiguous_attention import (GROUPS, HEAD_DIMS, KEYS_PER_SPLIT,
-                                                        n_splits, unpack_nibbles)
+from gptq_v2_tpu_torch.ops.contiguous_attention import (HEAD_DIMS, KEYS_PER_SPLIT, n_splits,
+                                                        unpack_nibbles)
 
 # q, kv, kv_lens, tables, cu, num_seqs, sinks, out, scratch; n_rows, n_seqs,
 # pages_per_seq, page_size, n_units, groups, hd, mode, n_splits, rows_per_range
@@ -254,9 +254,8 @@ def _launch(q, kv_pages, kv_lens, block_tables, cu_q_lens, num_seqs, sliding_win
     n_kv = 2 * n_units if kv_int4 else n_units
     if hd not in HEAD_DIMS or kv_pages.shape[3] != hd:
         raise ValueError(f"head dim {hd} (pool {kv_pages.shape[3]}); K6 takes {HEAD_DIMS}")
-    if hq % n_kv or hq // n_kv not in GROUPS:
-        raise ValueError(f"{hq} q heads over {n_kv} kv heads; K6 takes {GROUPS} q heads "
-                         "per kv head")
+    if hq % n_kv:
+        raise ValueError(f"{hq} q heads over {n_kv} kv heads: not a whole group a kv head")
     s, mp = block_tables.shape
     if kv_lens.shape != (s,) or cu_q_lens.shape != (s + 1,) or num_seqs.shape != (1,):
         raise ValueError(f"kv_lens {tuple(kv_lens.shape)}, cu_q_lens "

@@ -62,18 +62,34 @@ _SIGNATURES_A8 = {"w4a8_matmul": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]}
 
 
-def w4a16_reference(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
-    """Plain version in the JAX kernel's algebra: ``W = q·s − zs`` in fp32
-    with ``zs = z·s`` rounded to the scales' dtype first (as
-    ``gptq_v2_tpu/ops/w4a16.py`` rounds it), then ``x @ W`` over stored
-    rows in fp32, cast back to the activation dtype."""
+def stored_weight(p: PackedLinear) -> torch.Tensor:
+    """The weight K3 multiplies by, ``(R, C_pad)`` fp32 over stored
+    columns, in the JAX kernel's algebra: ``W = q·s − zs`` with ``zs = z·s``
+    rounded to the scales' dtype first (as ``gptq_v2_tpu/ops/w4a16.py``
+    rounds it)."""
     g = p.group_size
     codes = unpack_codes(p.qweight, g, p.bits).float()  # (R, C_pad) stored order
     s = p.scales.float()
     zs = (p.zeros.float() * s).to(p.scales.dtype).float()
-    w = (codes * torch.repeat_interleave(s.T, g, dim=1)
-         - torch.repeat_interleave(zs.T, g, dim=1))
-    y = stored_rows(x, p).float() @ w.T
+    return (codes * torch.repeat_interleave(s.T, g, dim=1)
+            - torch.repeat_interleave(zs.T, g, dim=1))
+
+
+def kernel_weight(p: PackedLinear) -> torch.Tensor:
+    """:func:`stored_weight` as a dense ``(C, R)`` fp32 weight in original
+    column order: ``x @ kernel_weight(p)`` is :func:`w4a16_reference`'s
+    product (a plain forward in the kernel's algebra)."""
+    w = stored_weight(p)[:, :p.in_features]
+    if p.perm is not None:
+        w = torch.empty_like(w).index_copy_(1, p.perm, w)
+    return w.T
+
+
+def w4a16_reference(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
+    """Plain version in the JAX kernel's algebra (:func:`stored_weight`):
+    ``x @ W`` over stored rows in fp32, cast back to the activation
+    dtype."""
+    y = stored_rows(x, p).float() @ stored_weight(p).T
     return y.to(x.dtype).reshape(*x.shape[:-1], p.out_features)
 
 

@@ -11,6 +11,10 @@ Per decoder block, for each stage of :data:`graph.LLAMA_STAGES`:
    into the block, so later stages see quantized predecessors (the GPTQ-v2
    error propagation, reference ``llama.py:171-179``).
 
+Each block's forwards take its own sliding window and rope table
+(``cfg.layer_window``, ``cfg.layer_rope``).  Biases, norms and the other
+1-D params pass through unquantized.
+
 Then the next block's inputs are computed with the fully quantized block,
 and the block's linears in ``params`` become the weights reconstructed
 from their ``quant_meta`` (the JAX package's default ``reconstruct``
@@ -185,7 +189,7 @@ def quantize_model(
     if save_path:
         save_path.mkdir(parents=True, exist_ok=True)
     tag = _config_tag(qcfg)
-    cos, sin = L.rope_cos_sin(cfg, np.arange(seqlen), device)
+    ropes = L.rope_tables(cfg, np.arange(seqlen), device)
     tokens = torch.as_tensor(np.asarray(encodings), dtype=torch.long)
     embed_w = params["embed_tokens"].to(device)
     xs = [L.embed_lookup(cfg, embed_w, tokens[b:b + batch_size].to(device))
@@ -210,6 +214,8 @@ def quantize_model(
         for li in range(cfg.num_hidden_layers):
             t0 = time.time()
             home = params["layers"][li]
+            cos, sin = ropes[cfg.layer_rope(li)]
+            win = cfg.layer_window(li)
             lp = {k: v.to(device) for k, v in home.items()}
             pending = []
             for stage in stages:
@@ -228,7 +234,7 @@ def quantize_model(
                     state = hs.init_state(lp[first].shape[0], device)
                     for xb in xs:
                         _, caps = L.block_apply(cfg, lp, xb, cos, sin,
-                                                capture=(first,))
+                                                capture=(first,), window=win)
                         state = hs.accumulate(state, caps[first])
                     del caps
                     inv = hs.invert(state, damp_ratio=qcfg.damp_ratio,
@@ -252,7 +258,7 @@ def quantize_model(
                 del inv
             # inputs of the next block, through the fully quantized block
             # (reference llama.py:184-191)
-            xs = [L.block_apply(cfg, lp, xb, cos, sin)[0] for xb in xs]
+            xs = [L.block_apply(cfg, lp, xb, cos, sin, window=win)[0] for xb in xs]
             _finish_block(results, pending, save_path, tag)
             params["layers"][li] = {
                 k: (_dequantized(results["data"][f"model.layers.{li}.{k}"], dt, device)

@@ -13,7 +13,9 @@ step as prompt chunks and decode rows in one call.  Scalar int8 scales go
 to K6 as arguments; per-head (int4) scales are folded around it
 (:func:`fold_paged_kv_scales`).  On CPU tensors the kernels' plain versions
 run.  Prefill attends over its own fresh K/V and writes them quantized.
-Caches are updated in place.
+Caches are updated in place.  Each layer takes its own rope table and
+sliding window (``cfg.layer_rope``, ``cfg.layer_window``), passed to K4,
+K6 and K7 as their window.
 
 Sampling is per row: temperature, then top-k, top-p and min-p; with
 ``return_logprobs`` each token comes packed with its raw-distribution
@@ -34,7 +36,7 @@ from gptq_v2_tpu_torch.ops import paged_attention as pa
 from gptq_v2_tpu_torch.serving import kv_cache as kvc
 from gptq_v2_tpu_torch.serving.model import (
     PackedLlama,
-    _linear,
+    _lin,
     head_logits,
     packed_block_apply,
 )
@@ -87,13 +89,14 @@ def prefill(model: PackedLlama, tokens: torch.Tensor,  # (B, Lpad) padded prompt
     real token rewrites before it is ever read."""
     cfg = model.cfg
     b, lpad = tokens.shape
-    cos, sin = L.rope_cos_sin(cfg, np.arange(lpad), tokens.device)
+    ropes = L.rope_tables(cfg, np.arange(lpad), tokens.device)
     x = L.embed_lookup(cfg, model.embed_tokens, tokens)
     pos_b = torch.arange(lpad, device=tokens.device)[None].expand(b, lpad)
     pad_mask = pos_b >= lengths[:, None]
     paged = isinstance(cache, kvc.PagedKVCache)
     for li, lp in enumerate(model.layers):
-        x, (k, v) = packed_block_apply(cfg, lp, x, cos, sin)
+        cos, sin = ropes[cfg.layer_rope(li)]
+        x, (k, v) = packed_block_apply(cfg, lp, x, cos, sin, window=cfg.layer_window(li))
         if paged:
             kvc.write_kv(cache, li, k, v, block_tables, pos_b, pad_mask=pad_mask)
         else:
@@ -115,8 +118,7 @@ def decode_step(model: PackedLlama, tokens: torch.Tensor,  # (B,) last token per
     the first ``s_bucket`` positions (on the paged cache, to the first
     ``ceil(s_bucket / page_size)`` table entries)."""
     cfg = model.cfg
-    cos, sin = L.rope_cos_sin(cfg, positions)  # on-device fp32 path
-    cos, sin = cos[:, None, :], sin[:, None, :]  # (B, 1, hd)
+    ropes = _row_ropes(cfg, positions)
     x = L.embed_lookup(cfg, model.embed_tokens, tokens)[:, None, :]
     if isinstance(cache, kvc.PagedKVCache):
         s = block_tables.shape[1] * cache.page_size
@@ -125,12 +127,21 @@ def decode_step(model: PackedLlama, tokens: torch.Tensor,  # (B,) last token per
     if s_bucket is not None:
         s = min(s, s_bucket)
     for li, lp in enumerate(model.layers):
+        cos, sin = ropes[cfg.layer_rope(li)]
         x = _decode_block(cfg, lp, x, cos, sin, cache, li, positions, s, block_tables)
     x = L.rms_norm(x, model.norm, cfg.rms_norm_eps)
     return head_logits(cfg, model.lm_head, x[:, 0]), cache
 
 
+def _row_ropes(cfg, positions: torch.Tensor):
+    """Every rope table at one position a row, ``(R, 1, rope_dim)`` each,
+    on the device (the fp32 path)."""
+    return [(c[:, None, :], s_[:, None, :]) for c, s_ in L.rope_tables(cfg, positions)]
+
+
 def _decode_block(cfg, lp, x, cos, sin, cache, li, positions, s, block_tables):
+    window = cfg.layer_window(li)
+
     def attn_contiguous(q, k, v):
         # write this token's K/V first, then attend over the slot's region
         # in place (the new token's position is valid by the mask)
@@ -141,7 +152,7 @@ def _decode_block(cfg, lp, x, cos, sin, cache, li, positions, s, block_tables):
         attend = (ca.contiguous_decode_attention_p4 if cache.kv_bits == 4
                   else ca.contiguous_decode_attention)
         attn = attend(qq, cache.k, cache.v, positions, li, s_bucket=s,
-                      sm_scale=cfg.sm_scale_)
+                      sm_scale=cfg.sm_scale_, window=window)
         if cache.v_scales is not None:
             attn = attn * cache.q_head_scales("v", li, attn.shape[-2], attn.dtype)
         return attn[:, None], None
@@ -150,13 +161,13 @@ def _decode_block(cfg, lp, x, cos, sin, cache, li, positions, s, block_tables):
         kvc.write_kv(cache, li, k, v, block_tables, positions[:, None])
         bt = block_tables[:, :-(-s // cache.page_size)]
         attn = _attend_paged(cache, li, q[:, 0], lambda qq, ks, vs: pa.paged_decode_attention(
-            qq, cache.kv[li], positions + 1, bt, k_scale=ks, v_scale=vs,
-            sm_scale=cfg.sm_scale_, kv_int4=cache.kv_bits == 4))
+            qq, cache.kv[li], positions + 1, bt, sliding_window=window, k_scale=ks,
+            v_scale=vs, sm_scale=cfg.sm_scale_, kv_int4=cache.kv_bits == 4))
         return attn[:, None], None
 
     attn_fn = attn_paged if isinstance(cache, kvc.PagedKVCache) else attn_contiguous
     return L.block_core(cfg, lp, x, cos, sin,
-                        lambda name, h: _linear(lp[name], h), attn_fn)[0]
+                        lambda name, h: _lin(lp, name, h), attn_fn)[0]
 
 
 def ragged_step(model: PackedLlama,
@@ -240,20 +251,21 @@ def _ragged_forward(model, tokens, cache, positions, tok_pages, tok_offs, block_
     """The ragged forward: per layer, write each token's K/V and attend
     through K6; returns the final-norm hidden states ``(T, D)``."""
     cfg = model.cfg
-    cos, sin = L.rope_cos_sin(cfg, positions)  # on-device fp32 path
-    cos, sin = cos[:, None, :], sin[:, None, :]  # (T, 1, hd)
+    ropes = _row_ropes(cfg, positions)
     x = L.embed_lookup(cfg, model.embed_tokens, tokens)[:, None, :]  # (T, 1, D)
     for li, lp in enumerate(model.layers):
 
         def attn_fn(q, k, v, li=li):
             kvc.write_kv_flat(cache, li, k[:, 0], v[:, 0], tok_pages, tok_offs)
             attn = _attend_paged(cache, li, q[:, 0], lambda qq, ks, vs: pa.paged_ragged_attention(
-                qq, cache.kv[li], kv_lens, block_tables, cu_q_lens, num_seqs, k_scale=ks,
-                v_scale=vs, sm_scale=cfg.sm_scale_, kv_int4=cache.kv_bits == 4))
+                qq, cache.kv[li], kv_lens, block_tables, cu_q_lens, num_seqs,
+                sliding_window=cfg.layer_window(li), k_scale=ks, v_scale=vs,
+                sm_scale=cfg.sm_scale_, kv_int4=cache.kv_bits == 4))
             return attn[:, None], None
 
+        cos, sin = ropes[cfg.layer_rope(li)]
         x = L.block_core(cfg, lp, x, cos, sin,
-                         lambda name, h, lp=lp: _linear(lp[name], h), attn_fn)[0]
+                         lambda name, h, lp=lp: _lin(lp, name, h), attn_fn)[0]
     return L.rms_norm(x[:, 0], model.norm, cfg.rms_norm_eps)
 
 

@@ -4,8 +4,8 @@
 Linear weights live as :class:`~gptq_v2_tpu_torch.ops.packing.PackedLinear`
 and every block projection runs through K3 (``ops/w4a16.py``), or K8 in
 the W4A8 tier (:func:`to_w4a8`); norms,
-rope, attention, embeddings and the lm_head stay dense in the compute
-dtype.
+rope, attention, embeddings, biases and the lm_head stay dense in the
+compute dtype.
 """
 from __future__ import annotations
 
@@ -80,7 +80,9 @@ FUSED_STAGES = (
 )
 
 
-def _fusable(lp, names) -> Optional[List[PackedLinear]]:
+def _fusable(lp, names):
+    """``(linears, biases)`` of stage-mates that fuse into one packed linear,
+    else None: one group layout, one act-order perm, all or no biases."""
     ws = [lp.get(n) for n in names]
     if not all(isinstance(w, PackedLinear) for w in ws):
         return None
@@ -93,21 +95,29 @@ def _fusable(lp, names) -> Optional[List[PackedLinear]]:
         return None
     if w0.perm is not None and any(not torch.equal(w.perm, w0.perm) for w in ws[1:]):
         return None
-    return ws
+    biases = [lp.get(n + ".bias") for n in names]
+    if any((b is None) != (biases[0] is None) for b in biases):
+        return None
+    return ws, biases
 
 
 def fuse_layer_dict(lp: Dict[str, Any]) -> Dict[str, Any]:
     """Fuse q/k/v → ``self_attn.qkv_proj`` and gate/up → ``mlp.gate_up_proj``
-    when the stage-mates share one act-order perm and group layout: one
-    activation gather and one kernel launch per stage instead of three/two;
-    outputs are unchanged (packed output columns are independent)."""
+    (their biases concatenated in the same order) when the stage-mates
+    share one act-order perm and group layout: one activation gather and
+    one kernel launch per stage instead of three/two; outputs are unchanged
+    (packed output columns are independent)."""
     lp = dict(lp)
     for fused_name, names in FUSED_STAGES:
-        ws = _fusable(lp, names)
-        if ws is None:
+        got = _fusable(lp, names)
+        if got is None:
             continue
+        ws, biases = got
         for n in names:
             lp.pop(n)
+            lp.pop(n + ".bias", None)
+        if biases[0] is not None:
+            lp[fused_name + ".bias"] = torch.cat(biases, dim=0)
         lp[fused_name] = PackedLinear(
             qweight=torch.cat([w.qweight for w in ws], dim=1),
             scales=torch.cat([w.scales for w in ws], dim=1),
@@ -146,13 +156,18 @@ def fold_down_perm_layer(lp: Dict[str, Any]) -> Dict[str, Any]:
     if gu is not None:
         if _out_features(gu) != 2 * ins:
             return lp
-        lp["mlp.gate_up_proj"] = _permute_out(gu, torch.cat([perm, perm + ins]))
+        cols = torch.cat([perm, perm + ins])
+        lp["mlp.gate_up_proj"] = _permute_out(gu, cols)
+        if "mlp.gate_up_proj.bias" in lp:
+            lp["mlp.gate_up_proj.bias"] = lp["mlp.gate_up_proj.bias"][cols]
     elif "mlp.gate_proj" in lp and "mlp.up_proj" in lp:
         names = ("mlp.gate_proj", "mlp.up_proj")
         if any(_out_features(lp[n]) != ins for n in names):
             return lp
         for n in names:
             lp[n] = _permute_out(lp[n], perm)
+            if n + ".bias" in lp:
+                lp[n + ".bias"] = lp[n + ".bias"][perm]
     else:
         return lp
     lp["mlp.down_proj"] = dataclasses.replace(down, perm=None)
@@ -178,42 +193,108 @@ def to_w4a8(model: PackedLlama) -> PackedLlama:
     return dataclasses.replace(model, layers=tuple(conv(lp) for lp in model.layers))
 
 
-def _linear(w, x: torch.Tensor) -> torch.Tensor:
-    return w4a16_matmul(x, w) if isinstance(w, PackedLinear) else x @ w
+def _linear(w, x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    y = w4a16_matmul(x, w) if isinstance(w, PackedLinear) else x @ w
+    return y if bias is None else y + bias
+
+
+def _lin(lp: Dict[str, Any], name: str, x: torch.Tensor) -> torch.Tensor:
+    """Layer ``lp``'s linear ``name`` and its bias, if it has one."""
+    return _linear(lp[name], x, lp.get(name + ".bias"))
 
 
 def head_logits(cfg: L.LlamaConfig, lm_head, hidden: torch.Tensor) -> torch.Tensor:
-    del cfg  # Llama has no logit softcap or divider
-    return _linear(lm_head, hidden)
+    """The lm_head, divided by Granite's ``logits_scaling``."""
+    logits = _linear(lm_head, hidden)
+    return logits if cfg.logits_divider is None else logits / cfg.logits_divider
 
 
 def packed_block_apply(cfg: L.LlamaConfig, lp: Dict[str, Any], x: torch.Tensor,
-                       cos, sin):
-    """One decoder block on packed weights over a whole (causal) sequence.
-    Returns ``(hidden, (k, v))``, the new rope'd K/V for the cache."""
+                       cos, sin, window: Optional[int] = None):
+    """One decoder block on packed weights over a whole (causal) sequence,
+    with this layer's sliding ``window``.  Returns ``(hidden, (k, v))``,
+    the new rope'd K/V for the cache."""
 
     def attn_fn(q, k, v):
-        return L.attention(q, k, v, sm_scale=cfg.sm_scale_), (k, v)
+        return L.attention(q, k, v, window=window, sm_scale=cfg.sm_scale_), (k, v)
 
     return L.block_core(cfg, lp, x, cos, sin,
-                        lambda name, h: _linear(lp[name], h), attn_fn)
+                        lambda name, h: _lin(lp, name, h), attn_fn)
 
 
 def packed_forward_logits(model: PackedLlama, tokens: torch.Tensor) -> torch.Tensor:
     """Full-sequence forward (tests). tokens: (B, N)."""
     cfg = model.cfg
-    cos, sin = L.rope_cos_sin(cfg, np.arange(tokens.shape[1]), tokens.device)
+    ropes = L.rope_tables(cfg, np.arange(tokens.shape[1]), tokens.device)
     x = L.embed_lookup(cfg, model.embed_tokens, tokens)
-    for lp in model.layers:
-        x, _ = packed_block_apply(cfg, lp, x, cos, sin)
+    for li, lp in enumerate(model.layers):
+        cos, sin = ropes[cfg.layer_rope(li)]
+        x, _ = packed_block_apply(cfg, lp, x, cos, sin, window=cfg.layer_window(li))
     x = L.rms_norm(x, model.norm, cfg.rms_norm_eps)
     return head_logits(cfg, model.lm_head, x)
 
 
-def _block_kv_amax(cfg: L.LlamaConfig, lp: Dict[str, Any], x: torch.Tensor, cos, sin):
+# stage-mates quantize from one stage Hessian, so they share one act-order perm
+STAGE_MATES = (("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
+               ("mlp.gate_proj", "mlp.up_proj"))
+
+
+def random_packed_llama(cfg: L.LlamaConfig, group_size: int = 128, seed: int = 0,
+                        device="cuda") -> PackedLlama:
+    """A synthetic packed model with the real shapes and layouts (JAX
+    ``random_packed_llama``), for full-depth serving without quantizing:
+    random int32 words, small positive bf16 scales (zero on the padding
+    groups), random zero-points, and one random act-order perm per stage
+    shared by its linears, as GPTQ gives them.  Everything is drawn on
+    ``device`` from one ``torch.Generator`` seeded with ``seed`` (a 7B model
+    is ~4 GB of packed words: no host round trip)."""
+    g = group_size
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def packed(c, r, perm):
+        c_pad = -(-c // (8 * g)) * (8 * g)
+        n_g = c_pad // g
+        qweight = torch.randint(-2 ** 31, 2 ** 31, (c_pad // 8, r), generator=gen,
+                                device=device, dtype=torch.int32)
+        scales = (torch.rand((n_g, r), generator=gen, device=device) + 0.5) * (0.2 / np.sqrt(c))
+        scales[c // g:] = 0.0  # padding groups contribute nothing
+        zeros = torch.randint(0, 16, (n_g, r), generator=gen, device=device).float()
+        return PackedLinear(qweight=qweight, scales=scales.to(torch.bfloat16),
+                            zeros=zeros.to(torch.bfloat16), perm=perm, group_size=g,
+                            in_features=c)
+
+    def dense(*shape):
+        return (torch.randn(shape, generator=gen, device=device)
+                / np.sqrt(shape[0])).to(torch.bfloat16)
+
+    shapes = L.layer_param_shapes(cfg)
+    layers = []
+    for _ in range(cfg.num_hidden_layers):
+        perms = {}
+        for mates in STAGE_MATES:
+            p = torch.randperm(shapes[mates[0]][0], generator=gen, device=device)
+            perms.update({m: p for m in mates})
+        lp = {}
+        for name, shape in shapes.items():
+            if len(shape) == 1:
+                lp[name] = torch.ones(shape, dtype=torch.bfloat16, device=device)
+            else:  # o/down: a perm of their own
+                perm = perms.get(name)
+                if perm is None:
+                    perm = torch.randperm(shape[0], generator=gen, device=device)
+                lp[name] = packed(*shape, perm)
+        layers.append(lp)
+    return PackedLlama(cfg=cfg, embed_tokens=dense(cfg.vocab_size, cfg.hidden_size),
+                       layers=tuple(layers),
+                       norm=torch.ones((cfg.hidden_size,), dtype=torch.bfloat16, device=device),
+                       lm_head=dense(cfg.hidden_size, cfg.vocab_size))
+
+
+def _block_kv_amax(cfg: L.LlamaConfig, lp: Dict[str, Any], x: torch.Tensor, cos, sin,
+                   window: Optional[int] = None):
     """One packed block; returns ``(hidden, k_amax, v_amax)`` with the
     per-kv-head ``(n_kv,)`` amax of its rope'd K and V."""
-    x, (k, v) = packed_block_apply(cfg, lp, x, cos, sin)
+    x, (k, v) = packed_block_apply(cfg, lp, x, cos, sin, window=window)
     return (x, torch.amax(torch.abs(k), dim=(0, 1, 3)),
             torch.amax(torch.abs(v), dim=(0, 1, 3)))
 
@@ -235,11 +316,12 @@ def calibrate_kv_scales(model: PackedLlama, tokens: Optional[torch.Tensor] = Non
                                (2, min(128, cfg.max_position_embeddings)),
                                generator=gen)
     tokens = torch.as_tensor(tokens, dtype=torch.long).to(dev)
-    cos, sin = L.rope_cos_sin(cfg, np.arange(tokens.shape[1]), dev)
+    ropes = L.rope_tables(cfg, np.arange(tokens.shape[1]), dev)
     x = L.embed_lookup(cfg, model.embed_tokens, tokens)
     k_scales, v_scales = [], []
-    for lp in model.layers:
-        x, ka, va = _block_kv_amax(cfg, lp, x, cos, sin)
+    for li, lp in enumerate(model.layers):
+        cos, sin = ropes[cfg.layer_rope(li)]
+        x, ka, va = _block_kv_amax(cfg, lp, x, cos, sin, cfg.layer_window(li))
         ka, va = ka.float().cpu().tolist(), va.float().cpu().tolist()
         if bits == 4:
             k_scales.append(tuple(max(a * margin / qmax, 1e-6) for a in ka))

@@ -7,7 +7,7 @@
         --order parent,change,change,parent --out outputs/serve_ab.json
 
 (``python3 chip_smoke.py --keep-checkpoint outputs/ckpt`` leaves such a
-checkpoint: Llama-2-7B widths, 4 blocks, random weights.)  Each turn of
+checkpoint: Llama-2-7B widths, 2 blocks, random weights.)  Each turn of
 ``--order`` is one process that imports the port from that turn's tree and
 runs every engine of ``ENGINES`` over the same requests (8 prompts of
 64-256 tokens, 32 new tokens each, greedy; the prefix engine takes 8

@@ -1273,3 +1273,138 @@ def test_sample_per_row_matches_multinomial(dev):
         want = torch.multinomial(torch.softmax(logits / 0.7, dim=-1), 1, generator=g2)[:, 0]
         assert torch.equal(got, want)
     assert torch.equal(g1.get_state(), g2.get_state())
+
+
+# --- K4, K7 and K6 at every group count ---------------------------------------
+
+# (kv heads, q heads a kv head): Qwen2.5-7B's 7 (28 over 4), GLM-4's 16 (32
+# over 2, two blocks of 8 a kv head), and 3, 5, 6 (one block each)
+GROUP_CASES = [(4, 3), (2, 5), (4, 6), (4, 7), (2, 16)]
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("n_kv,groups", GROUP_CASES)
+def test_decode_attention_kernels_at_new_groups(dev, kind, n_kv, groups):
+    """K4 (bf16, int8) and K7 (int4 pairs) at the new group counts, against
+    their plain versions and the split twin over many splits, with a
+    window, sinks and the first and last positions: 1e-2 of the largest
+    output, as ``test_decode_attention_kernels``."""
+    b, s, hd = 4, 700, 128
+    k, v, ks = _cache(kind, 1, b, s, n_kv, hd, seed=groups, dev=dev)
+    rng = np.random.default_rng(groups + 1)
+    hq = n_kv * groups
+    q = (torch.from_numpy(rng.standard_normal((b, hq, hd)).astype(np.float32)) * ks
+         ).to(dev, torch.bfloat16)
+    pos = torch.tensor([0, 699, 333, 64], device=dev)
+    sinks = torch.from_numpy(rng.standard_normal(hq).astype(np.float32)).to(dev)
+    fn, plain, bits = _attn_fns(kind)
+    for kw in (dict(), dict(window=300, sinks=sinks)):
+        kw.update(s_bucket=s, sm_scale=hd ** -0.5)
+        n = fn.launches
+        out = fn(q, k, v, pos, 0, **kw).float()
+        torch.cuda.synchronize()
+        assert fn.launches == n + 1
+        ref = plain(q, k, v, pos, 0, **kw).float()
+        twin = ca.contiguous_decode_attention_split_ref(q, k, v, pos, 0, **kw,
+                                                        kv_bits=bits).float()
+        tol = 1e-2 * float(ref.abs().max())
+        torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+        torch.testing.assert_close(out, twin, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("n_kv,groups", GROUP_CASES)
+def test_paged_attention_kernel_at_new_groups(dev, kind, n_kv, groups):
+    """K6 at the new group counts on a ragged mix (decode rows, a prefill
+    chunk, pad rows) with a window and sinks, against its plain version and
+    the split twin: 1e-2 of the largest output; pad rows zero."""
+    seqs = ((1, 300), (40, 100), (1, 9))
+    args, kw = _ragged_call(kind, seqs, 24, groups, seed=groups, dev=dev, n_pad=5,
+                            n_kv=n_kv)
+    kw = _sinks(dict(kw, sliding_window=50, sinks=True), args[0].shape[1], groups, dev)
+    n = pa.paged_ragged_attention.launches
+    out = pa.paged_ragged_attention(*args, **kw).float()
+    torch.cuda.synchronize()
+    assert pa.paged_ragged_attention.launches == n + 1
+    ref = pa.paged_ragged_attention_reference(*args, **kw).float()
+    twin = pa.paged_ragged_attention_split_ref(*args, **kw).float()
+    tol = 1e-2 * float(ref.abs().max())
+    torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+    torch.testing.assert_close(out, twin, rtol=0, atol=tol)
+    assert not out[int(args[4][-1]):].any()
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_attention_graph_replay_at_groups_7(dev, kind):
+    """K4/K7 and K6 at 7 q heads a kv head: two launches bit-equal, and a
+    launch captured in a CUDA graph replays to the eager output."""
+    k, v, ks = _cache(kind, 1, 3, 600, 4, 128, seed=7, dev=dev)
+    q = (torch.randn((3, 28, 128), device=dev, generator=torch.Generator(dev).manual_seed(7))
+         * ks).to(torch.bfloat16)
+    pos = torch.tensor([5, 599, 300], device=dev)
+    fn, _, _ = _attn_fns(kind)
+    args, pargs = (q, k, v, pos, 0), _ragged_call(kind, ((1, 300), (40, 100)), 24, 7,
+                                                  seed=8, dev=dev, n_pad=2)
+    calls = [lambda: fn(*args, s_bucket=600, window=200),
+             lambda: pa.paged_ragged_attention(*pargs[0], **pargs[1], sliding_window=50)]
+    for call in calls:
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = call()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+
+
+def _group_outputs(groups_list=(1, 2, 4, 8)):
+    """Fixed seeded K4/K7/K6 inputs and outputs at ``groups_list`` (CPU
+    tensors), for the bit-equality check against another tree's kernels."""
+    dev = torch.device("cuda")
+    outs = {}
+    for kind in ("bf16", "int8", "int4"):
+        fn, _, _ = _attn_fns(kind)
+        for groups in groups_list:
+            k, v, ks = _cache(kind, 1, 4, 700, 4, 128, seed=groups, dev=dev)
+            gen = torch.Generator(dev).manual_seed(groups)
+            q = (torch.randn((4, 4 * groups, 128), device=dev, generator=gen) * ks).to(
+                torch.bfloat16)
+            pos = torch.tensor([0, 699, 333, 64], device=dev)
+            outs[f"k4 {kind} {groups}"] = fn(q, k, v, pos, 0, s_bucket=700, window=300)
+            for hd in (64, 128):
+                args, kw = _ragged_call(kind, ((1, 300), (40, 100), (1, 9)), 24, groups,
+                                        seed=groups, dev=dev, n_pad=5, hd=hd)
+                outs[f"k6 {kind} {groups} {hd}"] = pa.paged_ragged_attention(
+                    *args, **kw, sliding_window=50)
+    torch.cuda.synchronize()
+    return {name: t.cpu() for name, t in outs.items()}
+
+
+def test_attention_bit_equal_to_parent_tree(dev, tmp_path):
+    """At 1, 2, 4 and 8 q heads a kv head, K4/K7 and K6 give the bits of
+    another checkout's kernels (the tree before every group count ran),
+    given as ``ATTN_PARENT_TREE``: the same seeded inputs go through that
+    tree's port in a subprocess.  Skips when no tree is given."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    tree = os.environ.get("ATTN_PARENT_TREE")
+    if not tree:
+        pytest.skip("no ATTN_PARENT_TREE to compare with")
+    out = tmp_path / "parent.pt"
+    here = Path(__file__).resolve()
+    code = (f"import sys, torch; sys.path.insert(0, {str(Path(tree).resolve())!r}); "
+            f"sys.path.insert(1, {str(here.parent)!r}); "
+            "import test_torch_cuda as T; "
+            f"torch.save(T._group_outputs(), {str(out)!r})")
+    env = dict(os.environ, PYTHONPATH="")
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, cwd=tree)
+    parent = torch.load(out)
+    mine = _group_outputs()
+    assert sorted(parent) == sorted(mine)
+    for name, t in mine.items():
+        assert torch.equal(t, parent[name]), name
