@@ -10,7 +10,7 @@ over it (``--profile-dir`` gives their device time and device ops).
    ``nvcc`` per source, all started together).
 2. Drives six paths at Llama-2-7B width (hidden 4096, intermediate
    11008, 32 heads, vocab 32000, bf16) with random weights from a seed and
-   the depth cut to ``DEPTH`` blocks, and four family paths at published
+   the depth cut to ``DEPTH`` blocks, and five family paths at published
    widths (``gptq_v2_tpu_torch/models/families.py``), each with every
    launch count set to 0 just before it and read just after:
 
@@ -61,14 +61,24 @@ over it (``--profile-dir`` gives their device time and device ops).
      ``--save-dir`` and its resumed run (no solver launch, equal ppl and
      codes); ``serve`` with contiguous bf16 KV and paged ragged int8 KV
      (K1, K2, K5, K3, K4, K6, K9);
+   * gemma-2: Gemma-2-9B (head dim 256, 16 q heads over 8, soft caps 50
+     and 30, unit-offset sandwich norms, GeGLU, tied head, vocab 256000),
+     bf16, depth cut to ``GEMMA_DEPTH`` (2 sliding, 2 global blocks): the
+     same CLI path as qwen2.5, then ``serve`` and engines over contiguous
+     and paged ragged caches in bf16, int8 and int4, and the W4A8 tier
+     (K1, K2, K5, K3, K8, K4, K7, K6, K9);
    * families: Qwen3-8B, Mistral-7B, GLM-4-9B (also over int4 KV: K7 at
      16 q heads a kv head), OLMo-2-7B, Granite-3.1-8B, SmolLM3-3B (4 blocks:
-     its NoPE layer 3) and Phi-3-medium, one block each: ``init_params`` →
+     its NoPE layer 3), Phi-3-medium, Gemma-3-12B (6 blocks: 5 on the local
+     rope table, 1 global; also over int4 KV at head dim 256) and
+     Phi-3-mini (head dim 96), one block each otherwise: ``init_params`` →
      ``quantize_model`` → ``Engine``;
    * window: Mistral-7B widths with the window cut to 512 under 1536-token
-     prompts, contiguous (K4) and paged ragged (K6), every new token judged;
-   * full depth: Qwen2.5-7B's 28 blocks from ``random_packed_llama``, paged
-     ragged bf16.
+     prompts, and Gemma-2-9B widths with it cut to 32 under 96-token
+     prompts (its sliding layer masks, its global one does not), contiguous
+     (K4) and paged ragged (K6), every new token judged;
+   * full depth: Qwen2.5-7B's 28 blocks and Gemma-2-9B's 42 from
+     ``random_packed_llama``, paged ragged bf16.
 
    The family paths' engines must repeat their greedy output and pass the
    near-tie rule against a plain bf16 forward over weights in K3's own
@@ -84,7 +94,10 @@ over it (``--profile-dir`` gives their device time and device ops).
    after an L2 flush (``Timer.__call__``).  K4, K6 and K7 are also timed
    past the paths' shapes: at S = 4096 and at Llama-3-8B's GQA head layout
    (8 kv heads under 32 q heads); and at Qwen2.5-7B's 7 and GLM-4-9B's 16
-   q heads a kv head.  K1, K3 and K8 also run at Qwen2.5-7B's widths.
+   q heads a kv head.  K4, K7, K6 and K9 also run at head dim 256
+   (Gemma-2-9B's 8 kv heads under 16, with a soft cap of 5 and without,
+   as Gemma-3) and 96 (Phi-3-mini's 32 heads).  K1 runs at Qwen2.5-7B's
+   widths, K3 and K8 at Qwen2.5-7B's and Gemma-2-9B's.
    K2 and K5 also log their two kernels' device time (torch.profiler)
    and the tail product's rate, beside
    ``torch.mm`` over the same tail shapes, and K5 fed K2's own scales and
@@ -151,6 +164,23 @@ REPLACES = {"hessian": "gptq_v2_tpu/ops/hessian_pallas.py:91",
 RATES: dict = {}
 # the kernel wrappers with launch counts, set in main()
 WRAPPERS: dict = {}
+# (model dir, results, tier) → the packed model a path's engines share
+LOADED: dict = {}
+
+
+def build_engine(argv):
+    """``serve.build_engine`` over the parsed ``argv``, on the packed model
+    an earlier engine of the path loaded from the same checkpoint and
+    results for the same tier (each load reads and packs the checkpoint
+    again: 10–20 s); the engine, its cache and its fused linears are new
+    each call."""
+    from gptq_v2_tpu_torch import serve as S
+
+    args = S.parse_serve_args(argv)
+    key = (args.model_dir, args.results, args.act_dtype)
+    if key not in LOADED:
+        LOADED[key] = S._load_packed(args.model_dir, args.results, args.device)
+    return S.build_engine(args, LOADED[key])
 
 
 def log(msg: str) -> None:
@@ -314,7 +344,7 @@ def phase_main_path(torch, work: Path) -> dict:
         f"{stats['tok_s']:.1f} tok/s ({stats['wall_s']:.2f} s)")
     RATES["serve.main contiguous W4A16"] = [stats["tok_s"]]
 
-    eng = S.build_engine(S.parse_serve_args(serve_args))
+    eng = build_engine(serve_args)
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, (n,)).tolist() for n in PROMPT_LENS]
     outs = []
@@ -532,10 +562,12 @@ def phase_gptq(torch, timer, launches) -> list:
     return out
 
 
-def phase_w4a16(torch, timer, launches, layer0, qwen0) -> list:
+def phase_w4a16(torch, timer, launches, layer0, wide) -> list:
     """K3 at the four fused shapes of the main path's first block (bf16,
-    INT4 g128: the tensor-core route), M in K3_ROWS, and of the qwen2.5
-    path's (C = 3584 and 18944, 28 and 148 groups), M in QWEN_ROWS (M <= 16 the split-K
+    INT4 g128: the tensor-core route), M in K3_ROWS, and of the first
+    blocks in ``wide`` (tag → layer: the qwen2.5 path's, C = 3584 and
+    18944, 28 and 148 groups; the gemma-2 path's, C = 3584, 4096 and
+    14336, 28, 32 and 112 groups), M in QWEN_ROWS (M <= 16 the split-K
     decode kernel, above the prefill kernel; both form each group's term
     through one mma.sync routine).  ``ms`` is one event pair per launch
     after an L2 flush, as in earlier runs; the steady times
@@ -549,8 +581,8 @@ def phase_w4a16(torch, timer, launches, layer0, qwen0) -> list:
 
     out = []
     for tag, name, rows in ([("", n, K3_ROWS) for n in FUSED]
-                            + [("qwen2.5 ", n, QWEN_ROWS) for n in FUSED]):
-        p = (qwen0 if tag else layer0)[name]
+                            + [(tag, n, QWEN_ROWS) for tag in wide for n in FUSED]):
+        p = (wide[tag] if tag else layer0)[name]
         c, r = p.in_features, p.out_features
         w_dense = dequantize_dense(p, torch.bfloat16)
         p_bytes = sum(t.numel() * t.element_size() for t in (p.qweight, p.scales, p.zeros))
@@ -629,11 +661,12 @@ def synthetic_packed(torch, bits: int, c: int, r: int, seed: int):
                         in_features=c, bits=bits, act_bits=8)
 
 
-def phase_w4a8(torch, timer, launches, layer0, qwen0) -> list:
+def phase_w4a8(torch, timer, launches, layer0, wide) -> list:
     """K8 at the four fused shapes: bits 4 on the main path's first block
     (GPTQ codes, act-order), bits 2 and 8 on synthetic linears of the same
     shapes (act-order; bits 8 with codes above 200), M in M_ROWS, and bits
-    4 on the qwen2.5 path's first block, M in QWEN_ROWS; bf16
+    4 on the first blocks in ``wide`` (the qwen2.5 and gemma-2 paths'),
+    M in QWEN_ROWS; bf16
     scales; fp32 scales held at 1e-5 on the qkv shape.  Every linear is on
     the int8 tensor-core route.  ``ms`` is the whole ``w4a8_matmul`` (the
     staging kernel and the matmul in one call), as K3's row times
@@ -649,9 +682,9 @@ def phase_w4a8(torch, timer, launches, layer0, qwen0) -> list:
     from gptq_v2_tpu_torch.ops.packing import dequantize_dense, unpack_codes
 
     out = []
-    for tag, bits in (("", 4), ("", 2), ("", 8), ("qwen2.5 ", 4)):
+    for tag, bits in (("", 4), ("", 2), ("", 8)) + tuple((t, 4) for t in wide):
         for si, name in enumerate(FUSED):
-            p = (qwen0 if tag else layer0)[name]
+            p = (wide[tag] if tag else layer0)[name]
             if bits == 4:
                 p = dataclasses.replace(p, act_bits=8)
             else:
@@ -850,7 +883,7 @@ def phase_serve_kv(torch, work: Path) -> None:
         log(f"phase serve.kv {kv} serve.main: ok, {time.time() - t0:.1f} s; benchmark "
             f"{stats['requests']} requests x {NEW_TOKENS} new tokens: "
             f"{stats['tok_s']:.1f} tok/s ({stats['wall_s']:.2f} s)")
-        eng = S.build_engine(S.parse_serve_args(args))
+        eng = build_engine(args)
         outs = []
         for _ in range(2):
             reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
@@ -953,10 +986,11 @@ def counted_paged_writes():
         kvc.write_kv, kvc.write_kv_flat = saved
 
 
-def check_one_launch_a_write(label: str, k9_launches: int, writes: int) -> None:
-    if k9_launches != writes or writes % DEPTH:
+def check_one_launch_a_write(label: str, k9_launches: int, writes: int,
+                             depth: int = DEPTH) -> None:
+    if k9_launches != writes or writes % depth:
         raise RuntimeError(f"{label}: {writes} paged writes made {k9_launches} K9 launches; "
-                           f"each write of each of the {DEPTH} layers should be one")
+                           f"each write of each of the {depth} layers should be one")
 
 
 def serve_timed(torch, eng, prompts, label: str, uid0: int = 0):
@@ -1065,7 +1099,7 @@ def phase_serve_paged(torch, work: Path) -> None:
     uids = list(range(len(prompts)))
     phased_first, dense = None, None
     for label, flags in PAGED_ENGINES:
-        eng = S.build_engine(S.parse_serve_args(serve_args + flags))
+        eng = build_engine(serve_args + flags)
         if dense is None:  # the plain bf16 forward's last-position logits
             params = dequantized_params(eng.model, torch.bfloat16)
             cfg = eng.model.cfg
@@ -1105,8 +1139,7 @@ def phase_serve_paged(torch, work: Path) -> None:
     label = "ragged bf16 prefix-cache"
     runs = []
     for _ in range(2):
-        eng = S.build_engine(S.parse_serve_args(serve_args + RAGGED_FLAGS
-                                                + ["--prefix-cache", "true"]))
+        eng = build_engine(serve_args + RAGGED_FLAGS + ["--prefix-cache", "true"])
         tables = record_tables(eng)
         serve_timed(torch, eng, shared[:1], label + " (first request)")
         if eng.prefix_hit_tokens:
@@ -1121,7 +1154,7 @@ def phase_serve_paged(torch, work: Path) -> None:
     first_step_check(torch, eng, shared[1:], shared_uids, runs[1], tables, label,
                      exact=False)
     del eng
-    fresh = S.build_engine(S.parse_serve_args(serve_args + RAGGED_FLAGS))
+    fresh = build_engine(serve_args + RAGGED_FLAGS)
     want = serve_timed(torch, fresh, shared[1:], "ragged bf16 without prefix cache", uid0=1)
     n_eq = agree(label, "the engine without the prefix cache",
                  [runs[0][u][0] for u in shared_uids], [want[u][0] for u in shared_uids],
@@ -1173,7 +1206,7 @@ def engine_runs(torch, eng, prompts, label: str, runs: int = 2, new: int = NEW_T
         torch.cuda.synchronize()
         dt = time.time() - t0
         check_one_launch_a_write(label, paged_write.paged_write_kv.launches - k9,
-                                 writes["writes"])
+                                 writes["writes"], eng.model.cfg.num_hidden_layers)
         RATES.setdefault(label, []).append(len(reqs) * new / dt)
         log(f"phase {label} run: {len(reqs)} requests x {new} new tokens, "
             f"{len(reqs) * new / dt:.1f} tok/s ({dt:.3f} s, {eng.steps - steps0} ticks"
@@ -1196,12 +1229,10 @@ def phase_serve_w4a8(torch, work: Path) -> None:
     phased), then engines built by serve.build_engine over the contiguous
     cache and over int8 pages under the ragged scheduler; each engine's
     greedy output repeats, and its first decode step, replayed over a copy
-    of the cache the run left with K8's plain version, gives its token or a
-    near-tie of the replay's logits."""
+    of the cache the run left through the plain versions (K8's and the
+    attention's), gives its token or a near-tie of the replay's logits
+    (:func:`replay_first_step`)."""
     from gptq_v2_tpu_torch import serve as S
-    from gptq_v2_tpu_torch.serving import decode as D
-    from gptq_v2_tpu_torch.serving import kv_cache as kvc
-    from gptq_v2_tpu_torch.serving.engine import _bucket
 
     serve_args = ["--model-dir", str(work / "model"), "--results",
                   str(work / "results.npz"), "--max-batch", str(len(PROMPT_LENS)),
@@ -1213,40 +1244,16 @@ def phase_serve_w4a8(torch, work: Path) -> None:
         f"tok/s, W4A16 (path main, this run) {rates('serve.main contiguous W4A16')} tok/s")
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, MODEL["vocab_size"], (n,)).tolist() for n in PROMPT_LENS]
-    uids = list(range(len(prompts)))
     for label, flags, w4a16_label in (
             ("contiguous bf16 KV", [], "engine contiguous W4A16"),
             ("ragged int8 KV", RAGGED_FLAGS + ["--kv-dtype", "int8"], "engine ragged int8 W4A16")):
-        eng = S.build_engine(S.parse_serve_args(serve_args + flags))
-        paged = eng.block_tables is not None
-        tables = record_tables(eng) if paged else None
+        eng = build_engine(serve_args + flags)
+        tables = record_tables(eng) if eng.block_tables is not None else None
         out, _ = engine_runs(torch, eng, prompts, f"serve.w4a8 {label}")
-        lens = torch.tensor(PROMPT_LENS, device="cuda")
-        first = torch.tensor([out[u][0] for u in uids], device="cuda")
-        s_b = min(_bucket(max(PROMPT_LENS) + 1, eng.page_size), eng.max_seq_len)
-        bt = None
-        with plain_w4a8():
-            if paged:
-                cache = dataclasses.replace(eng.cache, kv=eng.cache.kv.clone())
-                bt = torch.from_numpy(np.stack([tables[u] for u in uids])).to("cuda")
-            else:
-                cache = kvc.ContiguousKVCache(eng.cache.k.clone(), eng.cache.v.clone(),
-                                              eng.cache.k_scales, eng.cache.v_scales,
-                                              eng.cache.kv_bits)
-            logits = D.decode_step(eng.model, first, cache, lens, s_b,
-                                   block_tables=bt)[0].float()
-            del cache
-        exact = 0
-        for i, u in enumerate(uids):
-            tok = out[u][1]
-            exact += int(torch.argmax(logits[i])) == tok
-            if not near_tie(logits[i], tok):
-                raise RuntimeError(f"serve.w4a8 {label} request {u}: token {tok} disagrees with "
-                                   f"K8's plain version (argmax {int(torch.argmax(logits[i]))})")
-        log(f"phase serve.w4a8 {label}: ok, greedy output repeats; the first decode step "
-            f"through K8's plain version gives the engine's token on {exact}/{len(uids)}, "
-            f"near-ties on all; W4A8 {rates(f'serve.w4a8 {label}')} tok/s against W4A16 "
-            f"{rates(w4a16_label)} (same engine kind, this run)")
+        verdict = replay_first_step(torch, eng, prompts, out, tables, f"serve.w4a8 {label}")
+        log(f"phase serve.w4a8 {label}: ok, greedy output repeats; {verdict}; W4A8 "
+            f"{rates(f'serve.w4a8 {label}')} tok/s against W4A16 {rates(w4a16_label)} "
+            "(same engine kind, this run)")
         del eng
         torch.cuda.empty_cache()
 
@@ -1394,7 +1401,6 @@ def phase_attention_ab(torch, work: Path) -> None:
     2048``, where one sequence's long context is what the split over keys
     spreads across the card: on the contiguous cache (K4) and on the paged
     cache under the ragged scheduler at a 64-token budget (K6)."""
-    from gptq_v2_tpu_torch import serve as S
     from gptq_v2_tpu_torch.serving import Request
 
     rng = np.random.default_rng(1)
@@ -1403,9 +1409,9 @@ def phase_attention_ab(torch, work: Path) -> None:
               ("B=1 long paged ragged", "K6", RAGGED_FLAGS, 1, 2048, (1536,), 64))
     for label, kernel, flags, max_batch, max_seq, lens, new in setups:
         t0 = time.time()
-        eng = S.build_engine(S.parse_serve_args(
+        eng = build_engine(
             ["--model-dir", str(work / "model"), "--results", str(work / "results.npz"),
-             "--max-batch", str(max_batch), "--max-seq-len", str(max_seq)] + flags))
+             "--max-batch", str(max_batch), "--max-seq-len", str(max_seq)] + flags)
         prompts = [rng.integers(0, MODEL["vocab_size"], (n,)).tolist() for n in lens]
         rates = {"plain": [], kernel: []}
         # the first plain and kernel runs warm up; the last four run in turns
@@ -1517,23 +1523,35 @@ def phase_attention(torch, timer, launches) -> list:
     serve paths) and over a 4096-row cache at S = 4096 (the model's
     ``max_position_embeddings``), Llama-3-8B's 8 kv heads (GQA 4) at S in
     {512, 4096}, and at S = 512 Qwen2.5-7B's 4 kv heads under 28 q heads
-    (7 a group) and GLM-4-9B's 2 under 32 (16 a group)."""
+    (7 a group) and GLM-4-9B's 2 under 32 (16 a group); at S = 512 too,
+    head dim 256 (Gemma-2-9B's 8 kv heads under 16, with a soft cap of 5,
+    and without, as Gemma-3-12B) and 96 (Phi-3-mini's 32 heads).  The
+    scores here are about N(0, 1): Gemma's cap of 50 would leave them
+    within the tolerance of uncapped ones, a cap of 5 bends them.  With
+    a soft cap SDPA computes another function: no library time.  Each
+    output is held against the plain version of the kernels' algebra
+    (``contiguous_decode_attention_split_ref``); ``plain_ms`` is the JAX
+    package's plain version (bf16 probabilities), whose distance is
+    logged."""
     import torch.nn.functional as F
 
     from gptq_v2_tpu_torch.ops import contiguous_attention as K
     from gptq_v2_tpu_torch.serving import kv_cache as kvc
 
     t0 = time.time()
-    hd = 128
-    sm = hd ** -0.5
-    # (kv heads, q heads, cache rows, S values read from it)
-    shapes = ((32, 32, 512, (128, 512)), (32, 32, 4096, (4096,)), (8, 32, 512, (512,)),
-              (8, 32, 4096, (4096,)), (4, 28, 512, (512,)), (2, 32, 512, (512,)))
+    # (kv heads, q heads, cache rows, S values read from it, head dim, soft cap)
+    shapes = ((32, 32, 512, (128, 512), 128, None), (32, 32, 4096, (4096,), 128, None),
+              (8, 32, 512, (512,), 128, None), (8, 32, 4096, (4096,), 128, None),
+              (4, 28, 512, (512,), 128, None), (2, 32, 512, (512,), 128, None),
+              (8, 16, 512, (512,), 256, 5.0), (8, 16, 512, (512,), 256, None),
+              (32, 32, 512, (512,), 96, None))
     out = []
     for kind in ("bf16", "int8", "int4"):
-        for hkv, hq, s_max, s_list in shapes:
+        for hkv, hq, s_max, s_list, hd, cap in shapes:
+            sm = hd ** -0.5  # Gemma's query_pre_attn_scalar is its head dim
             for b in (1, 8):
-                seed = (b if (hkv, s_max) == (32, 512) else b + s_max + hkv) + (hq != 32)
+                seed = ((b if (hkv, s_max) == (32, 512) else b + s_max + hkv) + (hq != 32)
+                        + (hd != 128) * hd + bool(cap))
                 gen = torch.Generator(device="cuda").manual_seed(seed)
                 kf, vf = (torch.randn((1, b, s_max, hkv, hd), device="cuda", generator=gen)
                           for _ in range(2))
@@ -1563,20 +1581,31 @@ def phase_attention(torch, timer, launches) -> list:
                 for s in s_list:
                     pos = torch.full((b,), s - 1, dtype=torch.int32, device="cuda")
                     args = (q, k, v, pos, 0)
-                    got = fn(*args, s_bucket=s, sm_scale=sm).float()
-                    ref = plain(*args, s_bucket=s, sm_scale=sm).float()
+                    kw = dict(s_bucket=s, sm_scale=sm, soft_cap=cap)
+                    got = fn(*args, **kw).float()
+                    # held against the plain version of the kernels' own
+                    # algebra (fp32 probabilities, splits merged in order):
+                    # 1e-2 of the largest output.  The JAX package's plain
+                    # version rounds the probabilities to bf16 before PV,
+                    # which alone moves it up to 1.5% of the largest output
+                    # from an fp64 softmax at head dim 256
+                    # (scripts/attention_plain_rounding.py); its distance is
+                    # logged
+                    ref = K.contiguous_decode_attention_split_ref(
+                        *args, **kw, kv_bits=4 if kind == "int4" else 8).float()
                     err = float((got - ref).abs().max())
-                    # the plain versions round the probabilities to bf16 before
-                    # PV, the kernels keep them fp32: 1e-2 of the largest output
+                    err_jax = float((got - plain(*args, **kw).float()).abs().max())
+                    heads = (f"Hkv={hkv}" + ("" if hkv == hq else f" Hq={hq}") + f" hd={hd}"
+                             + (f" soft cap {cap:g}" if cap else ""))
                     if err > 1e-2 * float(ref.abs().max()):
-                        raise RuntimeError(f"{key} {kind} B={b} S={s} Hkv={hkv} Hq={hq}: "
+                        raise RuntimeError(f"{key} {kind} B={b} S={s} {heads}: "
                                            f"max abs err {err}")
                     elem = {"bf16": 2, "int8": 1, "int4": 0.5}[kind]
                     n_bytes = 2 * b * s * hkv * hd * elem + 2 * 2 * b * hq * hd + 4 * b
 
-                    def make_kernel(i, s=s, args=args):
+                    def make_kernel(i, args=args, kw=kw):
                         a = args if i == 0 else (q.clone(), k.clone(), v.clone(), pos.clone(), 0)
-                        return lambda: fn(*a, s_bucket=s, sm_scale=sm)
+                        return lambda: fn(*a, **kw)
 
                     qd, kds, vds = q[:, :, None], kd[:, :, :s], vd[:, :, :s]
 
@@ -1586,35 +1615,40 @@ def phase_attention(torch, timer, launches) -> list:
                             *a, scale=sm, enable_gqa=hkv != hq)
 
                     ms = timer.steady(make_kernel, n_bytes)
-                    plain_ms = timer(lambda: plain(*args, s_bucket=s, sm_scale=sm), 5)
-                    lib_ms = timer.steady(make_sdpa, 2 * b * s * hkv * hd * 2)
+                    plain_ms = timer(lambda: plain(*args, **kw), 5)
+                    lib_ms = (None if cap else
+                              timer.steady(make_sdpa, 2 * b * s * hkv * hd * 2))
                     b_ms, b_by = bound(n_bytes, 4 * b * hq * s * hd, "fp32")
                     name = "K7" if kind == "int4" else "K4"
-                    heads = f"Hkv={hkv}" + ("" if hkv == hq else f" Hq={hq}")
-                    out.append(dict(name=f"decode_attention [{kind} B={b} S={s} {heads} hd={hd}]",
+                    out.append(dict(name=f"decode_attention [{kind} B={b} S={s} {heads}]",
                                     route="cuda",
                                     source="gptq_v2_tpu_torch/csrc/contiguous_attention.cu",
                                     replaces=REPLACES[key], launches=launches[key],
                                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                     bound_by=b_by, library_ms=lib_ms))
                     log(f"phase {name} {kind} B={b} S={s} {heads}: ok, max abs err {err:.3e} "
-                        f"(max|out| {float(ref.abs().max()):.3e}), kernel {ms:.4f} ms "
-                        f"({b_ms / ms:.0%} of the bound, {ms / lib_ms:.2f}x sdpa), plain "
-                        f"{plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+                        f"(max|out| {float(ref.abs().max()):.3e}; {err_jax:.3e} from the "
+                        f"bf16-probability plain version), kernel {ms:.4f} ms "
+                        f"({b_ms / ms:.0%} of the bound"
+                        + ("" if lib_ms is None else f", {ms / lib_ms:.2f}x sdpa")
+                        + f"), plain {plain_ms:.3f} ms, sdpa "
+                        f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms, bound {b_ms:.4f} ms "
+                        f"({b_by})")
                 del k, v, kd, vd
                 torch.cuda.empty_cache()
     log(f"phase attention: {len(out)} rows, {time.time() - t0:.1f} s")
     return out
 
 
-def paged_case(torch, kind: str, seqs, n_pad: int, hkv: int, hq: int, seed: int) -> dict:
-    """One K6 input at 7B head width (hd 128, 16-row pages): a pool holding
+def paged_case(torch, kind: str, seqs, n_pad: int, hkv: int, hq: int, seed: int,
+               hd: int = 128) -> dict:
+    """One K6 input at head dim ``hd`` (16-row pages): a pool holding
     only the case's pages in random order, ``seqs`` as (new rows, kv_len)
     per sequence, ``n_pad`` pad rows, bf16 q; with the pool dequantized to
     bf16 in the same combined layout (the yardstick's input)."""
     from gptq_v2_tpu_torch.serving import kv_cache as kvc
 
-    hd, ps = 128, 16
+    ps = 16
     gen = torch.Generator(device="cuda").manual_seed(seed)
     mp = max(-(-kv_len // ps) for _, kv_len in seqs)
     n_pages = 1 + len(seqs) * mp
@@ -1682,10 +1716,12 @@ def phase_paged_attention(torch, timer, launches) -> list:
     (Llama-3-8B's 8 kv heads under 32 q heads); window, soft cap and sinks
     on the mixed tick.  Past those shapes: decode at S = 4096, B in {1, 8},
     for each cache kind, and GQA 4 at B = 1, S = 512, at B in {1, 8}, S =
-    4096, and on the mixed tick."""
+    4096, and on the mixed tick; decode at B in {1, 8}, S = 512 at head
+    dim 256 (Gemma-2-9B's 8 kv heads under 16, soft cap 5, which bends
+    these N(0, 1) scores where Gemma's 50 would not; without it, as
+    Gemma-3-12B) and 96 (Phi-3-mini's 32), each cache kind."""
     from gptq_v2_tpu_torch.ops import paged_attention as K
 
-    sm = 128 ** -0.5
     t0 = time.time()
     mixed = [(64, 192)] + [(1, n) for n in (100, 200, 300, 400, 500, 64, 512)]
     cases = [(f"decode {kind} B={b} S={s} Hkv=32", kind, [(1, s)] * b, 0, 32, {})
@@ -1709,9 +1745,18 @@ def phase_paged_attention(torch, timer, launches) -> list:
     cases += [(f"decode {kind} B={b} S=512 GQA Hkv={hkv} Hq={hq}", kind, [(1, 512)] * b, 0,
                hkv, {}, hq) for hkv, hq in ((4, 28), (2, 32))
               for kind in ("bf16", "int8", "int4") for b in (1, 8)]
+    cases = [(*c, 128) for c in cases]
+    # Gemma-2-9B (a soft cap) and Gemma-3-12B at head dim 256, Phi-3-mini at 96
+    cases += [(f"decode {kind} B={b} S=512 Hkv={hkv} Hq={hq} hd={hd}"
+               + (" soft cap 5" if cap else ""), kind, [(1, 512)] * b, 0, hkv,
+               {"soft_cap": 5.0} if cap else {}, hq, hd)
+              for hkv, hq, hd, cap in ((8, 16, 256, True), (8, 16, 256, False),
+                                       (32, 32, 96, False))
+              for kind in ("bf16", "int8", "int4") for b in (1, 8)]
     out = []
-    for seed, (label, kind, seqs, n_pad, hkv, kw, hq) in enumerate(cases):
-        c = paged_case(torch, kind, seqs, n_pad, hkv, hq, seed)
+    for seed, (label, kind, seqs, n_pad, hkv, kw, hq, hd) in enumerate(cases):
+        c = paged_case(torch, kind, seqs, n_pad, hkv, hq, seed, hd)
+        sm = hd ** -0.5
         kw = dict(kw, k_scale=c["scale"], v_scale=c["scale"], sm_scale=sm, kv_int4=c["int4"])
         if kw.pop("sinks", False):
             kw["sinks"] = torch.randn((hq,), device="cuda")
@@ -1729,9 +1774,9 @@ def phase_paged_attention(torch, timer, launches) -> list:
             lo = max(0, kv_len - n - window + 1) if window else 0
             visible_rows += kv_len - lo
             for pos in range(kv_len - n, kv_len):
-                flops += 4 * hq * 128 * (pos + 1 - (max(0, pos - window + 1) if window else 0))
+                flops += 4 * hq * hd * (pos + 1 - (max(0, pos - window + 1) if window else 0))
         elem = {"bf16": 2, "int8": 1, "int4": 0.5}[kind]
-        n_bytes = (visible_rows * 2 * hkv * 128 * elem + 2 * 2 * c["q"].numel()
+        n_bytes = (visible_rows * 2 * hkv * hd * elem + 2 * 2 * c["q"].numel()
                    + 4 * (3 * len(seqs) + c["meta"][1].numel() + 2))
 
         def make_kernel(i, args=args, kw=kw):
@@ -1748,7 +1793,7 @@ def phase_paged_attention(torch, timer, launches) -> list:
                 a = (dense, qs) if i == 0 else (dense.clone(), qs.clone())
                 return lambda: call(*a)
 
-            lib_ms = timer.steady(make_sdpa, visible_rows * 2 * hkv * 128 * 2)
+            lib_ms = timer.steady(make_sdpa, visible_rows * 2 * hkv * hd * 2)
         b_ms, b_by = bound(n_bytes, flops, "fp32")
         out.append(dict(name=f"paged_attention [{label}]", route="cuda",
                         source="gptq_v2_tpu_torch/csrc/paged_attention.cu",
@@ -1769,7 +1814,8 @@ def phase_paged_attention(torch, timer, launches) -> list:
 
 def phase_paged_write(torch, timer, launches) -> list:
     """K9 at the paged serve paths' shapes, 7B width (32 kv heads of 128,
-    a 4-layer pool of 257 pages of 16): the fused write (``paged_write_kv``)
+    a 4-layer pool of 257 pages of 16; the decode write also at Gemma-2-9B's
+    8 kv heads of 256 and Phi-3-mini's 32 of 96): the fused write (``paged_write_kv``)
     from bf16 K and a strided V view of a fused qkv output, bf16, int8
     (scalar and per-head scales) and int4 (per-head) pools, decode B=8
     through block tables and a 64-token flat write through ``(pages,
@@ -1781,87 +1827,94 @@ def phase_paged_write(torch, timer, launches) -> list:
     from gptq_v2_tpu_torch.ops import paged_write as K
     from gptq_v2_tpu_torch.serving.kv_cache import _scale
 
-    n_pages, ps, hkv, hd = 257, 16, 32, 128
-    kw = hkv * hd
+    n_pages, ps = 257, 16
+    forms = ((8, "decode B=8, block tables"), (64, "flat write T=64"))
     out = []
-    for kind, (scales, bits) in (("bf16", (None, 0)), ("int8 scalar", ((0.031, 0.027), 0)),
-                                 ("int8 per-head", ("h", 0)), ("int4 per-head", ("h", 4))):
-        if scales == "h":
-            base = 0.3 if bits == 4 else 0.03
-            scales = tuple(tuple(base * (1 + 0.01 * h + 0.1 * j) for h in range(hkv))
-                           for j in range(2))
-        ks, vs = (None, None) if scales is None else (_scale(s, "cuda") for s in scales)
-        dtype = torch.bfloat16 if scales is None else torch.int8
-        n_comb = hkv if bits == 4 else 2 * hkv
-        pool = torch.zeros((DEPTH, n_pages, ps, n_comb, hd), dtype=dtype, device="cuda")
-        for t, label in ((8, "decode B=8, block tables"), (64, "flat write T=64")):
-            gen = torch.Generator(device="cuda").manual_seed(t)
+    # 7B width in both forms; Gemma-2-9B's 8 kv heads of 256 and Phi-3-mini's
+    # 32 of 96 at decode
+    for hkv, hd, writes in ((32, 128, forms), (8, 256, forms[:1]), (32, 96, forms[:1])):
+        kw = hkv * hd
+        for kind, (scales, bits) in (("bf16", (None, 0)), ("int8 scalar", ((0.031, 0.027), 0)),
+                                     ("int8 per-head", ("h", 0)), ("int4 per-head", ("h", 4))):
+            if scales == "h":
+                base = 0.3 if bits == 4 else 0.03
+                scales = tuple(tuple(base * (1 + 0.01 * h + 0.1 * j) for h in range(hkv))
+                               for j in range(2))
+            ks, vs = (None, None) if scales is None else (_scale(s, "cuda") for s in scales)
+            dtype = torch.bfloat16 if scales is None else torch.int8
+            n_comb = hkv if bits == 4 else 2 * hkv
+            pool = torch.zeros((DEPTH, n_pages, ps, n_comb, hd), dtype=dtype, device="cuda")
+            for t, label in writes:
+                gen = torch.Generator(device="cuda").manual_seed(t)
 
-            def inputs(i, t=t, gen=gen):
-                qkv = torch.randn((t, 1, 3 * kw), device="cuda", generator=gen).to(
-                    torch.bfloat16)
-                k = qkv[..., kw:2 * kw].reshape(t, 1, hkv, hd).contiguous()  # rope output
-                v = qkv[..., 2 * kw:].reshape(t, 1, hkv, hd)  # a view, as the model's
-                slots = torch.randperm((n_pages - 1) * ps, device="cuda", generator=gen)[:t] + ps
-                if t != 8:
-                    return (k[:, 0], v[:, 0], dict(pages=(slots // ps).to(torch.int32),
-                                                   offsets=(slots % ps).to(torch.int32)))
-                # one sequence a row: its page table holds the slot's page at the
-                # row's position, which sits in table entry 0..31
-                pos = torch.randint(0, 32 * ps, (t, 1), device="cuda", generator=gen)
-                tables = torch.randint(1, n_pages, (t, 32), device="cuda", generator=gen,
-                                       dtype=torch.int32)
-                tables[torch.arange(t, device="cuda"), pos[:, 0] // ps] = (
-                    slots // ps).to(torch.int32)
-                pos = pos - pos % ps + slots[:, None] % ps
-                return k, v, dict(block_tables=tables, positions=pos)
+                def inputs(i, t=t, gen=gen):
+                    qkv = torch.randn((t, 1, 3 * kw), device="cuda", generator=gen).to(
+                        torch.bfloat16)
+                    k = qkv[..., kw:2 * kw].reshape(t, 1, hkv, hd).contiguous()  # rope output
+                    v = qkv[..., 2 * kw:].reshape(t, 1, hkv, hd)  # a view, as the model's
+                    slots = torch.randperm((n_pages - 1) * ps, device="cuda",
+                                           generator=gen)[:t] + ps
+                    if t != 8:
+                        return (k[:, 0], v[:, 0], dict(pages=(slots // ps).to(torch.int32),
+                                                       offsets=(slots % ps).to(torch.int32)))
+                    # one sequence a row: its page table holds the slot's page at the
+                    # row's position, which sits in table entry 0..31
+                    pos = torch.randint(0, 32 * ps, (t, 1), device="cuda", generator=gen)
+                    tables = torch.randint(1, n_pages, (t, 32), device="cuda", generator=gen,
+                                           dtype=torch.int32)
+                    tables[torch.arange(t, device="cuda"), pos[:, 0] // ps] = (
+                        slots // ps).to(torch.int32)
+                    pos = pos - pos % ps + slots[:, None] % ps
+                    return k, v, dict(block_tables=tables, positions=pos)
 
-            k, v, target = inputs(0)
-            args = (ks, vs, bits)
-            got = K.paged_write_kv(pool.clone(), 1, k, v, *args, **target)
-            ref = K.paged_write_kv_reference(pool.clone(), 1, k, v, *args, **target)
-            if not torch.equal(got, ref):
-                raise RuntimeError(f"K9 fused {kind} {label}: the pool differs from the "
-                                   "plain version's")
-            del got, ref
-            idx_bytes = (8 * t if t != 8 else (8 + 4) * t)  # pages+offsets; positions+entry
-            scale_bytes = sum(4 * s.numel() for s in (ks, vs) if s is not None)
-            n_bytes = (2 * k.numel() * k.element_size()  # K and V read once
-                       + t * n_comb * hd * pool.element_size()  # the storage rows
-                       + idx_bytes + scale_bytes)
+                k, v, target = inputs(0)
+                args = (ks, vs, bits)
+                got = K.paged_write_kv(pool.clone(), 1, k, v, *args, **target)
+                ref = K.paged_write_kv_reference(pool.clone(), 1, k, v, *args, **target)
+                if not torch.equal(got, ref):
+                    raise RuntimeError(f"K9 fused {kind} {label}: the pool differs from the "
+                                       "plain version's")
+                del got, ref
+                idx_bytes = (8 * t if t != 8 else (8 + 4) * t)  # pages+offsets; positions+entry
+                scale_bytes = sum(4 * s.numel() for s in (ks, vs) if s is not None)
+                n_bytes = (2 * k.numel() * k.element_size()  # K and V read once
+                           + t * n_comb * hd * pool.element_size()  # the storage rows
+                           + idx_bytes + scale_bytes)
 
-            def make(i, fn):
-                k_i, v_i, target_i = inputs(i)
-                return lambda: fn(pool, 1, k_i, v_i, *args, **target_i)
+                def make(i, fn):
+                    k_i, v_i, target_i = inputs(i)
+                    return lambda: fn(pool, 1, k_i, v_i, *args, **target_i)
 
-            ms = timer.steady(lambda i: make(i, K.paged_write_kv), n_bytes)
-            composed_ms = timer.steady(lambda i: make(i, K.paged_write_kv_reference), n_bytes)
-            plain_ms = timer(lambda: K.paged_write_kv_reference(pool, 1, k, v, *args, **target),
-                             10)
-            ops, names, wall = {}, {}, {}
-            for name, fn in (("kernel", K.paged_write_kv),
-                             ("composed", K.paged_write_kv_reference)):
-                ops[name], names[name] = device_ops(
-                    torch, lambda fn=fn: fn(pool, 1, k, v, *args, **target))
-                wall[name] = host_wall_us(torch, lambda fn=fn: fn(pool, 1, k, v, *args,
-                                                                   **target))
-            if ops["kernel"] > 1.0:
-                raise RuntimeError(f"K9 fused {kind} {label}: {ops['kernel']} device ops a "
-                                   f"call ({names['kernel']}), not 1")
-            b_ms, b_by = bound(n_bytes, 0, "bf16")
-            out.append(dict(name=f"paged_write_kv [{kind} {label}, {hkv}x{hd} bf16 K/V]",
-                            route="cuda", source="gptq_v2_tpu_torch/csrc/paged_write.cu",
-                            replaces=REPLACES["paged_write"], launches=launches["paged_write"],
-                            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=None))
-            log(f"phase K9 fused {kind} {label}: ok, bit-equal to the composed path; kernel "
-                f"steady {ms:.4f} ms, {ops['kernel']:.2f} device ops a call {names['kernel']}, "
-                f"host wall {wall['kernel']:.1f} us a call; "
-                f"composed steady {composed_ms:.4f} ms, {ops['composed']:.2f} device ops a call "
-                f"{names['composed']}, host wall "
-                f"{wall['composed']:.1f} us a call, events {plain_ms:.4f} ms; bound "
-                f"{b_ms:.5f} ms ({b_by}, {n_bytes} bytes)")
-        del pool
+                ms = timer.steady(lambda i: make(i, K.paged_write_kv), n_bytes)
+                composed_ms = timer.steady(lambda i: make(i, K.paged_write_kv_reference), n_bytes)
+                plain_ms = timer(lambda: K.paged_write_kv_reference(pool, 1, k, v, *args, **target),
+                                 10)
+                ops, names, wall = {}, {}, {}
+                for name, fn in (("kernel", K.paged_write_kv),
+                                 ("composed", K.paged_write_kv_reference)):
+                    ops[name], names[name] = device_ops(
+                        torch, lambda fn=fn: fn(pool, 1, k, v, *args, **target))
+                    wall[name] = host_wall_us(torch, lambda fn=fn: fn(pool, 1, k, v, *args,
+                                                                       **target))
+                if ops["kernel"] > 1.0:
+                    raise RuntimeError(f"K9 fused {kind} {label}: {ops['kernel']} device ops a "
+                                       f"call ({names['kernel']}), not 1")
+                b_ms, b_by = bound(n_bytes, 0, "bf16")
+                out.append(dict(name=f"paged_write_kv [{kind} {label}, {hkv}x{hd} bf16 K/V]",
+                                route="cuda", source="gptq_v2_tpu_torch/csrc/paged_write.cu",
+                                replaces=REPLACES["paged_write"], launches=launches["paged_write"],
+                                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                bound_by=b_by, library_ms=None))
+                log(f"phase K9 fused {kind} {label}: ok, bit-equal to the composed path; kernel "
+                    f"steady {ms:.4f} ms, {ops['kernel']:.2f} device ops a call {names['kernel']}, "
+                    f"host wall {wall['kernel']:.1f} us a call; "
+                    f"composed steady {composed_ms:.4f} ms, {ops['composed']:.2f} device ops "
+                    "a call "
+                    f"{names['composed']}, host wall "
+                    f"{wall['composed']:.1f} us a call, events {plain_ms:.4f} ms; bound "
+                    f"{b_ms:.5f} ms ({b_by}, {n_bytes} bytes)")
+            del pool
+    hkv, hd = 32, 128
     for kind in ("bf16", "int8", "int4"):
         n_comb = hkv if kind == "int4" else 2 * hkv
         dtype = torch.bfloat16 if kind == "bf16" else torch.int8
@@ -1910,7 +1963,14 @@ def phase_paged_write(torch, timer, launches) -> list:
 
 QWEN_DEPTH = 4  # of Qwen2.5-7B's 28 blocks: the CLI path fits the time limit
 QWEN_ROWS = (1, 8, 1024)  # K3/K8 rows at its widths: decode batches, prefill
-FAMILY_DEPTH = {"smollm3": 4}  # its layer 3 is NoPE; the others run 1 block
+# SmolLM3's layer 3 is NoPE; Gemma-3's published pattern is 5 sliding
+# layers (the local rope table), then a global one; the others run 1 block
+FAMILY_DEPTH = {"smollm3": 4, "gemma3": 6}
+FAMILIES = ("qwen3", "mistral", "glm4", "olmo2", "granite", "smollm3", "phi3", "gemma3",
+            "phi3_mini")
+# GLM-4's 2 kv heads are one int4 head pair (K7 at 16 q heads a kv head),
+# Gemma-3's 8 four pairs at head dim 256
+FAMILY_INT4 = ("glm4", "gemma3")
 FAMILY_PROMPTS = (48, 64, 80, 96, 112, 128, 144, 160)
 FAMILY_NEW = 16
 WINDOW, WINDOW_PROMPT, WINDOW_SEQ = 512, 1536, 2048  # Mistral's window, cut
@@ -1972,29 +2032,22 @@ def judge_tokens(torch, cfg, dense, prompts, outs, label: str, every: bool = Fal
             f"argmax on {exact}/{total}, within the near-tie tolerance on all")
 
 
-def phase_qwen(torch, work: Path) -> dict:
-    """Qwen2.5-7B at its published widths (q/k/v biases, 28 q heads over 4
-    kv heads, untied head), depth cut to QWEN_DEPTH: a checkpoint through
-    the port's writer; ``main`` default, then ``--mse`` with ``--save-dir``
-    and a resumed run; ``serve`` with contiguous bf16 KV and with paged
-    ragged int8 KV, each engine run twice and judged by the near-tie rule."""
+def cli_quantize(torch, cfg, root: Path, tag: str) -> None:
+    """A family's CLI path up to its results: a checkpoint of ``cfg`` through
+    the port's writer (random weights, seed 0) in ``root / "model"``; then
+    ``main`` default (``root / "results.npz"``), ``--mse`` with
+    ``--save-dir`` and a resumed run, which must launch no solver and give
+    equal ppl and codes."""
     from gptq_v2_tpu_torch import main as M
-    from gptq_v2_tpu_torch import serve as S
     from gptq_v2_tpu_torch.data import cache_key
     from gptq_v2_tpu_torch.models import llama as L
     from gptq_v2_tpu_torch.models.loader import save_hf_model
     from gptq_v2_tpu_torch.ops import gptq_cuda, hessian_cuda
 
-    cfg = family_cfg("qwen2", num_hidden_layers=QWEN_DEPTH)
-    log(f"qwen2.5 path: Qwen/Qwen2.5-7B widths (hidden {cfg.hidden_size}, intermediate "
-        f"{cfg.intermediate_size}, {cfg.num_attention_heads} q heads over "
-        f"{cfg.num_key_value_heads} kv heads, vocab {cfg.vocab_size}, q/k/v biases, bf16); "
-        f"depth cut to {QWEN_DEPTH} of 28 blocks so quantization and serving fit the run's "
-        "time limit; random weights (seed 0)")
-    root = work / "qwen"
+    depth = cfg.num_hidden_layers
     t0 = time.time()
     save_hf_model(cfg, L.init_params(cfg, seed=0), root / "model")
-    log(f"phase qwen checkpoint: ok, {time.time() - t0:.1f} s "
+    log(f"phase {tag} checkpoint: ok, {time.time() - t0:.1f} s "
         f"({sum(f.stat().st_size for f in (root / 'model').iterdir()) / 2**30:.2f} GiB)")
     cache = root / "datasets"
     cache.mkdir()
@@ -2018,22 +2071,40 @@ def phase_qwen(torch, work: Path) -> dict:
         dn = [f.launches - n for f, n in zip(solvers, n0)]
         runs[label] = (out, dn)
         ppl = out["ppls"]["train"]
-        if not np.isfinite(ppl) or len(out["results"]["data"]) != 7 * QWEN_DEPTH:
-            raise RuntimeError(f"qwen main {label}: ppl {ppl!r}, "
+        if not np.isfinite(ppl) or len(out["results"]["data"]) != 7 * depth:
+            raise RuntimeError(f"{tag} main {label}: ppl {ppl!r}, "
                                f"{len(out['results']['data'])} layers")
-        log(f"phase qwen main {label}: ok, {time.time() - t0:.1f} s wall, quantize "
-            f"{out['quant_s']:.2f} s for {QWEN_DEPTH} blocks, ppl(train) {ppl!r}; "
+        log(f"phase {tag} main {label}: ok, {time.time() - t0:.1f} s wall, quantize "
+            f"{out['quant_s']:.2f} s for {depth} blocks, ppl(train) {ppl!r}; "
             f"K1/K2/K5 launches {dn}")
     if not (runs["default"][1][0] and runs["default"][1][1]) or runs["default"][1][2]:
-        raise RuntimeError(f"qwen main default did not run K1 and K2: {runs['default'][1]}")
+        raise RuntimeError(f"{tag} main default did not run K1 and K2: {runs['default'][1]}")
     if not runs["mse"][1][2] or runs["mse"][1][1] or any(runs["mse resumed"][1]):
-        raise RuntimeError(f"qwen --mse launches {runs['mse'][1]}, resumed "
+        raise RuntimeError(f"{tag} --mse launches {runs['mse'][1]}, resumed "
                            f"{runs['mse resumed'][1]}")
     d1, d2 = runs["mse"][0]["results"]["data"], runs["mse resumed"][0]["results"]["data"]
     if runs["mse"][0]["ppls"] != runs["mse resumed"][0]["ppls"] or not all(
             torch.equal(d1[n]["qweight"], d2[n]["qweight"]) for n in d1):
-        raise RuntimeError("qwen --mse resumed: ppl or codes differ from the first run's")
-    log(f"phase qwen resume: ok, all {len(d1)} layers resumed, ppl and codes equal")
+        raise RuntimeError(f"{tag} --mse resumed: ppl or codes differ from the first run's")
+    log(f"phase {tag} resume: ok, all {len(d1)} layers resumed, ppl and codes equal")
+
+
+def phase_qwen(torch, work: Path) -> dict:
+    """Qwen2.5-7B at its published widths (q/k/v biases, 28 q heads over 4
+    kv heads, untied head), depth cut to QWEN_DEPTH: a checkpoint through
+    the port's writer; ``main`` default, then ``--mse`` with ``--save-dir``
+    and a resumed run; ``serve`` with contiguous bf16 KV and with paged
+    ragged int8 KV, each engine run twice and judged by the near-tie rule."""
+    from gptq_v2_tpu_torch import serve as S
+
+    cfg = family_cfg("qwen2", num_hidden_layers=QWEN_DEPTH)
+    log(f"qwen2.5 path: Qwen/Qwen2.5-7B widths (hidden {cfg.hidden_size}, intermediate "
+        f"{cfg.intermediate_size}, {cfg.num_attention_heads} q heads over "
+        f"{cfg.num_key_value_heads} kv heads, vocab {cfg.vocab_size}, q/k/v biases, bf16); "
+        f"depth cut to {QWEN_DEPTH} of 28 blocks so quantization and serving fit the run's "
+        "time limit; random weights (seed 0)")
+    root = work / "qwen"
+    cli_quantize(torch, cfg, root, "qwen")
 
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, cfg.vocab_size, (n,)).tolist() for n in PROMPT_LENS]
@@ -2050,7 +2121,7 @@ def phase_qwen(torch, work: Path) -> dict:
         log(f"phase qwen serve.main {label}: ok, {time.time() - t0:.1f} s; benchmark "
             f"{stats['requests']} requests x {NEW_TOKENS} new tokens: {stats['tok_s']:.1f} "
             f"tok/s on {SMI}")
-        eng = S.build_engine(S.parse_serve_args(serve_args + extra))
+        eng = build_engine(serve_args + extra)
         out, _ = engine_runs(torch, eng, prompts, f"qwen {label}", vocab=cfg.vocab_size)
         r = RATES[f"qwen {label}"]
         if dense is None:
@@ -2064,18 +2135,124 @@ def phase_qwen(torch, work: Path) -> dict:
     return {"layer0": layer0}
 
 
+def replay_first_step(torch, eng, prompts, out, tables, label: str) -> str:
+    """The engine's first decode step again, over a copy of the cache its
+    run left (request i in slot i, or in the pages ``tables[i]``; rows past
+    each prompt are masked), through the plain attention (and K8's plain
+    version for W4A8 weights): the engine's second token must be the
+    replay's argmax or a near-tie of it.  Returns a summary."""
+    from gptq_v2_tpu_torch.serving import decode as D
+    from gptq_v2_tpu_torch.serving import kv_cache as kvc
+    from gptq_v2_tpu_torch.serving.engine import _bucket
+
+    uids = list(range(len(prompts)))
+    lens = torch.tensor([len(p) for p in prompts], device="cuda")
+    first = torch.tensor([out[u][0] for u in uids], device="cuda")
+    s_b = min(_bucket(max(len(p) for p in prompts) + 1, eng.page_size), eng.max_seq_len)
+    bt = None
+    if tables is not None:
+        cache = dataclasses.replace(eng.cache, kv=eng.cache.kv.clone())
+        bt = torch.from_numpy(np.stack([tables[u] for u in uids])).to("cuda")
+    else:
+        cache = kvc.ContiguousKVCache(eng.cache.k.clone(), eng.cache.v.clone(),
+                                      eng.cache.k_scales, eng.cache.v_scales,
+                                      eng.cache.kv_bits)
+    with uncounted(), plain_attention(), plain_w4a8():
+        logits = D.decode_step(eng.model, first, cache, lens, s_b,
+                               block_tables=bt)[0].float()
+    del cache
+    exact = 0
+    for i, u in enumerate(uids):
+        tok = out[u][1]
+        exact += int(torch.argmax(logits[i])) == tok
+        if not near_tie(logits[i], tok):
+            raise RuntimeError(f"{label} request {u}: token {tok} disagrees with the plain "
+                               f"replay (argmax {int(torch.argmax(logits[i]))})")
+    return (f"the first decode step replayed through the plain versions gives the "
+            f"engine's token on {exact}/{len(uids)}, near-ties on all")
+
+
+GEMMA_DEPTH = 4  # of Gemma-2-9B's 42 blocks: two sliding, two global
+GEMMA_ENGINES = (("contiguous bf16", []), ("contiguous int8", ["--kv-dtype", "int8"]),
+                 ("contiguous int4", ["--kv-dtype", "int4"]),
+                 ("paged ragged bf16", ["--cache-kind", "paged", "--scheduler", "ragged",
+                                        "--token-budget", "64"]),
+                 ("paged ragged int8", ["--cache-kind", "paged", "--scheduler", "ragged",
+                                        "--token-budget", "64", "--kv-dtype", "int8"]),
+                 ("paged ragged int4", ["--cache-kind", "paged", "--scheduler", "ragged",
+                                        "--token-budget", "64", "--kv-dtype", "int4"]),
+                 ("W4A8 contiguous bf16", ["--act-dtype", "int8"]))
+
+
+def phase_gemma(torch, work: Path) -> dict:
+    """Gemma-2-9B at its published widths (head dim 256, 16 q heads over 8,
+    soft caps 50 and 30, the sandwich norms with a unit offset, GeGLU, tied
+    head, vocab 256000), bf16 (published float32), depth cut to
+    GEMMA_DEPTH: the CLI path (:func:`cli_quantize`), then ``serve.main``
+    and one engine a kind through ``serve.build_engine`` over the loaded
+    model (:func:`build_engine`): contiguous and paged ragged, each in
+    bf16, int8 and int4 KV, and the W4A8 tier; each run twice.  An engine whose prompts attend
+    their own bf16 K/V has its first tokens judged by the near-tie rule
+    against the plain forward (capped logits); the others (the ragged
+    quantized caches, W4A8) replay their first decode step through the
+    plain versions (:func:`replay_first_step`)."""
+    from gptq_v2_tpu_torch import serve as S
+    from gptq_v2_tpu_torch.models import families
+
+    cfg = family_cfg("gemma2", num_hidden_layers=GEMMA_DEPTH, torch_dtype="bfloat16")
+    kinds = [cfg.layer_types[i] for i in range(GEMMA_DEPTH)]
+    log(f"gemma-2 path: {families.SOURCES['gemma2']} widths (hidden {cfg.hidden_size}, "
+        f"intermediate {cfg.intermediate_size}, {cfg.num_attention_heads} q heads over "
+        f"{cfg.num_key_value_heads} kv heads of {cfg.head_dim_}, vocab {cfg.vocab_size}, "
+        f"soft caps {cfg.attn_logit_softcap} / {cfg.final_logit_softcap}, window "
+        f"{cfg.sliding_window}); cuts: depth {GEMMA_DEPTH} of 42 blocks ({kinds}), bf16 "
+        "weights (published float32); random weights (seed 0)")
+    root = work / "gemma"
+    cli_quantize(torch, cfg, root, "gemma-2")
+    serve_args = ["--model-dir", str(root / "model"), "--results", str(root / "results.npz"),
+                  "--max-batch", str(len(PROMPT_LENS)), "--max-seq-len", "512"]
+    t0 = time.time()
+    stats = S.main(serve_args + ["--prompt-tokens", "128", "--bench-tokens", str(NEW_TOKENS)])
+    log(f"phase gemma-2 serve.main contiguous bf16: ok, {time.time() - t0:.1f} s; benchmark "
+        f"{stats['requests']} requests x {NEW_TOKENS} new tokens: {stats['tok_s']:.1f} "
+        f"tok/s on {SMI}")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).tolist() for n in PROMPT_LENS]
+    dense = layer0 = None
+    for label, extra in GEMMA_ENGINES:
+        eng = build_engine(serve_args + extra)
+        if dense is None:
+            layer0, dense = eng.model.layers[0], kernel_dense(torch, eng.model)
+        tables = record_tables(eng) if eng.block_tables is not None else None
+        tag = f"gemma-2 {label}"
+        out, _ = engine_runs(torch, eng, prompts, tag, vocab=cfg.vocab_size)
+        r = RATES[tag]
+        if label in ("paged ragged int8", "paged ragged int4") or label.startswith("W4A8"):
+            verdict = replay_first_step(torch, eng, prompts, out, tables, tag)
+        else:  # the prompt attends its own fresh K/V
+            verdict = judge_tokens(torch, cfg, dense, prompts, out, tag)
+        log(f"phase {tag}: ok, {len(prompts)} requests x {NEW_TOKENS} new tokens, greedy "
+            f"output repeats, {r[0]:.1f} / {r[1]:.1f} tok/s on {SMI}; {verdict}")
+        del eng
+    del dense
+    torch.cuda.empty_cache()
+    return {"layer0": layer0}
+
+
 def phase_families(torch, work: Path) -> dict:
     """Every other family at its published widths, in memory: init_params
-    → quantize_model → Engine (contiguous bf16 KV; GLM-4 also int4 KV),
-    8 requests x FAMILY_NEW new tokens, run twice and judged by the
-    near-tie rule; depth 1 block (SmolLM3 4, so its NoPE layer 3 runs)."""
+    → quantize_model → Engine (contiguous bf16 KV; GLM-4 and Gemma-3 also
+    int4 KV), 8 requests x FAMILY_NEW new tokens, run twice and judged by
+    the near-tie rule; depth 1 block (SmolLM3 4, so its NoPE layer 3 runs;
+    Gemma-3-12B 6, its published 5 local layers and a global one;
+    Phi-3-mini at head dim 96)."""
     from gptq_v2_tpu_torch import pipeline as P
     from gptq_v2_tpu_torch.models import families
     from gptq_v2_tpu_torch.models import llama as L
     from gptq_v2_tpu_torch.serving import Engine
     from gptq_v2_tpu_torch.serving import model as TM
 
-    for fam in ("qwen3", "mistral", "glm4", "olmo2", "granite", "smollm3", "phi3"):
+    for fam in FAMILIES:
         depth = FAMILY_DEPTH.get(fam, 1)
         cfg = family_cfg(fam, num_hidden_layers=depth)
         t0 = time.time()
@@ -2090,14 +2267,15 @@ def phase_families(torch, work: Path) -> dict:
         rng = np.random.default_rng(6)
         prompts = [rng.integers(0, cfg.vocab_size, (n,)).tolist() for n in FAMILY_PROMPTS]
         heads = f"{cfg.num_attention_heads}/{cfg.num_key_value_heads}"
+        pub = families.published(fam)
         log(f"family {fam}: {families.SOURCES[fam]} widths (hidden {cfg.hidden_size}, "
-            f"intermediate {cfg.intermediate_size}, q/kv heads {heads}, vocab "
-            f"{cfg.vocab_size}), depth cut to {depth} of "
-            f"{families.published(fam)['num_hidden_layers']} blocks; quantized in "
-            f"{time.time() - t0:.1f} s")
+            f"intermediate {cfg.intermediate_size}, q/kv heads {heads} of {cfg.head_dim_}, "
+            f"vocab {cfg.vocab_size}), depth cut to {depth} of "
+            f"{pub.get('text_config', pub)['num_hidden_layers']} blocks"
+            + (f" ({list(cfg.layer_types)})" if cfg.layer_types else "")
+            + f"; quantized in {time.time() - t0:.1f} s")
         dense = None
-        # GLM-4's 2 kv heads are one int4 head pair: K7 at 16 q heads a kv head
-        for kv in ("native", "int4") if fam == "glm4" else ("native",):
+        for kv in ("native", "int4") if fam in FAMILY_INT4 else ("native",):
             eng = Engine(model, max_batch=len(FAMILY_PROMPTS), max_seq_len=256, kv_dtype=kv)
             label = f"{fam}" + (" int4 KV" if kv == "int4" else "")
             out, _ = engine_runs(torch, eng, prompts, label, new=FAMILY_NEW,
@@ -2116,73 +2294,87 @@ def phase_families(torch, work: Path) -> dict:
     return {}
 
 
+# (family, its published window, the cut window, prompt length, depth, the
+# cache's rows): Mistral's 4096 cut to 512 under 1536-token prompts;
+# Gemma-2's 4096 cut to 32 under 96-token prompts, its sliding layer 0
+# masking while its global layer 1 does not
+WINDOW_CASES = (("mistral", 4096, WINDOW, WINDOW_PROMPT, 2, WINDOW_SEQ),
+                ("gemma2", 4096, 32, 96, 2, 256))
+
+
 def phase_window(torch, work: Path) -> dict:
-    """Mistral-7B widths with the window cut from 4096 to WINDOW so that a
-    WINDOW_PROMPT-token prompt crosses it (the published window never trims
-    at smoke lengths): quantized, then served contiguous (K4's window) and
-    paged ragged (K6's window), every new token judged by the near-tie rule
-    with the engine's earlier tokens as context."""
+    """Mistral-7B and Gemma-2-9B widths with the window cut (the published
+    windows never trim at smoke lengths) so that the prompts cross it:
+    quantized, then served contiguous (K4's window) and paged ragged (K6's
+    window), every new token judged by the near-tie rule with the engine's
+    earlier tokens as context."""
     from gptq_v2_tpu_torch import pipeline as P
     from gptq_v2_tpu_torch.models import llama as L
     from gptq_v2_tpu_torch.serving import Engine
     from gptq_v2_tpu_torch.serving import model as TM
 
-    cfg = family_cfg("mistral", num_hidden_layers=2, sliding_window=WINDOW)
-    log(f"window path: Mistral-7B widths, the window cut from 4096 to {WINDOW} so a "
-        f"{WINDOW_PROMPT}-token prompt crosses it; depth cut to 2 of 32 blocks")
-    params = L.init_params(cfg, seed=1)
-    calib = np.random.default_rng(7).integers(0, cfg.vocab_size, (4, SEQLEN))
-    res = P.quantize_model(cfg, params, calib, P.QuantConfig(), batch_size=2)
-    model = TM.quantize_params_to_packed(cfg, params, res["data"])
-    del params
-    rng = np.random.default_rng(8)
-    prompts = [rng.integers(0, cfg.vocab_size, (WINDOW_PROMPT,)).tolist() for _ in range(2)]
-    dense = None
-    for label, kw in (("contiguous", {}),
-                      ("paged ragged", dict(cache_kind="paged", scheduler="ragged",
-                                            token_budget=256))):
-        eng = Engine(model, max_batch=2, max_seq_len=WINDOW_SEQ, **kw)
-        out, _ = engine_runs(torch, eng, prompts, f"window {label}", new=FAMILY_NEW,
-                             vocab=cfg.vocab_size)
-        r = RATES[f"window {label}"]
-        if dense is None:
-            dense = kernel_dense(torch, eng.model)
-        log(f"phase window {label}: ok, 2 requests x {FAMILY_NEW} new tokens after "
-            f"{WINDOW_PROMPT}, greedy output repeats, {r[0]:.1f} / {r[1]:.1f} tok/s on {SMI}; "
-            + judge_tokens(torch, cfg, dense, prompts, out, f"window {label}", every=True))
-        del eng
-    del dense, model
-    torch.cuda.empty_cache()
+    for fam, published, window, n_prompt, depth, seq in WINDOW_CASES:
+        cfg = family_cfg(fam, num_hidden_layers=depth, sliding_window=window,
+                         torch_dtype="bfloat16")
+        kinds = "" if cfg.layer_types is None else f" ({list(cfg.layer_types)})"
+        log(f"window path {fam}: its widths, the window cut from {published} to {window} "
+            f"so a {n_prompt}-token prompt crosses it; depth cut to {depth} blocks{kinds}")
+        params = L.init_params(cfg, seed=1)
+        calib = np.random.default_rng(7).integers(0, cfg.vocab_size, (4, SEQLEN))
+        res = P.quantize_model(cfg, params, calib, P.QuantConfig(), batch_size=2)
+        model = TM.quantize_params_to_packed(cfg, params, res["data"])
+        del params
+        rng = np.random.default_rng(8)
+        prompts = [rng.integers(0, cfg.vocab_size, (n_prompt,)).tolist() for _ in range(2)]
+        dense = None
+        for label, kw in (("contiguous", {}),
+                          ("paged ragged", dict(cache_kind="paged", scheduler="ragged",
+                                                token_budget=256))):
+            eng = Engine(model, max_batch=2, max_seq_len=seq, **kw)
+            tag = f"window {fam} {label}" if fam != "mistral" else f"window {label}"
+            out, _ = engine_runs(torch, eng, prompts, tag, new=FAMILY_NEW,
+                                 vocab=cfg.vocab_size)
+            r = RATES[tag]
+            if dense is None:
+                dense = kernel_dense(torch, eng.model)
+            log(f"phase {tag}: ok, 2 requests x {FAMILY_NEW} new tokens after {n_prompt}, "
+                f"greedy output repeats, {r[0]:.1f} / {r[1]:.1f} tok/s on {SMI}; "
+                + judge_tokens(torch, cfg, dense, prompts, out, tag, every=True))
+            del eng
+        del dense, model
+        torch.cuda.empty_cache()
     return {}
 
 
 def phase_full_depth(torch, work: Path) -> dict:
-    """Qwen2.5-7B at its full 28 blocks from ``random_packed_llama``
-    (synthetic packed weights drawn on the card): the paged ragged bf16
-    engine, 8 requests x NEW_TOKENS, run twice; first tokens judged by the
-    near-tie rule against the plain forward over the dequantized weights."""
+    """Qwen2.5-7B's 28 blocks and Gemma-2-9B's 42 from ``random_packed_llama``
+    (synthetic packed weights drawn on the card; Gemma's unit-offset norms
+    at zero): the paged ragged bf16 engine, 8 requests x NEW_TOKENS, run
+    twice; first tokens judged by the near-tie rule against the plain
+    forward over the weights in K3's algebra."""
     from gptq_v2_tpu_torch.serving import Engine
     from gptq_v2_tpu_torch.serving import model as TM
 
-    cfg = family_cfg("qwen2")
-    t0 = time.time()
-    model = TM.random_packed_llama(cfg, seed=0)
-    torch.cuda.synchronize()
-    log(f"full-depth path: Qwen2.5-7B, all {cfg.num_hidden_layers} blocks, "
-        f"random_packed_llama (seed 0) in {time.time() - t0:.1f} s")
-    eng = Engine(model, max_batch=len(PROMPT_LENS), max_seq_len=512, cache_kind="paged",
-                 scheduler="ragged", token_budget=64)
-    rng = np.random.default_rng(9)
-    prompts = [rng.integers(0, cfg.vocab_size, (n,)).tolist() for n in PROMPT_LENS]
-    out, _ = engine_runs(torch, eng, prompts, "full depth", vocab=cfg.vocab_size)
-    r = RATES["full depth"]
-    dense = kernel_dense(torch, eng.model)
-    verdict = judge_tokens(torch, cfg, dense, prompts, out, "full depth")
-    log(f"phase full depth: ok, paged ragged bf16, {len(prompts)} requests x {NEW_TOKENS} "
-        f"new tokens, greedy output repeats, {r[0]:.1f} / {r[1]:.1f} tok/s on {SMI}; "
-        + verdict)
-    del eng, model, dense
-    torch.cuda.empty_cache()
+    for fam, label in (("qwen2", "full depth"), ("gemma2", "full depth gemma-2")):
+        cfg = family_cfg(fam, torch_dtype="bfloat16")
+        t0 = time.time()
+        model = TM.random_packed_llama(cfg, seed=0)
+        torch.cuda.synchronize()
+        log(f"{label} path: {fam}, all {cfg.num_hidden_layers} blocks, random_packed_llama "
+            f"(seed 0) in {time.time() - t0:.1f} s")
+        eng = Engine(model, max_batch=len(PROMPT_LENS), max_seq_len=512, cache_kind="paged",
+                     scheduler="ragged", token_budget=64)
+        rng = np.random.default_rng(9)
+        prompts = [rng.integers(0, cfg.vocab_size, (n,)).tolist() for n in PROMPT_LENS]
+        out, _ = engine_runs(torch, eng, prompts, label, vocab=cfg.vocab_size)
+        r = RATES[label]
+        dense = kernel_dense(torch, eng.model)
+        verdict = judge_tokens(torch, cfg, dense, prompts, out, label)
+        log(f"phase {label}: ok, paged ragged bf16, {len(prompts)} requests x {NEW_TOKENS} "
+            f"new tokens, greedy output repeats, {r[0]:.1f} / {r[1]:.1f} tok/s on {SMI}; "
+            + verdict)
+        del eng, model, dense
+        torch.cuda.empty_cache()
     return {}
 
 
@@ -2262,6 +2454,9 @@ def main(argv=None) -> int:
     paths = (("main", phase_main_path, ("hessian", "gptq", "w4a16", "attention")),
              ("qwen2.5", phase_qwen, ("hessian", "gptq", "gptq_step", "w4a16", "attention",
                                       "paged_attention", "paged_write")),
+             ("gemma-2", phase_gemma, ("hessian", "gptq", "gptq_step", "w4a16", "w4a8",
+                                       "attention", "attention_p4", "paged_attention",
+                                       "paged_write")),
              ("families", phase_families, ("hessian", "gptq", "w4a16", "attention",
                                            "attention_p4")),
              ("window", phase_window, ("hessian", "gptq", "w4a16", "attention",
@@ -2278,17 +2473,19 @@ def main(argv=None) -> int:
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     counts = {}
+    wide = {}  # the first block of each wide CLI path, for K3's and K8's rows
     try:
         for name, phase, needed in paths:
             for fn in wrappers.values():
                 fn.launches = 0
             t0 = time.time()
             result = phase(torch, work)
+            LOADED.clear()
             counts[name] = {k: fn.launches for k, fn in wrappers.items()}
             if name == "main":
                 main_out = result
-            if name == "qwen2.5":
-                qwen_out = result
+            if name in ("qwen2.5", "gemma-2"):
+                wide[f"{name} "] = result["layer0"]
             log(f"path {name}: {time.time() - t0:.1f} s, launches "
                 + ", ".join(f"{k} {v}" for k, v in counts[name].items()))
             missing = [k for k in needed if not counts[name][k]]
@@ -2298,6 +2495,7 @@ def main(argv=None) -> int:
                 raise RuntimeError(f"path serve.w4a8: K3 launched {counts[name]['w4a16']} "
                                    "times; every block linear should run through K8")
         phase_attention_ab(torch, work)
+        LOADED.clear()
     finally:
         if args.keep_checkpoint:
             keep = Path(args.keep_checkpoint)
@@ -2312,8 +2510,8 @@ def main(argv=None) -> int:
     timer = Timer(torch)
     kernels = (phase_hessian(torch, timer, launches)
                + phase_gptq(torch, timer, launches)
-               + phase_w4a16(torch, timer, launches, main_out["layer0"], qwen_out["layer0"])
-               + phase_w4a8(torch, timer, launches, main_out["layer0"], qwen_out["layer0"])
+               + phase_w4a16(torch, timer, launches, main_out["layer0"], wide)
+               + phase_w4a8(torch, timer, launches, main_out["layer0"], wide)
                + phase_gptq_step(torch, timer, launches)
                + phase_attention(torch, timer, launches)
                + phase_paged_attention(torch, timer, launches)

@@ -45,7 +45,7 @@
 //   GB the largest divisor of groups = Hq/Hkv that is at most 8, so every
 //   group count runs (Qwen2.5-7B's 7, GLM-4's 16).  Above 8 the group is
 //   cut into groups/GB chunks, one block each (a bf16 block at NH = 16
-//   would pass 48 KB of static shared memory); a chunk's blocks read the
+//   would pass 48 KB of shared memory); a chunk's blocks read the
 //   same rows.  Heads never mix inside a block, so a head's output bits do
 //   not depend on GB.
 // * Bytes in flight.  The split's page ids (at most 5 for 16-row pages: 64
@@ -54,9 +54,14 @@
 //   block stages the split's K rows and then its V rows with 16-byte
 //   cp.async, two commit groups: in the pool a key's K and V rows of one
 //   unit are adjacent, each a run of 16-byte chunks (256 bytes for bf16 at
-//   hd 128, 128 for int8 and int4 pairs).  The whole split (up to 32 KB) is
-//   in flight at once; scores start when K has landed, while V is still in
-//   flight.
+//   hd 128, 128 for int8 and int4 pairs).  The whole split (up to 64 KB, at
+//   hd 256) is in flight at once; scores start when K has landed, while V
+//   is still in flight.
+// * Head dims 64, 96, 128 and 256 (Llama, Phi-3-mini, Gemma).  The
+//   split's K and V tiles are dynamic shared memory (split_attention.cuh):
+//   a bf16 pair at hd 256 is 65 KB, past the 48 KB a block may hold
+//   without opting in.  The 64-key split and its partials' layout are the
+//   same at every head dim.
 // * Scores (fp32; bf16, int8 and int4 products are exact in fp32): two
 //   threads per key, each over half of hd for all NH heads, K read from
 //   rows padded by 16 bytes (conflict-free 16-byte reads of 8 keys at
@@ -66,7 +71,8 @@
 //   l = Σ p.  p stays fp32 for PV (the TPU kernel and the plain version
 //   round it to the value dtype).
 // * PV: each thread owns one d for all NH heads over the split's keys (two
-//   key halves added in order at hd 64), one element of V per lane, p as a
+//   key halves added in order at hd 64; threads 96-127 idle at hd 96; two
+//   d's, t and t + 128, at hd 256), one element of V per lane, p as a
 //   broadcast.  The split writes (m, l, acc[hd]) per q head to the scratch.
 // * Merge: a second kernel in the same C call (no tickets, no atomics, so a
 //   launch is graph-capturable and bit-repeatable), one block per (row, q
@@ -74,9 +80,7 @@
 //   den = exp(sink - M) + Σ l_z exp(m_z - M), num = Σ acc_z exp(m_z - M),
 //   in split order 0…n-1, empty splits skipped; out = num / den · v_scale,
 //   or 0 for a row with no visible key (pad rows).  The sink joins exactly
-//   once, here.  The max is a block reduction and each split's factor
-//   exp(m_z - M) is formed once in shared memory, so only the in-order fold
-//   is serial, and its loads of acc are issued 16 at a time ahead of it.
+//   once, here.
 // * Scratch: the partials take rows · Hq · n_splits · (hd + 2) fp32, from
 //   torch.empty in the wrapper, capped at SCRATCH_CAP = 64 MiB (a 512-row
 //   prefill chunk at a 4096-key table would need 545 MB).  Where a call
@@ -85,6 +89,10 @@
 //   (hd + 2) · 4)) rows on one stream, reusing the scratch; a range of rows
 //   changes no row's bits.
 //
+// The scores, softmax, PV and merge are split_attention.cuh's, shared with
+// K4/K7 (csrc/contiguous_attention.cu); this file finds a row's sequence
+// and stages its split's rows from the pool.
+//
 // Scalar int8 k/v scales arrive as arguments (qk_scale, v_scale), as in the
 // TPU kernel; per-head int4 scales are folded outside
 // (serving/decode.py::fold_paged_kv_scales) and arrive as 1.0, so the
@@ -92,20 +100,11 @@
 // prefix once per row of the chunk (from L2); tiles of rows of one
 // sequence sharing each K/V page, with QKᵀ and PV on the tensor cores,
 // are the redesign that removes that.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cmath>
-#include <cstdint>
+#include "split_attention.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;  // 4 warps
-constexpr int KPS = 64;       // keys per split
-static_assert(THREADS == 2 * KPS, "scores take two threads a key");
 constexpr size_t SCRATCH_CAP = size_t(64) << 20;  // bytes of partials per launch
-
-enum Mode { BF16 = 0, INT8 = 1, INT4 = 2 };
 
 struct Args {
   const __nv_bfloat16* q;   // (T, Hq, hd)
@@ -125,88 +124,18 @@ struct Args {
   float qk_scale, v_scale, soft_cap;  // soft_cap <= 0: off
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ int low_nibble(int x) {
-  return static_cast<int>(static_cast<unsigned>(x) << 28) >> 28;
-}
-
-// 16 bytes of a pool row as floats: 8 bf16 or 16 int8 values to lo; for
-// INT4 the 16 low nibbles to lo and the 16 high nibbles to hi
-template <int MODE>
-__device__ __forceinline__ void unpack16(const uint4& raw, float* lo, float* hi) {
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (MODE == BF16) {
-      lo[2 * i] = __uint_as_float(w[i] << 16);
-      lo[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int x = static_cast<int>(w[i] << (24 - 8 * j)) >> 24;  // byte j, sign-extended
-        if (MODE == INT8) {
-          lo[4 * i + j] = static_cast<float>(x);
-        } else {
-          lo[4 * i + j] = static_cast<float>(low_nibble(x));
-          hi[4 * i + j] = static_cast<float>(x >> 4);
-        }
-      }
-    }
-  }
-}
-
-// one element of a V row (INT4: both nibbles of one byte)
-template <int MODE>
-__device__ __forceinline__ void load_elem(const unsigned char* p, float& lo, float& hi) {
-  if (MODE == BF16) {
-    lo = __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
-  } else {
-    const int x = static_cast<signed char>(*p);
-    if (MODE == INT8) {
-      lo = static_cast<float>(x);
-    } else {
-      lo = static_cast<float>(low_nibble(x));
-      hi = static_cast<float>(x >> 4);
-    }
-  }
-}
-
 // NH q heads per block: GB of the group of kv head u, or GB of each of the
 // int4 pair's two groups (the low nibble's head first); GB divides groups
 template <int MODE, int HD, int NH>
-__global__ void __launch_bounds__(THREADS) split_kernel(Args a) {
+__global__ void __launch_bounds__(THREADS, (blocks_per_sm<MODE, HD, NH>()))
+    split_kernel(Args a) {
   constexpr int GB = MODE == INT4 ? NH / 2 : NH;
-  constexpr int ROW = HD * (MODE == BF16 ? 2 : 1);  // bytes of one unit's K (or V) row
-  constexpr int CPR = ROW / 16;                     // 16-byte chunks a row
-  constexpr int EPC = MODE == BF16 ? 8 : 16;        // d's a chunk
-  constexpr int KROW = ROW + 16;                    // padded: 8 keys' chunk c in 8 bank groups
-  constexpr int KG = THREADS / HD;                  // PV key groups: 1 (hd 128) or 2 (hd 64)
-  __shared__ __align__(16) unsigned char ks[KPS * KROW];
-  __shared__ __align__(16) unsigned char vs[KPS * ROW];
+  using T = Tile<MODE, HD>;
+  constexpr int ROW = T::ROW, CPR = T::CPR, KROW = T::KROW;
+  extern __shared__ __align__(16) unsigned char tiles[];  // T::BYTES
+  unsigned char* ks = tiles;
+  unsigned char* vs = tiles + KPS * KROW;
   __shared__ __align__(16) float qs[NH][HD];
-  __shared__ float sc[2][NH][KPS];
-  __shared__ __align__(16) float ps[KPS][NH];
-  __shared__ float red[KG > 1 ? NH : 1][HD];
   __shared__ size_t koff[KPS];   // byte offset of each key's K row of this unit
   __shared__ int32_t pages[KPS];  // the split's page ids, in order
   __shared__ int row_info[4];     // the row's sequence (-1: a pad row), run start, n_new, kv_len
@@ -283,174 +212,32 @@ __global__ void __launch_bounds__(THREADS) split_kernel(Args a) {
     const size_t src = (static_cast<size_t>(row) * hq + qhead(c / HD)) * HD + c % HD;
     qs[c / HD][c % HD] = __bfloat162float(a.q[src]);
   }
-  cp_async_wait<1>();  // K has landed; V may still be in flight
-  __syncthreads();
-
-  // scores: thread (key jj, half) over half of hd for every head
-  {
-    const int jj = t % KPS, half = t / KPS;
-    if (jj < n) {
-      float s[NH];
-#pragma unroll
-      for (int i = 0; i < NH; ++i) s[i] = 0.0f;
-      const unsigned char* krow = ks + jj * KROW + half * (ROW / 2);
-#pragma unroll 2
-      for (int c = 0; c < CPR / 2; ++c) {
-        const int d0 = half * (HD / 2) + c * EPC;
-        float klo[EPC], khi[EPC];
-        unpack16<MODE>(*reinterpret_cast<const uint4*>(krow + c * 16), klo, khi);
-#pragma unroll
-        for (int i = 0; i < NH; ++i) {
-          const bool upper = MODE == INT4 && i >= NH / 2;
-          float acc = s[i];
-#pragma unroll
-          for (int e = 0; e < EPC; ++e) acc = fmaf(qs[i][d0 + e], upper ? khi[e] : klo[e], acc);
-          s[i] = acc;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < NH; ++i) sc[half][i][jj] = s[i];
-    }
-  }
-  __syncthreads();
-
-  // softmax over the split, one warp a head: m, p = exp(s - m), l
-  {
-    const int warp = t / 32, lane = t % 32;
-    for (int i = warp; i < NH; i += THREADS / 32) {
-      float s[KPS / 32], mx = -INFINITY;
-#pragma unroll
-      for (int v = 0; v < KPS / 32; ++v) {
-        const int jj = lane + 32 * v;
-        float x = -INFINITY;
-        if (jj < n) {
-          x = (sc[0][i][jj] + sc[1][i][jj]) * a.qk_scale;
-          if (a.soft_cap > 0.0f) x = a.soft_cap * tanhf(x / a.soft_cap);
-        }
-        s[v] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = warp_max(mx);
-      float l = 0.0f;
-#pragma unroll
-      for (int v = 0; v < KPS / 32; ++v) {
-        const int jj = lane + 32 * v;
-        const float p = jj < n ? expf(s[v] - mx) : 0.0f;
-        ps[jj][i] = p;
-        l += p;
-      }
-      l = warp_sum(l);
-      if (lane == 0) {
-        a.part_m[part(i)] = mx;
-        a.part_l[part(i)] = l;
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // PV: thread (d, key group) for every head, keys in order
-  {
-    const int d = t % HD, kg = t / HD;
-    const int k_end = min(n, (kg + 1) * (KPS / KG));
-    float acc[NH];
-#pragma unroll
-    for (int i = 0; i < NH; ++i) acc[i] = 0.0f;
-    for (int jj = kg * (KPS / KG); jj < k_end; ++jj) {
-      float vlo, vhi = 0.0f;
-      load_elem<MODE>(vs + jj * ROW + d * (MODE == BF16 ? 2 : 1), vlo, vhi);
-#pragma unroll
-      for (int i = 0; i < NH; ++i)
-        acc[i] = fmaf(ps[jj][i], MODE == INT4 && i >= NH / 2 ? vhi : vlo, acc[i]);
-    }
-    if (KG > 1) {
-      if (kg == 1) {
-#pragma unroll
-        for (int i = 0; i < NH; ++i) red[i][d] = acc[i];
-      }
-      __syncthreads();
-      if (kg == 0) {
-#pragma unroll
-        for (int i = 0; i < NH; ++i) acc[i] += red[i][d];
-      }
-    }
-    if (kg == 0) {
-#pragma unroll
-      for (int i = 0; i < NH; ++i) a.part_acc[part(i) * HD + d] = acc[i];
-    }
-  }
+  split_body<MODE, HD, NH>(tiles, qs, n, a.qk_scale, a.soft_cap, a.part_m, a.part_l,
+                           a.part_acc, part);
 }
 
-// one block per (row, q head), one thread per d.  The max over the splits
-// is a block reduction (exact in any order) whose loads also keep the
-// first MERGE_Z splits' m and l in shared memory; each split's factor
-// exp(m_z - M) is formed once there, MERGE_Z splits at a time; then every
-// thread folds l_z and acc_z[d] in split order, its loads of acc issued
-// MERGE_BATCH at a time ahead of their fold.
-constexpr int MERGE_Z = 256;
-constexpr int MERGE_BATCH = 16;
-
+// one block per (row, q head), one thread per d
 template <int HD>
 __global__ void __launch_bounds__(HD) merge_kernel(Args a, int hq) {
-  __shared__ float fz[MERGE_Z], lz[MERGE_Z], wmax[HD / 32];
-  const int b = blockIdx.x, qh = blockIdx.y, d = threadIdx.x;
+  const int b = blockIdx.x, qh = blockIdx.y;
   const size_t base = (static_cast<size_t>(b) * hq + qh) * a.n_splits;
-  float mx = -INFINITY;
-  for (int z = d; z < a.n_splits; z += HD) {
-    const float m = a.part_m[base + z];
-    mx = fmaxf(mx, m);
-    if (z < MERGE_Z) {  // read back by this thread for the first chunk
-      fz[z] = m;
-      lz[z] = a.part_l[base + z];
-    }
-  }
-  mx = warp_max(mx);
-  if (d % 32 == 0) wmax[d / 32] = mx;
-  __syncthreads();
-#pragma unroll
-  for (int w = 0; w < HD / 32; ++w) mx = fmaxf(mx, wmax[w]);
-  const float sink = a.sinks != nullptr ? a.sinks[qh] : -INFINITY;
-  mx = fmaxf(mx, sink);
-  float den = a.sinks != nullptr ? expf(sink - mx) : 0.0f, num = 0.0f;
-  for (int z0 = 0; z0 < a.n_splits; z0 += MERGE_Z) {
-    const int nz = min(MERGE_Z, a.n_splits - z0);
-    if (z0 > 0) __syncthreads();  // the previous chunk's factors are read
-    for (int z = d; z < nz; z += HD) {
-      const float m = z0 == 0 ? fz[z] : a.part_m[base + z0 + z];
-      if (z0 > 0) lz[z] = a.part_l[base + z0 + z];
-      // an empty split adds nothing; its acc was never written
-      fz[z] = m == -INFINITY ? 0.0f : expf(m - mx);
-    }
-    __syncthreads();
-    const float* acc = a.part_acc + (base + z0) * HD + d;
-    for (int zb = 0; zb < nz; zb += MERGE_BATCH) {
-      float v[MERGE_BATCH];  // all loads of a batch issued before its fold
-#pragma unroll
-      for (int w = 0; w < MERGE_BATCH; ++w)
-        v[w] = zb + w < nz ? acc[static_cast<size_t>(zb + w) * HD] : 0.0f;
-#pragma unroll
-      for (int w = 0; w < MERGE_BATCH; ++w) {
-        const float f = zb + w < nz ? fz[zb + w] : 0.0f;
-        if (f != 0.0f) {
-          den = fmaf(lz[zb + w], f, den);
-          num = fmaf(v[w], f, num);
-        }
-      }
-    }
-  }
-  a.out[(static_cast<size_t>(a.row0 + b) * hq + qh) * HD + d] =
-      __float2bfloat16_rn(den > 0.0f ? num / den * a.v_scale : 0.0f);
+  const float o = merge_splits<HD>(a.part_m, a.part_l, a.part_acc, base, a.n_splits, a.sinks,
+                                   qh, a.v_scale);
+  a.out[(static_cast<size_t>(a.row0 + b) * hq + qh) * HD + threadIdx.x] = __float2bfloat16_rn(o);
 }
 
 // the split/merge pair over rows [0, n_rows), rows_per_range at a time
 template <int MODE, int HD, int NH>
 cudaError_t launch_one(Args a, int n_rows, int rows_per_range, cudaStream_t stream) {
   const int hq = (MODE == INT4 ? 2 * a.n_units : a.n_units) * a.groups;
+  constexpr int SMEM = Tile<MODE, HD>::BYTES;
+  const cudaError_t smem_err = allow_smem<split_kernel<MODE, HD, NH>, SMEM>();
+  if (smem_err != cudaSuccess) return smem_err;
   for (int r0 = 0; r0 < n_rows; r0 += rows_per_range) {
     const int nr = n_rows - r0 < rows_per_range ? n_rows - r0 : rows_per_range;
     a.row0 = r0;
     split_kernel<MODE, HD, NH>
-        <<<dim3(nr, a.n_units * a.n_chunks, a.n_splits), THREADS, 0, stream>>>(a);
+        <<<dim3(nr, a.n_units * a.n_chunks, a.n_splits), THREADS, SMEM, stream>>>(a);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     merge_kernel<HD><<<dim3(nr, hq), HD, 0, stream>>>(a, hq);
@@ -458,14 +245,6 @@ cudaError_t launch_one(Args a, int n_rows, int rows_per_range, cudaStream_t stre
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
-}
-
-// heads per block: GB = the largest divisor of groups up to 8, doubled for
-// the int4 pairs
-int heads_per_block(int groups) {
-  int gb = 8;
-  while (groups % gb) --gb;
-  return gb;
 }
 
 template <int MODE, int HD>
@@ -490,7 +269,9 @@ template <int MODE>
 cudaError_t launch_hd(const Args& a, int n_rows, int rpr, int hd, cudaStream_t stream) {
   switch (hd) {
     case 64: return launch_nh<MODE, 64>(a, n_rows, rpr, stream);
+    case 96: return launch_nh<MODE, 96>(a, n_rows, rpr, stream);
     case 128: return launch_nh<MODE, 128>(a, n_rows, rpr, stream);
+    case 256: return launch_nh<MODE, 256>(a, n_rows, rpr, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -511,7 +292,8 @@ extern "C" {
 // Hkv (modes 0, 1) or Hkv/2 (mode 2), 16-byte aligned; kv_lens: (n_seqs,),
 // tables: (n_seqs, pages_per_seq), cu: (n_seqs + 1,), num_seqs: (1,), all
 // int32; sinks: (Hq,) fp32 or null.  qk_scale = sm_scale·k_scale; window 0
-// and soft_cap 0 switch those off.  hd must be 64 or 128; any Hq/Hkv.
+// and soft_cap 0 switch those off.  hd must be 64, 96, 128 or 256; any
+// Hq/Hkv.
 // n_splits must be ceil(min(pages_per_seq·page_size, window) /
 // 64); scratch holds rows_per_range·Hq·n_splits·(hd + 2) fp32, and
 // rows_per_range must be 1 or keep that within 64 MiB (refused otherwise).

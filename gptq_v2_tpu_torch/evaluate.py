@@ -4,9 +4,9 @@ The hidden states of every evaluation window stay on ``device``; decoder
 layers stream to it one at a time.  ppl = ``exp(mean shifted
 cross-entropy)``, each batch's mean NLL weighted by its batch size (the
 reference's bookkeeping); logits in the model dtype through
-``models.llama.lm_logits`` (so Granite's ``logits_scaling`` divides them, as
-in HF), log-softmax in fp32.  Each layer takes its own window and rope
-table.
+``models.llama.lm_logits`` (so Gemma-2's final soft cap caps them and
+Granite's ``logits_scaling`` divides them, as in HF), log-softmax in fp32.
+Each layer takes its own window and rope table.
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ def evaluate_ppl(cfg: L.LlamaConfig, params: L.Params, encodings: np.ndarray,
     norm_w = params["norm"].to(device)
     total, weight = 0.0, 0
     for b, xb in enumerate(xs):
-        hidden = L.rms_norm(xb, norm_w, cfg.rms_norm_eps)
+        hidden = L.final_norm(cfg, xb, norm_w)
         logits = L.lm_logits(cfg, head, hidden)[:, :-1].float()
         labels = tokens[b * batch_size:(b + 1) * batch_size, 1:].to(device)
         logp = torch.log_softmax(logits, dim=-1)

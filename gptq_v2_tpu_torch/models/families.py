@@ -5,7 +5,11 @@ depth cut by the caller).
 Each entry is the HF config dict the model's repository publishes, with
 the keys :meth:`~gptq_v2_tpu_torch.models.llama.LlamaConfig.from_hf_dict`
 reads; ``SOURCES`` names the repository.  Widths, heads, vocabulary, rope
-and norm settings are the published ones.
+and norm settings are the published ones.  Gemma-3's file is the
+multimodal wrapper, whose ``text_config`` lists only what differs from
+HF ``Gemma3TextConfig``; the defaults it relies on (vocabulary, head dim,
+rope bases, the sliding pattern) are written out here.  Gemma-2-9B
+publishes float32 weights.
 """
 from __future__ import annotations
 
@@ -21,6 +25,9 @@ SOURCES = {
     "granite": "ibm-granite/granite-3.1-8b-base",
     "smollm3": "HuggingFaceTB/SmolLM3-3B",
     "phi3": "microsoft/Phi-3-medium-4k-instruct",
+    "phi3_mini": "microsoft/Phi-3-mini-4k-instruct",
+    "gemma2": "google/gemma-2-9b",
+    "gemma3": "google/gemma-3-12b-pt",
 }
 
 _PUBLISHED: Dict[str, dict] = {
@@ -68,19 +75,50 @@ _PUBLISHED: Dict[str, dict] = {
                  num_key_value_heads=10, max_position_embeddings=4096, rope_theta=10000.0,
                  rms_norm_eps=1e-5, sliding_window=2047, tie_word_embeddings=False,
                  torch_dtype="bfloat16"),
+    "phi3_mini": dict(model_type="phi3", vocab_size=32064, hidden_size=3072,
+                      intermediate_size=8192, num_hidden_layers=32, num_attention_heads=32,
+                      num_key_value_heads=32, max_position_embeddings=4096,
+                      rope_theta=10000.0, rope_scaling=None, rms_norm_eps=1e-5,
+                      sliding_window=2047, tie_word_embeddings=False,
+                      torch_dtype="bfloat16"),
+    "gemma2": dict(model_type="gemma2", vocab_size=256000, hidden_size=3584,
+                   intermediate_size=14336, num_hidden_layers=42, num_attention_heads=16,
+                   num_key_value_heads=8, head_dim=256, query_pre_attn_scalar=256,
+                   hidden_activation="gelu_pytorch_tanh", max_position_embeddings=8192,
+                   rope_theta=10000.0, rms_norm_eps=1e-6, attention_bias=False,
+                   attn_logit_softcapping=50.0, final_logit_softcapping=30.0,
+                   sliding_window=4096, torch_dtype="float32"),
+    "gemma3": dict(model_type="gemma3", torch_dtype="bfloat16", text_config=dict(
+        model_type="gemma3_text", vocab_size=262208, hidden_size=3840,
+        intermediate_size=15360, num_hidden_layers=48, num_attention_heads=16,
+        num_key_value_heads=8, head_dim=256, query_pre_attn_scalar=256,
+        hidden_activation="gelu_pytorch_tanh", max_position_embeddings=131072,
+        rope_theta=1000000.0, rope_scaling={"factor": 8.0, "rope_type": "linear"},
+        rope_local_base_freq=10000.0, rms_norm_eps=1e-6, sliding_window=1024,
+        sliding_window_pattern=6, attn_logit_softcapping=None,
+        final_logit_softcapping=None)),
 }
 
 
-def published(model_type: str, **overrides) -> dict:
-    """A copy of the family's published config dict, with ``overrides``
-    (a depth cut: ``num_hidden_layers``; a window cut: ``sliding_window``).
-    SmolLM3's NoPE pattern is written out for the published depth and then
-    cut with it, so a cut model keeps the published layers' kinds."""
-    d = copy.deepcopy(_PUBLISHED[model_type])
-    if model_type == "smollm3" and "no_rope_layers" not in d:
-        iv = d.pop("no_rope_layer_interval")
-        d["no_rope_layers"] = [int(bool((i + 1) % iv)) for i in range(d["num_hidden_layers"])]
-    d.update(overrides)
-    if "no_rope_layers" in d:
-        d["no_rope_layers"] = d["no_rope_layers"][:d["num_hidden_layers"]]
+def published(name: str, **overrides) -> dict:
+    """A copy of the published config dict ``name`` (a key of ``SOURCES``),
+    with ``overrides`` applied to the text model's keys (a depth cut:
+    ``num_hidden_layers``; a window cut: ``sliding_window``; a dtype:
+    ``torch_dtype``).  SmolLM3's NoPE pattern and Gemma-3's sliding pattern
+    are written out for the published depth and then cut with it, so a cut
+    model keeps the published layers' kinds."""
+    d = copy.deepcopy(_PUBLISHED[name])
+    text = d.get("text_config", d)
+    n = text["num_hidden_layers"]
+    if "no_rope_layer_interval" in text:
+        iv = text.pop("no_rope_layer_interval")
+        text["no_rope_layers"] = [int(bool((i + 1) % iv)) for i in range(n)]
+    if "sliding_window_pattern" in text:
+        pat = text.pop("sliding_window_pattern")
+        text["layer_types"] = ["sliding_attention" if (i + 1) % pat else "full_attention"
+                               for i in range(n)]
+    text.update(overrides)
+    for key in ("no_rope_layers", "layer_types"):
+        if key in text:
+            text[key] = text[key][:text["num_hidden_layers"]]
     return d

@@ -3,8 +3,12 @@
 block is a switch of the Llama block -- Mistral (sliding window), Qwen2/2.5
 (q/k/v biases), Qwen3 (head-dim q/k norms), GLM-4 (partial rotary, sandwich
 norms, fused gate/up), OLMo-2 (post-norm only, flat q/k norms), Granite
-(four scalar multipliers), SmolLM3 (NoPE layers) and Phi-3 (fused qkv and
-gate/up checkpoints); ``linear``, ``llama3`` and ``yarn`` rope scaling.
+(four scalar multipliers), SmolLM3 (NoPE layers), Phi-3 (fused qkv and
+gate/up checkpoints), Gemma-2 (sandwich norms with a unit offset, GeGLU,
+the embedding normalizer, attention and final logit soft caps, alternating
+sliding and global layers) and Gemma-3 (Gemma-2 without soft caps, with
+head-dim q/k norms and a local rope table on its sliding layers);
+``linear``, ``llama3`` and ``yarn`` rope scaling.
 
 Parameters are a plain dict of tensors; linear weights are stored
 ``(in_features, out_features)`` so a projection is ``x @ W`` (plus the
@@ -15,8 +19,8 @@ host for whole-sequence positions), attention scores and softmax in fp32.
 The decoder block exposes capture points at each linear's input for the
 quantization pipeline.
 
-The other families of the JAX package (Gemma-2/3, MoE, MLA, GPT-OSS,
-Llama-4) are not ported yet; :meth:`LlamaConfig.from_hf_dict` refuses them.
+The other families of the JAX package (MoE, MLA, GPT-OSS, Llama-4) are
+not ported yet; :meth:`LlamaConfig.from_hf_dict` refuses them.
 """
 from __future__ import annotations
 
@@ -34,11 +38,11 @@ Params = Dict[str, Any]
 
 # the model types from_hf_dict reads (JAX ``LlamaConfig.from_hf_dict``)
 FAMILIES = ("llama", "mistral", "qwen2", "qwen3", "glm4", "olmo2", "granite",
-            "smollm3", "phi3")
+            "smollm3", "phi3", "gemma2", "gemma3_text")
 # the JAX package's other families, refused until their slice is ported
 # (ROADMAP queue 1, item 10)
-_NOT_PORTED = ("gemma2", "gemma3", "gemma3_text", "mixtral", "qwen3_moe",
-               "deepseek_v3", "gpt_oss", "llama4", "llama4_text")
+_NOT_PORTED = ("mixtral", "qwen3_moe", "deepseek_v3", "gpt_oss", "llama4", "llama4_text")
+_ACTIVATIONS = ("silu", "gelu_pytorch_tanh", "gelu_tanh")
 _LAYER_TYPES = ("sliding_attention", "full_attention")
 
 
@@ -61,7 +65,7 @@ class LlamaConfig:
     rope_scaling: Optional[Tuple[Tuple[str, Any], ...]] = None
     qkv_bias: bool = False  # Qwen2, GLM-4; HF llama `attention_bias` sets both
     o_bias: bool = False
-    qk_norm: bool = False  # Qwen3: head-dim RMSNorm on q/k before rope
+    qk_norm: bool = False  # Qwen3, Gemma-3: head-dim RMSNorm on q/k before rope
     # OLMo-2: RMSNorm over all heads' features of q/k, before the head reshape
     qk_norm_flat: bool = False
     sliding_window: Optional[int] = None  # Mistral (Qwen/SmolLM3 behind a flag)
@@ -79,13 +83,23 @@ class LlamaConfig:
     # de-interleaves each head's rotary prefix of the q/k out-features
     # once, so the runtime keeps the half-rotation
     rope_interleaved: bool = False
-    sandwich_norms: bool = False  # GLM-4: post-attn + pre/post-MLP norms
+    sandwich_norms: bool = False  # GLM-4, Gemma: post-attn + pre/post-MLP norms
     postnorm_only: bool = False  # OLMo-2: sublayer outputs normed, no input norms
     # Granite: embeds *= , sublayer outputs *= , sm_scale = , logits /=
     embed_multiplier: Optional[float] = None
     residual_multiplier: Optional[float] = None
     attn_multiplier: Optional[float] = None
     logits_divider: Optional[float] = None
+    # Gemma-2/3 switches
+    hidden_act: str = "silu"  # "silu" | "gelu_pytorch_tanh" (tanh-GELU)
+    norm_unit_offset: bool = False  # RMSNorm weights stored as w - 1
+    embed_normalizer: bool = False  # embeddings *= sqrt(hidden), in the model dtype
+    attn_logit_softcap: Optional[float] = None  # cap·tanh(score / cap)
+    final_logit_softcap: Optional[float] = None  # cap·tanh(logit / cap)
+    query_pre_attn_scalar: Optional[float] = None  # sm_scale = this ** -0.5
+    # Gemma-3: sliding layers rotate with this base, unscaled; global
+    # layers keep rope_theta and rope_scaling
+    rope_local_base_freq: Optional[float] = None
     model_type: str = "llama"  # the family to_hf_dict writes back
 
     @property
@@ -105,9 +119,11 @@ class LlamaConfig:
     @property
     def sm_scale_(self) -> float:
         """Attention score scale: Granite's ``attention_multiplier``, else
-        ``1/sqrt(head_dim)``."""
+        Gemma's ``query_pre_attn_scalar ** -0.5``, else ``1/sqrt(head_dim)``."""
         if self.attn_multiplier is not None:
             return self.attn_multiplier
+        if self.query_pre_attn_scalar is not None:
+            return self.query_pre_attn_scalar ** -0.5
         return 1.0 / math.sqrt(self.head_dim_)
 
     def layer_window(self, layer_idx: int) -> Optional[int]:
@@ -121,29 +137,44 @@ class LlamaConfig:
 
     @property
     def num_ropes(self) -> int:
-        """Rope tables a forward needs: the global one, plus SmolLM3's NoPE
-        identity."""
-        return 1 + bool(self.nope_layers)
+        """Rope tables a forward needs: the global one, Gemma-3's local one
+        and SmolLM3's NoPE identity."""
+        return 1 + (self.rope_local_base_freq is not None) + bool(self.nope_layers)
 
     def layer_rope(self, layer_idx: int) -> int:
         """Index into :func:`rope_tables` for one layer: 0 the global table,
-        1 the NoPE identity of a no-rope layer."""
-        return int(bool(self.nope_layers) and layer_idx in self.nope_layers)
+        then Gemma-3's local table on a sliding layer, then the NoPE
+        identity of a no-rope layer."""
+        local = self.rope_local_base_freq is not None
+        if self.nope_layers and layer_idx in self.nope_layers:
+            return 1 + local
+        return int(local and self.layer_window(layer_idx) is not None)
 
     @classmethod
     def from_hf_dict(cls, d: dict) -> "LlamaConfig":
         model_type = d.get("model_type", "llama")
+        if model_type == "gemma3" and "text_config" in d:
+            # the multimodal wrapper: serve its text tower
+            inner = dict(d["text_config"])
+            inner.setdefault("torch_dtype", d.get("torch_dtype") or d.get("dtype")
+                             or "float16")
+            return cls.from_hf_dict(inner)
         if model_type in _NOT_PORTED:
             raise NotImplementedError(
                 f"model_type {model_type!r} is not ported yet (ROADMAP queue 1, item 10: "
-                "Gemma-2/3 and Phi-3-mini with head dims 256 and 96, then MoE, MLA, "
-                "GPT-OSS and Llama-4)")
+                "Mixtral and Qwen3-MoE, then DeepSeek-V3's MLA, GPT-OSS and Llama-4)")
         if model_type not in FAMILIES:
             raise NotImplementedError(f"model_type {model_type!r}")
         if d.get("mlp_bias"):
             raise NotImplementedError("mlp_bias=True is not ported")
-        if d.get("hidden_act", "silu") != "silu":
-            raise NotImplementedError(f"hidden_act {d['hidden_act']!r}")
+        gemma2 = model_type == "gemma2"
+        gemma3 = model_type == "gemma3_text"
+        gemma = gemma2 or gemma3
+        # Gemma names its activation hidden_activation, tanh-GELU by default
+        act = d.get("hidden_activation" if gemma else "hidden_act",
+                    "gelu_pytorch_tanh" if gemma else "silu")
+        if act not in _ACTIVATIONS:
+            raise NotImplementedError(f"hidden_act {act!r}")
         rope_scaling = None
         rs = d.get("rope_scaling")
         if rs is not None:
@@ -174,6 +205,13 @@ class LlamaConfig:
                 nr = [int(bool((i + 1) % iv)) for i in range(n_layers)]
             nope_layers = tuple(i for i, v in enumerate(nr) if not v) or None
         layer_types = d.get("layer_types")
+        if layer_types is None and gemma2:  # HF default: even layers slide
+            layer_types = ["sliding_attention" if (i + 1) % 2 else "full_attention"
+                           for i in range(n_layers)]
+        if layer_types is None and gemma3:  # HF default: every 6th layer global
+            pat = d.get("sliding_window_pattern", d.get("_sliding_window_pattern", 6))
+            layer_types = ["sliding_attention" if (i + 1) % pat else "full_attention"
+                           for i in range(n_layers)]
         if layer_types is not None:
             layer_types = tuple(layer_types)
             if any(t not in _LAYER_TYPES for t in layer_types):
@@ -190,12 +228,13 @@ class LlamaConfig:
             max_position_embeddings=d.get("max_position_embeddings", 4096),
             rope_theta=d.get("rope_theta", 10000.0),
             rms_norm_eps=d.get("rms_norm_eps", 1e-5),
-            tie_word_embeddings=d.get("tie_word_embeddings", False),
+            # Gemma's configs tie the head unless they say otherwise
+            tie_word_embeddings=d.get("tie_word_embeddings", gemma),
             dtype=d.get("torch_dtype") or d.get("dtype") or "float16",
             rope_scaling=rope_scaling,
             qkv_bias=attention_bias or model_type == "qwen2",
             o_bias=attention_bias and not glm4,
-            qk_norm=model_type == "qwen3",
+            qk_norm=model_type == "qwen3" or gemma3,
             qk_norm_flat=model_type == "olmo2",
             sliding_window=sliding,
             layer_types=layer_types,
@@ -205,12 +244,19 @@ class LlamaConfig:
             fused_qkv_gate_up=model_type == "phi3",
             fused_gate_up=glm4,
             rope_interleaved=glm4,
-            sandwich_norms=glm4,
+            sandwich_norms=glm4 or gemma,
             postnorm_only=model_type == "olmo2",
             embed_multiplier=d.get("embedding_multiplier") if granite else None,
             residual_multiplier=d.get("residual_multiplier") if granite else None,
             attn_multiplier=d.get("attention_multiplier") if granite else None,
             logits_divider=d.get("logits_scaling") if granite else None,
+            hidden_act=act,
+            norm_unit_offset=gemma,
+            embed_normalizer=gemma,
+            attn_logit_softcap=d.get("attn_logit_softcapping") if gemma else None,
+            final_logit_softcap=d.get("final_logit_softcapping") if gemma else None,
+            query_pre_attn_scalar=d.get("query_pre_attn_scalar") if gemma else None,
+            rope_local_base_freq=d.get("rope_local_base_freq") if gemma3 else None,
             model_type=model_type,
         )
 
@@ -255,6 +301,15 @@ class LlamaConfig:
                      residual_multiplier=self.residual_multiplier,
                      attention_multiplier=self.attn_multiplier,
                      logits_scaling=self.logits_divider)
+        if mt in ("gemma2", "gemma3_text"):
+            d.update(hidden_activation=self.hidden_act,
+                     attn_logit_softcapping=self.attn_logit_softcap,
+                     final_logit_softcapping=self.final_logit_softcap,
+                     query_pre_attn_scalar=self.query_pre_attn_scalar)
+            if mt == "gemma3_text":
+                d["rope_local_base_freq"] = self.rope_local_base_freq
+        elif self.hidden_act != "silu":
+            d["hidden_act"] = self.hidden_act
         return d
 
     @classmethod
@@ -306,10 +361,12 @@ def layer_param_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
 
 
 def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda") -> Params:
-    """Random-init parameters (N(0, 1/fan_in) linears, unit norms) from
-    one ``torch.Generator`` on ``device``."""
+    """Random-init parameters (N(0, 1/fan_in) linears, identity norms: ones,
+    or zeros where the weights carry a unit offset) from one
+    ``torch.Generator`` on ``device``."""
     dt = cfg.torch_dtype
     gen = torch.Generator(device=device).manual_seed(seed)
+    norm_init = torch.zeros if cfg.norm_unit_offset else torch.ones
 
     def w(shape):
         return (torch.randn(shape, generator=gen, device=device)
@@ -317,14 +374,14 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda") -> Params:
 
     layers = []
     for _ in range(cfg.num_hidden_layers):
-        layers.append({name: (torch.ones(shape, dtype=dt, device=device)
+        layers.append({name: (norm_init(shape, dtype=dt, device=device)
                               if len(shape) == 1 else w(shape))
                        for name, shape in layer_param_shapes(cfg).items()})
     embed = w((cfg.vocab_size, cfg.hidden_size))
     return {
         "embed_tokens": embed,
         "layers": layers,
-        "norm": torch.ones((cfg.hidden_size,), dtype=dt, device=device),
+        "norm": norm_init((cfg.hidden_size,), dtype=dt, device=device),
         "lm_head": (embed.T if cfg.tie_word_embeddings
                     else w((cfg.hidden_size, cfg.vocab_size))),
     }
@@ -362,11 +419,29 @@ def in_dtype(value: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(value, dtype=dtype))
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
+             unit_offset: bool = False) -> torch.Tensor:
+    """RMSNorm in fp32.  Llama multiplies the cast output by ``weight`` in
+    the model dtype; ``unit_offset`` (Gemma) stores the weight as ``w - 1``
+    and multiplies ``(1 + w)`` in fp32 before the cast."""
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     normed = x32 * torch.rsqrt(var + eps)
+    if unit_offset:
+        return (normed * (1.0 + weight.float())).to(x.dtype)
     return weight * normed.to(x.dtype)
+
+
+def final_norm(cfg: LlamaConfig, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The norm after the last block, with the family's unit offset."""
+    return rms_norm(x, weight, cfg.rms_norm_eps, cfg.norm_unit_offset)
+
+
+def activation(cfg: LlamaConfig) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The MLP gate's activation: SiLU, or Gemma's tanh-GELU."""
+    if cfg.hidden_act == "silu":
+        return torch.nn.functional.silu
+    return functools.partial(torch.nn.functional.gelu, approximate="tanh")
 
 
 def _scaled_inv_freq(cfg: LlamaConfig, inv_freq: np.ndarray) -> Tuple[np.ndarray, float]:
@@ -422,12 +497,17 @@ def _scaled_inv_freq(cfg: LlamaConfig, inv_freq: np.ndarray) -> Tuple[np.ndarray
 
 
 @functools.lru_cache(maxsize=None)
-def _rope(cfg: LlamaConfig) -> Tuple[np.ndarray, float]:
-    """``(inv_freq, attention_factor)`` over the rotated dims, scaled; built
-    once per config (read-only), so a decode or ragged step computes none."""
+def _rope(cfg: LlamaConfig, local: bool = False) -> Tuple[np.ndarray, float]:
+    """``(inv_freq, attention_factor)`` over the rotated dims, scaled (the
+    global table), or at Gemma-3's ``rope_local_base_freq``, unscaled
+    (``local``); built once per config (read-only), so a decode or ragged
+    step computes none."""
     rd = cfg.rope_dim_
-    inv_freq = 1.0 / (cfg.rope_theta ** (np.arange(0, rd, 2, dtype=np.float64) / rd))
-    inv_freq, attn_f = _scaled_inv_freq(cfg, inv_freq)
+    base = cfg.rope_local_base_freq if local else cfg.rope_theta
+    inv_freq = 1.0 / (base ** (np.arange(0, rd, 2, dtype=np.float64) / rd))
+    attn_f = 1.0
+    if not local:
+        inv_freq, attn_f = _scaled_inv_freq(cfg, inv_freq)
     inv_freq = np.array(inv_freq)
     inv_freq.setflags(write=False)
     return inv_freq, attn_f
@@ -437,25 +517,32 @@ def _inv_freq(cfg: LlamaConfig) -> np.ndarray:
     return _rope(cfg)[0]
 
 
-@functools.lru_cache(maxsize=None)
-def device_inv_freq(cfg: LlamaConfig, device: torch.device) -> torch.Tensor:
+def device_inv_freq(cfg: LlamaConfig, device: torch.device,
+                    local: bool = False) -> torch.Tensor:
     """The rotary frequencies in fp32 on ``device``, built once per (config,
-    device), so a decode or ragged step uploads nothing."""
-    return torch.tensor(_inv_freq(cfg), dtype=torch.float32, device=device)
+    device, table), so a decode or ragged step uploads nothing."""
+    return _device_inv_freq(cfg, device, bool(local))
 
 
-def rope_cos_sin(cfg: LlamaConfig, positions, device=None
+@functools.lru_cache(maxsize=None)
+def _device_inv_freq(cfg: LlamaConfig, device: torch.device, local: bool) -> torch.Tensor:
+    # one cache key per table, however the caller spells ``local``
+    return torch.tensor(_rope(cfg, local)[0], dtype=torch.float32, device=device)
+
+
+def rope_cos_sin(cfg: LlamaConfig, positions, device=None, local: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rotary tables ``(N, rope_dim)`` in fp32 (HF half-duplicated layout),
-    times yarn's attention factor where the config has one.
+    times yarn's attention factor where the config has one; ``local`` gives
+    Gemma-3's local table.
 
     Host positions (a sequence or numpy array) are computed in float64 and
     rounded once, as the JAX package does for concrete positions; a device
     tensor of positions (decode) takes the fp32 path on its device, with
     :func:`device_inv_freq`."""
-    inv_freq, attn_f = _rope(cfg)
+    inv_freq, attn_f = _rope(cfg, local)
     if isinstance(positions, torch.Tensor):
-        inv = device_inv_freq(cfg, positions.device)
+        inv = device_inv_freq(cfg, positions.device, local)
         freqs = positions.float()[:, None] * inv[None, :]
         emb = torch.cat([freqs, freqs], dim=-1)
         if attn_f == 1.0:
@@ -471,9 +558,12 @@ def rope_cos_sin(cfg: LlamaConfig, positions, device=None
 def rope_tables(cfg: LlamaConfig, positions, device=None
                 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
     """Every rotary table a forward needs: ``tables[cfg.layer_rope(li)]`` is
-    layer ``li``'s ``(cos, sin)``.  SmolLM3 adds the NoPE identity (cos 1,
-    sin 0), so a no-rope layer runs every rope-threaded path unchanged."""
+    layer ``li``'s ``(cos, sin)``.  Gemma-3 adds its local table (the
+    sliding layers'), SmolLM3 the NoPE identity (cos 1, sin 0), so a
+    no-rope layer runs every rope-threaded path unchanged."""
     tables = (rope_cos_sin(cfg, positions, device),)
+    if cfg.rope_local_base_freq is not None:
+        tables += (rope_cos_sin(cfg, positions, device, local=True),)
     if cfg.nope_layers:
         c0, s0 = tables[0]
         tables += ((torch.ones_like(c0), torch.zeros_like(s0)),)
@@ -556,15 +646,20 @@ def block_core(cfg: LlamaConfig, lp: Params, x: torch.Tensor, cos, sin,
                lin: Callable, attn_fn: Callable):
     """The block skeleton shared by every forward path (dense, packed,
     cache decode), with the family switches of the JAX ``block_core``:
-    q/k norms (Qwen3 per head, OLMo-2 flat), GLM-4's sandwich norms,
+    q/k norms (Qwen3 and Gemma-3 per head, OLMo-2 flat), GLM-4's and
+    Gemma's sandwich norms (Gemma's with a unit offset), Gemma's GeGLU,
     OLMo-2's post-norm-only block, Granite's residual multiplier.
     ``lin(name, h)`` applies a linear and its bias (plain, packed,
     capturing); ``attn_fn(q, k, v) -> (attn, aux)`` attends.  Consumes the
     fused ``self_attn.qkv_proj`` / ``mlp.gate_up_proj`` names when present
     (serving).  Returns ``(hidden, aux)``."""
     b, n = x.shape[0], x.shape[1]
-    hd, eps = cfg.head_dim_, cfg.rms_norm_eps
-    h = x if cfg.postnorm_only else rms_norm(x, lp["input_layernorm"], eps)
+    hd, uo = cfg.head_dim_, cfg.norm_unit_offset
+
+    def norm(t, name):
+        return rms_norm(t, lp[name], cfg.rms_norm_eps, uo)
+
+    h = x if cfg.postnorm_only else norm(x, "input_layernorm")
     if "self_attn.qkv_proj" in lp:
         qkv = lin("self_attn.qkv_proj", h)
         groups = cfg.num_attention_heads // cfg.num_key_value_heads
@@ -575,35 +670,35 @@ def block_core(cfg: LlamaConfig, lp: Params, x: torch.Tensor, cos, sin,
         kf = lin("self_attn.k_proj", h)
         v = lin("self_attn.v_proj", h)
     if cfg.qk_norm_flat:  # OLMo-2: over all heads' features, before the reshape
-        qf = rms_norm(qf, lp["self_attn.q_norm"], eps)
-        kf = rms_norm(kf, lp["self_attn.k_norm"], eps)
+        qf = norm(qf, "self_attn.q_norm")
+        kf = norm(kf, "self_attn.k_norm")
     q = qf.reshape(b, n, -1, hd)
     k = kf.reshape(b, n, -1, hd)
-    if cfg.qk_norm:  # Qwen3: head-dim norm before rope
-        q = rms_norm(q, lp["self_attn.q_norm"], eps)
-        k = rms_norm(k, lp["self_attn.k_norm"], eps)
+    if cfg.qk_norm:  # Qwen3, Gemma-3: head-dim norm before rope
+        q = norm(q, "self_attn.q_norm")
+        k = norm(k, "self_attn.k_norm")
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn, aux = attn_fn(q, k, v.reshape(b, n, -1, hd))
     o = lin("self_attn.o_proj", attn.reshape(b, n, -1))
     if cfg.sandwich_norms or cfg.postnorm_only:
-        o = rms_norm(o, lp["post_attention_layernorm"], eps)
+        o = norm(o, "post_attention_layernorm")
     if cfg.residual_multiplier is not None:  # Granite
         o = o * in_dtype(cfg.residual_multiplier, o.dtype)
     x = x + o
     if cfg.postnorm_only:  # OLMo-2: the MLP reads the raw residual
         h = x
     else:
-        h = rms_norm(x, lp["pre_feedforward_layernorm" if cfg.sandwich_norms
-                         else "post_attention_layernorm"], eps)
+        h = norm(x, "pre_feedforward_layernorm" if cfg.sandwich_norms
+                 else "post_attention_layernorm")
     if "mlp.gate_up_proj" in lp:
         gate, up = torch.chunk(lin("mlp.gate_up_proj", h), 2, dim=-1)
     else:
         gate = lin("mlp.gate_proj", h)
         up = lin("mlp.up_proj", h)
-    mlp = lin("mlp.down_proj", torch.nn.functional.silu(gate) * up)
+    mlp = lin("mlp.down_proj", activation(cfg)(gate) * up)
     if cfg.sandwich_norms or cfg.postnorm_only:
-        mlp = rms_norm(mlp, lp["post_feedforward_layernorm"], eps)
+        mlp = norm(mlp, "post_feedforward_layernorm")
     if cfg.residual_multiplier is not None:  # Granite
         mlp = mlp * in_dtype(cfg.residual_multiplier, mlp.dtype)
     return x + mlp, aux
@@ -635,7 +730,8 @@ def block_apply(cfg: LlamaConfig, lp: Params, x: torch.Tensor, cos, sin,
         return y if bias is None else y + bias
 
     def attn_fn(q, k, v):
-        return attention(q, k, v, window=window, sm_scale=cfg.sm_scale_), None
+        return attention(q, k, v, window=window, sm_scale=cfg.sm_scale_,
+                         logit_cap=cfg.attn_logit_softcap), None
 
     if not capture:
         return block_core(cfg, lp, x, cos, sin, lin, attn_fn)[0], caps
@@ -648,8 +744,11 @@ def block_apply(cfg: LlamaConfig, lp: Params, x: torch.Tensor, cos, sin,
 
 def embed_lookup(cfg: LlamaConfig, embed_w: torch.Tensor,
                  tokens: torch.Tensor) -> torch.Tensor:
-    """Token embedding, times Granite's multiplier (in the model dtype)."""
+    """Token embedding, times Gemma's ``sqrt(hidden)`` and Granite's
+    multiplier (each rounded to the model dtype first, as HF casts them)."""
     x = embed_w[tokens]
+    if cfg.embed_normalizer:
+        x = x * in_dtype(cfg.hidden_size ** 0.5, x.dtype)
     if cfg.embed_multiplier is not None:
         x = x * in_dtype(cfg.embed_multiplier, x.dtype)
     return x
@@ -663,13 +762,19 @@ def forward_hidden(cfg: LlamaConfig, params: Params,
     for li, lp in enumerate(params["layers"]):
         cos, sin = ropes[cfg.layer_rope(li)]
         x, _ = block_apply(cfg, lp, x, cos, sin, window=cfg.layer_window(li))
-    return rms_norm(x, params["norm"], cfg.rms_norm_eps)
+    return final_norm(cfg, x, params["norm"])
+
+
+def head_tail(cfg: LlamaConfig, logits: torch.Tensor) -> torch.Tensor:
+    """What follows the lm_head, in the JAX package's order: Gemma's final
+    soft cap, then Granite's ``logits_scaling`` divider."""
+    logits = soft_cap(logits, cfg.final_logit_softcap)
+    return logits if cfg.logits_divider is None else logits / cfg.logits_divider
 
 
 def lm_logits(cfg: LlamaConfig, params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    """The lm_head, divided by Granite's ``logits_scaling``."""
-    logits = hidden @ params["lm_head"]
-    return logits if cfg.logits_divider is None else logits / cfg.logits_divider
+    """The lm_head, soft-capped (Gemma) and divided (Granite)."""
+    return head_tail(cfg, hidden @ params["lm_head"])
 
 
 def forward_logits(cfg: LlamaConfig, params: Params,

@@ -12,6 +12,9 @@ remaps, in HF layout (the JAX loader's):
   into the per-projection names.
 * GLM-4 names its norms ``post_self_attn_layernorm`` (after attention),
   ``post_attention_layernorm`` (before the MLP) and ``post_mlp_layernorm``.
+  Gemma's four norms a block keep HF's names as the port's: its
+  ``post_attention_layernorm`` follows attention, ``pre_feedforward_`` and
+  ``post_feedforward_layernorm`` surround the MLP; its head is tied.
 * GLM-4 pairs each head's rotary dims even/odd.  The rotary prefix of every
   q/k head's out-features (weights and biases) is de-interleaved at load,
   a permutation that leaves ``q·k`` unchanged, so the runtime keeps the

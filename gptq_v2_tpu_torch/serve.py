@@ -90,10 +90,11 @@ def _load_packed(model_dir: str, results_path: str, device):
                                      compute_dtype=torch.bfloat16, device=device)
 
 
-def build_engine(args):
+def build_engine(args, model):
+    """The engine the arguments ask for, over ``model``, the packed model
+    of ``args.model_dir`` and ``args.results`` (:func:`_load_packed`)."""
     from gptq_v2_tpu_torch.serving import Engine
 
-    model = _load_packed(args.model_dir, args.results, args.device)
     return Engine(model, max_batch=args.max_batch, page_size=args.page_size,
                   max_seq_len=args.max_seq_len, kv_dtype=args.kv_dtype,
                   cache_kind=args.cache_kind, scheduler=args.scheduler,
@@ -107,7 +108,7 @@ def main(argv=None) -> dict:
                         level=logging.INFO)
     logging.info(" ".join(argv if argv is not None else sys.argv))
     args = parse_serve_args(argv)
-    eng = build_engine(args)
+    eng = build_engine(args, _load_packed(args.model_dir, args.results, args.device))
     stats = {}
     if args.benchmark:
         from gptq_v2_tpu_torch.serving import Request

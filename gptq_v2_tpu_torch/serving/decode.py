@@ -14,8 +14,9 @@ to K6 as arguments; per-head (int4) scales are folded around it
 (:func:`fold_paged_kv_scales`).  On CPU tensors the kernels' plain versions
 run.  Prefill attends over its own fresh K/V and writes them quantized.
 Caches are updated in place.  Each layer takes its own rope table and
-sliding window (``cfg.layer_rope``, ``cfg.layer_window``), passed to K4,
-K6 and K7 as their window.
+sliding window (``cfg.layer_rope``, ``cfg.layer_window``: Gemma-3's
+sliding layers rotate with its local table), passed to K4, K6 and K7 as
+their window, with the family's attention soft cap (Gemma-2).
 
 Sampling is per row: temperature, then top-k, top-p and min-p; with
 ``return_logprobs`` each token comes packed with its raw-distribution
@@ -102,7 +103,7 @@ def prefill(model: PackedLlama, tokens: torch.Tensor,  # (B, Lpad) padded prompt
         else:
             wpos = torch.where(pad_mask, cache.max_len - 1, pos_b)
             kvc.write_kv_contiguous(cache, li, k, v, wpos, slots=slot)
-    x = L.rms_norm(x, model.norm, cfg.rms_norm_eps)
+    x = L.final_norm(cfg, x, model.norm)
     last = x[torch.arange(b, device=x.device), lengths - 1]
     return head_logits(cfg, model.lm_head, last), cache
 
@@ -129,7 +130,7 @@ def decode_step(model: PackedLlama, tokens: torch.Tensor,  # (B,) last token per
     for li, lp in enumerate(model.layers):
         cos, sin = ropes[cfg.layer_rope(li)]
         x = _decode_block(cfg, lp, x, cos, sin, cache, li, positions, s, block_tables)
-    x = L.rms_norm(x, model.norm, cfg.rms_norm_eps)
+    x = L.final_norm(cfg, x, model.norm)
     return head_logits(cfg, model.lm_head, x[:, 0]), cache
 
 
@@ -152,7 +153,8 @@ def _decode_block(cfg, lp, x, cos, sin, cache, li, positions, s, block_tables):
         attend = (ca.contiguous_decode_attention_p4 if cache.kv_bits == 4
                   else ca.contiguous_decode_attention)
         attn = attend(qq, cache.k, cache.v, positions, li, s_bucket=s,
-                      sm_scale=cfg.sm_scale_, window=window)
+                      sm_scale=cfg.sm_scale_, window=window,
+                      soft_cap=cfg.attn_logit_softcap)
         if cache.v_scales is not None:
             attn = attn * cache.q_head_scales("v", li, attn.shape[-2], attn.dtype)
         return attn[:, None], None
@@ -162,7 +164,8 @@ def _decode_block(cfg, lp, x, cos, sin, cache, li, positions, s, block_tables):
         bt = block_tables[:, :-(-s // cache.page_size)]
         attn = _attend_paged(cache, li, q[:, 0], lambda qq, ks, vs: pa.paged_decode_attention(
             qq, cache.kv[li], positions + 1, bt, sliding_window=window, k_scale=ks,
-            v_scale=vs, sm_scale=cfg.sm_scale_, kv_int4=cache.kv_bits == 4))
+            v_scale=vs, sm_scale=cfg.sm_scale_, soft_cap=cfg.attn_logit_softcap,
+            kv_int4=cache.kv_bits == 4))
         return attn[:, None], None
 
     attn_fn = attn_paged if isinstance(cache, kvc.PagedKVCache) else attn_contiguous
@@ -260,13 +263,14 @@ def _ragged_forward(model, tokens, cache, positions, tok_pages, tok_offs, block_
             attn = _attend_paged(cache, li, q[:, 0], lambda qq, ks, vs: pa.paged_ragged_attention(
                 qq, cache.kv[li], kv_lens, block_tables, cu_q_lens, num_seqs,
                 sliding_window=cfg.layer_window(li), k_scale=ks, v_scale=vs,
-                sm_scale=cfg.sm_scale_, kv_int4=cache.kv_bits == 4))
+                sm_scale=cfg.sm_scale_, soft_cap=cfg.attn_logit_softcap,
+                kv_int4=cache.kv_bits == 4))
             return attn[:, None], None
 
         cos, sin = ropes[cfg.layer_rope(li)]
         x = L.block_core(cfg, lp, x, cos, sin,
                          lambda name, h, lp=lp: _lin(lp, name, h), attn_fn)[0]
-    return L.rms_norm(x[:, 0], model.norm, cfg.rms_norm_eps)
+    return L.final_norm(cfg, x[:, 0], model.norm)
 
 
 def _warp_logits(lg: torch.Tensor,  # (B, V) f32, already temperature-scaled

@@ -29,9 +29,11 @@ class PackedLlama:
     lm_head: torch.Tensor  # (D, V) dense (the reference never quantizes it)
 
     def __post_init__(self):
-        # decode's rotary frequencies, built with the model so that no step
-        # uploads them
+        # decode's rotary frequencies (and Gemma-3's local ones), built with
+        # the model so that no step uploads them
         L.device_inv_freq(self.cfg, self.embed_tokens.device)
+        if self.cfg.rope_local_base_freq is not None:
+            L.device_inv_freq(self.cfg, self.embed_tokens.device, local=True)
 
 
 def quantize_params_to_packed(cfg: L.LlamaConfig, params: L.Params,
@@ -204,9 +206,9 @@ def _lin(lp: Dict[str, Any], name: str, x: torch.Tensor) -> torch.Tensor:
 
 
 def head_logits(cfg: L.LlamaConfig, lm_head, hidden: torch.Tensor) -> torch.Tensor:
-    """The lm_head, divided by Granite's ``logits_scaling``."""
-    logits = _linear(lm_head, hidden)
-    return logits if cfg.logits_divider is None else logits / cfg.logits_divider
+    """The lm_head, soft-capped (Gemma) and divided by Granite's
+    ``logits_scaling``."""
+    return L.head_tail(cfg, _linear(lm_head, hidden))
 
 
 def packed_block_apply(cfg: L.LlamaConfig, lp: Dict[str, Any], x: torch.Tensor,
@@ -216,7 +218,8 @@ def packed_block_apply(cfg: L.LlamaConfig, lp: Dict[str, Any], x: torch.Tensor,
     the new rope'd K/V for the cache."""
 
     def attn_fn(q, k, v):
-        return L.attention(q, k, v, window=window, sm_scale=cfg.sm_scale_), (k, v)
+        return L.attention(q, k, v, window=window, sm_scale=cfg.sm_scale_,
+                           logit_cap=cfg.attn_logit_softcap), (k, v)
 
     return L.block_core(cfg, lp, x, cos, sin,
                         lambda name, h: _lin(lp, name, h), attn_fn)
@@ -230,8 +233,7 @@ def packed_forward_logits(model: PackedLlama, tokens: torch.Tensor) -> torch.Ten
     for li, lp in enumerate(model.layers):
         cos, sin = ropes[cfg.layer_rope(li)]
         x, _ = packed_block_apply(cfg, lp, x, cos, sin, window=cfg.layer_window(li))
-    x = L.rms_norm(x, model.norm, cfg.rms_norm_eps)
-    return head_logits(cfg, model.lm_head, x)
+    return head_logits(cfg, model.lm_head, L.final_norm(cfg, x, model.norm))
 
 
 # stage-mates quantize from one stage Hessian, so they share one act-order perm
@@ -247,7 +249,8 @@ def random_packed_llama(cfg: L.LlamaConfig, group_size: int = 128, seed: int = 0
     groups), random zero-points, and one random act-order perm per stage
     shared by its linears, as GPTQ gives them.  Everything is drawn on
     ``device`` from one ``torch.Generator`` seeded with ``seed`` (a 7B model
-    is ~4 GB of packed words: no host round trip)."""
+    is ~4 GB of packed words: no host round trip).  Norms are the identity:
+    ones, or zeros where the family stores them with a unit offset."""
     g = group_size
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -268,6 +271,7 @@ def random_packed_llama(cfg: L.LlamaConfig, group_size: int = 128, seed: int = 0
                 / np.sqrt(shape[0])).to(torch.bfloat16)
 
     shapes = L.layer_param_shapes(cfg)
+    norm_init = torch.zeros if cfg.norm_unit_offset else torch.ones
     layers = []
     for _ in range(cfg.num_hidden_layers):
         perms = {}
@@ -277,7 +281,7 @@ def random_packed_llama(cfg: L.LlamaConfig, group_size: int = 128, seed: int = 0
         lp = {}
         for name, shape in shapes.items():
             if len(shape) == 1:
-                lp[name] = torch.ones(shape, dtype=torch.bfloat16, device=device)
+                lp[name] = norm_init(shape, dtype=torch.bfloat16, device=device)
             else:  # o/down: a perm of their own
                 perm = perms.get(name)
                 if perm is None:
@@ -286,7 +290,8 @@ def random_packed_llama(cfg: L.LlamaConfig, group_size: int = 128, seed: int = 0
         layers.append(lp)
     return PackedLlama(cfg=cfg, embed_tokens=dense(cfg.vocab_size, cfg.hidden_size),
                        layers=tuple(layers),
-                       norm=torch.ones((cfg.hidden_size,), dtype=torch.bfloat16, device=device),
+                       norm=norm_init((cfg.hidden_size,), dtype=torch.bfloat16,
+                                      device=device),
                        lm_head=dense(cfg.hidden_size, cfg.vocab_size))
 
 

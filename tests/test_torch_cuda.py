@@ -595,6 +595,9 @@ def test_decode_attention_refuses_bad_input(dev):
         ca.contiguous_decode_attention(q.bfloat16()[:, :3], k, k, pos, 0)
     with pytest.raises(TypeError):
         ca.contiguous_decode_attention_p4(q.bfloat16(), k, k, pos, 0)
+    k80 = torch.zeros((1, 2, 16, 4, 80), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):  # a head dim the kernels do not take
+        ca.contiguous_decode_attention(q.bfloat16()[..., :80].contiguous(), k80, k80, pos, 0)
 
 
 def _attn_fns(kind):
@@ -979,7 +982,7 @@ def test_paged_kernels_refuse_bad_input(dev):
     with pytest.raises(TypeError):
         pa.paged_ragged_attention(q, kv, *meta, kv_int4=True)
     with pytest.raises(ValueError):
-        pa.paged_ragged_attention(q[..., :96].contiguous(), kv[..., :96].contiguous(), *meta)
+        pa.paged_ragged_attention(q[..., :80].contiguous(), kv[..., :80].contiguous(), *meta)
     with pytest.raises(ValueError):
         pa.paged_ragged_attention(q[:, :3].contiguous(), kv, *meta)
     with pytest.raises(ValueError):
@@ -1408,3 +1411,116 @@ def test_attention_bit_equal_to_parent_tree(dev, tmp_path):
     assert sorted(parent) == sorted(mine)
     for name, t in mine.items():
         assert torch.equal(t, parent[name]), name
+
+
+# --- head dims 96 (Phi-3-mini) and 256 (Gemma) ------------------------------
+
+# (head dim, kv heads, q heads a kv head): Phi-3-mini's MHA at hd 96, and
+# Gemma-2's 2 q heads a kv head (8 under 16) and 8 at hd 256 (the largest
+# block, 16 q heads of int4 pairs)
+HD_CASES = [(96, 4, 1), (96, 2, 4), (256, 4, 2), (256, 2, 8)]
+# scores here are about N(0, 1): a cap of 5 bends them (50, Gemma's, would
+# leave them within 1e-2 of uncapped)
+HD_OPTS = {"plain": {}, "all": dict(window=37, soft_cap=5.0, sinks=True)}
+
+
+@pytest.mark.parametrize("opts", list(HD_OPTS))
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("hd,n_kv,groups", HD_CASES)
+def test_decode_attention_kernels_at_head_dims(dev, hd, n_kv, groups, kind, opts):
+    """K4 (bf16, int8) and K7 (int4 pairs) at head dims 96 and 256, over
+    several splits (S = 300, slots at 0, 63, 64, 299 and 150), with window,
+    soft cap 5 and sinks, against their plain versions and the split twin:
+    1e-2 of the largest output, as ``test_decode_attention_kernels``."""
+    b, s = 5, 300
+    k, v, ks = _cache(kind, 1, b, s, n_kv, hd, seed=hd + groups, dev=dev)
+    rng = np.random.default_rng(hd * groups)
+    hq = n_kv * groups
+    q = (torch.from_numpy(rng.standard_normal((b, hq, hd)).astype(np.float32)) * ks
+         ).to(dev, torch.bfloat16)
+    pos = torch.tensor([0, 63, 64, 299, 150], device=dev)
+    kw = dict(HD_OPTS[opts], s_bucket=s, sm_scale=hd ** -0.5)
+    if kw.pop("sinks", False):
+        kw["sinks"] = torch.from_numpy(rng.standard_normal(hq).astype(np.float32)).to(dev)
+    fn, plain, bits = _attn_fns(kind)
+    n = fn.launches
+    out = fn(q, k, v, pos, 0, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == n + 1
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    ref = plain(q, k, v, pos, 0, **kw).float()
+    twin = ca.contiguous_decode_attention_split_ref(q, k, v, pos, 0, **kw, kv_bits=bits).float()
+    tol = 1e-2 * float(ref.abs().max())
+    torch.testing.assert_close(out.float(), ref, rtol=0, atol=tol)
+    torch.testing.assert_close(out.float(), twin, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("opts", list(HD_OPTS))
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("hd,n_kv,groups", HD_CASES)
+def test_paged_attention_kernel_at_head_dims(dev, hd, n_kv, groups, kind, opts):
+    """K6 at head dims 96 and 256 on a ragged mix (decode rows of 300 and 9
+    keys, a 40-row chunk, pad rows) with window, soft cap 5 and sinks,
+    against its plain version and the split twin: 1e-2 of the largest
+    output; pad rows zero."""
+    args, kw = _ragged_call(kind, ((1, 300), (40, 100), (1, 9)), 24, groups, seed=hd,
+                            dev=dev, n_pad=5, n_kv=n_kv, hd=hd)
+    o = dict(HD_OPTS[opts])
+    if "window" in o:
+        o["sliding_window"] = o.pop("window")
+    kw = _sinks(dict(kw, **o), args[0].shape[1], hd, dev)
+    n = pa.paged_ragged_attention.launches
+    out = pa.paged_ragged_attention(*args, **kw).float()
+    torch.cuda.synchronize()
+    assert pa.paged_ragged_attention.launches == n + 1
+    ref = pa.paged_ragged_attention_reference(*args, **kw).float()
+    twin = pa.paged_ragged_attention_split_ref(*args, **kw).float()
+    tol = 1e-2 * float(ref.abs().max())
+    torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+    torch.testing.assert_close(out, twin, rtol=0, atol=tol)
+    assert not out[int(args[4][-1]):].any()
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_attention_graph_replay_at_head_dim_256(dev, kind):
+    """K4/K7 and K6 at head dim 256 (shared memory past 48 KB), soft cap 5:
+    two launches bit-equal, and a launch captured in a CUDA graph replays
+    to the eager output."""
+    k, v, ks = _cache(kind, 1, 3, 600, 4, 256, seed=25, dev=dev)
+    q = (torch.randn((3, 8, 256), device=dev, generator=torch.Generator(dev).manual_seed(25))
+         * ks).to(torch.bfloat16)
+    pos = torch.tensor([5, 599, 300], device=dev)
+    fn, _, _ = _attn_fns(kind)
+    args, pargs = (q, k, v, pos, 0), _ragged_call(kind, ((1, 300), (40, 100)), 24, 2,
+                                                  seed=26, dev=dev, n_pad=2, hd=256)
+    calls = [lambda: fn(*args, s_bucket=600, window=200, soft_cap=5.0),
+             lambda: pa.paged_ragged_attention(*pargs[0], **pargs[1], sliding_window=50,
+                                               soft_cap=5.0)]
+    for call in calls:
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = call()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+
+
+@pytest.mark.parametrize("hd", [96, 256])
+@pytest.mark.parametrize("form", ["flat", "table"])
+@pytest.mark.parametrize("store", ["bf16", "int8", "int8_per_head", "int4", "int4_mixed"])
+def test_paged_write_kv_at_head_dims(dev, store, form, hd, monkeypatch):
+    """K9's fused write at head dims 96 and 256, bit-equal to its plain
+    version, one launch a write, as ``test_paged_write_kv_kernel``."""
+    monkeypatch.setitem(globals(), "K9_HD", hd)
+    pool, k, v, ks, vs, bits, target, (pad_k, pad_v) = _k9_case(store, 8, form, torch.int32,
+                                                                dev)
+    assert k.shape[-1] == hd
+    ref = pw.paged_write_kv_reference(pool.clone(), 1, k, v, ks, vs, bits, **target)
+    n = pw.paged_write_kv.launches
+    out = pw.paged_write_kv(pool.clone(), 1, k, v, ks, vs, bits, **target)
+    torch.cuda.synchronize()
+    assert pw.paged_write_kv.launches == n + 1
+    _k9_check_trash(out, ref, pad_k, pad_v, ks, vs, bits)

@@ -1,9 +1,13 @@
 """PyTorch port vs the JAX package: the dense families (Mistral, Qwen2,
-Qwen3, GLM-4, OLMo-2, Granite, SmolLM3, Phi-3) on the CPU.
+Qwen3, GLM-4, OLMo-2, Granite, SmolLM3, Phi-3, Gemma-2, Gemma-3) on the
+CPU.
 
 Each family runs at a tiny config (hidden 64, GQA, 2 layers; 4 for
-SmolLM3 so that its NoPE layer 3 is there; a window of 8 for Mistral,
-partial rotary 0.5 for GLM-4) with the same numpy weights, made from a
+SmolLM3 so that its NoPE layer 3 is there, 3 for Gemma-3 so that two
+sliding layers on the local rope table precede a global one; a window of
+8 for Mistral and Gemma, partial rotary 0.5 for GLM-4, soft caps and a
+``query_pre_attn_scalar`` other than the head dim for Gemma-2; a Phi-3
+variant at head dim 96) with the same numpy weights, made from a
 seed, in both packages: config fields, forward logits, the stage
 schedule, quantization codes and perms, the engines' greedy tokens and
 the loader's fused and interleaved layouts.  The file also holds K4, K6
@@ -58,6 +62,12 @@ TINY = {
                     attention_multiplier=0.25, logits_scaling=16.0, tie_word_embeddings=True),
     "smollm3": dict(num_hidden_layers=4, no_rope_layer_interval=4),
     "phi3": dict(),
+    "gemma2": dict(head_dim=16, query_pre_attn_scalar=24, sliding_window=8,
+                   attn_logit_softcapping=8.0, final_logit_softcapping=4.0),
+    "gemma3_text": dict(num_hidden_layers=3, head_dim=16, query_pre_attn_scalar=16,
+                        sliding_window=8, sliding_window_pattern=3, rope_theta=1e6,
+                        rope_local_base_freq=1e4,
+                        rope_scaling={"rope_type": "linear", "factor": 8.0}),
 }
 FAMILIES = list(TINY)
 # options that no family's tiny config sets: yarn rope (factor 4 over 32
@@ -73,8 +83,18 @@ VARIANTS = {
         "truncate": False, "original_max_position_embeddings": 32})),
     "mistral_layer_types": ("mistral", dict(num_hidden_layers=3, layer_types=[
         "sliding_attention", "full_attention", "sliding_attention"])),
+    # Phi-3-mini's head dim 96 (3072 / 32 heads), here 192 / 2
+    "phi3_hd96": ("phi3", dict(hidden_size=192, num_attention_heads=2,
+                               num_key_value_heads=2, sliding_window=8)),
 }
 CASES = FAMILIES + list(VARIANTS)
+# the published config (models/families.py) a case is held to, where its
+# name is not the family's
+PUBLISHED = {"gemma3_text": "gemma3", "phi3_hd96": "phi3_mini"}
+
+
+def _published_name(case: str) -> str:
+    return PUBLISHED.get(case, VARIANTS.get(case, (case,))[0])
 
 
 def _hf(case: str) -> dict:
@@ -125,20 +145,14 @@ def _make_params(jcfg, seed: int) -> dict:
 # config
 # ---------------------------------------------------------------------------
 
-_JAX_ONLY = {"hidden_act", "norm_unit_offset", "embed_normalizer", "attn_logit_softcap",
-             "final_logit_softcap", "query_pre_attn_scalar", "rope_local_base_freq"}
-
-
 def _shared_fields_equal(tcfg, jcfg):
     tf = {f.name for f in dataclasses.fields(tcfg)} - {"model_type"}
     for name in tf:
         assert getattr(tcfg, name) == getattr(jcfg, name), name
     # every JAX switch the port lacks is off in the JAX config
     for f in dataclasses.fields(jcfg):
-        if f.name not in tf and f.name not in _JAX_ONLY:
+        if f.name not in tf:
             assert getattr(jcfg, f.name) == f.default, f.name
-    assert (jcfg.hidden_act, jcfg.norm_unit_offset, jcfg.rope_local_base_freq) == (
-        "silu", False, None)
     assert tcfg.sm_scale_ == jcfg.sm_scale_ and tcfg.rope_dim_ == jcfg.rope_dim_
     assert tcfg.num_ropes == jcfg.num_ropes
     for li in range(tcfg.num_hidden_layers):
@@ -151,7 +165,7 @@ def test_from_hf_dict_fields_match_jax(case):
     """The tiny config and the family's published one (``families.py``)
     give the JAX package's fields, windows and rope tables a layer."""
     _shared_fields_equal(*reversed(_configs(case)))
-    pub = families.published(VARIANTS.get(case, (case,))[0])
+    pub = families.published(_published_name(case))
     _shared_fields_equal(TL.LlamaConfig.from_hf_dict(pub), JL.LlamaConfig.from_hf_dict(pub))
 
 
@@ -167,8 +181,9 @@ def test_variants_reach_their_options():
 
 @pytest.mark.parametrize("case", CASES)
 def test_to_hf_dict_round_trips(case):
-    fam = VARIANTS.get(case, (case,))[0]
-    for d in (_hf(case), families.published(fam), families.published(fam, num_hidden_layers=4)):
+    name = _published_name(case)
+    for d in (_hf(case), families.published(name),
+              families.published(name, num_hidden_layers=4)):
         cfg = TL.LlamaConfig.from_hf_dict(d)
         assert TL.LlamaConfig.from_hf_dict(cfg.to_hf_dict()) == cfg
         _shared_fields_equal(cfg, JL.LlamaConfig.from_hf_dict(cfg.to_hf_dict()))
@@ -348,7 +363,13 @@ GLM4_INT4 = {
 }
 
 
-@pytest.mark.parametrize("fam,engine", [(f, e) for f in FAMILIES for e in ENGINES]
+# Gemma's engines are held to JAX's in tests/test_torch_gemma.py (its twins
+# of the JAX package's Gemma serving tests, on the contiguous, paged and
+# ragged caches)
+ENGINE_FAMILIES = [f for f in FAMILIES if not f.startswith("gemma")]
+
+
+@pytest.mark.parametrize("fam,engine", [(f, e) for f in ENGINE_FAMILIES for e in ENGINES]
                          + [("glm4", e) for e in GLM4_INT4])
 def test_engine_tokens_match_jax(fam, engine, tmp_path_factory):
     """The JAX ``Engine`` and the port's, same packed model and arguments:
@@ -379,13 +400,14 @@ def test_engine_tokens_match_jax(fam, engine, tmp_path_factory):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("fam", ["phi3", "glm4", "olmo2", "qwen2"])
+@pytest.mark.parametrize("fam", ["phi3", "glm4", "olmo2", "qwen2", "gemma2", "gemma3_text"])
 def test_loader_round_trip_and_jax_reads_it(fam, tmp_path):
     """``save_hf_model`` writes the family's HF layout (Phi-3's fused qkv
     and gate_up rows, GLM-4's fused gate_up, its norm names and
-    interleaved rotary rows of q/k weights and biases); ``load_hf_model``
-    reads the same params back, and the JAX loader reads the file to the
-    same params."""
+    interleaved rotary rows of q/k weights and biases, Gemma's four norms
+    a block under HF's names and its tied head); ``load_hf_model`` reads
+    the same params back, and the JAX loader reads the file to the same
+    params."""
     from gptq_v2_tpu_torch.models import safetensors_io as st
 
     jcfg, tcfg = _configs(fam)
@@ -393,9 +415,12 @@ def test_loader_round_trip_and_jax_reads_it(fam, tmp_path):
     save_hf_model(tcfg, params, tmp_path)
     names = set(st.load_file(tmp_path / "model.safetensors"))
     fused = {"phi3": ("self_attn.qkv_proj", "mlp.gate_up_proj"),
-             "glm4": ("mlp.gate_up_proj", "post_self_attn_layernorm", "post_mlp_layernorm")}
+             "glm4": ("mlp.gate_up_proj", "post_self_attn_layernorm", "post_mlp_layernorm"),
+             "gemma2": ("pre_feedforward_layernorm", "post_feedforward_layernorm"),
+             "gemma3_text": ("self_attn.q_norm", "post_feedforward_layernorm")}
     for n in fused.get(fam, ()):
         assert any(f".{n}." in k for k in names), n
+    assert ("lm_head.weight" in names) == (not tcfg.tie_word_embeddings)
     cfg2, params2 = load_hf_model(tmp_path, device="cpu")
     assert cfg2 == tcfg
     _, jparams = j_load_hf_model(str(tmp_path))
