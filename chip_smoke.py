@@ -10,7 +10,7 @@ over it (``--profile-dir`` gives their device time and device ops).
    ``nvcc`` per source, all started together).
 2. Drives six paths at Llama-2-7B width (hidden 4096, intermediate
    11008, 32 heads, vocab 32000, bf16) with random weights from a seed and
-   the depth cut to ``DEPTH`` blocks, and five family paths at published
+   the depth cut to ``DEPTH`` blocks, and six family paths at published
    widths (``gptq_v2_tpu_torch/models/families.py``), each with every
    launch count set to 0 just before it and read just after:
 
@@ -63,7 +63,7 @@ over it (``--profile-dir`` gives their device time and device ops).
      (K1, K2, K5, K3, K4, K6, K9);
    * gemma-2: Gemma-2-9B (head dim 256, 16 q heads over 8, soft caps 50
      and 30, unit-offset sandwich norms, GeGLU, tied head, vocab 256000),
-     bf16, depth cut to ``GEMMA_DEPTH`` (2 sliding, 2 global blocks): the
+     bf16, depth cut to ``GEMMA_DEPTH`` (a sliding and a global block): the
      same CLI path as qwen2.5, then ``serve`` and engines over contiguous
      and paged ragged caches in bf16, int8 and int4, and the W4A8 tier
      (K1, K2, K5, K3, K8, K4, K7, K6, K9);
@@ -78,7 +78,21 @@ over it (``--profile-dir`` gives their device time and device ops).
      prompts (its sliding layer masks, its global one does not), contiguous
      (K4) and paged ragged (K6), every new token judged;
    * full depth: Qwen2.5-7B's 28 blocks and Gemma-2-9B's 42 from
-     ``random_packed_llama``, paged ragged bf16.
+     ``random_packed_llama``, paged ragged bf16;
+   * moe: Mixtral-8x7B (8 experts of width 14336, top 2) and Qwen3-30B-A3B
+     (128 experts of width 768, top 8), depth cut to ``MOE_DEPTH``, with
+     masked-dense experts: the CLI path (Mixtral also ``--mse`` and a
+     resumed run), each block's expert stages fused into waves (5 capture
+     forwards a Mixtral block, its down wave split by the 4 GiB Hessian
+     budget; 4 a Qwen3-MoE block); Mixtral served through ``serve.main``
+     and engines over contiguous bf16, paged ragged int8 and the W4A8
+     tier, Qwen3-MoE through a paged ragged bf16 engine; Mixtral's 32
+     blocks from ``random_packed_llama`` (K1, K2, K5, K3, K8, K4, K6, K9).
+     Their first tokens are judged against a plain forward streamed a layer
+     at a time, which takes the experts a forward through the kernels
+     chose (at most ``ROUTE_SWAPS`` of them other than the plain router's
+     own top k), a token outside the near-tie rule passing only on a row
+     with a routing near-tie (``ROUTE_TIE``; ``judge_streamed``).
 
    The family paths' engines must repeat their greedy output and pass the
    near-tie rule against a plain bf16 forward over weights in K3's own
@@ -97,7 +111,9 @@ over it (``--profile-dir`` gives their device time and device ops).
    q heads a kv head.  K4, K7, K6 and K9 also run at head dim 256
    (Gemma-2-9B's 8 kv heads under 16, with a soft cap of 5 and without,
    as Gemma-3) and 96 (Phi-3-mini's 32 heads).  K1 runs at Qwen2.5-7B's
-   widths, K3 and K8 at Qwen2.5-7B's and Gemma-2-9B's.
+   widths, K3 and K8 at Qwen2.5-7B's and Gemma-2-9B's, and at the experts'
+   of Mixtral-8x7B (4096×14336, 14336×4096) and Qwen3-30B-A3B (2048×768,
+   768×2048: two padding groups).
    K2 and K5 also log their two kernels' device time (torch.profiler)
    and the tail product's rate, beside
    ``torch.mm`` over the same tail shapes, and K5 fed K2's own scales and
@@ -118,6 +134,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -136,7 +153,8 @@ HBM_BPS = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
 L2_BYTES = 50 << 20
 
-DEPTH = 4  # of 32 blocks: quantize + serve fit the time limit with room to spare
+DEPTH = 2  # of 32 blocks: every path together fits the run's time limit
+K9_POOL_LAYERS = 4  # the layers of the paged-write rows' pool
 MODEL = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
              num_hidden_layers=DEPTH, num_attention_heads=32,
              num_key_value_heads=32, max_position_embeddings=4096,
@@ -164,20 +182,20 @@ REPLACES = {"hessian": "gptq_v2_tpu/ops/hessian_pallas.py:91",
 RATES: dict = {}
 # the kernel wrappers with launch counts, set in main()
 WRAPPERS: dict = {}
-# (model dir, results, tier) → the packed model a path's engines share
+# (model dir, results) → the packed model a path's engines share
 LOADED: dict = {}
 
 
 def build_engine(argv):
     """``serve.build_engine`` over the parsed ``argv``, on the packed model
     an earlier engine of the path loaded from the same checkpoint and
-    results for the same tier (each load reads and packs the checkpoint
-    again: 10–20 s); the engine, its cache and its fused linears are new
-    each call."""
+    results (each load reads and packs the checkpoint again: 10–20 s; the
+    engine makes the W4A8 tier and the fused linears itself, new each
+    call, as it does its cache)."""
     from gptq_v2_tpu_torch import serve as S
 
     args = S.parse_serve_args(argv)
-    key = (args.model_dir, args.results, args.act_dtype)
+    key = (args.model_dir, args.results)
     if key not in LOADED:
         LOADED[key] = S._load_packed(args.model_dir, args.results, args.device)
     return S.build_engine(args, LOADED[key])
@@ -324,7 +342,7 @@ def phase_main_path(torch, work: Path) -> dict:
     quant_s = time.time() - t0
     del params
     errs = [m["gptq_error"] for m in results["metrics"].values()]
-    if not all(np.isfinite(errs)) or len(results["data"]) != 7 * DEPTH:
+    if not all(np.isfinite(errs)) or len(results["data"]) != quantized_linears(cfg):
         raise RuntimeError(f"quantization output malformed: {len(results['data'])} layers")
     log(f"phase quantize: ok, {quant_s:.1f} s for {DEPTH} blocks "
         f"({quant_s / DEPTH:.2f} s/block), {N_SEQ}x{SEQLEN} calibration tokens")
@@ -564,10 +582,12 @@ def phase_gptq(torch, timer, launches) -> list:
 
 def phase_w4a16(torch, timer, launches, layer0, wide) -> list:
     """K3 at the four fused shapes of the main path's first block (bf16,
-    INT4 g128: the tensor-core route), M in K3_ROWS, and of the first
-    blocks in ``wide`` (tag → layer: the qwen2.5 path's, C = 3584 and
-    18944, 28 and 148 groups; the gemma-2 path's, C = 3584, 4096 and
-    14336, 28, 32 and 112 groups), M in QWEN_ROWS (M <= 16 the split-K
+    INT4 g128: the tensor-core route), M in K3_ROWS, and of the linears
+    in ``wide`` (tag → name → linear: the qwen2.5 path's first block, C =
+    3584 and 18944, 28 and 148 groups; the gemma-2 path's, C = 3584, 4096
+    and 14336, 28, 32 and 112 groups; the moe path's first expert gate and
+    down, Mixtral's C = 4096 and 14336, Qwen3-MoE's 2048 and 768, 6 groups
+    padded to 8), M in QWEN_ROWS (M <= 16 the split-K
     decode kernel, above the prefill kernel; both form each group's term
     through one mma.sync routine).  ``ms`` is one event pair per launch
     after an L2 flush, as in earlier runs; the steady times
@@ -581,7 +601,7 @@ def phase_w4a16(torch, timer, launches, layer0, wide) -> list:
 
     out = []
     for tag, name, rows in ([("", n, K3_ROWS) for n in FUSED]
-                            + [(tag, n, QWEN_ROWS) for tag in wide for n in FUSED]):
+                            + [(tag, n, QWEN_ROWS) for tag in wide for n in wide[tag]]):
         p = (wide[tag] if tag else layer0)[name]
         c, r = p.in_features, p.out_features
         w_dense = dequantize_dense(p, torch.bfloat16)
@@ -665,8 +685,8 @@ def phase_w4a8(torch, timer, launches, layer0, wide) -> list:
     """K8 at the four fused shapes: bits 4 on the main path's first block
     (GPTQ codes, act-order), bits 2 and 8 on synthetic linears of the same
     shapes (act-order; bits 8 with codes above 200), M in M_ROWS, and bits
-    4 on the first blocks in ``wide`` (the qwen2.5 and gemma-2 paths'),
-    M in QWEN_ROWS; bf16
+    4 on the linears in ``wide`` (the qwen2.5 and gemma-2 paths' first
+    blocks, the moe path's experts), M in QWEN_ROWS; bf16
     scales; fp32 scales held at 1e-5 on the qkv shape.  Every linear is on
     the int8 tensor-core route.  ``ms`` is the whole ``w4a8_matmul`` (the
     staging kernel and the matmul in one call), as K3's row times
@@ -683,7 +703,7 @@ def phase_w4a8(torch, timer, launches, layer0, wide) -> list:
 
     out = []
     for tag, bits in (("", 4), ("", 2), ("", 8)) + tuple((t, 4) for t in wide):
-        for si, name in enumerate(FUSED):
+        for si, name in enumerate(wide[tag] if tag else FUSED):
             p = (wide[tag] if tag else layer0)[name]
             if bits == 4:
                 p = dataclasses.replace(p, act_bits=8)
@@ -816,7 +836,8 @@ def phase_cli(torch, work: Path) -> dict:
     if not np.isfinite(p1) or p1 != p2:
         raise RuntimeError(f"ppl {p1!r} then {p2!r} after resuming")
     data1, data2 = first["results"]["data"], second["results"]["data"]
-    if set(data1) != set(data2) or len(data1) != 7 * DEPTH or not all(
+    if set(data1) != set(data2) or len(data1) != quantized_linears(
+            L.LlamaConfig(**MODEL)) or not all(
             torch.equal(data1[n]["qweight"], data2[n]["qweight"]) for n in data1):
         raise RuntimeError("resumed codes differ from the first run's")
     log(f"phase cli.resume: ok, all {len(data1)} layers resumed, ppl and codes equal")
@@ -827,7 +848,8 @@ def phase_cli(torch, work: Path) -> dict:
     out = M.main(["--model-dir", str(work / "model1"), *base, "--scale-bit-width", "4",
                   "--save-model-path", str(work / "sbw.npz")])
     metas = out["results"]["data"].values()
-    if len(metas) != 7 or any(m["sscale"] is None or m["qscale"] is None for m in metas):
+    if len(metas) != quantized_linears(cfg1) or any(
+            m["sscale"] is None or m["qscale"] is None for m in metas):
         raise RuntimeError("--scale-bit-width 4 wrote no EXL2 scales")
     log(f"phase cli.scale_bit_width: ok, 1 block in {time.time() - t0:.1f} s wall "
         f"(quantize {out['quant_s']:.2f} s), ppl(train) {out['ppls']['train']!r}")
@@ -840,23 +862,43 @@ def phase_cli(torch, work: Path) -> dict:
 
 
 @contextlib.contextmanager
-def plain_attention():
+def plain_attention(twin: bool = False):
     """Attend through K4's, K7's and K6's plain versions for the block (the
     reference the serve paths are held against); the package itself never
-    falls back."""
+    falls back.  ``twin`` takes the kernels' split-merge algebra in plain
+    torch instead (``*_split_ref``: p kept in fp32 for PV, int8 ``v`` never
+    rounded to bf16), where int8 activations downstream would magnify the
+    plain versions' bf16 rounding of p and v."""
     import types
+
+    import torch
 
     from gptq_v2_tpu_torch.ops import contiguous_attention as ca
     from gptq_v2_tpu_torch.ops import paged_attention as pa
     from gptq_v2_tpu_torch.serving import decode as D
 
+    def paged_decode_twin(q, kv_pages, lengths, block_tables, **kw):
+        b = q.shape[0]
+        cu = torch.arange(b + 1, dtype=torch.int32, device=q.device)
+        n = torch.full((1,), b, dtype=torch.int32, device=q.device)
+        return pa.paged_ragged_attention_split_ref(q, kv_pages, lengths, block_tables, cu, n,
+                                                   **kw)
+
     kernels = D.ca, D.pa
-    D.ca = types.SimpleNamespace(
-        contiguous_decode_attention=ca.contiguous_decode_attention_ref,
-        contiguous_decode_attention_p4=ca.contiguous_decode_attention_xla4)
-    D.pa = types.SimpleNamespace(
-        paged_decode_attention=pa.paged_decode_attention_reference,
-        paged_ragged_attention=pa.paged_ragged_attention_reference)
+    if twin:
+        D.ca = types.SimpleNamespace(
+            contiguous_decode_attention=ca.contiguous_decode_attention_split_ref,
+            contiguous_decode_attention_p4=functools.partial(
+                ca.contiguous_decode_attention_split_ref, kv_bits=4))
+        D.pa = types.SimpleNamespace(paged_decode_attention=paged_decode_twin,
+                                     paged_ragged_attention=pa.paged_ragged_attention_split_ref)
+    else:
+        D.ca = types.SimpleNamespace(
+            contiguous_decode_attention=ca.contiguous_decode_attention_ref,
+            contiguous_decode_attention_p4=ca.contiguous_decode_attention_xla4)
+        D.pa = types.SimpleNamespace(
+            paged_decode_attention=pa.paged_decode_attention_reference,
+            paged_ragged_attention=pa.paged_ragged_attention_reference)
     try:
         yield
     finally:
@@ -1843,7 +1885,8 @@ def phase_paged_write(torch, timer, launches) -> list:
             ks, vs = (None, None) if scales is None else (_scale(s, "cuda") for s in scales)
             dtype = torch.bfloat16 if scales is None else torch.int8
             n_comb = hkv if bits == 4 else 2 * hkv
-            pool = torch.zeros((DEPTH, n_pages, ps, n_comb, hd), dtype=dtype, device="cuda")
+            pool = torch.zeros((K9_POOL_LAYERS, n_pages, ps, n_comb, hd), dtype=dtype,
+                               device="cuda")
             for t, label in writes:
                 gen = torch.Generator(device="cuda").manual_seed(t)
 
@@ -1918,7 +1961,8 @@ def phase_paged_write(torch, timer, launches) -> list:
     for kind in ("bf16", "int8", "int4"):
         n_comb = hkv if kind == "int4" else 2 * hkv
         dtype = torch.bfloat16 if kind == "bf16" else torch.int8
-        pool = torch.zeros((DEPTH, n_pages, ps, n_comb, hd), dtype=dtype, device="cuda")
+        pool = torch.zeros((K9_POOL_LAYERS, n_pages, ps, n_comb, hd), dtype=dtype,
+                           device="cuda")
         for t, label in ((8, "decode B=8"), (64, "flat write T=64")):
             gen = torch.Generator(device="cuda").manual_seed(t)
 
@@ -1961,7 +2005,7 @@ def phase_paged_write(torch, timer, launches) -> list:
 
 # --- the dense families ------------------------------------------------------
 
-QWEN_DEPTH = 4  # of Qwen2.5-7B's 28 blocks: the CLI path fits the time limit
+QWEN_DEPTH = 2  # of Qwen2.5-7B's 28 blocks
 QWEN_ROWS = (1, 8, 1024)  # K3/K8 rows at its widths: decode batches, prefill
 # SmolLM3's layer 3 is NoPE; Gemma-3's published pattern is 5 sliding
 # layers (the local rope table), then a global one; the others run 1 block
@@ -2032,12 +2076,59 @@ def judge_tokens(torch, cfg, dense, prompts, outs, label: str, every: bool = Fal
             f"argmax on {exact}/{total}, within the near-tie tolerance on all")
 
 
-def cli_quantize(torch, cfg, root: Path, tag: str) -> None:
+def quantized_linears(cfg) -> int:
+    """The linears ``quantize_model`` solves for ``cfg``: every stage's
+    (``graph.block_stages``), every block (a dense block 7, a Mixtral
+    block 2 + 3 x 8 + 2 = 28)."""
+    from gptq_v2_tpu_torch import graph
+
+    return sum(len(st.linears) for li in range(cfg.num_hidden_layers)
+               for st in graph.block_stages(cfg, li) if st.linears != (graph.OUTPUT,))
+
+
+def capture_passes(cfg, li: int, budget: int = 4 << 30):
+    """``(capture forwards a calibration batch, stages)`` of block ``li``:
+    one forward a wave, or a wave's chunk under the pipeline's default
+    Hessian budget (``pipeline._split_wave_by_budget``), against one a
+    stage without waves."""
+    from gptq_v2_tpu_torch import graph
+    from gptq_v2_tpu_torch import pipeline as P
+    from gptq_v2_tpu_torch.models import llama as L
+
+    shapes = L.layer_param_shapes(cfg, li)
+    stages = [st for st in graph.block_stages(cfg, li) if st.linears != (graph.OUTPUT,)]
+    return sum(len(P._split_wave_by_budget(w, [shapes[st.linears[0]][0] for st in w], budget))
+               for w in graph.stage_waves(stages)), len(stages)
+
+
+@contextlib.contextmanager
+def counted_captures():
+    """Counts the block forwards that capture stage inputs (the pipeline's
+    Hessian passes, one a calibration batch) by wrapping
+    ``models.llama.block_apply`` for the block."""
+    from gptq_v2_tpu_torch.models import llama as L
+
+    apply = L.block_apply
+    n = {"forwards": 0}
+
+    def counting(*a, capture=(), **kw):
+        n["forwards"] += bool(capture)
+        return apply(*a, capture=capture, **kw)
+
+    L.block_apply = counting
+    try:
+        yield n
+    finally:
+        L.block_apply = apply
+
+
+def cli_quantize(torch, cfg, root: Path, tag: str, mse: bool = True) -> None:
     """A family's CLI path up to its results: a checkpoint of ``cfg`` through
     the port's writer (random weights, seed 0) in ``root / "model"``; then
-    ``main`` default (``root / "results.npz"``), ``--mse`` with
-    ``--save-dir`` and a resumed run, which must launch no solver and give
-    equal ppl and codes."""
+    ``main`` default (``root / "results.npz"``), and with ``mse`` ``--mse``
+    with ``--save-dir`` and a resumed run, which must launch no solver and
+    give equal ppl and codes.  Each run's capture forwards a block must be
+    the waves' (:func:`capture_passes`), the resumed run's none."""
     from gptq_v2_tpu_torch import main as M
     from gptq_v2_tpu_torch.data import cache_key
     from gptq_v2_tpu_torch.models import llama as L
@@ -2058,27 +2149,36 @@ def cli_quantize(torch, cfg, root: Path, tag: str) -> None:
             "--data-train-n-samples", str(N_SEQ), "--data-cache-dir", str(cache),
             "--batch-size", str(CALIB_BATCH), "--eval-sets", "train"]
     solvers = (hessian_cuda.accumulate_hessian, gptq_cuda.gptq_solve, gptq_cuda.gptq_step)
+    passes = [capture_passes(cfg, li) for li in range(depth)]
+    n_batches = -(-N_SEQ // CALIB_BATCH)
+    mse_argv = ["--mse", "true", "--save-dir", str(root / "layers"),
+                "--save-model-path", str(root / "mse.npz")]
     runs = {}
-    for label, extra in (("default", ["--save-model-path", str(root / "results.npz")]),
-                         ("mse", ["--mse", "true", "--save-dir", str(root / "layers"),
-                                  "--save-model-path", str(root / "mse.npz")]),
-                         ("mse resumed", ["--mse", "true", "--save-dir", str(root / "layers"),
-                                          "--save-model-path", str(root / "mse.npz")])):
+    for label, extra in ((("default", ["--save-model-path", str(root / "results.npz")]),)
+                         + ((("mse", mse_argv), ("mse resumed", mse_argv)) if mse else ())):
         n0 = [f.launches for f in solvers]
         t0 = time.time()
-        out = M.main(base + extra)
+        with counted_captures() as captures:
+            out = M.main(base + extra)
         torch.cuda.synchronize()
         dn = [f.launches - n for f, n in zip(solvers, n0)]
         runs[label] = (out, dn)
         ppl = out["ppls"]["train"]
-        if not np.isfinite(ppl) or len(out["results"]["data"]) != 7 * depth:
+        if not np.isfinite(ppl) or len(out["results"]["data"]) != quantized_linears(cfg):
             raise RuntimeError(f"{tag} main {label}: ppl {ppl!r}, "
                                f"{len(out['results']['data'])} layers")
+        want = 0 if label == "mse resumed" else sum(p for p, _ in passes) * n_batches
+        if captures["forwards"] != want:
+            raise RuntimeError(f"{tag} main {label}: {captures['forwards']} capture forwards, "
+                               f"want {want}")
         log(f"phase {tag} main {label}: ok, {time.time() - t0:.1f} s wall, quantize "
-            f"{out['quant_s']:.2f} s for {depth} blocks, ppl(train) {ppl!r}; "
-            f"K1/K2/K5 launches {dn}")
+            f"{out['quant_s']:.2f} s for {depth} blocks, ppl(train) {ppl!r}; K1/K2/K5 "
+            f"launches {dn}; capture forwards a block {captures['forwards'] // n_batches // depth}"
+            f" ({passes[-1][1]} stages) x {n_batches} calibration batches")
     if not (runs["default"][1][0] and runs["default"][1][1]) or runs["default"][1][2]:
         raise RuntimeError(f"{tag} main default did not run K1 and K2: {runs['default'][1]}")
+    if not mse:
+        return
     if not runs["mse"][1][2] or runs["mse"][1][1] or any(runs["mse resumed"][1]):
         raise RuntimeError(f"{tag} --mse launches {runs['mse'][1]}, resumed "
                            f"{runs['mse resumed'][1]}")
@@ -2138,9 +2238,12 @@ def phase_qwen(torch, work: Path) -> dict:
 def replay_first_step(torch, eng, prompts, out, tables, label: str) -> str:
     """The engine's first decode step again, over a copy of the cache its
     run left (request i in slot i, or in the pages ``tables[i]``; rows past
-    each prompt are masked), through the plain attention (and K8's plain
-    version for W4A8 weights): the engine's second token must be the
-    replay's argmax or a near-tie of it.  Returns a summary."""
+    each prompt are masked), through the attention kernels' algebra in
+    plain torch (``plain_attention(twin=True)``: the plain versions' bf16
+    p, turned into int8 codes by a W4A8 linear downstream, move the
+    logits by a few percent of max|logit|) and
+    K8's plain version for W4A8 weights: the engine's second token must be
+    the replay's argmax or a near-tie of it.  Returns a summary."""
     from gptq_v2_tpu_torch.serving import decode as D
     from gptq_v2_tpu_torch.serving import kv_cache as kvc
     from gptq_v2_tpu_torch.serving.engine import _bucket
@@ -2157,7 +2260,7 @@ def replay_first_step(torch, eng, prompts, out, tables, label: str) -> str:
         cache = kvc.ContiguousKVCache(eng.cache.k.clone(), eng.cache.v.clone(),
                                       eng.cache.k_scales, eng.cache.v_scales,
                                       eng.cache.kv_bits)
-    with uncounted(), plain_attention(), plain_w4a8():
+    with uncounted(), plain_attention(twin=True), plain_w4a8():
         logits = D.decode_step(eng.model, first, cache, lens, s_b,
                                block_tables=bt)[0].float()
     del cache
@@ -2168,11 +2271,12 @@ def replay_first_step(torch, eng, prompts, out, tables, label: str) -> str:
         if not near_tie(logits[i], tok):
             raise RuntimeError(f"{label} request {u}: token {tok} disagrees with the plain "
                                f"replay (argmax {int(torch.argmax(logits[i]))})")
-    return (f"the first decode step replayed through the plain versions gives the "
-            f"engine's token on {exact}/{len(uids)}, near-ties on all")
+    return (f"the first decode step replayed in plain torch (the attention kernels' algebra, "
+            f"K8's plain version) gives the engine's token on {exact}/{len(uids)}, near-ties "
+            f"on all")
 
 
-GEMMA_DEPTH = 4  # of Gemma-2-9B's 42 blocks: two sliding, two global
+GEMMA_DEPTH = 2  # of Gemma-2-9B's 42 blocks: one sliding, one global
 GEMMA_ENGINES = (("contiguous bf16", []), ("contiguous int8", ["--kv-dtype", "int8"]),
                  ("contiguous int4", ["--kv-dtype", "int4"]),
                  ("paged ragged bf16", ["--cache-kind", "paged", "--scheduler", "ragged",
@@ -2260,7 +2364,7 @@ def phase_families(torch, work: Path) -> dict:
         calib = np.random.default_rng(5).integers(0, cfg.vocab_size, (8, 512))
         res = P.quantize_model(cfg, params, calib, P.QuantConfig(), batch_size=4)
         errs = [m["gptq_error"] for m in res["metrics"].values()]
-        if len(res["data"]) != 7 * depth or not all(np.isfinite(errs)):
+        if len(res["data"]) != quantized_linears(cfg) or not all(np.isfinite(errs)):
             raise RuntimeError(f"{fam}: quantization output malformed")
         model = TM.quantize_params_to_packed(cfg, params, res["data"])
         del params
@@ -2378,6 +2482,235 @@ def phase_full_depth(torch, work: Path) -> dict:
     return {}
 
 
+# --- the sparse-MoE families ---------------------------------------------------
+
+MOE_DEPTH = 2  # of Mixtral-8x7B's 32 blocks and Qwen3-30B-A3B's 48
+# a routing near-tie: the (k+1)-th router probability of a row within this
+# fraction of the k-th, where another rounding of the same forward (K3's
+# fp32 sums against the plain bf16 product) can swap which expert is chosen
+ROUTE_TIE = 0.1
+# the most (row, layer) pairs whose experts the kernels may choose otherwise
+# than the plain router (wrong linears would part most of them)
+ROUTE_SWAPS = 0.25
+RAGGED = ["--cache-kind", "paged", "--scheduler", "ragged", "--token-budget", "64"]
+# (family, tag, the engines over its CLI checkpoint, --mse and resume too)
+MOE_CASES = (("mixtral", "mixtral", (("contiguous bf16", []),
+                                     ("paged ragged int8", RAGGED + ["--kv-dtype", "int8"]),
+                                     ("W4A8 contiguous bf16", ["--act-dtype", "int8"])), True),
+             ("qwen3_moe", "qwen3-moe", (("paged ragged bf16", RAGGED),), False))
+# the expert shapes K3 and K8 are timed at (gate/up in, down in)
+MOE_ROWS = ("mlp.experts.0.gate_proj", "mlp.experts.0.down_proj")
+
+
+def judge_streamed(torch, cfg, model, prompts, outs, label: str) -> str:
+    """The near-tie rule for each request's first new token against a plain
+    forward over ``model``'s own packed weights, streamed a layer at a time
+    (a Mixtral-8x7B's 32 blocks in bf16 would be 93 GB): a layer's W4A16
+    linears run K3's plain version (the fp32 product over stored rows,
+    ``w4a16_reference``, each linear's fp32 stored weight made once for
+    all prompts and freed after the layer; weights rounded to bf16 part
+    from K3 by enough to move a 32-block MoE's routes), W4A8 linears K8's.
+
+    A routing choice is discrete: K3's rounding against the plain bf16
+    product can swap two experts whose router probabilities nearly tie,
+    and the swap then moves everything after it (at 32 blocks nearly every
+    row has such a near-tie somewhere).  So beside the plain forward runs
+    the same prompt through the packed block on the kernels (uncounted),
+    and the plain forward takes that forward's experts a row; at most
+    :data:`ROUTE_SWAPS` of the (row, layer) pairs may differ from the
+    plain router's own top k — else the judge fails.  A first token
+    outside the near-tie rule passes only where the plain router had a
+    routing near-tie (:data:`ROUTE_TIE`) on that token's row in some layer;
+    those tokens, the pairs whose experts the kernels chose otherwise, the
+    largest probability gap below the k-th such a choice took and the
+    largest difference of a router logit between the two forwards are in
+    the summary."""
+    from gptq_v2_tpu_torch.models import llama as L
+    from gptq_v2_tpu_torch.ops import w4a16 as K
+    from gptq_v2_tpu_torch.ops.packing import PackedLinear
+    from gptq_v2_tpu_torch.serving.model import _lin, head_logits
+
+    def plain_a8(x, p):
+        xq, xs = K.quantize_activations_int8(K.stored_rows(x, p))
+        return K.w4a8_reference(xq, xs, p).reshape(*x.shape[:-1], p.out_features)
+
+    combine, route = L.moe_combine, {}
+    stats = {"swapped": 0, "gap": 0.0, "dz": 0.0}
+
+    def recording(cfg_, router_w, h):  # the kernels' forward: note its experts
+        comb = combine(cfg_, router_w, h)
+        route["chosen"], route["logits"] = comb > 0, (h @ router_w).float()
+        return comb
+
+    def forced(cfg_, router_w, h):  # the plain forward: take them, check them
+        logits = (h @ router_w).float()
+        stats["dz"] = max(stats["dz"], float((logits - route["logits"]).abs().max()))
+        probs = torch.softmax(logits, dim=-1)
+        chosen = route["chosen"]
+        top = torch.topk(probs, cfg_.moe_top_k + 1, dim=-1).values
+        kth = top[..., -2:-1]
+        gap = torch.where(chosen, (kth - probs) / kth, torch.zeros_like(probs)).amax(-1)
+        stats["swapped"] += int((gap > 0).sum())
+        stats["gap"] = max(stats["gap"], float(gap.max()))
+        route["tie"] = top[..., -1] >= (1.0 - ROUTE_TIE) * top[..., -2]
+        vals = torch.where(chosen, probs, torch.zeros_like(probs))
+        return vals / torch.sum(vals, dim=-1, keepdim=True) if cfg_.moe_renorm else vals
+
+    toks = [torch.tensor([p], device="cuda") for p in prompts]
+    xs = [L.embed_lookup(cfg, model.embed_tokens, t) for t in toks]
+    ks = [x.clone() for x in xs]  # the kernels' forward
+    ropes = [L.rope_tables(cfg, np.arange(len(p)), "cuda") for p in prompts]
+    ties = [torch.zeros(len(p), dtype=torch.bool, device="cuda") for p in prompts]
+    try:
+        with uncounted(), torch.no_grad():
+            for li, lp in enumerate(model.layers):
+                stored = {n: K.stored_weight(w) for n, w in lp.items()
+                          if isinstance(w, PackedLinear) and w.act_bits != 8}
+
+                def lin(name, h, stored=stored):
+                    w, b = lp[name], lp.get(name + ".bias")
+                    if name in stored:  # K3's plain version, its weight made once
+                        y = (K.stored_rows(h, w).float() @ stored[name].T).to(h.dtype)
+                        y = y.reshape(*h.shape[:-1], w.out_features)
+                    else:
+                        y = plain_a8(h, w) if isinstance(w, PackedLinear) else h @ w
+                    return y if b is None else y + b
+
+                def attn_fn(q, k, v, win=cfg.layer_window(li)):
+                    return L.attention(q, k, v, window=win, sm_scale=cfg.sm_scale_,
+                                       logit_cap=cfg.attn_logit_softcap), None
+
+                for i in range(len(prompts)):
+                    cos, sin = ropes[i][cfg.layer_rope(li)]
+                    route.clear()
+                    L.moe_combine = recording
+                    ks[i] = L.block_core(cfg, lp, ks[i], cos, sin,
+                                         lambda name, h, lp=lp: _lin(lp, name, h), attn_fn)[0]
+                    L.moe_combine = forced
+                    xs[i] = L.block_core(cfg, lp, xs[i], cos, sin, lin, attn_fn)[0]
+                    if "tie" in route:
+                        ties[i] |= route["tie"][0]
+                del stored
+    finally:
+        L.moe_combine = combine
+    exact = routed = same = 0
+    for i, p in enumerate(prompts):
+        row = head_logits(cfg, model.lm_head, L.final_norm(cfg, xs[i], model.norm))[0, -1].float()
+        tok = outs[i][0]
+        exact += int(torch.argmax(row)) == tok
+        k_row = head_logits(cfg, model.lm_head, L.final_norm(cfg, ks[i], model.norm))[0, -1]
+        same += int(torch.argmax(k_row.float())) == tok
+        if near_tie(row, tok):
+            continue
+        gap = (f"argmax {int(torch.argmax(row))}, logit gap {float(row.max() - row[tok]):.4g} "
+               f"of max|logit| {float(row.abs().max()):.4g}")
+        if not bool(ties[i][-1]):
+            raise RuntimeError(f"{label} request {i}: first token {tok} disagrees with the "
+                               f"plain forward ({gap}) and its row has no routing near-tie")
+        routed += 1
+        log(f"{label} request {i}: first token {tok} outside the near-tie rule ({gap}), its "
+            f"row with a routing near-tie of the plain router")
+    n_rows = sum(len(p) for p in prompts)
+    if stats["swapped"] > ROUTE_SWAPS * n_rows * cfg.num_hidden_layers:
+        raise RuntimeError(f"{label}: the kernels chose other experts than the plain router "
+                           f"on {stats['swapped']} of {n_rows * cfg.num_hidden_layers} "
+                           f"(row, layer) pairs (router logits up to {stats['dz']:.4g} apart)")
+    return (f"first new token equal to the plain forward's argmax on {exact}/{len(prompts)} "
+            f"(to the kernels' forward's on {same}/{len(prompts)}), "
+            f"within the near-tie tolerance on {len(prompts) - routed}, outside it on a row "
+            f"with a routing near-tie on {routed}; the kernels' experts differ from the plain "
+            f"router's top {cfg.moe_top_k} on {stats['swapped']} (row, layer) pairs of "
+            f"{n_rows * cfg.num_hidden_layers} (at most {ROUTE_SWAPS:.0%}), each within "
+            f"{stats['gap']:.2%} of its k-th probability, router logits of the two forwards "
+            f"at most {stats['dz']:.4g} apart; rows with a routing near-tie (within "
+            f"{ROUTE_TIE:.0%}) in some layer: {sum(int(t.sum()) for t in ties)} of {n_rows}")
+
+
+def phase_moe(torch, work: Path) -> dict:
+    """The sparse-MoE families at their published widths (masked-dense
+    experts, as the JAX package runs them): Mixtral-8x7B (8 experts, top
+    2, expert width 14336) and Qwen3-30B-A3B (128 experts, top 8, expert
+    width 768, head-dim q/k norms), depth cut to MOE_DEPTH: the CLI path
+    (:func:`cli_quantize`, the expert stages fused into waves: 5 capture
+    forwards a Mixtral block, its down wave split in two by the 4 GiB
+    Hessian budget; 4 a Qwen3-MoE block; Mixtral also ``--mse`` and a
+    resumed run), then engines through ``serve.build_engine`` (Mixtral:
+    ``serve.main`` contiguous bf16, engines over contiguous bf16, paged
+    ragged int8 and the W4A8 tier; Qwen3-MoE: paged ragged bf16); and
+    Mixtral's 32 blocks from ``random_packed_llama`` (paged ragged bf16,
+    also :func:`replay_first_step`).  Each engine runs twice and its first
+    tokens are judged by :func:`judge_streamed`.  Returns the expert linears K3's and K8's rows
+    are timed at."""
+    from gptq_v2_tpu_torch import serve as S
+    from gptq_v2_tpu_torch.models import families
+    from gptq_v2_tpu_torch.serving import Engine
+    from gptq_v2_tpu_torch.serving import model as TM
+
+    rows = {}
+    rng = np.random.default_rng(10)
+    prompts = None
+    for fam, tag, engines, mse in MOE_CASES:
+        cfg = family_cfg(fam, num_hidden_layers=MOE_DEPTH)
+        pub = families.published(fam)
+        log(f"{tag} path: {families.SOURCES[fam]} widths (hidden {cfg.hidden_size}, "
+            f"{cfg.moe_num_experts} experts of width {cfg.moe_intermediate_}, top "
+            f"{cfg.moe_top_k}, {cfg.num_attention_heads} q heads over "
+            f"{cfg.num_key_value_heads} kv heads of {cfg.head_dim_}, vocab {cfg.vocab_size}); "
+            f"depth cut to {MOE_DEPTH} of {pub['num_hidden_layers']} blocks; random weights "
+            "(seed 0)")
+        root = work / fam
+        cli_quantize(torch, cfg, root, tag, mse=mse)
+        serve_args = ["--model-dir", str(root / "model"), "--results",
+                      str(root / "results.npz"), "--max-batch", str(len(PROMPT_LENS)),
+                      "--max-seq-len", "512"]
+        if fam == "mixtral":
+            t0 = time.time()
+            stats = S.main(serve_args + ["--prompt-tokens", "128",
+                                         "--bench-tokens", str(NEW_TOKENS)])
+            log(f"phase {tag} serve.main contiguous bf16: ok, {time.time() - t0:.1f} s; "
+                f"benchmark {stats['requests']} requests x {NEW_TOKENS} new tokens: "
+                f"{stats['tok_s']:.1f} tok/s on {SMI}")
+        prompts = [rng.integers(0, cfg.vocab_size, (n,)).tolist() for n in PROMPT_LENS]
+        for label, extra in engines:
+            eng = build_engine(serve_args + extra)
+            if f"{tag} " not in rows:
+                rows[f"{tag} "] = {n: eng.model.layers[0][n] for n in MOE_ROWS}
+            out, _ = engine_runs(torch, eng, prompts, f"{tag} {label}", vocab=cfg.vocab_size)
+            r = RATES[f"{tag} {label}"]
+            log(f"phase {tag} engine {label}: ok, {len(prompts)} requests x {NEW_TOKENS} new "
+                f"tokens, greedy output repeats, {r[0]:.1f} / {r[1]:.1f} tok/s on {SMI}; "
+                + judge_streamed(torch, cfg, eng.model, prompts, out, f"{tag} {label}"))
+            del eng
+        LOADED.clear()
+        torch.cuda.empty_cache()
+
+    cfg = family_cfg("mixtral", torch_dtype="bfloat16")
+    label = "mixtral full depth"
+    t0 = time.time()
+    model = TM.random_packed_llama(cfg, seed=0)
+    torch.cuda.synchronize()
+    log(f"{label} path: all {cfg.num_hidden_layers} blocks, random_packed_llama (seed 0) in "
+        f"{time.time() - t0:.1f} s")
+    eng = Engine(model, max_batch=len(PROMPT_LENS), max_seq_len=512, cache_kind="paged",
+                 scheduler="ragged", token_budget=64)
+    tables = record_tables(eng)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).tolist() for n in PROMPT_LENS]
+    out, _ = engine_runs(torch, eng, prompts, label, vocab=cfg.vocab_size)
+    r = RATES[label]
+    # 32 random MoE blocks magnify a rounding (a bf16 ulp at the embedding
+    # moves the last logits by tens of percent), so the first tokens pass
+    # the judge mostly by its routing near-ties; the first decode step
+    # replayed over the engine's own cache, its attention in plain torch,
+    # checks the decode machinery at this depth
+    log(f"phase {label}: ok, paged ragged bf16, {len(prompts)} requests x {NEW_TOKENS} new "
+        f"tokens, greedy output repeats, {r[0]:.1f} / {r[1]:.1f} tok/s on {SMI}; "
+        + judge_streamed(torch, cfg, eng.model, prompts, out, label) + "; "
+        + replay_first_step(torch, eng, prompts, out, tables, label))
+    del eng, model
+    torch.cuda.empty_cache()
+    return {"rows": rows}
+
+
 def device_ops(torch, fn, reps: int = 50):
     """Device ops (CUDA kernels and copies) a call of ``fn`` launches, by
     torch.profiler over ``reps`` calls, and their names.  A window of one
@@ -2457,6 +2790,8 @@ def main(argv=None) -> int:
              ("gemma-2", phase_gemma, ("hessian", "gptq", "gptq_step", "w4a16", "w4a8",
                                        "attention", "attention_p4", "paged_attention",
                                        "paged_write")),
+             ("moe", phase_moe, ("hessian", "gptq", "gptq_step", "w4a16", "w4a8",
+                                 "attention", "paged_attention", "paged_write")),
              ("families", phase_families, ("hessian", "gptq", "w4a16", "attention",
                                            "attention_p4")),
              ("window", phase_window, ("hessian", "gptq", "w4a16", "attention",
@@ -2473,7 +2808,7 @@ def main(argv=None) -> int:
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     counts = {}
-    wide = {}  # the first block of each wide CLI path, for K3's and K8's rows
+    wide = {}  # tag → the linears of a wide path K3's and K8's rows are timed at
     try:
         for name, phase, needed in paths:
             for fn in wrappers.values():
@@ -2485,7 +2820,9 @@ def main(argv=None) -> int:
             if name == "main":
                 main_out = result
             if name in ("qwen2.5", "gemma-2"):
-                wide[f"{name} "] = result["layer0"]
+                wide[f"{name} "] = {n: result["layer0"][n] for n in FUSED}
+            if name == "moe":
+                wide.update(result["rows"])
             log(f"path {name}: {time.time() - t0:.1f} s, launches "
                 + ", ".join(f"{k} {v}" for k, v in counts[name].items()))
             missing = [k for k in needed if not counts[name][k]]

@@ -1,4 +1,4 @@
-"""Published ``config.json`` contents of the dense families the port takes,
+"""Published ``config.json`` contents of the families the port takes,
 one model each, for synthetic checkpoints at real widths (random weights,
 depth cut by the caller).
 
@@ -28,6 +28,8 @@ SOURCES = {
     "phi3_mini": "microsoft/Phi-3-mini-4k-instruct",
     "gemma2": "google/gemma-2-9b",
     "gemma3": "google/gemma-3-12b-pt",
+    "mixtral": "mistralai/Mixtral-8x7B-v0.1",
+    "qwen3_moe": "Qwen/Qwen3-30B-A3B",
 }
 
 _PUBLISHED: Dict[str, dict] = {
@@ -97,6 +99,20 @@ _PUBLISHED: Dict[str, dict] = {
         rope_local_base_freq=10000.0, rms_norm_eps=1e-6, sliding_window=1024,
         sliding_window_pattern=6, attn_logit_softcapping=None,
         final_logit_softcapping=None)),
+    "mixtral": dict(model_type="mixtral", vocab_size=32000, hidden_size=4096,
+                    intermediate_size=14336, num_hidden_layers=32, num_attention_heads=32,
+                    num_key_value_heads=8, num_local_experts=8, num_experts_per_tok=2,
+                    max_position_embeddings=32768, rope_theta=1000000.0, rms_norm_eps=1e-5,
+                    sliding_window=None, tie_word_embeddings=False, torch_dtype="bfloat16"),
+    "qwen3_moe": dict(model_type="qwen3_moe", vocab_size=151936, hidden_size=2048,
+                      intermediate_size=6144, moe_intermediate_size=768,
+                      num_hidden_layers=48, num_attention_heads=32, num_key_value_heads=4,
+                      head_dim=128, num_experts=128, num_experts_per_tok=8,
+                      norm_topk_prob=True, decoder_sparse_step=1, mlp_only_layers=[],
+                      max_position_embeddings=40960, rope_theta=1000000.0,
+                      rms_norm_eps=1e-6, attention_bias=False, sliding_window=None,
+                      use_sliding_window=False, tie_word_embeddings=False,
+                      torch_dtype="bfloat16"),
 }
 
 

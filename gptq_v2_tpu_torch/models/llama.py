@@ -7,8 +7,10 @@ norms, fused gate/up), OLMo-2 (post-norm only, flat q/k norms), Granite
 gate/up checkpoints), Gemma-2 (sandwich norms with a unit offset, GeGLU,
 the embedding normalizer, attention and final logit soft caps, alternating
 sliding and global layers) and Gemma-3 (Gemma-2 without soft caps, with
-head-dim q/k norms and a local rope table on its sliding layers);
-``linear``, ``llama3`` and ``yarn`` rope scaling.
+head-dim q/k norms and a local rope table on its sliding layers), and the
+sparse-MoE families Mixtral and Qwen3-MoE (a softmax top-k router and
+masked-dense experts, as the JAX package computes them); ``linear``,
+``llama3`` and ``yarn`` rope scaling.
 
 Parameters are a plain dict of tensors; linear weights are stored
 ``(in_features, out_features)`` so a projection is ``x @ W`` (plus the
@@ -19,8 +21,9 @@ host for whole-sequence positions), attention scores and softmax in fp32.
 The decoder block exposes capture points at each linear's input for the
 quantization pipeline.
 
-The other families of the JAX package (MoE, MLA, GPT-OSS, Llama-4) are
-not ported yet; :meth:`LlamaConfig.from_hf_dict` refuses them.
+The other families of the JAX package (DeepSeek-V3's MLA, GPT-OSS,
+Llama-4) are not ported yet; :meth:`LlamaConfig.from_hf_dict` refuses
+them.
 """
 from __future__ import annotations
 
@@ -38,10 +41,13 @@ Params = Dict[str, Any]
 
 # the model types from_hf_dict reads (JAX ``LlamaConfig.from_hf_dict``)
 FAMILIES = ("llama", "mistral", "qwen2", "qwen3", "glm4", "olmo2", "granite",
-            "smollm3", "phi3", "gemma2", "gemma3_text")
+            "smollm3", "phi3", "gemma2", "gemma3_text", "mixtral", "qwen3_moe")
 # the JAX package's other families, refused until their slice is ported
 # (ROADMAP queue 1, item 10)
-_NOT_PORTED = ("mixtral", "qwen3_moe", "deepseek_v3", "gpt_oss", "llama4", "llama4_text")
+_NOT_PORTED = ("deepseek_v3", "gpt_oss", "llama4", "llama4_text")
+# 2-D block params that are never quantized: the MoE router, a small (D, E)
+# classifier whose rounding would move routing decisions
+NON_QUANTIZED_LINEARS = ("mlp.router",)
 _ACTIVATIONS = ("silu", "gelu_pytorch_tanh", "gelu_tanh")
 _LAYER_TYPES = ("sliding_attention", "full_attention")
 
@@ -100,6 +106,17 @@ class LlamaConfig:
     # Gemma-3: sliding layers rotate with this base, unscaled; global
     # layers keep rope_theta and rope_scaling
     rope_local_base_freq: Optional[float] = None
+    # Mixtral / Qwen3-MoE: a softmax top-k router over masked-dense experts
+    moe_num_experts: int = 0  # 0 = dense MLP
+    moe_top_k: int = 2
+    moe_intermediate_size: Optional[int] = None  # None = intermediate_size
+    moe_renorm: bool = True  # renormalize the top-k weights to sum 1
+    # HF names: Mixtral ``block_sparse_moe.gate`` and ``.experts.{e}.w1|w3|w2``,
+    # Qwen3-MoE ``mlp.gate`` and ``mlp.experts.{e}.gate|up|down_proj``
+    moe_mixtral_names: bool = False
+    # layers with a dense MLP in a MoE model (Qwen3-MoE ``mlp_only_layers``
+    # and ``decoder_sparse_step``)
+    moe_dense_layers: Optional[Tuple[int, ...]] = None
     model_type: str = "llama"  # the family to_hf_dict writes back
 
     @property
@@ -111,6 +128,16 @@ class LlamaConfig:
         """Rotated dims a head (the rope tables' width): a GLM-4 prefix,
         else the whole head."""
         return int(self.head_dim_ * self.partial_rotary_factor)
+
+    @property
+    def moe_intermediate_(self) -> int:
+        return self.moe_intermediate_size or self.intermediate_size
+
+    def layer_is_moe(self, layer_idx: int) -> bool:
+        """Whether this layer's MLP is the sparse-MoE block."""
+        if not self.moe_num_experts:
+            return False
+        return self.moe_dense_layers is None or layer_idx not in self.moe_dense_layers
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -162,7 +189,7 @@ class LlamaConfig:
         if model_type in _NOT_PORTED:
             raise NotImplementedError(
                 f"model_type {model_type!r} is not ported yet (ROADMAP queue 1, item 10: "
-                "Mixtral and Qwen3-MoE, then DeepSeek-V3's MLA, GPT-OSS and Llama-4)")
+                "GPT-OSS and Llama-4, then DeepSeek-V3's MLA)")
         if model_type not in FAMILIES:
             raise NotImplementedError(f"model_type {model_type!r}")
         if d.get("mlp_bias"):
@@ -193,9 +220,21 @@ class LlamaConfig:
         # bias on q/k/v only, GLM-4 biases q/k/v and never o
         attention_bias = bool(d.get("attention_bias", False))
         sliding = d.get("sliding_window")
-        if model_type in ("qwen2", "qwen3", "smollm3") and not d.get("use_sliding_window",
-                                                                     False):
+        if model_type in ("qwen2", "qwen3", "qwen3_moe", "smollm3") and not d.get(
+                "use_sliding_window", False):
             sliding = None  # these families gate the window behind a flag
+        moe_experts, moe_top_k, moe_inter, moe_renorm, moe_dense = 0, 2, None, True, None
+        if model_type == "mixtral":
+            moe_experts, moe_top_k = d["num_local_experts"], d["num_experts_per_tok"]
+        elif model_type == "qwen3_moe":
+            moe_experts, moe_top_k = d["num_experts"], d["num_experts_per_tok"]
+            moe_inter = d.get("moe_intermediate_size")
+            moe_renorm = d.get("norm_topk_prob", True)
+            # HF Qwen3MoeDecoderLayer: MoE iff the layer is not in
+            # mlp_only_layers and (layer + 1) % decoder_sparse_step == 0
+            only = set(d.get("mlp_only_layers") or ())
+            step = d.get("decoder_sparse_step", 1)
+            moe_dense = tuple(i for i in range(n_layers) if i in only or (i + 1) % step) or None
         nope_layers = None
         if model_type == "smollm3":
             # HF no_rope_layers: 1 = rope on for that layer, 0 = NoPE
@@ -234,7 +273,7 @@ class LlamaConfig:
             rope_scaling=rope_scaling,
             qkv_bias=attention_bias or model_type == "qwen2",
             o_bias=attention_bias and not glm4,
-            qk_norm=model_type == "qwen3" or gemma3,
+            qk_norm=model_type in ("qwen3", "qwen3_moe") or gemma3,
             qk_norm_flat=model_type == "olmo2",
             sliding_window=sliding,
             layer_types=layer_types,
@@ -257,6 +296,12 @@ class LlamaConfig:
             final_logit_softcap=d.get("final_logit_softcapping") if gemma else None,
             query_pre_attn_scalar=d.get("query_pre_attn_scalar") if gemma else None,
             rope_local_base_freq=d.get("rope_local_base_freq") if gemma3 else None,
+            moe_num_experts=moe_experts,
+            moe_top_k=moe_top_k,
+            moe_intermediate_size=moe_inter,
+            moe_renorm=moe_renorm,
+            moe_mixtral_names=model_type == "mixtral",
+            moe_dense_layers=moe_dense,
             model_type=model_type,
         )
 
@@ -287,7 +332,7 @@ class LlamaConfig:
             d["rope_scaling"] = dict(self.rope_scaling)
         if self.sliding_window is not None:
             d["sliding_window"] = self.sliding_window
-            if mt in ("qwen2", "qwen3", "smollm3"):
+            if mt in ("qwen2", "qwen3", "qwen3_moe", "smollm3"):
                 d["use_sliding_window"] = True
         if self.layer_types is not None:
             d["layer_types"] = list(self.layer_types)
@@ -310,6 +355,16 @@ class LlamaConfig:
                 d["rope_local_base_freq"] = self.rope_local_base_freq
         elif self.hidden_act != "silu":
             d["hidden_act"] = self.hidden_act
+        if mt == "mixtral":
+            d.update(num_local_experts=self.moe_num_experts,
+                     num_experts_per_tok=self.moe_top_k)
+        if mt == "qwen3_moe":
+            d.update(num_experts=self.moe_num_experts, num_experts_per_tok=self.moe_top_k,
+                     norm_topk_prob=self.moe_renorm,
+                     mlp_only_layers=list(self.moe_dense_layers or ()),
+                     decoder_sparse_step=1)
+            if self.moe_intermediate_size is not None:
+                d["moe_intermediate_size"] = self.moe_intermediate_size
         return d
 
     @classmethod
@@ -324,9 +379,11 @@ class LlamaConfig:
         return cls(**base)
 
 
-def layer_param_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
-    """One block's parameter shapes (every layer of these families has the
-    same)."""
+def layer_param_shapes(cfg: LlamaConfig,
+                       layer_idx: Optional[int] = None) -> Dict[str, Tuple[int, ...]]:
+    """One block's parameter shapes.  ``layer_idx=None`` gives the model's
+    dominant layer (MoE where the config has experts); pass the index for
+    a model whose dense and MoE layers interleave (``cfg.layer_is_moe``)."""
     d, hd = cfg.hidden_size, cfg.head_dim_
     nq, nkv, i = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.intermediate_size
     shapes = {
@@ -340,6 +397,16 @@ def layer_param_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
         "mlp.up_proj": (d, i),
         "mlp.down_proj": (i, d),
     }
+    if cfg.moe_num_experts and (layer_idx is None or cfg.layer_is_moe(layer_idx)):
+        # the router and the experts take the dense MLP's place
+        for n in ("mlp.gate_proj", "mlp.up_proj", "mlp.down_proj"):
+            del shapes[n]
+        shapes["mlp.router"] = (d, cfg.moe_num_experts)
+        mi = cfg.moe_intermediate_
+        for e in range(cfg.moe_num_experts):
+            shapes[f"mlp.experts.{e}.gate_proj"] = (d, mi)
+            shapes[f"mlp.experts.{e}.up_proj"] = (d, mi)
+            shapes[f"mlp.experts.{e}.down_proj"] = (mi, d)
     if cfg.sandwich_norms:  # GLM-4: four norms a block
         shapes["pre_feedforward_layernorm"] = (d,)
         shapes["post_feedforward_layernorm"] = (d,)
@@ -373,10 +440,10 @@ def init_params(cfg: LlamaConfig, seed: int = 0, device="cuda") -> Params:
                 / math.sqrt(shape[0])).to(dt)
 
     layers = []
-    for _ in range(cfg.num_hidden_layers):
+    for li in range(cfg.num_hidden_layers):
         layers.append({name: (norm_init(shape, dtype=dt, device=device)
                               if len(shape) == 1 else w(shape))
-                       for name, shape in layer_param_shapes(cfg).items()})
+                       for name, shape in layer_param_shapes(cfg, li).items()})
     embed = w((cfg.vocab_size, cfg.hidden_size))
     return {
         "embed_tokens": embed,
@@ -642,13 +709,55 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, n, hq, v.shape[-1])
 
 
+def moe_combine(cfg: LlamaConfig, router_w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Per-token expert weights ``(B, N, E)`` in fp32 (JAX ``moe_combine``,
+    HF Mixtral / Qwen3-MoE): the router logits in the model dtype, softmax
+    in fp32, the top k, renormalized to sum 1 where the family does; zero
+    for the experts not chosen.
+
+    The top k come from a stable descending sort, so equal probabilities
+    (bf16 logits tie often) choose the lower expert index first, as
+    ``jax.lax.top_k`` does; ``torch.topk`` promises no order among equal
+    values."""
+    probs = torch.softmax((h @ router_w).float(), dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    vals, idx = vals[..., :cfg.moe_top_k], idx[..., :cfg.moe_top_k]
+    if cfg.moe_renorm:
+        vals = vals / torch.sum(vals, dim=-1, keepdim=True)
+    return torch.zeros_like(probs).scatter(-1, idx, vals)
+
+
+def moe_apply_dense(cfg: LlamaConfig, lin: Callable, h: torch.Tensor,
+                    comb: torch.Tensor) -> torch.Tensor:
+    """Masked-dense experts (JAX ``moe_apply_dense``): every expert runs on
+    every token with its input zeroed on the tokens not routed to it, and
+    the outputs are summed in expert order, each weighted by its routing
+    weight.  The masked input keeps shapes static and makes a capture of
+    an expert's gate/up (and down) input hold only its routed tokens, so
+    its Hessian sees only them.  ``lin`` is called per expert with the
+    names ``mlp.experts.{e}.gate_proj`` / ``up_proj`` / ``down_proj``."""
+    act = activation(cfg)
+    out = None
+    for e in range(cfg.moe_num_experts):
+        ce = comb[..., e:e + 1]
+        mask = (ce > 0).to(h.dtype)
+        he = h * mask
+        g = lin(f"mlp.experts.{e}.gate_proj", he)
+        u = lin(f"mlp.experts.{e}.up_proj", he)
+        d = lin(f"mlp.experts.{e}.down_proj", act(g) * u * mask)
+        d = ce.to(d.dtype) * d
+        out = d if out is None else out + d
+    return out
+
+
 def block_core(cfg: LlamaConfig, lp: Params, x: torch.Tensor, cos, sin,
                lin: Callable, attn_fn: Callable):
     """The block skeleton shared by every forward path (dense, packed,
     cache decode), with the family switches of the JAX ``block_core``:
     q/k norms (Qwen3 and Gemma-3 per head, OLMo-2 flat), GLM-4's and
     Gemma's sandwich norms (Gemma's with a unit offset), Gemma's GeGLU,
-    OLMo-2's post-norm-only block, Granite's residual multiplier.
+    OLMo-2's post-norm-only block, Granite's residual multiplier, and the
+    sparse-MoE MLP of a layer whose ``lp`` holds ``mlp.router``.
     ``lin(name, h)`` applies a linear and its bias (plain, packed,
     capturing); ``attn_fn(q, k, v) -> (attn, aux)`` attends.  Consumes the
     fused ``self_attn.qkv_proj`` / ``mlp.gate_up_proj`` names when present
@@ -691,12 +800,15 @@ def block_core(cfg: LlamaConfig, lp: Params, x: torch.Tensor, cos, sin,
     else:
         h = norm(x, "pre_feedforward_layernorm" if cfg.sandwich_norms
                  else "post_attention_layernorm")
-    if "mlp.gate_up_proj" in lp:
-        gate, up = torch.chunk(lin("mlp.gate_up_proj", h), 2, dim=-1)
+    if "mlp.router" in lp:  # this layer's MLP is the sparse-MoE block
+        mlp = moe_apply_dense(cfg, lin, h, moe_combine(cfg, lp["mlp.router"], h))
     else:
-        gate = lin("mlp.gate_proj", h)
-        up = lin("mlp.up_proj", h)
-    mlp = lin("mlp.down_proj", activation(cfg)(gate) * up)
+        if "mlp.gate_up_proj" in lp:
+            gate, up = torch.chunk(lin("mlp.gate_up_proj", h), 2, dim=-1)
+        else:
+            gate = lin("mlp.gate_proj", h)
+            up = lin("mlp.up_proj", h)
+        mlp = lin("mlp.down_proj", activation(cfg)(gate) * up)
     if cfg.sandwich_norms or cfg.postnorm_only:
         mlp = norm(mlp, "post_feedforward_layernorm")
     if cfg.residual_multiplier is not None:  # Granite

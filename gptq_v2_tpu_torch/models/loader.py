@@ -15,6 +15,11 @@ remaps, in HF layout (the JAX loader's):
   Gemma's four norms a block keep HF's names as the port's: its
   ``post_attention_layernorm`` follows attention, ``pre_feedforward_`` and
   ``post_feedforward_layernorm`` surround the MLP; its head is tied.
+* Mixtral names its router ``block_sparse_moe.gate`` and its experts
+  ``block_sparse_moe.experts.{e}.w1|w3|w2`` (gate, up, down); Qwen3-MoE
+  ``mlp.gate`` and ``mlp.experts.{e}.gate_proj|up_proj|down_proj``.  The
+  router is stored ``(E, D)`` like every HF linear and is ``mlp.router``
+  ``(D, E)`` in the params.
 * GLM-4 pairs each head's rotary dims even/odd.  The rotary prefix of every
   q/k head's out-features (weights and biases) is de-interleaved at load,
   a permutation that leaves ``q·k`` unchanged, so the runtime keeps the
@@ -39,6 +44,8 @@ from gptq_v2_tpu_torch.models.llama import LlamaConfig, Params, layer_param_shap
 _GLM_NORMS = {"post_attention_layernorm": "post_self_attn_layernorm",
               "pre_feedforward_layernorm": "post_attention_layernorm",
               "post_feedforward_layernorm": "post_mlp_layernorm"}
+# Mixtral's HF names of an expert's gate/up/down
+_MIXTRAL_EXPERT = {"gate_proj": "w1", "up_proj": "w3", "down_proj": "w2"}
 _QKV = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj")
 _GATE_UP = ("mlp.gate_proj", "mlp.up_proj")
 
@@ -64,9 +71,15 @@ def _fused(cfg: LlamaConfig) -> Dict[str, Tuple[str, ...]]:
 
 
 def _hf_name(cfg: LlamaConfig, name: str) -> str:
-    """The HF module name of one of the port's block params (norm renames)."""
+    """The HF module name of one of the port's block params (norm and MoE
+    renames)."""
     if cfg.fused_gate_up and cfg.sandwich_norms and name in _GLM_NORMS:
         return _GLM_NORMS[name]
+    if name == "mlp.router":
+        return "block_sparse_moe.gate" if cfg.moe_mixtral_names else "mlp.gate"
+    if cfg.moe_mixtral_names and name.startswith("mlp.experts."):
+        _, _, e, proj = name.split(".")
+        return f"block_sparse_moe.experts.{e}.{_MIXTRAL_EXPERT[proj]}"
     return name
 
 
@@ -96,8 +109,8 @@ def params_from_flat(cfg: LlamaConfig, flat: Dict[str, torch.Tensor],
     """Params from HF-named tensors (HF layout)."""
     dt = cfg.torch_dtype
     parts: Dict[str, Tuple[str, int, int]] = {}  # part name → (fused name, row lo, hi)
+    shapes = layer_param_shapes(cfg)  # the fused families are dense
     for fused, names in _fused(cfg).items():
-        shapes = layer_param_shapes(cfg)
         lo = 0
         for n in names:
             parts[n] = (fused, lo, lo + shapes[n][1])
@@ -116,8 +129,8 @@ def params_from_flat(cfg: LlamaConfig, flat: Dict[str, torch.Tensor],
         w = w.T.contiguous() if linear else w
         return w.to(device=device, dtype=dt)
 
-    shapes = layer_param_shapes(cfg)
-    layers = [{name: place(get(name, i), len(shape) == 2) for name, shape in shapes.items()}
+    layers = [{name: place(get(name, i), len(shape) == 2)
+               for name, shape in layer_param_shapes(cfg, i).items()}
               for i in range(cfg.num_hidden_layers)]
     embed = place(flat[_hf_key("embed_tokens", None)], False)
     lm_head = (embed.T if cfg.tie_word_embeddings

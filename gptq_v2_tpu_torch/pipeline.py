@@ -1,28 +1,36 @@
 """Block-sequential GPTQ quantization pipeline (counterpart of
-``gptq_v2_tpu/pipeline.py``, its plain per-stage path).
+``gptq_v2_tpu/pipeline.py``, its per-stage path with wave fusion).
 
-Per decoder block, for each stage of :data:`graph.LLAMA_STAGES`:
+Per decoder block, the stages of :func:`graph.block_stages` are grouped
+into waves of mutually independent stages (:func:`graph.stage_waves`: a
+dense block's waves are its four stages, one each; a MoE block's are
+``[q,k,v]``, ``[o]``, every expert's ``[gate, up]``, every expert's
+``[down]``).  For each wave, split so that its fp32 Hessians held at once
+stay under ``hessian_budget`` bytes (JAX ``_split_wave_by_budget``):
 
 1. run the block forward over every calibration batch with the *current*
-   (partially quantized) weights, capture the stage input and accumulate
-   its Hessian (K1);
-2. invert it (damp, act-order, upper Cholesky factor of H⁻¹);
-3. solve every linear of the stage (K2) and swap the dequantized weights
-   into the block, so later stages see quantized predecessors (the GPTQ-v2
-   error propagation, reference ``llama.py:171-179``).
+   (partially quantized) weights, capture every member's input in that one
+   forward and accumulate each member's Hessian (K1);
+2. invert each (damp, act-order, upper Cholesky factor of H⁻¹);
+3. solve every linear of each member (K2) and swap the dequantized
+   weights into the block, so later waves see quantized predecessors (the
+   GPTQ-v2 error propagation, reference ``llama.py:171-179``).
 
-Each block's forwards take its own sliding window and rope table
-(``cfg.layer_window``, ``cfg.layer_rope``).  Biases, norms and the other
-1-D params pass through unquantized.
+Members of a wave do not feed each other, so capturing them from one
+forward sees exactly what one forward per stage would: the codes are the
+per-stage loop's bit for bit (JAX documents the same of its waves).  Each
+block's forwards take its own sliding window and rope table
+(``cfg.layer_window``, ``cfg.layer_rope``).  Biases, norms, the other 1-D
+params and the MoE router pass through unquantized.
 
 Then the next block's inputs are computed with the fully quantized block,
 and the block's linears in ``params`` become the weights reconstructed
 from their ``quant_meta`` (the JAX package's default ``reconstruct``
 offload, what evaluation reads).  With ``save_dir`` each linear's result
 streams to ``{save_dir}/{name}.npz``; ``resume`` reloads every stage whose
-files were written by the same :class:`QuantConfig` instead of solving it.
-The JAX package documents its incremental injection and wave fusion as
-numerically identical to this path; they are not ported yet.
+files were written by the same :class:`QuantConfig` instead of solving it,
+swapping its weights in before its wave's forward.  The JAX package's
+incremental injection is not ported.
 
 Numerics contract (docs/PARITY.md): fp32 Hessians, ``2/n_seq`` scaling,
 act-order, cumulative damp retry, fp16 error feedback, TF32 off,
@@ -165,6 +173,24 @@ def _dequantized(meta: Dict, dt: torch.dtype, device) -> torch.Tensor:
     return reconstruct_weight(meta, out_dtype=torch.float32).T.to(dt).contiguous()
 
 
+def _split_wave_by_budget(wave, d_ins, budget_bytes: int):
+    """Split a wave so that its fp32 Hessians held at once stay under
+    ``budget_bytes`` (JAX ``_split_wave_by_budget``; a Mixtral down wave
+    would hold 8 x 14336² fp32).  Sub-waves of an independent set are
+    still independent."""
+    chunks, cur, cur_bytes = [], [], 0
+    for st, d in zip(wave, d_ins):
+        b = 4 * d * d
+        if cur and cur_bytes + b > budget_bytes:
+            chunks.append(cur)
+            cur, cur_bytes = [], 0
+        cur.append(st)
+        cur_bytes += b
+    if cur:
+        chunks.append(cur)
+    return chunks
+
+
 def quantize_model(
     cfg: L.LlamaConfig,
     params: L.Params,
@@ -174,6 +200,7 @@ def quantize_model(
     device="cuda",
     save_dir: Optional[str] = None,
     resume: bool = True,
+    hessian_budget: int = 4 << 30,
 ) -> Dict[str, Dict]:
     """Quantize every decoder block; compute runs on ``device``.
 
@@ -181,7 +208,9 @@ def quantize_model(
     reconstructed from their ``quant_meta`` (model dtype, on the layer's
     original device).  Returns ``{'data': {name: quant_meta}, 'metrics':
     {name: metrics}}`` with the reference's names
-    ``model.layers.{i}.{linear}`` and quant_meta as CPU tensors."""
+    ``model.layers.{i}.{linear}`` (``model.layers.{i}.mlp.experts.{e}.
+    gate_proj`` …) and quant_meta as CPU tensors, in solve order.
+    ``hessian_budget`` caps the bytes of a wave's Hessians held at once."""
     n_seq, seqlen = encodings.shape
     dt = cfg.torch_dtype
     results: Dict[str, Dict] = {"data": {}, "metrics": {}}
@@ -195,7 +224,6 @@ def quantize_model(
     xs = [L.embed_lookup(cfg, embed_w, tokens[b:b + batch_size].to(device))
           for b in range(0, n_seq, batch_size)]
     del embed_w
-    stages = [st for st in graph.LLAMA_STAGES if st.linears != (graph.OUTPUT,)]
 
     def try_resume(li, stage):
         """The stage's saved results if every linear of it was written by
@@ -210,6 +238,23 @@ def quantize_model(
             return None
         return loaded
 
+    def solve(li, lp, stage, inv, pending):
+        for name in stage.linears:
+            n_groups = lp[name].shape[0] // qcfg.group_size
+            res = gq.gptq_quant(
+                lp[name].T, inv, [qcfg.group_size] * n_groups,
+                [qcfg.bits] * n_groups,
+                scale_bit_width=qcfg.scale_bit_width,
+                quant_symmetric=qcfg.sym, quant_mse=qcfg.mse,
+                quant_max_shrink=qcfg.mse_max_shrink,
+                quant_n_grid=qcfg.mse_n_grid, quant_norm=qcfg.mse_norm,
+                feedback_dtype=qcfg.feedback_dtype, save_dtype=dt)
+            lp[name] = res["quant"].T.to(dt).contiguous()
+            canonical = f"model.layers.{li}.{name}"
+            results["data"][canonical] = _pack_meta_for_host(res["quant_meta"])
+            results["metrics"][canonical] = res["metrics"]
+            pending.append(canonical)
+
     with full_fp32():
         for li in range(cfg.num_hidden_layers):
             t0 = time.time()
@@ -217,45 +262,42 @@ def quantize_model(
             cos, sin = ropes[cfg.layer_rope(li)]
             win = cfg.layer_window(li)
             lp = {k: v.to(device) for k, v in home.items()}
-            pending = []
-            for stage in stages:
-                loaded = try_resume(li, stage) if save_path and resume else None
-                if loaded is not None:
+            stages = [st for st in graph.block_stages(cfg, li)
+                      if st.linears != (graph.OUTPUT,)]
+            pending, passes = [], 0
+            for wave in graph.stage_waves(stages):
+                todo = []
+                for stage in wave:
+                    loaded = try_resume(li, stage) if save_path and resume else None
+                    if loaded is None:
+                        todo.append(stage)
+                        continue
                     for name, (meta, metrics, _) in loaded.items():
                         canonical = f"model.layers.{li}.{name}"
                         results["data"][canonical] = meta
                         results["metrics"][canonical] = metrics
                         lp[name] = _dequantized(meta, dt, device)
                         logger.debug("%s resumed", canonical)
+                if qcfg.rtn:
+                    for stage in todo:
+                        solve(li, lp, stage, None, pending)
                     continue
-                inv = None
-                if not qcfg.rtn:
-                    first = stage.linears[0]
-                    state = hs.init_state(lp[first].shape[0], device)
+                d_ins = [lp[st.linears[0]].shape[0] for st in todo]
+                for chunk in _split_wave_by_budget(todo, d_ins, hessian_budget):
+                    firsts = tuple(st.linears[0] for st in chunk)
+                    states = {f: hs.init_state(lp[f].shape[0], device) for f in firsts}
                     for xb in xs:
-                        _, caps = L.block_apply(cfg, lp, xb, cos, sin,
-                                                capture=(first,), window=win)
-                        state = hs.accumulate(state, caps[first])
-                    del caps
-                    inv = hs.invert(state, damp_ratio=qcfg.damp_ratio,
-                                    act_order=qcfg.act_order)
-                    del state
-                for name in stage.linears:
-                    n_groups = lp[name].shape[0] // qcfg.group_size
-                    res = gq.gptq_quant(
-                        lp[name].T, inv, [qcfg.group_size] * n_groups,
-                        [qcfg.bits] * n_groups,
-                        scale_bit_width=qcfg.scale_bit_width,
-                        quant_symmetric=qcfg.sym, quant_mse=qcfg.mse,
-                        quant_max_shrink=qcfg.mse_max_shrink,
-                        quant_n_grid=qcfg.mse_n_grid, quant_norm=qcfg.mse_norm,
-                        feedback_dtype=qcfg.feedback_dtype, save_dtype=dt)
-                    lp[name] = res["quant"].T.to(dt).contiguous()
-                    canonical = f"model.layers.{li}.{name}"
-                    results["data"][canonical] = _pack_meta_for_host(res["quant_meta"])
-                    results["metrics"][canonical] = res["metrics"]
-                    pending.append(canonical)
-                del inv
+                        _, caps = L.block_apply(cfg, lp, xb, cos, sin, capture=firsts,
+                                                window=win)
+                        for f in firsts:
+                            states[f] = hs.accumulate(states[f], caps.pop(f))
+                    passes += 1
+                    for stage in chunk:
+                        inv = hs.invert(states.pop(stage.linears[0]),
+                                        damp_ratio=qcfg.damp_ratio,
+                                        act_order=qcfg.act_order)
+                        solve(li, lp, stage, inv, pending)
+                        del inv
             # inputs of the next block, through the fully quantized block
             # (reference llama.py:184-191)
             xs = [L.block_apply(cfg, lp, xb, cos, sin, window=win)[0] for xb in xs]
@@ -265,7 +307,8 @@ def quantize_model(
                     if f"model.layers.{li}.{k}" in results["data"] else v
                     ).to(home[k].device)
                 for k, v in lp.items()}
-            logger.info("finished block %d in %.2f s", li, time.time() - t0)
+            logger.info("finished block %d in %.2f s: %d stages, %d capture passes",
+                        li, time.time() - t0, len(stages), passes)
     return results
 
 

@@ -241,6 +241,17 @@ STAGE_MATES = (("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
                ("mlp.gate_proj", "mlp.up_proj"))
 
 
+def stage_mates(shapes: Dict[str, Tuple[int, ...]]) -> List[Tuple[str, ...]]:
+    """A layer's stage-mates: :data:`STAGE_MATES` where the layer has them,
+    and each expert's gate/up."""
+    mates = [m for m in STAGE_MATES if m[0] in shapes]
+    e = 0
+    while f"mlp.experts.{e}.gate_proj" in shapes:
+        mates.append((f"mlp.experts.{e}.gate_proj", f"mlp.experts.{e}.up_proj"))
+        e += 1
+    return mates
+
+
 def random_packed_llama(cfg: L.LlamaConfig, group_size: int = 128, seed: int = 0,
                         device="cuda") -> PackedLlama:
     """A synthetic packed model with the real shapes and layouts (JAX
@@ -250,7 +261,10 @@ def random_packed_llama(cfg: L.LlamaConfig, group_size: int = 128, seed: int = 0
     shared by its linears, as GPTQ gives them.  Everything is drawn on
     ``device`` from one ``torch.Generator`` seeded with ``seed`` (a 7B model
     is ~4 GB of packed words: no host round trip).  Norms are the identity:
-    ones, or zeros where the family stores them with a unit offset."""
+    ones, or zeros where the family stores them with a unit offset.  A MoE
+    layer's router stays dense bf16 and each expert's gate/up share a perm;
+    a model's dense layers (Qwen3-MoE's ``mlp_only_layers``) keep their
+    dense MLP."""
     g = group_size
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -270,18 +284,20 @@ def random_packed_llama(cfg: L.LlamaConfig, group_size: int = 128, seed: int = 0
         return (torch.randn(shape, generator=gen, device=device)
                 / np.sqrt(shape[0])).to(torch.bfloat16)
 
-    shapes = L.layer_param_shapes(cfg)
     norm_init = torch.zeros if cfg.norm_unit_offset else torch.ones
     layers = []
-    for _ in range(cfg.num_hidden_layers):
+    for li in range(cfg.num_hidden_layers):
+        shapes = L.layer_param_shapes(cfg, li)
         perms = {}
-        for mates in STAGE_MATES:
+        for mates in stage_mates(shapes):
             p = torch.randperm(shapes[mates[0]][0], generator=gen, device=device)
             perms.update({m: p for m in mates})
         lp = {}
         for name, shape in shapes.items():
             if len(shape) == 1:
                 lp[name] = norm_init(shape, dtype=torch.bfloat16, device=device)
+            elif name in L.NON_QUANTIZED_LINEARS:
+                lp[name] = dense(*shape)
             else:  # o/down: a perm of their own
                 perm = perms.get(name)
                 if perm is None:

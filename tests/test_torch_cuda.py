@@ -1524,3 +1524,102 @@ def test_paged_write_kv_at_head_dims(dev, store, form, hd, monkeypatch):
     torch.cuda.synchronize()
     assert pw.paged_write_kv.launches == n + 1
     _k9_check_trash(out, ref, pad_k, pad_v, ks, vs, bits)
+
+
+# --- the sparse-MoE families' shapes ------------------------------------------
+
+# Qwen3-30B-A3B's experts: gate/up 2048 -> 768, down 768 -> 2048; at g 128
+# the 768 columns are 6 groups padded to 8 (two padding groups in the input)
+EXPERT_SHAPES = [(2048, 768), (768, 2048)]
+
+
+def _expert_rows(m, c, dev):
+    """bf16 rows of a masked-dense expert's input: every other row zero (a
+    token not routed to it)."""
+    x = _rand((m, c), m + c, torch.bfloat16, dev)
+    x[1::2] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("c,r", EXPERT_SHAPES)
+def test_w4a16_expert_shapes(dev, c, r):
+    """K3 at the expert shapes (bf16, g 128, act-order: the tensor-core
+    route) against its plain version at M = 1, 8 and 64, 1e-2 of max|y|;
+    the zero rows give zero outputs."""
+    p = _packed(4, c, r, c + r, dev, torch.bfloat16, 128)
+    assert w4a16.tensor_core_route(p) and p.in_features_padded == max(c, 1024)
+    for m in (1, 8, 64):
+        x = _expert_rows(m, c, dev)
+        _check_w4a16(p, x)
+        assert not w4a16.w4a16_matmul(x, p)[1::2].any(), m
+
+
+@pytest.mark.parametrize("c,r", EXPERT_SHAPES)
+def test_w4a8_expert_shapes(dev, c, r):
+    """K8 at the expert shapes on the int8 tensor-core route against its
+    plain version at M = 1, 8 and 64 (a zero row quantizes to zeros)."""
+    p = _a8(4, c, r, c + r, dev, torch.bfloat16, 128)
+    assert w4a16.a8_tensor_core_route(p)
+    for m in (1, 8, 64):
+        out = _check_w4a8(p, _expert_rows(m, c, dev))
+        assert not out[1::2].any(), m
+
+
+@pytest.mark.parametrize("fb", ["float16", None])
+def test_gptq_kernel_expert_width(dev, fb):
+    """K2 at C = 768 (6 groups of 128, Qwen3-30B-A3B's expert down input),
+    from a Hessian whose tokens are half zero rows (a masked expert input),
+    against its plain version."""
+    c, r = 768, 2048
+    sc = np.logspace(-0.5, 0.5, c)[np.random.default_rng(31).permutation(c)]
+    x = _rand((4 * c, c), 32, dev=dev) * torch.from_numpy(sc.astype(np.float32)).to(dev)
+    x[::2] = 0.0
+    inv = hs.invert(hs.accumulate(hs.init_state(c, device=dev), x.to(torch.bfloat16)))
+    w_t = _rand((r, c), 33, dev=dev)[:, inv.perm].T.contiguous()
+    out = gptq_cuda.gptq_solve(w_t, inv.hessian_inv, 128, 15.0, False, fb)
+    ref = gptq_cuda._solve_uniform(w_t.T, inv.hessian_inv, 15.0, 128, False, fb)
+    torch.cuda.synchronize()
+    assert (out["qweight"] != ref["qweight"]).float().mean().item() <= 1e-3
+    assert float(out["error_sq_mean"]) == pytest.approx(
+        float(torch.mean(ref["error"] ** 2)), rel=1e-3)
+
+
+def test_moe_layer_through_block_core_on_packed_weights(dev, monkeypatch):
+    """One masked-dense MoE layer (4 experts, top 2, expert width 768 with
+    its padding groups) through ``block_core`` on packed fp32 weights: K3
+    launches once a linear (q, k, v, o and three an expert) and the
+    hidden state is the plain version's, 1e-4 of its largest entry."""
+    cfg = L.LlamaConfig(vocab_size=64, hidden_size=512, intermediate_size=768,
+                        num_hidden_layers=1, num_attention_heads=4, num_key_value_heads=2,
+                        moe_num_experts=4, moe_top_k=2, model_type="mixtral",
+                        dtype="float32")
+    model = sm.random_packed_llama(cfg, group_size=128, seed=3, device=dev)
+    lp = {k: (dataclasses.replace(w, scales=w.scales.float(), zeros=w.zeros.float())
+              if isinstance(w, packing.PackedLinear) else w.float())
+          for k, w in model.layers[0].items()}
+    x = _rand((2, 24, 512), 34, dev=dev)
+    cos, sin = L.rope_cos_sin(cfg, np.arange(24), dev)
+
+    def run():
+        return sm.packed_block_apply(cfg, lp, x, cos, sin)[0]
+
+    n = w4a16.w4a16_matmul.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert w4a16.w4a16_matmul.launches == n + 4 + 3 * 4
+    monkeypatch.setattr(sm, "w4a16_matmul", w4a16.w4a16_reference)
+    want = run()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
+def test_pack_quant_meta_on_card_equals_host(dev):
+    """``pack_quant_meta`` packs the codes on the target device: the card's
+    words (with padding groups), scales, zeros and perm equal the host's at
+    bits 2, 4 and 8."""
+    for bits, c, g in ((2, 3008, 16), (4, 768, 128), (8, 2048, 128)):
+        meta = _meta(bits, c, 136, bits + c, g)
+        on_card = packing.pack_quant_meta(meta, torch.bfloat16, device=dev)
+        on_host = packing.pack_quant_meta(meta, torch.bfloat16, device="cpu")
+        for field in ("qweight", "scales", "zeros", "perm"):
+            assert torch.equal(getattr(on_card, field).cpu(),
+                               getattr(on_host, field)), (bits, field)
