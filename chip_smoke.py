@@ -92,7 +92,22 @@ over it (``--profile-dir`` gives their device time and device ops).
      at a time, which takes the experts a forward through the kernels
      chose (at most ``ROUTE_SWAPS`` of them other than the plain router's
      own top k), a token outside the near-tie rule passing only on a row
-     with a routing near-tie (``ROUTE_TIE``; ``judge_streamed``).
+     with a routing near-tie (``ROUTE_TIE``; ``judge_streamed``);
+   * gpt-oss+llama-4: GPT-OSS-20B (sinks, biased router and experts, the
+     clamped GLU, window 128 on alternate layers), 2 blocks through ``main
+     --group-size 64`` (2880 = 45 x 64) and ``serve`` (contiguous bf16 and
+     int4: K4 and K7 with sinks; paged phased int8 and paged ragged bf16:
+     K6 with sinks; the W4A8 tier), its 24 blocks from
+     ``random_packed_llama``; Llama-4-Scout (chunked rope layers, NoPE
+     every 4th layer with temperature tuning, the q/k L2 norm, top-1
+     sigmoid experts and a shared expert), its chunk and temperature floor
+     cut to 256 and 64, 1 block through ``main`` and 4 from
+     ``random_packed_llama`` through the same engine kinds (K4 and K7 with
+     the chunk, K6 over block tables rebased to each row's chunk), prompts
+     across the chunk boundary.  Every engine's first tokens go through
+     ``judge_streamed`` and its first decode step is replayed; the
+     attention calls with sinks, with a chunk and over rebased tables are
+     counted (K1, K2, K3, K8, K4, K7, K6, K9).
 
    The family paths' engines must repeat their greedy output and pass the
    near-tie rule against a plain bf16 forward over weights in K3's own
@@ -110,10 +125,13 @@ over it (``--profile-dir`` gives their device time and device ops).
    (8 kv heads under 32 q heads); and at Qwen2.5-7B's 7 and GLM-4-9B's 16
    q heads a kv head.  K4, K7, K6 and K9 also run at head dim 256
    (Gemma-2-9B's 8 kv heads under 16, with a soft cap of 5 and without,
-   as Gemma-3) and 96 (Phi-3-mini's 32 heads).  K1 runs at Qwen2.5-7B's
+   as Gemma-3) and 96 (Phi-3-mini's 32 heads), and K4, K7 and K6 with
+   GPT-OSS-20B's sinks and window and with Llama-4-Scout's chunk (K6 over
+   rebased block tables).  K1 runs at Qwen2.5-7B's
    widths, K3 and K8 at Qwen2.5-7B's and Gemma-2-9B's, and at the experts'
    of Mixtral-8x7B (4096×14336, 14336×4096) and Qwen3-30B-A3B (2048×768,
-   768×2048: two padding groups).
+   768×2048: two padding groups), and at GPT-OSS-20B's (g 64, C = 2880
+   packed to 3072) and Llama-4-Scout's linears.
    K2 and K5 also log their two kernels' device time (torch.profiler)
    and the tail product's rate, beside
    ``torch.mm`` over the same tail shapes, and K5 fed K2's own scales and
@@ -587,7 +605,10 @@ def phase_w4a16(torch, timer, launches, layer0, wide) -> list:
     3584 and 18944, 28 and 148 groups; the gemma-2 path's, C = 3584, 4096
     and 14336, 28, 32 and 112 groups; the moe path's first expert gate and
     down, Mixtral's C = 4096 and 14336, Qwen3-MoE's 2048 and 768, 6 groups
-    padded to 8), M in QWEN_ROWS (M <= 16 the split-K
+    padded to 8; the gpt-oss+llama-4 path's: GPT-OSS-20B's qkv, o and
+    first expert's gate and down at g 64, C = 2880 padded to 3072, and
+    Llama-4-Scout's qkv, first expert's gate and down and shared expert's
+    gate), M in QWEN_ROWS (M <= 16 the split-K
     decode kernel, above the prefill kernel; both form each group's term
     through one mma.sync routine).  ``ms`` is one event pair per launch
     after an L2 flush, as in earlier runs; the steady times
@@ -686,7 +707,8 @@ def phase_w4a8(torch, timer, launches, layer0, wide) -> list:
     (GPTQ codes, act-order), bits 2 and 8 on synthetic linears of the same
     shapes (act-order; bits 8 with codes above 200), M in M_ROWS, and bits
     4 on the linears in ``wide`` (the qwen2.5 and gemma-2 paths' first
-    blocks, the moe path's experts), M in QWEN_ROWS; bf16
+    blocks, the moe path's experts, GPT-OSS-20B's and Llama-4-Scout's
+    linears), M in QWEN_ROWS; bf16
     scales; fp32 scales held at 1e-5 on the qkv shape.  Every linear is on
     the int8 tensor-core route.  ``ms`` is the whole ``w4a8_matmul`` (the
     staging kernel and the matmul in one call), as K3's row times
@@ -1570,7 +1592,11 @@ def phase_attention(torch, timer, launches) -> list:
     and without, as Gemma-3-12B) and 96 (Phi-3-mini's 32 heads).  The
     scores here are about N(0, 1): Gemma's cap of 50 would leave them
     within the tolerance of uncapped ones, a cap of 5 bends them.  With
-    a soft cap SDPA computes another function: no library time.  Each
+    a soft cap SDPA computes another function: no library time.  Also at
+    S = 512: GPT-OSS-20B's heads (8 kv under 64 q of 64) with its window
+    of 128 and sinks (no library time), and Llama-4-Scout's (8 under 40 of
+    128) with the chunk of 256 (SDPA over the chunk's keys); bounds count
+    the keys a slot sees.  Each
     output is held against the plain version of the kernels' algebra
     (``contiguous_decode_attention_split_ref``); ``plain_ms`` is the JAX
     package's plain version (bf16 probabilities), whose distance is
@@ -1587,13 +1613,18 @@ def phase_attention(torch, timer, launches) -> list:
               (4, 28, 512, (512,), 128, None), (2, 32, 512, (512,), 128, None),
               (8, 16, 512, (512,), 256, 5.0), (8, 16, 512, (512,), 256, None),
               (32, 32, 512, (512,), 96, None))
+    shapes = [sh + ({},) for sh in shapes]
+    # GPT-OSS-20B's heads with its window and sinks; Llama-4-Scout's with
+    # the smoke's chunk of 256 (the slot at S - 1 sees the last 256 keys)
+    shapes += [(8, 64, 512, (512,), 64, None, dict(window=128, sinks=True)),
+               (8, 40, 512, (512,), 128, None, dict(chunk=256))]
     out = []
     for kind in ("bf16", "int8", "int4"):
-        for hkv, hq, s_max, s_list, hd, cap in shapes:
+        for hkv, hq, s_max, s_list, hd, cap, opts in shapes:
             sm = hd ** -0.5  # Gemma's query_pre_attn_scalar is its head dim
             for b in (1, 8):
                 seed = ((b if (hkv, s_max) == (32, 512) else b + s_max + hkv) + (hq != 32)
-                        + (hd != 128) * hd + bool(cap))
+                        + (hd != 128) * hd + bool(cap) + 1000 * bool(opts))
                 gen = torch.Generator(device="cuda").manual_seed(seed)
                 kf, vf = (torch.randn((1, b, s_max, hkv, hd), device="cuda", generator=gen)
                           for _ in range(2))
@@ -1623,7 +1654,13 @@ def phase_attention(torch, timer, launches) -> list:
                 for s in s_list:
                     pos = torch.full((b,), s - 1, dtype=torch.int32, device="cuda")
                     args = (q, k, v, pos, 0)
-                    kw = dict(s_bucket=s, sm_scale=sm, soft_cap=cap)
+                    kw = dict(s_bucket=s, sm_scale=sm, soft_cap=cap, window=opts.get("window"),
+                              chunk=opts.get("chunk"))
+                    if opts.get("sinks"):
+                        kw["sinks"] = torch.rand((hq,), device="cuda", generator=gen) * 1.5 + 0.5
+                    # the keys the slot at s - 1 sees
+                    lo = max(0, s - (kw["window"] or s), (s - 1) // (kw["chunk"] or s)
+                             * (kw["chunk"] or s))
                     got = fn(*args, **kw).float()
                     # held against the plain version of the kernels' own
                     # algebra (fp32 probabilities, splits merged in order):
@@ -1638,18 +1675,21 @@ def phase_attention(torch, timer, launches) -> list:
                     err = float((got - ref).abs().max())
                     err_jax = float((got - plain(*args, **kw).float()).abs().max())
                     heads = (f"Hkv={hkv}" + ("" if hkv == hq else f" Hq={hq}") + f" hd={hd}"
-                             + (f" soft cap {cap:g}" if cap else ""))
+                             + (f" soft cap {cap:g}" if cap else "")
+                             + (f" window {kw['window']}" if kw["window"] else "")
+                             + (f" chunk {kw['chunk']}" if kw["chunk"] else "")
+                             + (" sinks" if "sinks" in kw else ""))
                     if err > 1e-2 * float(ref.abs().max()):
                         raise RuntimeError(f"{key} {kind} B={b} S={s} {heads}: "
                                            f"max abs err {err}")
                     elem = {"bf16": 2, "int8": 1, "int4": 0.5}[kind]
-                    n_bytes = 2 * b * s * hkv * hd * elem + 2 * 2 * b * hq * hd + 4 * b
+                    n_bytes = 2 * b * (s - lo) * hkv * hd * elem + 2 * 2 * b * hq * hd + 4 * b
 
                     def make_kernel(i, args=args, kw=kw):
                         a = args if i == 0 else (q.clone(), k.clone(), v.clone(), pos.clone(), 0)
                         return lambda: fn(*a, **kw)
 
-                    qd, kds, vds = q[:, :, None], kd[:, :, :s], vd[:, :, :s]
+                    qd, kds, vds = q[:, :, None], kd[:, :, lo:s], vd[:, :, lo:s]
 
                     def make_sdpa(i, a=(qd, kds, vds)):
                         a = a if i == 0 else tuple(x.clone() for x in a)
@@ -1658,9 +1698,10 @@ def phase_attention(torch, timer, launches) -> list:
 
                     ms = timer.steady(make_kernel, n_bytes)
                     plain_ms = timer(lambda: plain(*args, **kw), 5)
-                    lib_ms = (None if cap else
-                              timer.steady(make_sdpa, 2 * b * s * hkv * hd * 2))
-                    b_ms, b_by = bound(n_bytes, 4 * b * hq * s * hd, "fp32")
+                    # with a soft cap or sinks SDPA computes another function
+                    lib_ms = (None if cap or "sinks" in kw else
+                              timer.steady(make_sdpa, 2 * b * (s - lo) * hkv * hd * 2))
+                    b_ms, b_by = bound(n_bytes, 4 * b * hq * (s - lo) * hd, "fp32")
                     name = "K7" if kind == "int4" else "K4"
                     out.append(dict(name=f"decode_attention [{kind} B={b} S={s} {heads}]",
                                     route="cuda",
@@ -1761,7 +1802,11 @@ def phase_paged_attention(torch, timer, launches) -> list:
     4096, and on the mixed tick; decode at B in {1, 8}, S = 512 at head
     dim 256 (Gemma-2-9B's 8 kv heads under 16, soft cap 5, which bends
     these N(0, 1) scores where Gemma's 50 would not; without it, as
-    Gemma-3-12B) and 96 (Phi-3-mini's 32), each cache kind."""
+    Gemma-3-12B) and 96 (Phi-3-mini's 32), each cache kind; and at B in
+    {1, 8}, S = 512 for each cache kind, GPT-OSS-20B's heads with its
+    window of 128 and sinks, and Llama-4-Scout's over block tables rebased
+    to the chunk of 256 (``decode.chunk_tables``; K6 and its plain version
+    over the same rebased tables, the yardstick over the chunk's keys)."""
     from gptq_v2_tpu_torch.ops import paged_attention as K
 
     t0 = time.time()
@@ -1795,9 +1840,27 @@ def phase_paged_attention(torch, timer, launches) -> list:
               for hkv, hq, hd, cap in ((8, 16, 256, True), (8, 16, 256, False),
                                        (32, 32, 96, False))
               for kind in ("bf16", "int8", "int4") for b in (1, 8)]
+    # GPT-OSS-20B's heads with its window and sinks; Llama-4-Scout's over
+    # tables rebased to the smoke's chunk of 256 (decode.chunk_tables)
+    cases += [(f"decode {kind} B={b} S=512 Hkv=8 Hq={hq} hd={hd} {what}", kind,
+               [(1, 512)] * b, 0, 8, dict(kw), hq, hd)
+              for hq, hd, what, kw in ((64, 64, "window 128 sinks",
+                                        {"sliding_window": 128, "sinks": True}),
+                                       (40, 128, "chunk 256 (rebased tables)",
+                                        {"chunk": 256}))
+              for kind in ("bf16", "int8", "int4") for b in (1, 8)]
     out = []
     for seed, (label, kind, seqs, n_pad, hkv, kw, hq, hd) in enumerate(cases):
         c = paged_case(torch, kind, seqs, n_pad, hkv, hq, seed, hd)
+        chunk = kw.pop("chunk", None)
+        if chunk:  # each sequence's table and length rebased to its chunk
+            from gptq_v2_tpu_torch.serving.decode import chunk_tables
+
+            lens, tables, cu_, num = c["meta"]
+            bt, off = chunk_tables(tables, lens - 1, chunk, c["ps"])
+            c["meta"] = ((lens - off).to(torch.int32), bt.contiguous(), cu_, num)
+            seqs = c["seqs"] = [(n, kv_len - (kv_len - 1) // chunk * chunk)
+                                for n, kv_len in seqs]
         sm = hd ** -0.5
         kw = dict(kw, k_scale=c["scale"], v_scale=c["scale"], sm_scale=sm, kv_int4=c["int4"])
         if kw.pop("sinks", False):
@@ -2122,13 +2185,14 @@ def counted_captures():
         L.block_apply = apply
 
 
-def cli_quantize(torch, cfg, root: Path, tag: str, mse: bool = True) -> None:
+def cli_quantize(torch, cfg, root: Path, tag: str, mse: bool = True, extra=()) -> None:
     """A family's CLI path up to its results: a checkpoint of ``cfg`` through
     the port's writer (random weights, seed 0) in ``root / "model"``; then
     ``main`` default (``root / "results.npz"``), and with ``mse`` ``--mse``
     with ``--save-dir`` and a resumed run, which must launch no solver and
     give equal ppl and codes.  Each run's capture forwards a block must be
-    the waves' (:func:`capture_passes`), the resumed run's none."""
+    the waves' (:func:`capture_passes`), the resumed run's none.  ``extra``
+    flags go to every run (GPT-OSS's ``--group-size 64``)."""
     from gptq_v2_tpu_torch import main as M
     from gptq_v2_tpu_torch.data import cache_key
     from gptq_v2_tpu_torch.models import llama as L
@@ -2147,7 +2211,7 @@ def cli_quantize(torch, cfg, root: Path, tag: str, mse: bool = True) -> None:
              tokens=toks.astype(np.int64))
     base = ["--model-dir", str(root / "model"), "--seqlen", str(SEQLEN),
             "--data-train-n-samples", str(N_SEQ), "--data-cache-dir", str(cache),
-            "--batch-size", str(CALIB_BATCH), "--eval-sets", "train"]
+            "--batch-size", str(CALIB_BATCH), "--eval-sets", "train", *extra]
     solvers = (hessian_cuda.accumulate_hessian, gptq_cuda.gptq_solve, gptq_cuda.gptq_step)
     passes = [capture_passes(cfg, li) for li in range(depth)]
     n_batches = -(-N_SEQ // CALIB_BATCH)
@@ -2484,7 +2548,7 @@ def phase_full_depth(torch, work: Path) -> dict:
 
 # --- the sparse-MoE families ---------------------------------------------------
 
-MOE_DEPTH = 2  # of Mixtral-8x7B's 32 blocks and Qwen3-30B-A3B's 48
+MOE_DEPTH = 1  # of Mixtral-8x7B's 32 blocks and Qwen3-30B-A3B's 48
 # a routing near-tie: the (k+1)-th router probability of a row within this
 # fraction of the k-th, where another rounding of the same forward (K3's
 # fp32 sums against the plain bf16 product) can swap which expert is chosen
@@ -2524,7 +2588,11 @@ def judge_streamed(torch, cfg, model, prompts, outs, label: str) -> str:
     those tokens, the pairs whose experts the kernels chose otherwise, the
     largest probability gap below the k-th such a choice took and the
     largest difference of a router logit between the two forwards are in
-    the summary."""
+    the summary.  Llama-4's router (the top k of the logits, sigmoid
+    scores) is forced the same way, its near-ties and gaps measured on the
+    softmax of its logits as Mixtral's (the same ranking; a tie is then a
+    logit gap within ln(1 / 0.9)).  Each layer attends with its window,
+    sinks, chunk, temperature and q/k L2 norm."""
     from gptq_v2_tpu_torch.models import llama as L
     from gptq_v2_tpu_torch.ops import w4a16 as K
     from gptq_v2_tpu_torch.ops.packing import PackedLinear
@@ -2534,27 +2602,44 @@ def judge_streamed(torch, cfg, model, prompts, outs, label: str) -> str:
         xq, xs = K.quantize_activations_int8(K.stored_rows(x, p))
         return K.w4a8_reference(xq, xs, p).reshape(*x.shape[:-1], p.out_features)
 
-    combine, route = L.moe_combine, {}
+    combines, route = (L.moe_combine, L.moe_combine_llama4), {}
     stats = {"swapped": 0, "gap": 0.0, "dz": 0.0}
 
-    def recording(cfg_, router_w, h):  # the kernels' forward: note its experts
-        comb = combine(cfg_, router_w, h)
-        route["chosen"], route["logits"] = comb > 0, (h @ router_w).float()
+    def router_logits(router_w, h, bias=None):
+        logits = h @ router_w
+        return (logits if bias is None else logits + bias).float()
+
+    def recording(cfg_, router_w, h, router_bias=None):  # the kernels' forward
+        comb = combines[0](cfg_, router_w, h, router_bias)
+        route["chosen"], route["logits"] = comb > 0, router_logits(router_w, h, router_bias)
         return comb
 
-    def forced(cfg_, router_w, h):  # the plain forward: take them, check them
-        logits = (h @ router_w).float()
+    def recording4(cfg_, router_w, h):
+        scores = combines[1](cfg_, router_w, h)
+        route["chosen"], route["logits"] = scores > 0, router_logits(router_w, h)
+        return scores
+
+    def take(cfg_, logits):  # the plain forward: take its experts, check them
         stats["dz"] = max(stats["dz"], float((logits - route["logits"]).abs().max()))
-        probs = torch.softmax(logits, dim=-1)
         chosen = route["chosen"]
+        probs = torch.softmax(logits, dim=-1)
         top = torch.topk(probs, cfg_.moe_top_k + 1, dim=-1).values
         kth = top[..., -2:-1]
         gap = torch.where(chosen, (kth - probs) / kth, torch.zeros_like(probs)).amax(-1)
         stats["swapped"] += int((gap > 0).sum())
         stats["gap"] = max(stats["gap"], float(gap.max()))
         route["tie"] = top[..., -1] >= (1.0 - ROUTE_TIE) * top[..., -2]
+        return chosen, probs
+
+    def forced(cfg_, router_w, h, router_bias=None):
+        chosen, probs = take(cfg_, router_logits(router_w, h, router_bias))
         vals = torch.where(chosen, probs, torch.zeros_like(probs))
         return vals / torch.sum(vals, dim=-1, keepdim=True) if cfg_.moe_renorm else vals
+
+    def forced4(cfg_, router_w, h):
+        logits = router_logits(router_w, h)
+        chosen, _ = take(cfg_, logits)
+        return torch.where(chosen, torch.sigmoid(logits), torch.zeros_like(logits))
 
     toks = [torch.tensor([p], device="cuda") for p in prompts]
     xs = [L.embed_lookup(cfg, model.embed_tokens, t) for t in toks]
@@ -2576,23 +2661,28 @@ def judge_streamed(torch, cfg, model, prompts, outs, label: str) -> str:
                         y = plain_a8(h, w) if isinstance(w, PackedLinear) else h @ w
                     return y if b is None else y + b
 
-                def attn_fn(q, k, v, win=cfg.layer_window(li)):
-                    return L.attention(q, k, v, window=win, sm_scale=cfg.sm_scale_,
-                                       logit_cap=cfg.attn_logit_softcap), None
-
                 for i in range(len(prompts)):
                     cos, sin = ropes[i][cfg.layer_rope(li)]
+                    kw = L.layer_kw(cfg, li, torch.arange(len(prompts[i]), device="cuda"))
+                    qk_l2 = kw.pop("qk_l2")
+
+                    def attn_fn(q, k, v, kw=kw, lp=lp):
+                        return L.attention(q, k, v, sm_scale=cfg.sm_scale_,
+                                           logit_cap=cfg.attn_logit_softcap,
+                                           sinks=lp.get("self_attn.sinks"), **kw), None
+
                     route.clear()
-                    L.moe_combine = recording
+                    L.moe_combine, L.moe_combine_llama4 = recording, recording4
                     ks[i] = L.block_core(cfg, lp, ks[i], cos, sin,
-                                         lambda name, h, lp=lp: _lin(lp, name, h), attn_fn)[0]
-                    L.moe_combine = forced
-                    xs[i] = L.block_core(cfg, lp, xs[i], cos, sin, lin, attn_fn)[0]
+                                         lambda name, h, lp=lp: _lin(lp, name, h), attn_fn,
+                                         qk_l2)[0]
+                    L.moe_combine, L.moe_combine_llama4 = forced, forced4
+                    xs[i] = L.block_core(cfg, lp, xs[i], cos, sin, lin, attn_fn, qk_l2)[0]
                     if "tie" in route:
                         ties[i] |= route["tie"][0]
                 del stored
     finally:
-        L.moe_combine = combine
+        L.moe_combine, L.moe_combine_llama4 = combines
     exact = routed = same = 0
     for i, p in enumerate(prompts):
         row = head_logits(cfg, model.lm_head, L.final_norm(cfg, xs[i], model.norm))[0, -1].float()
@@ -2711,6 +2801,232 @@ def phase_moe(torch, work: Path) -> dict:
     return {"rows": rows}
 
 
+# --- GPT-OSS and Llama-4 ---------------------------------------------------------
+
+GPTOSS_DEPTH = 2  # of GPT-OSS-20B's 24 blocks: one sliding, one full
+GPTOSS_GROUP = ["--group-size", "64"]  # 2880 = 45 x 64; 128 does not divide it
+# Llama-4-Scout: the CLI quantizes 1 of its 48 blocks; the engines run 4
+# (layer 3 is its first NoPE layer).  Its chunk and temperature floor, 8192
+# each, would not bite in a short run: cut to 256 and 64
+SCOUT_CLI_DEPTH, SCOUT_DEPTH = 1, 4
+SCOUT_CUT = dict(attention_chunk_size=256, floor_scale=64)
+# prompts with their 32 new tokens: GPT-OSS's cross its window of 128 from
+# 160 tokens on (PROMPT_LENS); Scout's run across the chunk boundary at 256
+# in prefill (300) or in decode (224-255), and the first decode steps the
+# replay holds sit at 255, the chunk's last position, and at 256 and 257,
+# the next chunk's first
+SCOUT_PROMPTS = (240, 250, 256, 300, 180, 257, 224, 255)
+GPTOSS_ENGINES = (("contiguous bf16", []), ("contiguous int4", ["--kv-dtype", "int4"]),
+                  ("paged phased int8", ["--cache-kind", "paged", "--kv-dtype", "int8"]),
+                  ("paged ragged bf16", RAGGED), ("W4A8 contiguous bf16", ["--act-dtype", "int8"]))
+SCOUT_ENGINES = (("contiguous bf16", {}), ("contiguous int4", dict(kv_dtype="int4")),
+                 ("paged phased int8", dict(cache_kind="paged", kv_dtype="int8")),
+                 ("paged ragged bf16", dict(cache_kind="paged", scheduler="ragged",
+                                            token_budget=64)),
+                 ("W4A8 contiguous bf16", dict(act_dtype="int8")))
+# the linears K3's and K8's rows are timed at
+GPTOSS_ROWS = ("self_attn.qkv_proj", "self_attn.o_proj", "mlp.experts.0.gate_proj",
+               "mlp.experts.0.down_proj")
+SCOUT_ROWS = ("self_attn.qkv_proj", "mlp.experts.0.gate_proj", "mlp.experts.0.down_proj",
+              "mlp.shared_experts.gate_proj")
+
+
+@contextlib.contextmanager
+def counted_modes():
+    """Counts the serving steps' attention calls by mode: K4, K7 and K6
+    calls with sinks, K4 and K7 calls with a chunk, and the sets of block
+    tables rebased to chunks for K6 (``decode.chunk_tables``), by wrapping
+    the step module's entries; the kernels' own launch counts are
+    untouched."""
+    import collections
+    import types
+
+    from gptq_v2_tpu_torch.serving import decode as D
+
+    n = collections.Counter()
+    saved = D.ca, D.pa, D.chunk_tables
+
+    def wrap(fn, name):
+        def call(*a, **kw):
+            n[f"{name} with sinks"] += kw.get("sinks") is not None
+            n[f"{name} with a chunk"] += bool(kw.get("chunk"))
+            return fn(*a, **kw)
+        return call
+
+    def tables(*a, **kw):
+        n["K6 table sets rebased"] += 1
+        return saved[2](*a, **kw)
+
+    D.ca = types.SimpleNamespace(
+        contiguous_decode_attention=wrap(D.ca.contiguous_decode_attention, "K4"),
+        contiguous_decode_attention_p4=wrap(D.ca.contiguous_decode_attention_p4, "K7"))
+    D.pa = types.SimpleNamespace(paged_decode_attention=wrap(D.pa.paged_decode_attention, "K6"),
+                                 paged_ragged_attention=wrap(D.pa.paged_ragged_attention, "K6"))
+    D.chunk_tables = tables
+    try:
+        yield n
+    finally:
+        D.ca, D.pa, D.chunk_tables = saved
+
+
+def mode_counts(n, want) -> str:
+    """The :func:`counted_modes` counts as text; raises if a mode in ``want``
+    never ran."""
+    missing = [m for m in want if not n[m]]
+    if missing:
+        raise RuntimeError(f"attention modes never run: {missing} (counts {dict(n)})")
+    return ", ".join(f"{k} {v}" for k, v in sorted(n.items()) if v)
+
+
+def serve_family(torch, tag: str, cfg, engines, prompts, make_engine, want) -> dict:
+    """``engines`` (label, spec) through ``make_engine(spec)``: each run
+    twice (:func:`engine_runs`), its attention modes counted
+    (:func:`counted_modes`, every mode of ``want[label]`` required), its
+    first tokens judged by :func:`judge_streamed` and its first decode
+    step replayed (:func:`replay_first_step`).  Returns the first engine's
+    fused layer 0."""
+    layer0 = None
+    for label, spec in engines:
+        eng = make_engine(spec)
+        if layer0 is None:
+            layer0 = eng.model.layers[0]
+        tables = record_tables(eng) if eng.block_tables is not None else None
+        name = f"{tag} {label}"
+        with counted_modes() as n:
+            out, _ = engine_runs(torch, eng, prompts, name, vocab=cfg.vocab_size)
+        modes = mode_counts(n, want.get(label, ()))
+        r = RATES[name]
+        verdict = (judge_streamed(torch, cfg, eng.model, prompts, out, name) + "; "
+                   + replay_first_step(torch, eng, prompts, out, tables, name))
+        log(f"phase {name}: ok, {len(prompts)} requests x {NEW_TOKENS} new tokens, greedy "
+            f"output repeats, {r[0]:.1f} / {r[1]:.1f} tok/s on {SMI}; attention calls: "
+            f"{modes}; {verdict}")
+        del eng
+        torch.cuda.empty_cache()
+    return layer0
+
+
+def phase_gptoss_llama4(torch, work: Path) -> dict:
+    """GPT-OSS-20B and Llama-4-Scout at their published widths, with random
+    weights from seed 0.
+
+    GPT-OSS-20B (64 q heads over 8 kv heads of 64, sinks, 32 experts of
+    width 2880 with biases and the clamped GLU, top 4, window 128 on
+    alternate layers, yarn rope): the CLI path at ``--group-size 64`` over
+    GPTOSS_DEPTH blocks (a sliding and a full one), then ``serve.main`` and
+    engines through ``serve.build_engine``: contiguous bf16 and int4 (K4
+    and K7 with sinks), paged phased int8 and paged ragged bf16 (K6 with
+    sinks), the W4A8 tier; prompts past the window.  Then all 24 blocks from
+    ``random_packed_llama`` (group 64) on paged ragged bf16, its first
+    decode step replayed.
+
+    Llama-4-Scout (40 q heads over 8 kv heads of 128, 16 experts of width
+    8192, top 1, a shared expert, the q/k L2 norm on rope layers, chunked
+    rope layers, NoPE every 4th layer with temperature tuning), chunk and
+    floor cut to SCOUT_CUT: the CLI path over SCOUT_CLI_DEPTH block, then
+    SCOUT_DEPTH blocks from ``random_packed_llama`` through the same
+    engine kinds (K4 and K7 with the chunk, K6 over rebased tables),
+    prompts and their new tokens across the chunk boundary, the replayed
+    first decode steps at positions 255, 256 and 257 among others.
+
+    Each engine runs twice; its first tokens are judged by
+    :func:`judge_streamed` and its first decode step replayed.  Returns the
+    linears K3's and K8's rows are timed at."""
+    from gptq_v2_tpu_torch import serve as S
+    from gptq_v2_tpu_torch.models import families
+    from gptq_v2_tpu_torch.serving import Engine
+    from gptq_v2_tpu_torch.serving import model as TM
+
+    rows = {}
+    rng = np.random.default_rng(11)
+    # --- GPT-OSS-20B
+    cfg = family_cfg("gpt_oss", num_hidden_layers=GPTOSS_DEPTH)
+    log(f"gpt-oss path: {families.SOURCES['gpt_oss']} widths (hidden {cfg.hidden_size}, "
+        f"{cfg.num_attention_heads} q heads over {cfg.num_key_value_heads} kv heads of "
+        f"{cfg.head_dim_} with sinks, {cfg.moe_num_experts} experts of width "
+        f"{cfg.moe_intermediate_} with biases, top {cfg.moe_top_k}, window {cfg.sliding_window} "
+        f"on {list(cfg.layer_types)}, vocab {cfg.vocab_size}); depth cut to {GPTOSS_DEPTH} of "
+        "24 blocks, bf16 weights (published MXFP4 experts), group 64 (2880 = 45 x 64); random "
+        "weights (seed 0)")
+    root = work / "gpt_oss"
+    cli_quantize(torch, cfg, root, "gpt-oss", mse=False, extra=GPTOSS_GROUP)
+    serve_args = ["--model-dir", str(root / "model"), "--results", str(root / "results.npz"),
+                  "--max-batch", str(len(PROMPT_LENS)), "--max-seq-len", "512"]
+    t0 = time.time()
+    stats = S.main(serve_args + ["--prompt-tokens", "160", "--bench-tokens", str(NEW_TOKENS)])
+    log(f"phase gpt-oss serve.main contiguous bf16: ok, {time.time() - t0:.1f} s; benchmark "
+        f"{stats['requests']} requests x {NEW_TOKENS} new tokens: {stats['tok_s']:.1f} tok/s "
+        f"on {SMI}")
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).tolist() for n in PROMPT_LENS]
+    sinks = {"contiguous bf16": ("K4 with sinks",), "contiguous int4": ("K7 with sinks",),
+             "paged phased int8": ("K6 with sinks",), "paged ragged bf16": ("K6 with sinks",),
+             "W4A8 contiguous bf16": ("K4 with sinks",)}
+    layer0 = serve_family(torch, "gpt-oss", cfg, GPTOSS_ENGINES, prompts,
+                          lambda extra: build_engine(serve_args + extra), sinks)
+    rows["gpt-oss "] = {n: layer0[n] for n in GPTOSS_ROWS}
+    LOADED.clear()
+    torch.cuda.empty_cache()
+
+    full = family_cfg("gpt_oss", torch_dtype="bfloat16")
+    label = "gpt-oss full depth"
+    t0 = time.time()
+    model = TM.random_packed_llama(full, group_size=64, seed=0)
+    torch.cuda.synchronize()
+    log(f"{label} path: all {full.num_hidden_layers} blocks, random_packed_llama (group 64, "
+        f"seed 0) in {time.time() - t0:.1f} s")
+    eng = Engine(model, max_batch=len(PROMPT_LENS), max_seq_len=512, cache_kind="paged",
+                 scheduler="ragged", token_budget=64)
+    tables = record_tables(eng)
+    with counted_modes() as n:
+        out, _ = engine_runs(torch, eng, prompts, label, vocab=full.vocab_size)
+    r = RATES[label]
+    log(f"phase {label}: ok, paged ragged bf16, {len(prompts)} requests x {NEW_TOKENS} new "
+        f"tokens, greedy output repeats, {r[0]:.1f} / {r[1]:.1f} tok/s on {SMI}; attention "
+        f"calls: {mode_counts(n, ('K6 with sinks',))}; "
+        + replay_first_step(torch, eng, prompts, out, tables, label))
+    del eng, model
+    torch.cuda.empty_cache()
+
+    # --- Llama-4-Scout
+    cfg = family_cfg("llama4", num_hidden_layers=SCOUT_CLI_DEPTH, **SCOUT_CUT)
+    log(f"llama-4-scout path: {families.SOURCES['llama4']} text widths (hidden "
+        f"{cfg.hidden_size}, {cfg.num_attention_heads} q heads over {cfg.num_key_value_heads} "
+        f"kv heads of {cfg.head_dim_}, {cfg.moe_num_experts} experts of width "
+        f"{cfg.moe_intermediate_}, top {cfg.moe_top_k}, {cfg.moe_shared_experts} shared expert, "
+        f"dense width {cfg.intermediate_size_dense}, vocab {cfg.vocab_size}); cuts: attention "
+        f"chunk 8192 -> {cfg.attn_chunk_size} and temperature floor 8192 -> "
+        f"{cfg.attn_floor_scale:g} (neither would bite in a short run), depth {SCOUT_CLI_DEPTH} "
+        f"of 48 blocks for the CLI, {SCOUT_DEPTH} for the engines; random weights (seed 0)")
+    root = work / "llama4"
+    cli_quantize(torch, cfg, root, "llama-4-scout", mse=False)
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = family_cfg("llama4", num_hidden_layers=SCOUT_DEPTH, **SCOUT_CUT)
+    t0 = time.time()
+    model = TM.random_packed_llama(cfg, seed=0)
+    torch.cuda.synchronize()
+    kinds = [("nope" if i in (cfg.nope_layers or ()) else "rope") + " "
+             + ("chunked" if cfg.layer_chunk(i) else "full") for i in range(SCOUT_DEPTH)]
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).tolist() for n in SCOUT_PROMPTS]
+    ac = cfg.attn_chunk_size
+    crossing = sum(len(p) < ac <= len(p) + NEW_TOKENS - 1 for p in prompts)
+    log(f"llama-4-scout engines: {SCOUT_DEPTH} blocks ({kinds}) from random_packed_llama "
+        f"(seed 0) in {time.time() - t0:.1f} s; prompts {list(SCOUT_PROMPTS)} + {NEW_TOKENS} "
+        f"new tokens: {crossing} decode across the chunk boundary at {ac}, the first decode "
+        f"steps (the replays') at positions {sorted(SCOUT_PROMPTS)}; the temperature floor "
+        f"{cfg.attn_floor_scale:g} is passed by every prompt")
+    chunked = {"contiguous bf16": ("K4 with a chunk",), "contiguous int4": ("K7 with a chunk",),
+               "paged phased int8": ("K6 table sets rebased",),
+               "paged ragged bf16": ("K6 table sets rebased",),
+               "W4A8 contiguous bf16": ("K4 with a chunk",)}
+    layer0 = serve_family(torch, "llama-4-scout", cfg, SCOUT_ENGINES, prompts,
+                          lambda kw: Engine(model, max_batch=len(prompts), max_seq_len=512,
+                                            **kw), chunked)
+    rows["llama-4-scout "] = {n: layer0[n] for n in SCOUT_ROWS}
+    del model
+    torch.cuda.empty_cache()
+    return {"rows": rows}
+
+
 def device_ops(torch, fn, reps: int = 50):
     """Device ops (CUDA kernels and copies) a call of ``fn`` launches, by
     torch.profiler over ``reps`` calls, and their names.  A window of one
@@ -2745,6 +3061,9 @@ def main(argv=None) -> int:
     ap.add_argument("--keep-checkpoint", default="",
                     help="move the main path's checkpoint (model/ and results.npz) to this "
                     "directory at the end, for runs of serve.py over it")
+    ap.add_argument("--paths", default="",
+                    help="comma-separated path names to drive alone (a rehearsal: no kernel "
+                    "table and no result line)")
     args = ap.parse_args(argv)
     import torch
 
@@ -2792,6 +3111,9 @@ def main(argv=None) -> int:
                                        "paged_write")),
              ("moe", phase_moe, ("hessian", "gptq", "gptq_step", "w4a16", "w4a8",
                                  "attention", "paged_attention", "paged_write")),
+             ("gpt-oss+llama-4", phase_gptoss_llama4,
+              ("hessian", "gptq", "w4a16", "w4a8", "attention", "attention_p4",
+               "paged_attention", "paged_write")),
              ("families", phase_families, ("hessian", "gptq", "w4a16", "attention",
                                            "attention_p4")),
              ("window", phase_window, ("hessian", "gptq", "w4a16", "attention",
@@ -2804,6 +3126,11 @@ def main(argv=None) -> int:
               ("w4a8", "attention", "paged_attention", "paged_write")),
              ("serve.features", phase_serve_features,
               ("w4a16", "attention", "paged_attention", "paged_write")))
+    if args.paths:
+        only = args.paths.split(",")
+        paths = tuple(p for p in paths if p[0] in only)
+        if len(paths) != len(only):
+            raise SystemExit(f"--paths: unknown names in {only}")
     work = ROOT / "outputs" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -2821,7 +3148,7 @@ def main(argv=None) -> int:
                 main_out = result
             if name in ("qwen2.5", "gemma-2"):
                 wide[f"{name} "] = {n: result["layer0"][n] for n in FUSED}
-            if name == "moe":
+            if name in ("moe", "gpt-oss+llama-4"):
                 wide.update(result["rows"])
             log(f"path {name}: {time.time() - t0:.1f} s, launches "
                 + ", ".join(f"{k} {v}" for k, v in counts[name].items()))
@@ -2831,7 +3158,8 @@ def main(argv=None) -> int:
             if name == "serve.w4a8" and counts[name]["w4a16"]:
                 raise RuntimeError(f"path serve.w4a8: K3 launched {counts[name]['w4a16']} "
                                    "times; every block linear should run through K8")
-        phase_attention_ab(torch, work)
+        if not args.paths:
+            phase_attention_ab(torch, work)
         LOADED.clear()
     finally:
         if args.keep_checkpoint:
@@ -2843,6 +3171,9 @@ def main(argv=None) -> int:
                     shutil.move(str(work / item), str(keep / item))
         shutil.rmtree(work, ignore_errors=True)
     launches = {k: sum(c[k] for c in counts.values()) for k in wrappers}
+    if args.paths:
+        log(f"paths {args.paths}: ok, total wall {time.time() - wall0:.1f} s on {SMI}")
+        return 0
 
     timer = Timer(torch)
     kernels = (phase_hessian(torch, timer, launches)

@@ -27,11 +27,12 @@ def evaluate_ppl(cfg: L.LlamaConfig, params: L.Params, encodings: np.ndarray,
     xs = [L.embed_lookup(cfg, embed_w, tokens[b:b + batch_size].to(device))
           for b in range(0, n_seq, batch_size)]
     del embed_w
+    positions = torch.arange(seqlen, device=device)
     for li, layer in enumerate(params["layers"]):
         lp = {k: v.to(device) for k, v in layer.items()}
         cos, sin = ropes[cfg.layer_rope(li)]
-        xs = [L.block_apply(cfg, lp, xb, cos, sin, window=cfg.layer_window(li))[0]
-              for xb in xs]
+        kw = L.layer_kw(cfg, li, positions)
+        xs = [L.block_apply(cfg, lp, xb, cos, sin, **kw)[0] for xb in xs]
         del lp
     head = {"lm_head": params["lm_head"].to(device)}
     norm_w = params["norm"].to(device)

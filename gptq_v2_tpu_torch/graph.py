@@ -4,7 +4,8 @@ The JAX package derives stages by tracing the block into a jaxpr
 (``extract_dependencies``).  The port writes the block's dataflow down as
 data instead: for the dense Llama block ``[q,k,v] → [o] → [gate,up] →
 [down]`` (:data:`LLAMA_STAGES`), and for a sparse-MoE block the same
-attention stages, then per expert ``[gate, up]`` and ``[down]``
+attention stages, then per expert ``[gate, up]`` and ``[down]``, then
+Llama-4's shared expert's ``[gate, up]`` and ``[down]``
 (:func:`block_stages`).  The release sets come from the JAX package's
 release pass over that dataflow (:func:`_with_releases`); the tests hold
 both schedules equal to the JAX derivation.  Deriving the dataflow from
@@ -73,20 +74,27 @@ def _with_releases(stages: Sequence[Tuple[str, ...]],
 
 
 @functools.lru_cache(maxsize=None)
-def _moe_stages(n_experts: int) -> Tuple[Stage, ...]:
-    """A sparse-MoE block (JAX ``moe_apply_dense``), once per expert count.
-    The expert mask comes from the router over the MLP input, so a down
-    projection's input also depends on the block input and o_proj, and the
-    block output on every expert's down."""
+def _moe_stages(n_experts: int, masked_down: bool = True,
+                shared: bool = False) -> Tuple[Stage, ...]:
+    """A sparse-MoE block, once per layout.  The router reads the MLP
+    input, so an expert's gate/up input depends on the block input and
+    o_proj (Llama-4 scales it by the router score, the others mask it).
+    With ``masked_down`` (JAX ``moe_apply_dense``) the down input is masked
+    by the router too; Llama-4's (``moe_apply_llama4``) is the GLU of
+    gate and up alone.  ``shared`` adds Llama-4's shared expert after the
+    routed ones.  The block output depends on every down."""
     attn = frozenset({INPUT, _O})
     stages = [(_Q, _K, _V), (_O,)]
     parents: Dict[str, FrozenSet[str]] = {
         **{n: frozenset({INPUT}) for n in (_Q, _K, _V)}, _O: frozenset({_Q, _K, _V})}
     downs = []
-    for e in range(n_experts):
-        gate, up, down = (f"mlp.experts.{e}.{p}" for p in ("gate_proj", "up_proj", "down_proj"))
+    prefixes = [f"mlp.experts.{e}." for e in range(n_experts)]
+    for pre in prefixes + (["mlp.shared_experts."] if shared else []):
+        gate, up, down = (pre + p for p in ("gate_proj", "up_proj", "down_proj"))
         stages += [(gate, up), (down,)]
-        parents.update({gate: attn, up: attn, down: attn | {gate, up}})
+        masked = masked_down and pre != "mlp.shared_experts."
+        parents.update({gate: attn, up: attn,
+                        down: (attn if masked else frozenset()) | {gate, up}})
         downs.append(down)
     parents[OUTPUT] = attn | set(downs)
     return tuple(_with_releases(stages, parents))
@@ -96,10 +104,11 @@ def block_stages(cfg, layer_idx: int) -> Tuple[Stage, ...]:
     """Layer ``layer_idx``'s stages, ending with the OUTPUT sentinel: a
     dense layer's are :data:`LLAMA_STAGES`; a MoE layer's are the attention
     stages, then each expert's ``[gate, up]`` and ``[down]`` in expert
-    order (the router is not quantized)."""
+    order, then Llama-4's shared expert's (the router is not quantized)."""
     if not cfg.layer_is_moe(layer_idx):
         return LLAMA_STAGES
-    return _moe_stages(cfg.moe_num_experts)
+    return _moe_stages(cfg.moe_num_experts, not cfg.moe_llama4,
+                       bool(cfg.moe_shared_experts))
 
 
 def stage_waves(stage_list: Sequence[Stage]) -> List[List[Stage]]:

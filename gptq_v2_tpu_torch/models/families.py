@@ -9,7 +9,11 @@ and norm settings are the published ones.  Gemma-3's file is the
 multimodal wrapper, whose ``text_config`` lists only what differs from
 HF ``Gemma3TextConfig``; the defaults it relies on (vocabulary, head dim,
 rope bases, the sliding pattern) are written out here.  Gemma-2-9B
-publishes float32 weights.
+publishes float32 weights.  Llama-4-Scout's file is the multimodal wrapper
+too; its text tower's NoPE pattern (every 4th layer) and chunked layers
+(every rope layer) are the ones HF ``Llama4TextConfig`` derives.  GPT-OSS
+publishes its experts as MXFP4 blocks (``quantization_config``), which
+neither package reads: its entry describes the bf16 layout.
 """
 from __future__ import annotations
 
@@ -30,6 +34,8 @@ SOURCES = {
     "gemma3": "google/gemma-3-12b-pt",
     "mixtral": "mistralai/Mixtral-8x7B-v0.1",
     "qwen3_moe": "Qwen/Qwen3-30B-A3B",
+    "gpt_oss": "openai/gpt-oss-20b",
+    "llama4": "meta-llama/Llama-4-Scout-17B-16E",
 }
 
 _PUBLISHED: Dict[str, dict] = {
@@ -113,6 +119,28 @@ _PUBLISHED: Dict[str, dict] = {
                       rms_norm_eps=1e-6, attention_bias=False, sliding_window=None,
                       use_sliding_window=False, tie_word_embeddings=False,
                       torch_dtype="bfloat16"),
+    "gpt_oss": dict(model_type="gpt_oss", vocab_size=201088, hidden_size=2880,
+                    intermediate_size=2880, num_hidden_layers=24, num_attention_heads=64,
+                    num_key_value_heads=8, head_dim=64, num_local_experts=32,
+                    num_experts_per_tok=4, attention_bias=True, sliding_window=128,
+                    layer_types=["sliding_attention", "full_attention"] * 12,
+                    max_position_embeddings=131072, rope_theta=150000.0,
+                    rope_scaling={"rope_type": "yarn", "factor": 32.0, "beta_fast": 32.0,
+                                  "beta_slow": 1.0, "truncate": False,
+                                  "original_max_position_embeddings": 4096},
+                    rms_norm_eps=1e-5, hidden_act="silu", swiglu_limit=7.0,
+                    tie_word_embeddings=False, torch_dtype="bfloat16"),
+    "llama4": dict(model_type="llama4", torch_dtype="bfloat16", text_config=dict(
+        model_type="llama4_text", vocab_size=202048, hidden_size=5120,
+        intermediate_size=8192, intermediate_size_mlp=16384, num_hidden_layers=48,
+        num_attention_heads=40, num_key_value_heads=8, head_dim=128, num_local_experts=16,
+        num_experts_per_tok=1, interleave_moe_layer_step=1, attention_chunk_size=8192,
+        no_rope_layer_interval=4, attn_temperature_tuning=True, floor_scale=8192,
+        attn_scale=0.1, use_qk_norm=True, attention_bias=False, hidden_act="silu",
+        max_position_embeddings=10485760, rope_theta=500000.0,
+        rope_scaling={"rope_type": "llama3", "factor": 16.0, "low_freq_factor": 1.0,
+                      "high_freq_factor": 1.0, "original_max_position_embeddings": 8192},
+        rms_norm_eps=1e-5, tie_word_embeddings=False)),
 }
 
 
@@ -120,9 +148,10 @@ def published(name: str, **overrides) -> dict:
     """A copy of the published config dict ``name`` (a key of ``SOURCES``),
     with ``overrides`` applied to the text model's keys (a depth cut:
     ``num_hidden_layers``; a window cut: ``sliding_window``; a dtype:
-    ``torch_dtype``).  SmolLM3's NoPE pattern and Gemma-3's sliding pattern
-    are written out for the published depth and then cut with it, so a cut
-    model keeps the published layers' kinds."""
+    ``torch_dtype``; Llama-4's ``attention_chunk_size``).  SmolLM3's and
+    Llama-4's NoPE patterns, Gemma-3's sliding pattern and Llama-4's chunked
+    layers are written out for the published depth and then cut with it,
+    so a cut model keeps the published layers' kinds."""
     d = copy.deepcopy(_PUBLISHED[name])
     text = d.get("text_config", d)
     n = text["num_hidden_layers"]
@@ -133,6 +162,9 @@ def published(name: str, **overrides) -> dict:
         pat = text.pop("sliding_window_pattern")
         text["layer_types"] = ["sliding_attention" if (i + 1) % pat else "full_attention"
                                for i in range(n)]
+    if text.get("attention_chunk_size") and "layer_types" not in text:
+        text["layer_types"] = ["chunked_attention" if rope else "full_attention"
+                               for rope in text["no_rope_layers"]]
     text.update(overrides)
     for key in ("no_rope_layers", "layer_types"):
         if key in text:

@@ -9,8 +9,12 @@ the embedding normalizer, attention and final logit soft caps, alternating
 sliding and global layers) and Gemma-3 (Gemma-2 without soft caps, with
 head-dim q/k norms and a local rope table on its sliding layers), and the
 sparse-MoE families Mixtral and Qwen3-MoE (a softmax top-k router and
-masked-dense experts, as the JAX package computes them); ``linear``,
-``llama3`` and ``yarn`` rope scaling.
+masked-dense experts, as the JAX package computes them), GPT-OSS
+(attention sinks, a biased router, biased experts with a clamped GLU,
+alternating sliding and full layers) and Llama-4 (chunked attention, NoPE
+layers with temperature tuning, a weightless q/k L2 norm on rope layers,
+sigmoid-scored top-k experts whose input the score scales, and a shared
+expert); ``linear``, ``llama3`` and ``yarn`` rope scaling.
 
 Parameters are a plain dict of tensors; linear weights are stored
 ``(in_features, out_features)`` so a projection is ``x @ W`` (plus the
@@ -21,9 +25,8 @@ host for whole-sequence positions), attention scores and softmax in fp32.
 The decoder block exposes capture points at each linear's input for the
 quantization pipeline.
 
-The other families of the JAX package (DeepSeek-V3's MLA, GPT-OSS,
-Llama-4) are not ported yet; :meth:`LlamaConfig.from_hf_dict` refuses
-them.
+DeepSeek-V3's MLA, the JAX package's other family, is not ported yet;
+:meth:`LlamaConfig.from_hf_dict` refuses it.
 """
 from __future__ import annotations
 
@@ -41,15 +44,16 @@ Params = Dict[str, Any]
 
 # the model types from_hf_dict reads (JAX ``LlamaConfig.from_hf_dict``)
 FAMILIES = ("llama", "mistral", "qwen2", "qwen3", "glm4", "olmo2", "granite",
-            "smollm3", "phi3", "gemma2", "gemma3_text", "mixtral", "qwen3_moe")
-# the JAX package's other families, refused until their slice is ported
+            "smollm3", "phi3", "gemma2", "gemma3_text", "mixtral", "qwen3_moe",
+            "gpt_oss", "llama4_text")
+# the JAX package's other family, refused until its slice is ported
 # (ROADMAP queue 1, item 10)
-_NOT_PORTED = ("deepseek_v3", "gpt_oss", "llama4", "llama4_text")
+_NOT_PORTED = ("deepseek_v3",)
 # 2-D block params that are never quantized: the MoE router, a small (D, E)
 # classifier whose rounding would move routing decisions
 NON_QUANTIZED_LINEARS = ("mlp.router",)
 _ACTIVATIONS = ("silu", "gelu_pytorch_tanh", "gelu_tanh")
-_LAYER_TYPES = ("sliding_attention", "full_attention")
+_LAYER_TYPES = ("sliding_attention", "full_attention", "chunked_attention")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,6 +121,32 @@ class LlamaConfig:
     # layers with a dense MLP in a MoE model (Qwen3-MoE ``mlp_only_layers``
     # and ``decoder_sparse_step``)
     moe_dense_layers: Optional[Tuple[int, ...]] = None
+    # Llama-4: always-on shared experts beside the routed ones
+    moe_shared_experts: int = 0
+    # GPT-OSS: a learned sink logit per q head joins each softmax
+    attn_sinks: bool = False
+    # GPT-OSS MoE: a biased router, per-expert biases, the clamped
+    # (up + 1)·gate·sigmoid(1.702·gate) GLU; stacked expert checkpoints
+    # with gate/up interleaved
+    moe_gptoss: bool = False
+    # Llama-4: a weightless L2 norm on q/k after rope (rope layers only)
+    qk_l2_norm: bool = False
+    # Llama-4 temperature tuning on NoPE layers: q *= log1p(floor((pos + 1)
+    # / floor_scale))·coef + 1
+    attn_temp_tuning: bool = False
+    attn_floor_scale: float = 8192.0
+    attn_scale_coef: float = 0.1
+    # Llama-4: on "chunked_attention" layers a query attends only keys of
+    # its own chunk of this many positions (absolute-position aligned)
+    attn_chunk_size: Optional[int] = None
+    # Llama-4: the dense MLP's width (intermediate_size_mlp) where it
+    # differs from the experts' (intermediate_size); None = intermediate_size
+    intermediate_size_dense: Optional[int] = None
+    # Llama-4 MoE: top-k on the router logits, sigmoid scores that scale the
+    # routed input (outputs summed unweighted), plus the shared expert
+    moe_llama4: bool = False
+    # Llama-4 checkpoints name the MLP ``feed_forward`` and stack experts
+    llama4_names: bool = False
     model_type: str = "llama"  # the family to_hf_dict writes back
 
     @property
@@ -138,6 +168,19 @@ class LlamaConfig:
         if not self.moe_num_experts:
             return False
         return self.moe_dense_layers is None or layer_idx not in self.moe_dense_layers
+
+    def layer_qk_l2(self, layer_idx: int) -> bool:
+        """Whether layer ``layer_idx`` takes Llama-4's q/k L2 norm: rope
+        layers only (HF ``use_qk_norm and use_rope``)."""
+        return self.qk_l2_norm and not (self.nope_layers and layer_idx in self.nope_layers)
+
+    def layer_chunk(self, layer_idx: int) -> Optional[int]:
+        """Llama-4's attention chunk of one layer (None = not chunked); only
+        ``layer_types`` marks a layer chunked, as in the JAX package."""
+        if self.attn_chunk_size is None or self.layer_types is None:
+            return None
+        return (self.attn_chunk_size if self.layer_types[layer_idx] == "chunked_attention"
+                else None)
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -180,16 +223,18 @@ class LlamaConfig:
     @classmethod
     def from_hf_dict(cls, d: dict) -> "LlamaConfig":
         model_type = d.get("model_type", "llama")
-        if model_type == "gemma3" and "text_config" in d:
+        if model_type in ("gemma3", "llama4") and "text_config" in d:
             # the multimodal wrapper: serve its text tower
             inner = dict(d["text_config"])
             inner.setdefault("torch_dtype", d.get("torch_dtype") or d.get("dtype")
                              or "float16")
             return cls.from_hf_dict(inner)
+        if model_type == "llama4":  # already the text tower
+            model_type = "llama4_text"
         if model_type in _NOT_PORTED:
             raise NotImplementedError(
                 f"model_type {model_type!r} is not ported yet (ROADMAP queue 1, item 10: "
-                "GPT-OSS and Llama-4, then DeepSeek-V3's MLA)")
+                "DeepSeek-V2/V3's MLA)")
         if model_type not in FAMILIES:
             raise NotImplementedError(f"model_type {model_type!r}")
         if d.get("mlp_bias"):
@@ -224,8 +269,22 @@ class LlamaConfig:
                 "use_sliding_window", False):
             sliding = None  # these families gate the window behind a flag
         moe_experts, moe_top_k, moe_inter, moe_renorm, moe_dense = 0, 2, None, True, None
-        if model_type == "mixtral":
+        llama4 = model_type == "llama4_text"
+        l4_moe = llama4 and bool(d.get("num_local_experts"))
+        if model_type in ("mixtral", "gpt_oss"):
+            # GPT-OSS's softmax over its top k logits is softmax-then-renorm
             moe_experts, moe_top_k = d["num_local_experts"], d["num_experts_per_tok"]
+        elif l4_moe:
+            moe_experts, moe_top_k = d["num_local_experts"], d["num_experts_per_tok"]
+            # the experts' width; the dense and shared MLPs' is
+            # intermediate_size_mlp / intermediate_size
+            moe_inter = d["intermediate_size"]
+            ml = d.get("moe_layers")
+            if ml is None:
+                step = d.get("interleave_moe_layer_step", 1)
+                ml = range(step - 1, n_layers, step)
+            ml = set(ml)
+            moe_dense = tuple(i for i in range(n_layers) if i not in ml) or None
         elif model_type == "qwen3_moe":
             moe_experts, moe_top_k = d["num_experts"], d["num_experts_per_tok"]
             moe_inter = d.get("moe_intermediate_size")
@@ -236,6 +295,8 @@ class LlamaConfig:
             step = d.get("decoder_sparse_step", 1)
             moe_dense = tuple(i for i in range(n_layers) if i in only or (i + 1) % step) or None
         nope_layers = None
+        if llama4 and d.get("no_rope_layers"):  # 1 = rope on, 0 = NoPE
+            nope_layers = tuple(i for i, v in enumerate(d["no_rope_layers"]) if not v) or None
         if model_type == "smollm3":
             # HF no_rope_layers: 1 = rope on for that layer, 0 = NoPE
             nr = d.get("no_rope_layers")
@@ -282,7 +343,7 @@ class LlamaConfig:
                                    else 1.0),
             fused_qkv_gate_up=model_type == "phi3",
             fused_gate_up=glm4,
-            rope_interleaved=glm4,
+            rope_interleaved=glm4 or llama4,
             sandwich_norms=glm4 or gemma,
             postnorm_only=model_type == "olmo2",
             embed_multiplier=d.get("embedding_multiplier") if granite else None,
@@ -302,6 +363,17 @@ class LlamaConfig:
             moe_renorm=moe_renorm,
             moe_mixtral_names=model_type == "mixtral",
             moe_dense_layers=moe_dense,
+            moe_shared_experts=int(l4_moe),
+            attn_sinks=model_type == "gpt_oss",
+            moe_gptoss=model_type == "gpt_oss",
+            qk_l2_norm=llama4 and d.get("use_qk_norm", True),
+            attn_temp_tuning=llama4 and d.get("attn_temperature_tuning", False),
+            attn_floor_scale=d.get("floor_scale", 8192.0) or 8192.0,
+            attn_scale_coef=d.get("attn_scale", 0.1) or 0.1,
+            attn_chunk_size=d.get("attention_chunk_size") if llama4 else None,
+            intermediate_size_dense=d.get("intermediate_size_mlp") if llama4 else None,
+            moe_llama4=l4_moe,
+            llama4_names=llama4,
             model_type=model_type,
         )
 
@@ -358,6 +430,21 @@ class LlamaConfig:
         if mt == "mixtral":
             d.update(num_local_experts=self.moe_num_experts,
                      num_experts_per_tok=self.moe_top_k)
+        if mt == "gpt_oss":
+            d.update(num_local_experts=self.moe_num_experts,
+                     num_experts_per_tok=self.moe_top_k)
+        if mt == "llama4_text":
+            n = self.num_hidden_layers
+            nope = set(self.nope_layers or ())
+            d.update(num_local_experts=self.moe_num_experts,
+                     num_experts_per_tok=self.moe_top_k,
+                     moe_layers=[i for i in range(n) if self.layer_is_moe(i)],
+                     no_rope_layers=[int(i not in nope) for i in range(n)],
+                     use_qk_norm=self.qk_l2_norm,
+                     attn_temperature_tuning=self.attn_temp_tuning,
+                     floor_scale=self.attn_floor_scale, attn_scale=self.attn_scale_coef,
+                     attention_chunk_size=self.attn_chunk_size,
+                     intermediate_size_mlp=self.intermediate_size_dense)
         if mt == "qwen3_moe":
             d.update(num_experts=self.moe_num_experts, num_experts_per_tok=self.moe_top_k,
                      norm_topk_prob=self.moe_renorm,
@@ -385,7 +472,8 @@ def layer_param_shapes(cfg: LlamaConfig,
     dominant layer (MoE where the config has experts); pass the index for
     a model whose dense and MoE layers interleave (``cfg.layer_is_moe``)."""
     d, hd = cfg.hidden_size, cfg.head_dim_
-    nq, nkv, i = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.intermediate_size
+    nq, nkv = cfg.num_attention_heads, cfg.num_key_value_heads
+    i = cfg.intermediate_size_dense or cfg.intermediate_size
     shapes = {
         "input_layernorm": (d,),
         "self_attn.q_proj": (d, nq * hd),
@@ -402,11 +490,22 @@ def layer_param_shapes(cfg: LlamaConfig,
         for n in ("mlp.gate_proj", "mlp.up_proj", "mlp.down_proj"):
             del shapes[n]
         shapes["mlp.router"] = (d, cfg.moe_num_experts)
+        if cfg.moe_gptoss:
+            shapes["mlp.router.bias"] = (cfg.moe_num_experts,)
         mi = cfg.moe_intermediate_
         for e in range(cfg.moe_num_experts):
             shapes[f"mlp.experts.{e}.gate_proj"] = (d, mi)
             shapes[f"mlp.experts.{e}.up_proj"] = (d, mi)
             shapes[f"mlp.experts.{e}.down_proj"] = (mi, d)
+            if cfg.moe_gptoss:  # per-expert biases
+                shapes[f"mlp.experts.{e}.gate_proj.bias"] = (mi,)
+                shapes[f"mlp.experts.{e}.up_proj.bias"] = (mi,)
+                shapes[f"mlp.experts.{e}.down_proj.bias"] = (d,)
+        if cfg.moe_shared_experts:  # Llama-4: beside the routed experts
+            si = mi * cfg.moe_shared_experts
+            shapes["mlp.shared_experts.gate_proj"] = (d, si)
+            shapes["mlp.shared_experts.up_proj"] = (d, si)
+            shapes["mlp.shared_experts.down_proj"] = (si, d)
     if cfg.sandwich_norms:  # GLM-4: four norms a block
         shapes["pre_feedforward_layernorm"] = (d,)
         shapes["post_feedforward_layernorm"] = (d,)
@@ -416,6 +515,8 @@ def layer_param_shapes(cfg: LlamaConfig,
     if cfg.qk_norm:  # Qwen3: head-dim norms shared across heads
         shapes["self_attn.q_norm"] = (hd,)
         shapes["self_attn.k_norm"] = (hd,)
+    if cfg.attn_sinks:  # GPT-OSS: one sink logit a q head
+        shapes["self_attn.sinks"] = (nq,)
     if cfg.qk_norm_flat:  # OLMo-2: norms over all heads' features
         shapes["self_attn.q_norm"] = (nq * hd,)
         shapes["self_attn.k_norm"] = (nkv * hd,)
@@ -557,8 +658,11 @@ def _scaled_inv_freq(cfg: LlamaConfig, inv_freq: np.ndarray) -> Tuple[np.ndarray
     high_wavelen = orig_max / high_f
     wavelen = 2.0 * np.pi / inv_freq
     scaled = np.where(wavelen > low_wavelen, inv_freq / factor, inv_freq)
-    smooth = (orig_max / wavelen - low_f) / (high_f - low_f)
-    mid = (1.0 - smooth) * inv_freq / factor + smooth * inv_freq
+    # Llama-4-Scout's low_freq_factor == high_freq_factor leaves no middle
+    # band: the smooth term's division by zero is masked out below
+    with np.errstate(divide="ignore", invalid="ignore"):
+        smooth = (orig_max / wavelen - low_f) / (high_f - low_f)
+        mid = (1.0 - smooth) * inv_freq / factor + smooth * inv_freq
     is_mid = (wavelen <= low_wavelen) & (wavelen >= high_wavelen)
     return np.where(is_mid, mid, scaled), 1.0
 
@@ -637,6 +741,29 @@ def rope_tables(cfg: LlamaConfig, positions, device=None
     return tables
 
 
+def layer_q_scale(cfg: LlamaConfig, layer_idx: int, positions) -> Optional[torch.Tensor]:
+    """Layer ``layer_idx``'s per-query temperature factor at ``positions``
+    (a host sequence or a device tensor), or None: Llama-4 scales q on its
+    NoPE layers only."""
+    if not cfg.attn_temp_tuning or not (cfg.nope_layers and layer_idx in cfg.nope_layers):
+        return None
+    return llama4_q_scale(cfg, positions)
+
+
+def llama4_q_scale(cfg: LlamaConfig, positions) -> torch.Tensor:
+    """Llama-4's attention temperature a query position, in fp32:
+    ``log1p(floor((pos + 1) / floor_scale))·coef + 1``."""
+    pos = torch.as_tensor(positions).float()
+    return torch.log1p(torch.floor((pos + 1.0) / cfg.attn_floor_scale)) \
+        * cfg.attn_scale_coef + 1.0
+
+
+def _l2_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """Weightless RMS normalization in fp32 (HF ``Llama4TextL2Norm``)."""
+    x32 = x.float()
+    return (x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)).to(x.dtype)
+
+
 def _rotate_half(x: torch.Tensor) -> torch.Tensor:
     half = x.shape[-1] // 2
     return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
@@ -668,16 +795,24 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               window: Optional[int] = None,
               sm_scale: Optional[float] = None,
               logit_cap: Optional[float] = None,
-              sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
+              sinks: Optional[torch.Tensor] = None,
+              chunk: Optional[int] = None,
+              q_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dense attention with GQA in plain torch ops; scores and softmax in
     fp32.  q (B, N, Hq, hd), k/v (B, S, Hkv, hd) → (B, N, Hq, hd).
 
     ``causal_offset``: query i attends keys ``<= i + offset`` (None: no
     causal mask); ``window`` keeps only the last ``window`` of those
-    (``j > i + offset - window``, HF sliding-window semantics);
-    ``key_mask`` (B, S) masks invalid cache slots; ``logit_cap`` soft-caps
-    the scores; ``sinks`` (Hq,) per-head sink logits join each softmax and
-    their mass is dropped (the denominator gains ``exp(sink - max)``)."""
+    (``j > i + offset - window``, HF sliding-window semantics), ``chunk``
+    only those of its own chunk (``j // chunk == (i + offset) // chunk``,
+    Llama-4); ``key_mask`` (B, S) masks invalid cache slots; ``logit_cap``
+    soft-caps the scores; ``sinks`` (Hq,) per-head sink logits join each
+    softmax and their mass is dropped (the denominator gains ``exp(sink -
+    max)``); ``q_scale`` (N,) or (B, N) multiplies q first (Llama-4's
+    temperature, in q's dtype)."""
+    if q_scale is not None:
+        qs = q_scale[None, :] if q_scale.dim() == 1 else q_scale
+        q = q * qs[:, :, None, None].to(device=q.device, dtype=q.dtype)
     b, n, hq, hd = q.shape
     s, hkv = k.shape[1], k.shape[2]
     groups = hq // hkv
@@ -694,6 +829,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = kj <= qi + causal_offset
         if window is not None:
             mask &= kj > qi + causal_offset - window
+        if chunk is not None:
+            mask &= (kj // chunk) == ((qi + causal_offset) // chunk)
         scores = scores.masked_fill(~mask[None, None, None], neg)
     if key_mask is not None:
         scores = scores.masked_fill(~key_mask[:, None, None, None, :], neg)
@@ -709,22 +846,53 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, n, hq, v.shape[-1])
 
 
-def moe_combine(cfg: LlamaConfig, router_w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """Per-token expert weights ``(B, N, E)`` in fp32 (JAX ``moe_combine``,
-    HF Mixtral / Qwen3-MoE): the router logits in the model dtype, softmax
-    in fp32, the top k, renormalized to sum 1 where the family does; zero
-    for the experts not chosen.
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(values, indices)`` of the k largest along the last dim by a stable
+    descending sort: equal values (bf16 logits tie often) take the lower
+    index first, as ``jax.lax.top_k`` does; ``torch.topk`` promises no
+    order among equal values."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
-    The top k come from a stable descending sort, so equal probabilities
-    (bf16 logits tie often) choose the lower expert index first, as
-    ``jax.lax.top_k`` does; ``torch.topk`` promises no order among equal
-    values."""
-    probs = torch.softmax((h @ router_w).float(), dim=-1)
-    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    vals, idx = vals[..., :cfg.moe_top_k], idx[..., :cfg.moe_top_k]
+
+def moe_combine(cfg: LlamaConfig, router_w: torch.Tensor, h: torch.Tensor,
+                router_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-token expert weights ``(B, N, E)`` in fp32 (JAX ``moe_combine``,
+    HF Mixtral / Qwen3-MoE / GPT-OSS): the router logits in the model dtype
+    (plus GPT-OSS's router bias), softmax in fp32, the top k (:func:`_top_k`),
+    renormalized to sum 1 where the family does; zero for the experts not
+    chosen."""
+    logits = h @ router_w
+    if router_bias is not None:
+        logits = logits + router_bias
+    probs = torch.softmax(logits.float(), dim=-1)
+    vals, idx = _top_k(probs, cfg.moe_top_k)
     if cfg.moe_renorm:
         vals = vals / torch.sum(vals, dim=-1, keepdim=True)
     return torch.zeros_like(probs).scatter(-1, idx, vals)
+
+
+def moe_combine_llama4(cfg: LlamaConfig, router_w: torch.Tensor,
+                       h: torch.Tensor) -> torch.Tensor:
+    """Llama-4's router scores ``(B, N, E)`` in fp32 (JAX
+    ``moe_combine_llama4``, HF ``Llama4Router``): the top k of the logits
+    (:func:`_top_k`), the sigmoid of the chosen ones, zero elsewhere, no
+    renormalization."""
+    logits = (h @ router_w).float()
+    _, idx = _top_k(logits, cfg.moe_top_k)
+    sel = torch.zeros_like(logits).scatter(-1, idx, 1.0)
+    return torch.sigmoid(logits) * sel
+
+
+def moe_glu(cfg: LlamaConfig, gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """An expert's gating: ``act(gate) * up``, or GPT-OSS's clamped
+    ``(up + 1)·gate·sigmoid(1.702·gate)`` (gate at most 7, up within ±7;
+    HF ``GptOssExperts``)."""
+    if cfg.moe_gptoss:
+        gate = torch.clamp(gate, max=7.0)
+        up = torch.clamp(up, -7.0, 7.0)
+        return (up + 1.0) * gate * torch.sigmoid(gate * 1.702)
+    return activation(cfg)(gate) * up
 
 
 def moe_apply_dense(cfg: LlamaConfig, lin: Callable, h: torch.Tensor,
@@ -736,7 +904,6 @@ def moe_apply_dense(cfg: LlamaConfig, lin: Callable, h: torch.Tensor,
     an expert's gate/up (and down) input hold only its routed tokens, so
     its Hessian sees only them.  ``lin`` is called per expert with the
     names ``mlp.experts.{e}.gate_proj`` / ``up_proj`` / ``down_proj``."""
-    act = activation(cfg)
     out = None
     for e in range(cfg.moe_num_experts):
         ce = comb[..., e:e + 1]
@@ -744,20 +911,66 @@ def moe_apply_dense(cfg: LlamaConfig, lin: Callable, h: torch.Tensor,
         he = h * mask
         g = lin(f"mlp.experts.{e}.gate_proj", he)
         u = lin(f"mlp.experts.{e}.up_proj", he)
-        d = lin(f"mlp.experts.{e}.down_proj", act(g) * u * mask)
+        # the down input masks too: a biased expert (GPT-OSS) gives nonzero
+        # rows for its zeroed inputs, which must not reach down's Hessian
+        d = lin(f"mlp.experts.{e}.down_proj", moe_glu(cfg, g, u) * mask)
         d = ce.to(d.dtype) * d
         out = d if out is None else out + d
     return out
 
 
+def moe_apply_llama4(cfg: LlamaConfig, lin: Callable, h: torch.Tensor,
+                     scores: torch.Tensor) -> torch.Tensor:
+    """Llama-4's masked-dense experts (JAX ``moe_apply_llama4``): expert
+    e's input is ``h`` times its router score (zero on the tokens not
+    routed to it), the outputs sum unweighted in expert order.  The experts
+    have no biases, so an unrouted row's output is exactly zero and each
+    expert's captured input holds only its routed, score-scaled rows."""
+    out = None
+    for e in range(cfg.moe_num_experts):
+        he = h * scores[..., e:e + 1].to(h.dtype)
+        g = lin(f"mlp.experts.{e}.gate_proj", he)
+        u = lin(f"mlp.experts.{e}.up_proj", he)
+        d = lin(f"mlp.experts.{e}.down_proj", moe_glu(cfg, g, u))
+        out = d if out is None else out + d
+    return out
+
+
+def _mlp_tail(cfg: LlamaConfig, lp: Params, lin: Callable, h: torch.Tensor) -> torch.Tensor:
+    """The block's MLP (JAX ``_mlp_tail``): the dense GLU (over the fused
+    ``mlp.gate_up_proj`` where serving fused it), or, where ``lp`` holds
+    ``mlp.router``, the sparse-MoE block: Llama-4's score-scaled experts
+    or the softmax router's masked-dense ones, plus Llama-4's shared
+    expert."""
+    if "mlp.router" not in lp:
+        if "mlp.gate_up_proj" in lp:
+            gate, up = torch.chunk(lin("mlp.gate_up_proj", h), 2, dim=-1)
+        else:
+            gate = lin("mlp.gate_proj", h)
+            up = lin("mlp.up_proj", h)
+        return lin("mlp.down_proj", activation(cfg)(gate) * up)
+    if cfg.moe_llama4:
+        mlp = moe_apply_llama4(cfg, lin, h, moe_combine_llama4(cfg, lp["mlp.router"], h))
+    else:
+        mlp = moe_apply_dense(cfg, lin, h,
+                              moe_combine(cfg, lp["mlp.router"], h, lp.get("mlp.router.bias")))
+    if "mlp.shared_experts.gate_proj" in lp:
+        sg = lin("mlp.shared_experts.gate_proj", h)
+        su = lin("mlp.shared_experts.up_proj", h)
+        mlp = mlp + lin("mlp.shared_experts.down_proj", activation(cfg)(sg) * su)
+    return mlp
+
+
 def block_core(cfg: LlamaConfig, lp: Params, x: torch.Tensor, cos, sin,
-               lin: Callable, attn_fn: Callable):
+               lin: Callable, attn_fn: Callable, qk_l2: Optional[bool] = None):
     """The block skeleton shared by every forward path (dense, packed,
     cache decode), with the family switches of the JAX ``block_core``:
     q/k norms (Qwen3 and Gemma-3 per head, OLMo-2 flat), GLM-4's and
     Gemma's sandwich norms (Gemma's with a unit offset), Gemma's GeGLU,
-    OLMo-2's post-norm-only block, Granite's residual multiplier, and the
-    sparse-MoE MLP of a layer whose ``lp`` holds ``mlp.router``.
+    OLMo-2's post-norm-only block, Granite's residual multiplier, Llama-4's
+    q/k L2 norm after rope (``qk_l2``: this layer's, None =
+    ``cfg.qk_l2_norm``) and the sparse-MoE MLP of a layer whose ``lp``
+    holds ``mlp.router`` (:func:`_mlp_tail`).
     ``lin(name, h)`` applies a linear and its bias (plain, packed,
     capturing); ``attn_fn(q, k, v) -> (attn, aux)`` attends.  Consumes the
     fused ``self_attn.qkv_proj`` / ``mlp.gate_up_proj`` names when present
@@ -788,6 +1001,8 @@ def block_core(cfg: LlamaConfig, lp: Params, x: torch.Tensor, cos, sin,
         k = norm(k, "self_attn.k_norm")
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    if cfg.qk_l2_norm if qk_l2 is None else qk_l2:  # Llama-4, after rope
+        q, k = _l2_norm(q, cfg.rms_norm_eps), _l2_norm(k, cfg.rms_norm_eps)
     attn, aux = attn_fn(q, k, v.reshape(b, n, -1, hd))
     o = lin("self_attn.o_proj", attn.reshape(b, n, -1))
     if cfg.sandwich_norms or cfg.postnorm_only:
@@ -800,15 +1015,7 @@ def block_core(cfg: LlamaConfig, lp: Params, x: torch.Tensor, cos, sin,
     else:
         h = norm(x, "pre_feedforward_layernorm" if cfg.sandwich_norms
                  else "post_attention_layernorm")
-    if "mlp.router" in lp:  # this layer's MLP is the sparse-MoE block
-        mlp = moe_apply_dense(cfg, lin, h, moe_combine(cfg, lp["mlp.router"], h))
-    else:
-        if "mlp.gate_up_proj" in lp:
-            gate, up = torch.chunk(lin("mlp.gate_up_proj", h), 2, dim=-1)
-        else:
-            gate = lin("mlp.gate_proj", h)
-            up = lin("mlp.up_proj", h)
-        mlp = lin("mlp.down_proj", activation(cfg)(gate) * up)
+    mlp = _mlp_tail(cfg, lp, lin, h)
     if cfg.sandwich_norms or cfg.postnorm_only:
         mlp = norm(mlp, "post_feedforward_layernorm")
     if cfg.residual_multiplier is not None:  # Granite
@@ -822,14 +1029,17 @@ class _Captured(Exception):
 
 
 def block_apply(cfg: LlamaConfig, lp: Params, x: torch.Tensor, cos, sin,
-                capture: Sequence[str] = (), window: Optional[int] = None
+                capture: Sequence[str] = (), window: Optional[int] = None,
+                chunk: Optional[int] = None, q_scale: Optional[torch.Tensor] = None,
+                qk_l2: Optional[bool] = None
                 ) -> Tuple[Optional[torch.Tensor], Dict[str, torch.Tensor]]:
     """One decoder block.  Returns ``(hidden, {name: linear_input})``.
 
     ``capture`` names linears whose inputs to return — the stage hook the
     quantization pipeline accumulates Hessians from.  With captures the
     forward stops as soon as all are taken and ``hidden`` is None.
-    ``window`` is this layer's sliding window (``cfg.layer_window(li)``)."""
+    ``window``, ``chunk``, ``q_scale`` and ``qk_l2`` are this layer's
+    (:func:`layer_kw`)."""
     caps: Dict[str, torch.Tensor] = {}
 
     def lin(name: str, h: torch.Tensor) -> torch.Tensor:
@@ -843,12 +1053,13 @@ def block_apply(cfg: LlamaConfig, lp: Params, x: torch.Tensor, cos, sin,
 
     def attn_fn(q, k, v):
         return attention(q, k, v, window=window, sm_scale=cfg.sm_scale_,
-                         logit_cap=cfg.attn_logit_softcap), None
+                         logit_cap=cfg.attn_logit_softcap, sinks=lp.get("self_attn.sinks"),
+                         chunk=chunk, q_scale=q_scale), None
 
     if not capture:
-        return block_core(cfg, lp, x, cos, sin, lin, attn_fn)[0], caps
+        return block_core(cfg, lp, x, cos, sin, lin, attn_fn, qk_l2)[0], caps
     try:
-        block_core(cfg, lp, x, cos, sin, lin, attn_fn)
+        block_core(cfg, lp, x, cos, sin, lin, attn_fn, qk_l2)
     except _Captured:
         return None, caps
     raise KeyError(f"captures {set(capture) - set(caps)} not in the block")
@@ -866,14 +1077,25 @@ def embed_lookup(cfg: LlamaConfig, embed_w: torch.Tensor,
     return x
 
 
+def layer_kw(cfg: LlamaConfig, layer_idx: int, positions) -> Dict[str, Any]:
+    """Layer ``layer_idx``'s attention switches for a forward over
+    ``positions``: its sliding ``window``, Llama-4's ``chunk``, ``q_scale``
+    (on ``positions``' device) and ``qk_l2``, as :func:`block_apply` and the
+    packed block take them."""
+    qs = layer_q_scale(cfg, layer_idx, positions)
+    return dict(window=cfg.layer_window(layer_idx), chunk=cfg.layer_chunk(layer_idx),
+                q_scale=qs, qk_l2=cfg.layer_qk_l2(layer_idx))
+
+
 def forward_hidden(cfg: LlamaConfig, params: Params,
                    tokens: torch.Tensor) -> torch.Tensor:
     """Embedding + all decoder blocks + final norm.  tokens: (B, N)."""
     ropes = rope_tables(cfg, np.arange(tokens.shape[1]), tokens.device)
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
     x = embed_lookup(cfg, params["embed_tokens"], tokens)
     for li, lp in enumerate(params["layers"]):
         cos, sin = ropes[cfg.layer_rope(li)]
-        x, _ = block_apply(cfg, lp, x, cos, sin, window=cfg.layer_window(li))
+        x, _ = block_apply(cfg, lp, x, cos, sin, **layer_kw(cfg, li, pos))
     return final_norm(cfg, x, params["norm"])
 
 

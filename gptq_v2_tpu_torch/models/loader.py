@@ -20,9 +20,21 @@ remaps, in HF layout (the JAX loader's):
   ``mlp.gate`` and ``mlp.experts.{e}.gate_proj|up_proj|down_proj``.  The
   router is stored ``(E, D)`` like every HF linear and is ``mlp.router``
   ``(D, E)`` in the params.
-* GLM-4 pairs each head's rotary dims even/odd.  The rotary prefix of every
-  q/k head's out-features (weights and biases) is de-interleaved at load,
-  a permutation that leaves ``q·k`` unchanged, so the runtime keeps the
+* GPT-OSS names its router ``mlp.router`` (with a bias) and its sinks
+  ``self_attn.sinks``, and stacks its experts: ``mlp.experts.gate_up_proj``
+  ``(E, D, 2I)`` in ``(in, out)`` layout with gate on the even and up on
+  the odd columns, ``gate_up_proj_bias`` ``(E, 2I)`` likewise,
+  ``down_proj`` ``(E, I, D)`` and ``down_proj_bias`` ``(E, D)``.  Its
+  published MXFP4 expert blocks are not read (bf16 checkpoints only, as
+  the JAX loader).
+* Llama-4 names its MLP ``feed_forward`` (the router
+  ``feed_forward.router``, the shared expert ``feed_forward.shared_expert``)
+  and stacks its experts as ``feed_forward.experts.gate_up_proj`` ``(E, D,
+  2I)``, ``[gate | up]`` halves, and ``down_proj`` ``(E, I, D)``.
+* GLM-4 pairs each head's rotary dims even/odd, Llama-4 too over the whole
+  head.  The rotary dims of every q/k head's out-features (weights and
+  biases) are de-interleaved at load, a permutation that leaves ``q·k``
+  (and Llama-4's L2 norm) unchanged, so the runtime keeps the
   half-rotation.
 
 :func:`save_hf_model` writes the inverse, a one-shard HF directory that
@@ -55,7 +67,7 @@ def _hf_key(name: str, layer_idx) -> str:
         return {"embed_tokens": "model.embed_tokens.weight",
                 "norm": "model.norm.weight",
                 "lm_head": "lm_head.weight"}[name]
-    if name.endswith(".bias"):
+    if name.endswith((".bias", ".sinks")):
         return f"model.layers.{layer_idx}.{name}"
     return f"model.layers.{layer_idx}.{name}.weight"
 
@@ -75,7 +87,9 @@ def _hf_name(cfg: LlamaConfig, name: str) -> str:
     renames)."""
     if cfg.fused_gate_up and cfg.sandwich_norms and name in _GLM_NORMS:
         return _GLM_NORMS[name]
-    if name == "mlp.router":
+    if cfg.llama4_names and name.startswith("mlp."):
+        return "feed_forward." + name[len("mlp."):].replace("shared_experts.", "shared_expert.")
+    if name == "mlp.router" and not cfg.moe_gptoss:
         return "block_sparse_moe.gate" if cfg.moe_mixtral_names else "mlp.gate"
     if cfg.moe_mixtral_names and name.startswith("mlp.experts."):
         _, _, e, proj = name.split(".")
@@ -83,10 +97,30 @@ def _hf_name(cfg: LlamaConfig, name: str) -> str:
     return name
 
 
+def _stacked(cfg: LlamaConfig, name: str):
+    """Where GPT-OSS and Llama-4 keep an expert's param in their stacked
+    tensors: ``(HF name a layer, expert, its columns or None)``, None for
+    every other param.  The stacked weights are ``(in, out)``."""
+    if not (cfg.moe_gptoss or cfg.moe_llama4) or not name.startswith("mlp.experts."):
+        return None
+    _, _, e, rest = name.split(".", 3)
+    proj, tail = rest.split(".")[0], "_bias" if rest.endswith(".bias") else ""
+    pre = "feed_forward.experts" if cfg.llama4_names else "mlp.experts"
+    if proj == "down_proj":
+        return f"{pre}.down_proj{tail}", int(e), None
+    if cfg.moe_gptoss:  # gate on the even columns, up on the odd
+        cols = slice(0, None, 2) if proj == "gate_proj" else slice(1, None, 2)
+    else:  # [gate | up] halves
+        mi = cfg.moe_intermediate_
+        cols = slice(0, mi) if proj == "gate_proj" else slice(mi, None)
+    return f"{pre}.gate_up_proj{tail}", int(e), cols
+
+
 def rope_row_perm(cfg: LlamaConfig, n_heads: int) -> np.ndarray:
-    """GLM-4: the row order of a q/k projection (HF out-features) that
-    de-interleaves each head's rotary prefix: even dims first, then odd,
-    then the pass-through tail."""
+    """GLM-4 and Llama-4: the row order of a q/k projection (HF
+    out-features) that de-interleaves each head's rotary dims (GLM-4's
+    prefix, Llama-4's whole head): even dims first, then odd, then the
+    pass-through tail."""
     hd, rd = cfg.head_dim_, cfg.rope_dim_
     dim = np.concatenate([np.arange(0, rd, 2), np.arange(1, rd, 2), np.arange(rd, hd)])
     return (np.arange(n_heads)[:, None] * hd + dim[None, :]).reshape(-1)
@@ -117,6 +151,12 @@ def params_from_flat(cfg: LlamaConfig, flat: Dict[str, torch.Tensor],
             lo += shapes[n][1]
 
     def get(name: str, li: int) -> torch.Tensor:
+        stacked = _stacked(cfg, name)
+        if stacked is not None:
+            key, e, cols = stacked
+            w = flat[f"model.layers.{li}.{key}"][e]
+            w = w if cols is None else w[..., cols]
+            return w.T if w.dim() == 2 else w  # to HF's (out, in)
         if name in parts:
             fused, lo, hi = parts[name]
             w = flat[_hf_key(fused, li)][lo:hi]
@@ -167,8 +207,17 @@ def save_hf_model(cfg: LlamaConfig, params: Params, model_dir) -> None:
         flat[_hf_key("lm_head", None)] = params["lm_head"].T
     fused = _fused(cfg)
     for i, lp in enumerate(params["layers"]):
-        hf = {}
+        hf, stacked = {}, {}
         for name, w in lp.items():
+            part = _stacked(cfg, name)
+            if part is not None:  # into its stacked (in, out) tensor
+                key, e, cols = part
+                if key not in stacked:
+                    width = w.shape[-1] * (1 if cols is None else 2)
+                    stacked[key] = torch.zeros((cfg.moe_num_experts,) + w.shape[:-1]
+                                               + (width,), dtype=w.dtype, device=w.device)
+                stacked[key][(e, Ellipsis) + (() if cols is None else (cols,))] = w
+                continue
             w = w.T if w.dim() == 2 else w
             rows = _rope_rows(cfg, name)
             if rows is not None:  # re-interleave: the inverse row order
@@ -178,5 +227,7 @@ def save_hf_model(cfg: LlamaConfig, params: Params, model_dir) -> None:
             hf[fused_name] = torch.cat([hf.pop(n) for n in names], dim=0)
         for name, w in hf.items():
             flat[_hf_key(_hf_name(cfg, name), i)] = w.contiguous()
+        for key, w in stacked.items():
+            flat[f"model.layers.{i}.{key}"] = w
     st.save_file(flat, model_dir / "model.safetensors",
                  metadata={"format": "pt"})

@@ -19,9 +19,12 @@ stay under ``hessian_budget`` bytes (JAX ``_split_wave_by_budget``):
 Members of a wave do not feed each other, so capturing them from one
 forward sees exactly what one forward per stage would: the codes are the
 per-stage loop's bit for bit (JAX documents the same of its waves).  Each
-block's forwards take its own sliding window and rope table
-(``cfg.layer_window``, ``cfg.layer_rope``).  Biases, norms, the other 1-D
-params and the MoE router pass through unquantized.
+block's forwards take its own sliding window, Llama-4 chunk, temperature
+and q/k L2 norm (``models.llama.layer_kw``) and rope table
+(``cfg.layer_rope``); the JAX pipeline passes the window and the L2 norm
+but neither the chunk nor the temperature.  Biases, norms, GPT-OSS's sinks,
+the other 1-D params and the MoE router (and its bias) pass through
+unquantized.
 
 Then the next block's inputs are computed with the fully quantized block,
 and the block's linears in ``params`` become the weights reconstructed
@@ -219,6 +222,7 @@ def quantize_model(
         save_path.mkdir(parents=True, exist_ok=True)
     tag = _config_tag(qcfg)
     ropes = L.rope_tables(cfg, np.arange(seqlen), device)
+    positions = torch.arange(seqlen, device=device)
     tokens = torch.as_tensor(np.asarray(encodings), dtype=torch.long)
     embed_w = params["embed_tokens"].to(device)
     xs = [L.embed_lookup(cfg, embed_w, tokens[b:b + batch_size].to(device))
@@ -260,7 +264,7 @@ def quantize_model(
             t0 = time.time()
             home = params["layers"][li]
             cos, sin = ropes[cfg.layer_rope(li)]
-            win = cfg.layer_window(li)
+            kw = L.layer_kw(cfg, li, positions)
             lp = {k: v.to(device) for k, v in home.items()}
             stages = [st for st in graph.block_stages(cfg, li)
                       if st.linears != (graph.OUTPUT,)]
@@ -288,7 +292,7 @@ def quantize_model(
                     states = {f: hs.init_state(lp[f].shape[0], device) for f in firsts}
                     for xb in xs:
                         _, caps = L.block_apply(cfg, lp, xb, cos, sin, capture=firsts,
-                                                window=win)
+                                                **kw)
                         for f in firsts:
                             states[f] = hs.accumulate(states[f], caps.pop(f))
                     passes += 1
@@ -300,7 +304,7 @@ def quantize_model(
                         del inv
             # inputs of the next block, through the fully quantized block
             # (reference llama.py:184-191)
-            xs = [L.block_apply(cfg, lp, xb, cos, sin, window=win)[0] for xb in xs]
+            xs = [L.block_apply(cfg, lp, xb, cos, sin, **kw)[0] for xb in xs]
             _finish_block(results, pending, save_path, tag)
             params["layers"][li] = {
                 k: (_dequantized(results["data"][f"model.layers.{li}.{k}"], dt, device)

@@ -16,7 +16,10 @@ run.  Prefill attends over its own fresh K/V and writes them quantized.
 Caches are updated in place.  Each layer takes its own rope table and
 sliding window (``cfg.layer_rope``, ``cfg.layer_window``: Gemma-3's
 sliding layers rotate with its local table), passed to K4, K6 and K7 as
-their window, with the family's attention soft cap (Gemma-2).
+their window, with the family's attention soft cap (Gemma-2) and GPT-OSS's
+sinks.  Llama-4's temperature folds into q; its chunked layers pass the
+chunk to K4 and K7, and reach K6 by block-table rebasing
+(:func:`chunk_tables`).
 
 Sampling is per row: temperature, then top-k, top-p and min-p; with
 ``return_logprobs`` each token comes packed with its raw-distribution
@@ -66,6 +69,31 @@ def fold_paged_kv_scales(qq: torch.Tensor, cache: kvc.PagedKVCache, li: int):
     return qq * cache.q_head_scales("k", li, hq, qq.dtype, per_head=True), 1.0, 1.0, out_fn
 
 
+def chunk_tables(block_tables: torch.Tensor, last: torch.Tensor, chunk: int,
+                 page_size: int, n_pages: Optional[int] = None):
+    """Llama-4's chunked attention on the paged cache by block-table
+    rebasing (JAX ``decode.py``): a row whose last position is ``last``
+    attends only its chunk, which starts at ``(last // chunk) · chunk``, a
+    page boundary (``chunk % page_size == 0``).  Each row's table is
+    shifted to start at that chunk's first page (columns past the table
+    repeat its last one; the shortened length never reaches them) and its
+    length rebased, so K6 runs unchanged: rope is in K already, so the
+    shift moves no absolute position.  Returns ``(tables (S, n_pages),
+    offsets (S,))``: subtract ``offsets`` from each row's length."""
+    mp = block_tables.shape[1] if n_pages is None else n_pages
+    starts = torch.div(last, chunk, rounding_mode="floor") * chunk
+    idx = torch.arange(mp, device=block_tables.device)[None, :] \
+        + torch.div(starts, page_size, rounding_mode="floor").long()[:, None]
+    return torch.gather(block_tables, 1, torch.clamp(idx, 0, mp - 1)), starts
+
+
+def _fold_q_scale(cfg, li: int, q: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """``q`` ``(R, Hq, hd)`` times Llama-4's temperature at each row's
+    position, on a layer that has one."""
+    qs = L.layer_q_scale(cfg, li, positions)
+    return q if qs is None else q * qs[:, None, None].to(q.dtype)
+
+
 def _attend_paged(cache: kvc.PagedKVCache, li: int, q: torch.Tensor, attend):
     """``attend(q, k_scale, v_scale)`` (a K6 call) with layer ``li``'s
     scales folded around it."""
@@ -92,12 +120,13 @@ def prefill(model: PackedLlama, tokens: torch.Tensor,  # (B, Lpad) padded prompt
     b, lpad = tokens.shape
     ropes = L.rope_tables(cfg, np.arange(lpad), tokens.device)
     x = L.embed_lookup(cfg, model.embed_tokens, tokens)
-    pos_b = torch.arange(lpad, device=tokens.device)[None].expand(b, lpad)
+    pos = torch.arange(lpad, device=tokens.device)
+    pos_b = pos[None].expand(b, lpad)
     pad_mask = pos_b >= lengths[:, None]
     paged = isinstance(cache, kvc.PagedKVCache)
     for li, lp in enumerate(model.layers):
         cos, sin = ropes[cfg.layer_rope(li)]
-        x, (k, v) = packed_block_apply(cfg, lp, x, cos, sin, window=cfg.layer_window(li))
+        x, (k, v) = packed_block_apply(cfg, lp, x, cos, sin, **L.layer_kw(cfg, li, pos))
         if paged:
             kvc.write_kv(cache, li, k, v, block_tables, pos_b, pad_mask=pad_mask)
         else:
@@ -141,36 +170,42 @@ def _row_ropes(cfg, positions: torch.Tensor):
 
 
 def _decode_block(cfg, lp, x, cos, sin, cache, li, positions, s, block_tables):
-    window = cfg.layer_window(li)
+    window, chunk = cfg.layer_window(li), cfg.layer_chunk(li)
+    sinks = lp.get("self_attn.sinks")
 
     def attn_contiguous(q, k, v):
         # write this token's K/V first, then attend over the slot's region
         # in place (the new token's position is valid by the mask)
         kvc.write_kv_contiguous(cache, li, k, v, positions[:, None])
-        qq = q[:, 0]
+        qq = _fold_q_scale(cfg, li, q[:, 0], positions)
         if cache.k_scales is not None:
             qq = qq * cache.q_head_scales("k", li, qq.shape[-2], qq.dtype)
         attend = (ca.contiguous_decode_attention_p4 if cache.kv_bits == 4
                   else ca.contiguous_decode_attention)
         attn = attend(qq, cache.k, cache.v, positions, li, s_bucket=s,
-                      sm_scale=cfg.sm_scale_, window=window,
-                      soft_cap=cfg.attn_logit_softcap)
+                      sm_scale=cfg.sm_scale_, window=window, chunk=chunk,
+                      soft_cap=cfg.attn_logit_softcap, sinks=sinks)
         if cache.v_scales is not None:
             attn = attn * cache.q_head_scales("v", li, attn.shape[-2], attn.dtype)
         return attn[:, None], None
 
     def attn_paged(q, k, v):
         kvc.write_kv(cache, li, k, v, block_tables, positions[:, None])
-        bt = block_tables[:, :-(-s // cache.page_size)]
-        attn = _attend_paged(cache, li, q[:, 0], lambda qq, ks, vs: pa.paged_decode_attention(
-            qq, cache.kv[li], positions + 1, bt, sliding_window=window, k_scale=ks,
+        n_pages = -(-s // cache.page_size)
+        bt, lens = block_tables[:, :n_pages], positions + 1
+        if chunk is not None:
+            bt, off = chunk_tables(block_tables, positions, chunk, cache.page_size, n_pages)
+            lens = lens - off
+        qq = _fold_q_scale(cfg, li, q[:, 0], positions)
+        attn = _attend_paged(cache, li, qq, lambda qq, ks, vs: pa.paged_decode_attention(
+            qq, cache.kv[li], lens, bt, sliding_window=window, k_scale=ks,
             v_scale=vs, sm_scale=cfg.sm_scale_, soft_cap=cfg.attn_logit_softcap,
-            kv_int4=cache.kv_bits == 4))
+            sinks=sinks, kv_int4=cache.kv_bits == 4))
         return attn[:, None], None
 
     attn_fn = attn_paged if isinstance(cache, kvc.PagedKVCache) else attn_contiguous
     return L.block_core(cfg, lp, x, cos, sin,
-                        lambda name, h: _lin(lp, name, h), attn_fn)[0]
+                        lambda name, h: _lin(lp, name, h), attn_fn, cfg.layer_qk_l2(li))[0]
 
 
 def ragged_step(model: PackedLlama,
@@ -256,20 +291,30 @@ def _ragged_forward(model, tokens, cache, positions, tok_pages, tok_offs, block_
     cfg = model.cfg
     ropes = _row_ropes(cfg, positions)
     x = L.embed_lookup(cfg, model.embed_tokens, tokens)[:, None, :]  # (T, 1, D)
+    chunks = {cfg.layer_chunk(li) for li in range(cfg.num_hidden_layers)} - {None}
+    if chunks:
+        # a tick's new rows of a sequence share one attention chunk (the
+        # engine cuts prompt chunks at its boundaries): rebase each
+        # sequence's table from its last row's position
+        bt_chunk, off = chunk_tables(block_tables, kv_lens - 1, chunks.pop(), cache.page_size)
+        lens_chunk = kv_lens - off
     for li, lp in enumerate(model.layers):
 
-        def attn_fn(q, k, v, li=li):
+        def attn_fn(q, k, v, li=li, lp=lp):
             kvc.write_kv_flat(cache, li, k[:, 0], v[:, 0], tok_pages, tok_offs)
-            attn = _attend_paged(cache, li, q[:, 0], lambda qq, ks, vs: pa.paged_ragged_attention(
-                qq, cache.kv[li], kv_lens, block_tables, cu_q_lens, num_seqs,
+            chunked = cfg.layer_chunk(li) is not None
+            qq = _fold_q_scale(cfg, li, q[:, 0], positions)
+            attn = _attend_paged(cache, li, qq, lambda qq, ks, vs: pa.paged_ragged_attention(
+                qq, cache.kv[li], lens_chunk if chunked else kv_lens,
+                bt_chunk if chunked else block_tables, cu_q_lens, num_seqs,
                 sliding_window=cfg.layer_window(li), k_scale=ks, v_scale=vs,
                 sm_scale=cfg.sm_scale_, soft_cap=cfg.attn_logit_softcap,
-                kv_int4=cache.kv_bits == 4))
+                sinks=lp.get("self_attn.sinks"), kv_int4=cache.kv_bits == 4))
             return attn[:, None], None
 
         cos, sin = ropes[cfg.layer_rope(li)]
-        x = L.block_core(cfg, lp, x, cos, sin,
-                         lambda name, h, lp=lp: _lin(lp, name, h), attn_fn)[0]
+        x = L.block_core(cfg, lp, x, cos, sin, lambda name, h, lp=lp: _lin(lp, name, h),
+                         attn_fn, cfg.layer_qk_l2(li))[0]
     return L.final_norm(cfg, x[:, 0], model.norm)
 
 

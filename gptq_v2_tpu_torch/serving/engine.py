@@ -29,6 +29,10 @@
   with per-layer (int8) or per-kv-head (int4) scales calibrated at build
   time unless ``kv_scales`` gives them;
 * ``act_dtype="int8"`` serves the W4A8 tier (K8 for every block linear);
+* Llama-4's chunked attention on the paged cache needs the chunk to be a
+  multiple of ``page_size``, and the ragged scheduler ends a tick's prompt
+  rows of a sequence at the chunk's boundary (the step rebases one table a
+  sequence);
 * :meth:`Engine.snapshot` / :func:`restore_requests` recover unfinished
   requests after a crash (the JAX package's JSON format).
 
@@ -138,6 +142,11 @@ class Engine:
             raise ValueError(f"act_dtype {act_dtype!r}")
         if multi_step < 1:
             raise ValueError(f"multi_step {multi_step}")
+        chunk = model.cfg.attn_chunk_size
+        if chunk and cache_kind == "paged" and chunk % page_size:
+            # the paged path rebases block tables to a chunk's first page
+            raise ValueError(f"attention chunk {chunk} is not a multiple of the page "
+                             f"size {page_size}, as paged serving needs")
         model = fuse_stage_linears(model)
         if act_dtype == "int8":
             model = to_w4a8(model)
@@ -462,10 +471,13 @@ class Engine:
         tokens, positions, kv_lens, temps, warps, bt_rows = self._ragged_rows(t, decoding)
         order = [(si, 1, True) for si in decoding]  # (slot, n_new, completes_prefill)
         row, remaining = len(decoding), t - len(decoding)
+        ac = self.model.cfg.attn_chunk_size
         for si in prefilling:
             slot = self.slots[si]
             req = slot.request
             n_new = min(len(req.prompt) - slot.prefill_done, remaining)
+            if ac:  # a tick's rows of a sequence stay in one attention chunk
+                n_new = min(n_new, ac - slot.prefill_done % ac)
             if n_new <= 0:  # out of budget this tick
                 continue
             remaining -= n_new

@@ -212,27 +212,32 @@ def head_logits(cfg: L.LlamaConfig, lm_head, hidden: torch.Tensor) -> torch.Tens
 
 
 def packed_block_apply(cfg: L.LlamaConfig, lp: Dict[str, Any], x: torch.Tensor,
-                       cos, sin, window: Optional[int] = None):
+                       cos, sin, window: Optional[int] = None, chunk: Optional[int] = None,
+                       q_scale: Optional[torch.Tensor] = None, qk_l2: Optional[bool] = None):
     """One decoder block on packed weights over a whole (causal) sequence,
-    with this layer's sliding ``window``.  Returns ``(hidden, (k, v))``,
+    with this layer's sliding ``window``, Llama-4 ``chunk``, temperature
+    ``q_scale`` and q/k L2 norm ``qk_l2`` (``models.llama.layer_kw``) and
+    GPT-OSS's sinks where the layer has them.  Returns ``(hidden, (k, v))``,
     the new rope'd K/V for the cache."""
 
     def attn_fn(q, k, v):
         return L.attention(q, k, v, window=window, sm_scale=cfg.sm_scale_,
-                           logit_cap=cfg.attn_logit_softcap), (k, v)
+                           logit_cap=cfg.attn_logit_softcap, sinks=lp.get("self_attn.sinks"),
+                           chunk=chunk, q_scale=q_scale), (k, v)
 
     return L.block_core(cfg, lp, x, cos, sin,
-                        lambda name, h: _lin(lp, name, h), attn_fn)
+                        lambda name, h: _lin(lp, name, h), attn_fn, qk_l2)
 
 
 def packed_forward_logits(model: PackedLlama, tokens: torch.Tensor) -> torch.Tensor:
     """Full-sequence forward (tests). tokens: (B, N)."""
     cfg = model.cfg
     ropes = L.rope_tables(cfg, np.arange(tokens.shape[1]), tokens.device)
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
     x = L.embed_lookup(cfg, model.embed_tokens, tokens)
     for li, lp in enumerate(model.layers):
         cos, sin = ropes[cfg.layer_rope(li)]
-        x, _ = packed_block_apply(cfg, lp, x, cos, sin, window=cfg.layer_window(li))
+        x, _ = packed_block_apply(cfg, lp, x, cos, sin, **L.layer_kw(cfg, li, pos))
     return head_logits(cfg, model.lm_head, L.final_norm(cfg, x, model.norm))
 
 
@@ -243,8 +248,9 @@ STAGE_MATES = (("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
 
 def stage_mates(shapes: Dict[str, Tuple[int, ...]]) -> List[Tuple[str, ...]]:
     """A layer's stage-mates: :data:`STAGE_MATES` where the layer has them,
-    and each expert's gate/up."""
-    mates = [m for m in STAGE_MATES if m[0] in shapes]
+    each expert's gate/up and Llama-4's shared expert's."""
+    mates = [m for m in STAGE_MATES + (("mlp.shared_experts.gate_proj",
+                                        "mlp.shared_experts.up_proj"),) if m[0] in shapes]
     e = 0
     while f"mlp.experts.{e}.gate_proj" in shapes:
         mates.append((f"mlp.experts.{e}.gate_proj", f"mlp.experts.{e}.up_proj"))
@@ -262,9 +268,11 @@ def random_packed_llama(cfg: L.LlamaConfig, group_size: int = 128, seed: int = 0
     ``device`` from one ``torch.Generator`` seeded with ``seed`` (a 7B model
     is ~4 GB of packed words: no host round trip).  Norms are the identity:
     ones, or zeros where the family stores them with a unit offset.  A MoE
-    layer's router stays dense bf16 and each expert's gate/up share a perm;
-    a model's dense layers (Qwen3-MoE's ``mlp_only_layers``) keep their
-    dense MLP."""
+    layer's router stays dense bf16 and each expert's gate/up share a perm
+    (so do Llama-4's shared expert's); a model's dense layers (Qwen3-MoE's
+    ``mlp_only_layers``, Llama-4's at their own width) keep their dense MLP.
+    Every 1-D param is drawn as a norm: GPT-OSS's sinks and its router and
+    expert biases are ones, as the JAX package makes them."""
     g = group_size
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -312,10 +320,14 @@ def random_packed_llama(cfg: L.LlamaConfig, group_size: int = 128, seed: int = 0
 
 
 def _block_kv_amax(cfg: L.LlamaConfig, lp: Dict[str, Any], x: torch.Tensor, cos, sin,
-                   window: Optional[int] = None):
-    """One packed block; returns ``(hidden, k_amax, v_amax)`` with the
-    per-kv-head ``(n_kv,)`` amax of its rope'd K and V."""
-    x, (k, v) = packed_block_apply(cfg, lp, x, cos, sin, window=window)
+                   **kw):
+    """One packed block with its switches ``kw`` (``models.llama.layer_kw``);
+    returns ``(hidden, k_amax, v_amax)`` with the per-kv-head ``(n_kv,)``
+    amax of its rope'd K and V (after Llama-4's L2 norm on a rope layer).
+    The JAX package's calibration passes the window alone, so its Llama-4
+    scales see the L2 norm on every layer and neither chunk nor
+    temperature."""
+    x, (k, v) = packed_block_apply(cfg, lp, x, cos, sin, **kw)
     return (x, torch.amax(torch.abs(k), dim=(0, 1, 3)),
             torch.amax(torch.abs(v), dim=(0, 1, 3)))
 
@@ -338,11 +350,12 @@ def calibrate_kv_scales(model: PackedLlama, tokens: Optional[torch.Tensor] = Non
                                generator=gen)
     tokens = torch.as_tensor(tokens, dtype=torch.long).to(dev)
     ropes = L.rope_tables(cfg, np.arange(tokens.shape[1]), dev)
+    pos = torch.arange(tokens.shape[1], device=dev)
     x = L.embed_lookup(cfg, model.embed_tokens, tokens)
     k_scales, v_scales = [], []
     for li, lp in enumerate(model.layers):
         cos, sin = ropes[cfg.layer_rope(li)]
-        x, ka, va = _block_kv_amax(cfg, lp, x, cos, sin, cfg.layer_window(li))
+        x, ka, va = _block_kv_amax(cfg, lp, x, cos, sin, **L.layer_kw(cfg, li, pos))
         ka, va = ka.float().cpu().tolist(), va.float().cpu().tolist()
         if bits == 4:
             k_scales.append(tuple(max(a * margin / qmax, 1e-6) for a in ka))

@@ -1623,3 +1623,177 @@ def test_pack_quant_meta_on_card_equals_host(dev):
         for field in ("qweight", "scales", "zeros", "perm"):
             assert torch.equal(getattr(on_card, field).cpu(),
                                getattr(on_host, field)), (bits, field)
+
+
+# --- GPT-OSS and Llama-4: sinks, chunks, widths -------------------------------
+
+# GPT-OSS-20B's attention: 64 q heads over 8 kv heads of 64, window 128
+GPT_OSS_HEADS = (8, 8, 64)  # (kv heads, q heads a kv head, head dim)
+
+
+def _check_attention_kernels_with_sinks_at_gpt_oss_heads(dev, kind):
+    """K4 (bf16, int8), K7 (int4 pairs) and K6 at GPT-OSS-20B's heads (64 q
+    over 8 kv of 64) with its window of 128 and sinks: the contiguous
+    kernels over S = 300 at slots 0, 127, 128, 299 and 200, K6 over a
+    ragged mix (decode rows of 300 and 9 keys, a 40-row chunk, pad rows),
+    each against its plain version and the split twin: 1e-2 of the largest
+    output, pad rows zero."""
+    n_kv, groups, hd = GPT_OSS_HEADS
+    hq, b, s = n_kv * groups, 5, 300
+    k, v, ks = _cache(kind, 1, b, s, n_kv, hd, seed=64, dev=dev)
+    rng = np.random.default_rng(65)
+    q = (torch.from_numpy(rng.standard_normal((b, hq, hd)).astype(np.float32)) * ks
+         ).to(dev, torch.bfloat16)
+    pos = torch.tensor([0, 127, 128, 299, 200], device=dev)
+    sinks = torch.from_numpy(rng.uniform(0.5, 2.0, hq).astype(np.float32)).to(dev)
+    kw = dict(s_bucket=s, sm_scale=hd ** -0.5, window=128, sinks=sinks)
+    fn, plain, bits = _attn_fns(kind)
+    n = fn.launches
+    out = fn(q, k, v, pos, 0, **kw).float()
+    torch.cuda.synchronize()
+    assert fn.launches == n + 1
+    ref = plain(q, k, v, pos, 0, **kw).float()
+    twin = ca.contiguous_decode_attention_split_ref(q, k, v, pos, 0, **kw, kv_bits=bits).float()
+    tol = 1e-2 * float(ref.abs().max())
+    torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+    torch.testing.assert_close(out, twin, rtol=0, atol=tol)
+    args, pkw = _ragged_call(kind, ((1, 300), (40, 100), (1, 9)), 24, groups, seed=66,
+                             dev=dev, n_pad=5, n_kv=n_kv, hd=hd)
+    pkw.update(sliding_window=128, sinks=sinks)
+    n = pa.paged_ragged_attention.launches
+    out = pa.paged_ragged_attention(*args, **pkw).float()
+    torch.cuda.synchronize()
+    assert pa.paged_ragged_attention.launches == n + 1
+    ref = pa.paged_ragged_attention_reference(*args, **pkw).float()
+    twin = pa.paged_ragged_attention_split_ref(*args, **pkw).float()
+    tol = 1e-2 * float(ref.abs().max())
+    torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+    torch.testing.assert_close(out, twin, rtol=0, atol=tol)
+    assert not out[int(args[4][-1]):].any()
+
+
+def _check_paged_attention_over_rebased_tables(dev, kind):
+    """K6 over block tables rebased to each row's attention chunk
+    (``decode.chunk_tables``), at Llama-4-Scout's heads (40 q over 8 kv of
+    128), chunk 64 over pages of 16, with sinks: decode rows of 1, 64, 65,
+    130 and 300 keys and a 20-row prefill chunk at positions 128..147,
+    against plain attention with the chunk mask over each sequence's
+    gathered keys (fp32): 1e-2 of the largest output."""
+    n_kv, groups, hd, ps, chunk = 8, 5, 128, 16, 64
+    seqs = ((1, 1), (1, 64), (1, 65), (1, 130), (1, 300), (20, 148))
+    args, kw = _ragged_call(kind, seqs, 20, groups, seed=67, dev=dev, n_kv=n_kv, hd=hd,
+                            ps=ps)
+    q, kv, kv_lens, tables, cu, num = args
+    hq = n_kv * groups
+    sinks = torch.from_numpy(np.random.default_rng(68).uniform(0.5, 2.0, hq)
+                             .astype(np.float32)).to(dev)
+    bt, off = decode.chunk_tables(tables, kv_lens - 1, chunk, ps)
+    n = pa.paged_ragged_attention.launches
+    out = pa.paged_ragged_attention(q, kv, kv_lens - off, bt, cu, num, sinks=sinks,
+                                    **kw).float()
+    torch.cuda.synchronize()
+    assert pa.paged_ragged_attention.launches == n + 1
+    ks = 1.0 if kw["k_scale"] is None else kw["k_scale"]
+    vs = 1.0 if kw["v_scale"] is None else kw["v_scale"]
+    for i, (n_new, kv_len) in enumerate(seqs):
+        seq = kv[tables[i].long()].reshape(-1, kv.shape[2], hd)
+        kk, vv = seq[:, 0::2], seq[:, 1::2]
+        if kind == "int4":
+            kk, vv = pa.unpack_int4_rows_adj(kk), pa.unpack_int4_rows_adj(vv)
+        kk, vv = (a[:kv_len].float()[None] for a in (kk, vv))
+        rows = q[int(cu[i]):int(cu[i + 1])].float()[None]
+        want = L.attention(rows, kk * ks, vv * vs, causal_offset=kv_len - n_new,
+                           sm_scale=hd ** -0.5, sinks=sinks, chunk=chunk)[0]
+        got = out[int(cu[i]):int(cu[i + 1])]
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-2 * float(want.abs().max()))
+
+
+# GPT-OSS-20B at g 64: C = 2880 is 45 groups, packed to C_pad 3072
+def _check_dequant_matmul_rows_equal_at_gpt_oss_width(dev, kernel, r):
+    """K3 and K8 at C = 2880, g 64 (C_pad 3072: three padding groups), bf16
+    on the tensor-core routes, against their plain versions at M = 1, 8 and
+    64, and decode rows bit-equal to prefill rows: every row of a call at M
+    = 1, 5, 16, 17, 64 or 520 equals the same row of one call at M = 40."""
+    c, g = 2880, 64
+    if kernel == "w4a16":
+        p, fn = _packed(4, c, r, c + r, dev, torch.bfloat16, g), w4a16.w4a16_matmul
+        assert w4a16.tensor_core_route(p)
+        for m in (1, 8, 64):
+            _check_w4a16(p, _rand((m, c), m, torch.bfloat16, dev))
+    else:
+        p, fn = _a8(4, c, r, c + r, dev, torch.bfloat16, g), w4a16.w4a8_matmul
+        assert w4a16.a8_tensor_core_route(p)
+        for m in (1, 8, 64):
+            _check_w4a8(p, _rand((m, c), m, torch.bfloat16, dev))
+    assert p.in_features_padded == 3072
+    x = _rand((40, c), 40, torch.bfloat16, dev).repeat(13, 1)
+    full = fn(x[:40], p)
+    for m in (1, 5, 16, 17, 64, 520):
+        assert torch.equal(fn(x[:m], p), full.repeat(13, 1)[:m]), m
+
+
+def _family_layer(model_type, dev):
+    """A one-layer fp32 packed MoE model of the family at a small width
+    (hidden 512, 4 experts of width 768, top 2, 8 q heads over 2 kv heads
+    of 64) and its config: GPT-OSS with sinks, biases and the clamped GLU;
+    Llama-4 with its shared expert and the q/k L2 norm on a chunked layer."""
+    extra = (dict(attn_sinks=True, moe_gptoss=True, qkv_bias=True, o_bias=True)
+             if model_type == "gpt_oss" else
+             dict(moe_llama4=True, moe_shared_experts=1, qk_l2_norm=True, llama4_names=True,
+                  attn_chunk_size=16, layer_types=("chunked_attention",)))
+    cfg = L.LlamaConfig(vocab_size=64, hidden_size=512, intermediate_size=768,
+                        num_hidden_layers=1, num_attention_heads=8, num_key_value_heads=2,
+                        moe_num_experts=4, moe_top_k=2, model_type=model_type,
+                        dtype="float32", **extra)
+    model = sm.random_packed_llama(cfg, group_size=128, seed=5, device=dev)
+    gen = torch.Generator(dev).manual_seed(6)
+    lp = {}
+    for k, w in model.layers[0].items():
+        if isinstance(w, packing.PackedLinear):
+            lp[k] = dataclasses.replace(w, scales=w.scales.float(), zeros=w.zeros.float())
+        elif w.dim() == 1 and not k.endswith("layernorm"):  # sinks, biases
+            lp[k] = torch.rand(w.shape, generator=gen, device=dev) * 1.5 + 0.5
+        else:
+            lp[k] = w.float()
+    return cfg, lp
+
+
+def _check_moe_layers_through_block_core(dev, model_type, monkeypatch):
+    """One GPT-OSS and one Llama-4 MoE layer through ``block_core`` on packed
+    fp32 weights over 24 tokens (GPT-OSS: sinks, biased router and experts,
+    the clamped GLU; Llama-4: score-scaled experts, the shared expert, the
+    L2 norm, chunk 16): K3 launches once a linear (q, k, v, o, three an
+    expert, three for the shared expert) and the hidden state is the plain
+    version's, 1e-4 of its largest entry."""
+    cfg, lp = _family_layer(model_type, dev)
+    x = _rand((2, 24, 512), 35, dev=dev)
+    cos, sin = L.rope_cos_sin(cfg, np.arange(24), dev)
+    kw = L.layer_kw(cfg, 0, torch.arange(24, device=dev))
+
+    def run():
+        return sm.packed_block_apply(cfg, lp, x, cos, sin, **kw)[0]
+
+    n = w4a16.w4a16_matmul.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert w4a16.w4a16_matmul.launches == n + 4 + 3 * 4 + 3 * cfg.moe_shared_experts
+    with monkeypatch.context() as m:
+        m.setattr(sm, "w4a16_matmul", w4a16.w4a16_reference)
+        want = run()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
+def test_gpt_oss_and_llama4_on_the_card(dev, monkeypatch):
+    """GPT-OSS's and Llama-4's kernel modes and widths, one test (the
+    suite's collection count is kept; ROADMAP queue 3 item 4): K4/K7/K6
+    with sinks at GPT-OSS-20B's heads and K6 over rebased tables at
+    Llama-4-Scout's, in every cache kind; K3 and K8 at C = 2880, g 64;
+    one GPT-OSS and one Llama-4 MoE layer through ``block_core``."""
+    for kind in ("bf16", "int8", "int4"):
+        _check_attention_kernels_with_sinks_at_gpt_oss_heads(dev, kind)
+        _check_paged_attention_over_rebased_tables(dev, kind)
+    for kernel in ("w4a16", "w4a8"):
+        for r in (2880, 4096):
+            _check_dequant_matmul_rows_equal_at_gpt_oss_width(dev, kernel, r)
+    for model_type in ("gpt_oss", "llama4_text"):
+        _check_moe_layers_through_block_core(dev, model_type, monkeypatch)

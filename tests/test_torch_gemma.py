@@ -282,12 +282,12 @@ def test_unit_offset_norms_start_at_zero():
 
 
 def test_refusals_that_stay():
-    """MLA, GPT-OSS and Llama-4 are still refused, naming what queue 1 item
-    10 has left (Mixtral and Qwen3-MoE are taken: tests/test_torch_moe.py);
-    an activation the port lacks is refused; int4 KV over one kv head
+    """MLA is still refused, naming what queue 1 item 10 has left (GPT-OSS
+    and Llama-4 are taken: tests/test_torch_gptoss_llama4.py); an
+    activation the port lacks is refused; int4 KV over one kv head
     (Gemma-3-1B's layout) has no head pair."""
-    for mt in ("deepseek_v3", "gpt_oss", "llama4_text"):
-        with pytest.raises(NotImplementedError, match="GPT-OSS and Llama-4"):
+    for mt in ("deepseek_v3",):
+        with pytest.raises(NotImplementedError, match="MLA"):
             TL.LlamaConfig.from_hf_dict(dict(model_type=mt))
     with pytest.raises(NotImplementedError, match="hidden_act"):
         TL.LlamaConfig.from_hf_dict(dict(model_type="gemma2", hidden_activation="relu"))

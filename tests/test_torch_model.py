@@ -141,10 +141,10 @@ def test_stage_list_matches_jax_derivation():
 
 
 def test_config_refuses_other_families():
-    # the families of the JAX package not ported yet, each with the queue
-    # item that ports it (Mixtral and Qwen3-MoE are taken:
-    # tests/test_torch_moe.py)
-    for model_type in ("deepseek_v3", "gpt_oss", "llama4_text"):
+    # the family of the JAX package not ported yet, with the queue item
+    # that ports it (GPT-OSS and Llama-4 are taken:
+    # tests/test_torch_gptoss_llama4.py)
+    for model_type in ("deepseek_v3",):
         with pytest.raises(NotImplementedError, match="queue 1, item 10"):
             TL.LlamaConfig.from_hf_dict(_hf_dict(model_type=model_type))
     with pytest.raises(NotImplementedError):
