@@ -107,7 +107,20 @@ over it (``--profile-dir`` gives their device time and device ops).
      across the chunk boundary.  Every engine's first tokens go through
      ``judge_streamed`` and its first decode step is replayed; the
      attention calls with sinks, with a chunk and over rebased tables are
-     counted (K1, K2, K3, K8, K4, K7, K6, K9).
+     counted (K1, K2, K3, K8, K4, K7, K6, K9);
+   * deepseek: DeepSeek-V3 (exact multi-head latent attention: 128 heads of
+     q/k 128 + 64 and v 128, V zero-padded to 192 in the caches, so K4, K7
+     and K6 run at head dim 192; q_lora_rank 1536, yarn) 1 block through
+     ``main`` (default, ``--mse``, resumed); Moonlight-16B-A3B (a direct
+     q_proj, 64 experts in one group, 2 shared) 2 blocks through ``main``
+     and ``serve`` (contiguous bf16, paged ragged bf16); DeepSeek-V3's 4
+     first blocks from ``random_packed_llama`` (3 dense, then 256 experts
+     in 8 groups of which 4 are kept, top 8, a shared one) through
+     contiguous bf16/int8/int4, paged phased int8, paged ragged bf16 and
+     W4A8 engines, 8 x 16 new tokens, every first token through
+     ``judge_streamed`` and the first decode step replayed with the experts
+     a replay through the kernels chose and, under W4A8, its int8 codes at
+     rounding flips only (K1, K2, K5, K3, K8, K4, K7, K6, K9).
 
    The family paths' engines must repeat their greedy output and pass the
    near-tie rule against a plain bf16 forward over weights in K3's own
@@ -123,7 +136,8 @@ over it (``--profile-dir`` gives their device time and device ops).
    after an L2 flush (``Timer.__call__``).  K4, K6 and K7 are also timed
    past the paths' shapes: at S = 4096 and at Llama-3-8B's GQA head layout
    (8 kv heads under 32 q heads); and at Qwen2.5-7B's 7 and GLM-4-9B's 16
-   q heads a kv head.  K4, K7, K6 and K9 also run at head dim 256
+   q heads a kv head.  K4, K7, K6 and K9 also run at DeepSeek-V3's 128
+   heads of 192 and at head dim 256
    (Gemma-2-9B's 8 kv heads under 16, with a soft cap of 5 and without,
    as Gemma-3) and 96 (Phi-3-mini's 32 heads), and K4, K7 and K6 with
    GPT-OSS-20B's sinks and window and with Llama-4-Scout's chunk (K6 over
@@ -131,7 +145,9 @@ over it (``--profile-dir`` gives their device time and device ops).
    widths, K3 and K8 at Qwen2.5-7B's and Gemma-2-9B's, and at the experts'
    of Mixtral-8x7B (4096×14336, 14336×4096) and Qwen3-30B-A3B (2048×768,
    768×2048: two padding groups), and at GPT-OSS-20B's (g 64, C = 2880
-   packed to 3072) and Llama-4-Scout's linears.
+   packed to 3072), Llama-4-Scout's and DeepSeek-V3's (q_a, q_b, kv_a,
+   kv_b, o, an expert's gate and down), K1 and K2 at V3's o_proj (C =
+   16384).
    K2 and K5 also log their two kernels' device time (torch.profiler)
    and the tail product's rate, beside
    ``torch.mm`` over the same tail shapes, and K5 fed K2's own scales and
@@ -426,7 +442,8 @@ def phase_main_path(torch, work: Path) -> dict:
 
 def phase_hessian(torch, timer, launches) -> list:
     """K1 (bf16 X: the tensor-core kernel) at the main path's shape, at
-    all calibration tokens in one launch, and at the qwen2.5 path's D: within 1e-4 of max|H| of the plain
+    all calibration tokens in one launch, and at the qwen2.5 path's D and
+    DeepSeek-V3's o_proj D = 16384: within 1e-4 of max|H| of the plain
     version, H exactly symmetric from a non-zero symmetric H0, two launches
     bit-equal.  The library call is ``x.T @ x`` with an fp32 output in one
     call (``aten::mm.dtype``)."""
@@ -436,10 +453,12 @@ def phase_hessian(torch, timer, launches) -> list:
     # T = CALIB_BATCH·SEQLEN is the shape of every main-path launch (one per
     # calibration batch and stage); T = N_SEQ·SEQLEN, all calibration tokens
     # in one launch, is kept as a yardstick
-    # D = 3584 and 18944: the qwen2.5 path's stage inputs (Qwen2.5-7B)
+    # D = 3584 and 18944: the qwen2.5 path's stage inputs (Qwen2.5-7B); D =
+    # 16384: DeepSeek-V3's o_proj input (128 heads of v 128)
     for t, d in ((CALIB_BATCH * SEQLEN, 4096), (CALIB_BATCH * SEQLEN, 11008),
                  (N_SEQ * SEQLEN, 4096), (N_SEQ * SEQLEN, 11008),
-                 (CALIB_BATCH * SEQLEN, 3584), (CALIB_BATCH * SEQLEN, 18944)):
+                 (CALIB_BATCH * SEQLEN, 3584), (CALIB_BATCH * SEQLEN, 18944),
+                 (CALIB_BATCH * SEQLEN, 16384)):
         x = torch.randn((t, d), device="cuda", dtype=torch.bfloat16)
         h0 = torch.zeros((d, d), device="cuda")
         got = K.accumulate_hessian(h0.clone(), x)
@@ -530,7 +549,9 @@ def phase_gptq(torch, timer, launches) -> list:
 
     out = []
     g = 128
-    for label, c, r in (("q_proj", 4096, 4096), ("down_proj", 11008, 4096)):
+    # and DeepSeek-V3's o_proj (C = 16384, R = 7168)
+    for label, c, r in (("q_proj", 4096, 4096), ("down_proj", 11008, 4096),
+                        ("deepseek-v3 o_proj", 16384, 7168)):
         gen = torch.Generator(device="cuda").manual_seed(c)
         scales = torch.logspace(-0.5, 0.5, c, device="cuda")[
             torch.randperm(c, device="cuda", generator=gen)]
@@ -1231,21 +1252,51 @@ def phase_serve_paged(torch, work: Path) -> None:
 
 
 @contextlib.contextmanager
-def plain_w4a8():
+def plain_w4a8(snap=None):
     """Every W4A8 linear through K8's plain version for the block (the
-    replay the serve.w4a8 path is held against); uncounted."""
+    replay the serve.w4a8 path is held against); uncounted.
+
+    ``snap`` (the stored input rows of each W4A8 call a replay through the
+    kernels made, in call order: :func:`w4a8_inputs`) takes that replay's
+    int8 code at a rounding flip only: where the two codes part by one and
+    the two inputs by at most ``FLIP_ULPS`` bf16 ulp.  Every other code
+    stays the plain replay's own.  The dict yielded counts the code
+    positions (``codes``), the flips taken (``snapped``), the positions
+    whose codes part otherwise (``other``) and their largest input gap in
+    ulps (``gap``)."""
+    import torch
+
     from gptq_v2_tpu_torch.ops import w4a16 as K
 
     kernel = K.w4a8_matmul
+    stats = {"calls": 0, "codes": 0, "snapped": 0, "other": 0, "gap": 0.0}
 
     def plain(x, p):
-        xq, xs = K.quantize_activations_int8(K.stored_rows(x, p))
+        rows = K.stored_rows(x, p)
+        xq, xs = K.quantize_activations_int8(rows)
+        if snap is not None:
+            k_rows = snap[stats["calls"]]
+            kq = K.quantize_activations_int8(k_rows)[0]
+            a, b = rows.float(), k_rows.float()
+            ulp = torch.ldexp(torch.ones_like(a),
+                              torch.frexp(torch.maximum(a.abs(), b.abs())).exponent - 8)
+            gap = (a - b).abs() / ulp
+            part = xq != kq
+            flip = part & ((xq.int() - kq.int()).abs() == 1) & (gap <= FLIP_ULPS)
+            xq = torch.where(flip, kq, xq)
+            other = part & ~flip
+            stats["calls"] += 1
+            stats["codes"] += xq.numel()
+            stats["snapped"] += int(flip.sum())
+            stats["other"] += int(other.sum())
+            if bool(other.any()):
+                stats["gap"] = max(stats["gap"], float(gap[other].max()))
         return K.w4a8_reference(xq, xs, p).reshape(*x.shape[:-1], p.out_features)
 
     K.w4a8_matmul = plain
     try:
         with uncounted():
-            yield
+            yield stats
     finally:
         K.w4a8_matmul = kernel
 
@@ -1595,8 +1646,9 @@ def phase_attention(torch, timer, launches) -> list:
     a soft cap SDPA computes another function: no library time.  Also at
     S = 512: GPT-OSS-20B's heads (8 kv under 64 q of 64) with its window
     of 128 and sinks (no library time), and Llama-4-Scout's (8 under 40 of
-    128) with the chunk of 256 (SDPA over the chunk's keys); bounds count
-    the keys a slot sees.  Each
+    128) with the chunk of 256 (SDPA over the chunk's keys), and
+    DeepSeek-V3's 128 heads of 192; bounds count the keys a slot sees.
+    Each
     output is held against the plain version of the kernels' algebra
     (``contiguous_decode_attention_split_ref``); ``plain_ms`` is the JAX
     package's plain version (bf16 probabilities), whose distance is
@@ -1618,6 +1670,8 @@ def phase_attention(torch, timer, launches) -> list:
     # the smoke's chunk of 256 (the slot at S - 1 sees the last 256 keys)
     shapes += [(8, 64, 512, (512,), 64, None, dict(window=128, sinks=True)),
                (8, 40, 512, (512,), 128, None, dict(chunk=256))]
+    # DeepSeek-V3's exact latent attention: 128 heads of 192 (V zero-padded)
+    shapes += [(128, 128, 512, (512,), 192, None, {})]
     out = []
     for kind in ("bf16", "int8", "int4"):
         for hkv, hq, s_max, s_list, hd, cap, opts in shapes:
@@ -1806,7 +1860,9 @@ def phase_paged_attention(torch, timer, launches) -> list:
     {1, 8}, S = 512 for each cache kind, GPT-OSS-20B's heads with its
     window of 128 and sinks, and Llama-4-Scout's over block tables rebased
     to the chunk of 256 (``decode.chunk_tables``; K6 and its plain version
-    over the same rebased tables, the yardstick over the chunk's keys)."""
+    over the same rebased tables, the yardstick over the chunk's keys);
+    and DeepSeek-V3's 128 heads of 192, decode at B in {1, 8}, S = 512,
+    and the mixed tick, each cache kind."""
     from gptq_v2_tpu_torch.ops import paged_attention as K
 
     t0 = time.time()
@@ -1849,6 +1905,11 @@ def phase_paged_attention(torch, timer, launches) -> list:
                                        (40, 128, "chunk 256 (rebased tables)",
                                         {"chunk": 256}))
               for kind in ("bf16", "int8", "int4") for b in (1, 8)]
+    # DeepSeek-V3's 128 heads of 192: decode and the mixed tick
+    cases += [(f"decode {kind} B={b} S=512 Hkv=Hq=128 hd=192", kind, [(1, 512)] * b, 0, 128,
+               {}, 128, 192) for kind in ("bf16", "int8", "int4") for b in (1, 8)]
+    cases += [(f"mixed {kind}: 64-row chunk + 7 decode + 9 pad, Hkv=Hq=128 hd=192", kind,
+               mixed, 9, 128, {}, 128, 192) for kind in ("bf16", "int8", "int4")]
     out = []
     for seed, (label, kind, seqs, n_pad, hkv, kw, hq, hd) in enumerate(cases):
         c = paged_case(torch, kind, seqs, n_pad, hkv, hq, seed, hd)
@@ -1920,7 +1981,8 @@ def phase_paged_attention(torch, timer, launches) -> list:
 def phase_paged_write(torch, timer, launches) -> list:
     """K9 at the paged serve paths' shapes, 7B width (32 kv heads of 128,
     a 4-layer pool of 257 pages of 16; the decode write also at Gemma-2-9B's
-    8 kv heads of 256 and Phi-3-mini's 32 of 96): the fused write (``paged_write_kv``)
+    8 kv heads of 256, Phi-3-mini's 32 of 96 and DeepSeek-V3's 128 of 192):
+    the fused write (``paged_write_kv``)
     from bf16 K and a strided V view of a fused qkv output, bf16, int8
     (scalar and per-head scales) and int4 (per-head) pools, decode B=8
     through block tables and a 64-token flat write through ``(pages,
@@ -1935,9 +1997,10 @@ def phase_paged_write(torch, timer, launches) -> list:
     n_pages, ps = 257, 16
     forms = ((8, "decode B=8, block tables"), (64, "flat write T=64"))
     out = []
-    # 7B width in both forms; Gemma-2-9B's 8 kv heads of 256 and Phi-3-mini's
-    # 32 of 96 at decode
-    for hkv, hd, writes in ((32, 128, forms), (8, 256, forms[:1]), (32, 96, forms[:1])):
+    # 7B width in both forms; Gemma-2-9B's 8 kv heads of 256, Phi-3-mini's 32
+    # of 96 and DeepSeek-V3's 128 of 192 at decode
+    for hkv, hd, writes in ((32, 128, forms), (8, 256, forms[:1]), (32, 96, forms[:1]),
+                            (128, 192, forms[:1])):
         kw = hkv * hd
         for kind, (scales, bits) in (("bf16", (None, 0)), ("int8 scalar", ((0.031, 0.027), 0)),
                                      ("int8 per-head", ("h", 0)), ("int4 per-head", ("h", 4))):
@@ -2068,7 +2131,7 @@ def phase_paged_write(torch, timer, launches) -> list:
 
 # --- the dense families ------------------------------------------------------
 
-QWEN_DEPTH = 2  # of Qwen2.5-7B's 28 blocks
+QWEN_DEPTH = 1  # of Qwen2.5-7B's 28 blocks: the whole smoke within its time limit
 QWEN_ROWS = (1, 8, 1024)  # K3/K8 rows at its widths: decode batches, prefill
 # SmolLM3's layer 3 is NoPE; Gemma-3's published pattern is 5 sliding
 # layers (the local rope table), then a global one; the others run 1 block
@@ -2299,6 +2362,67 @@ def phase_qwen(torch, work: Path) -> dict:
     return {"layer0": layer0}
 
 
+@contextlib.contextmanager
+def deepseek_routes(force=None):
+    """Records the experts DeepSeek's router chooses in a forward (a mask
+    a call, in call order) into the list it yields; with ``force`` (such a
+    list) the router takes ``force``'s experts in place of its own top k,
+    weighted by its own scores (:func:`deepseek_weights`), and the list
+    yielded counts the (row, layer) pairs whose own choice differs."""
+    import torch
+
+    from gptq_v2_tpu_torch.models import llama as L
+
+    saved, got = L.moe_combine_deepseek, []
+
+    def call(cfg, router_w, router_bias, h):
+        comb = saved(cfg, router_w, router_bias, h)
+        if force is None:
+            got.append(comb > 0)
+            return comb
+        chosen = force[len(got)]
+        got.append(int(((comb > 0) != chosen).any(-1).sum()))
+        return deepseek_weights(cfg, torch.sigmoid((h @ router_w).float()), chosen)
+
+    L.moe_combine_deepseek = call
+    try:
+        yield got
+    finally:
+        L.moe_combine_deepseek = saved
+
+
+def deepseek_weights(cfg, scores, chosen):
+    """DeepSeek's expert weights for the experts ``chosen`` (a mask over
+    the sigmoid ``scores``): the chosen scores, renormalized (``+ 1e-20``)
+    and scaled, as ``moe_combine_deepseek`` weights its own top k."""
+    import torch
+
+    vals = torch.where(chosen, scores, torch.zeros_like(scores))
+    if cfg.moe_renorm:
+        vals = vals / (torch.sum(vals, dim=-1, keepdim=True) + 1e-20)
+    return vals * cfg.moe_routed_scale
+
+
+@contextlib.contextmanager
+def w4a8_inputs():
+    """Records the stored input rows of every W4A8 linear a forward calls
+    (``stored_rows``, which K8 quantizes), in call order, into the list it
+    yields."""
+    from gptq_v2_tpu_torch.ops import w4a16 as K
+
+    matmul, rows = K.w4a8_matmul, []
+
+    def recording(x, p):
+        rows.append(K.stored_rows(x, p))
+        return matmul(x, p)
+
+    K.w4a8_matmul = recording
+    try:
+        yield rows
+    finally:
+        K.w4a8_matmul = matmul
+
+
 def replay_first_step(torch, eng, prompts, out, tables, label: str) -> str:
     """The engine's first decode step again, over a copy of the cache its
     run left (request i in slot i, or in the pages ``tables[i]``; rows past
@@ -2307,7 +2431,18 @@ def replay_first_step(torch, eng, prompts, out, tables, label: str) -> str:
     p, turned into int8 codes by a W4A8 linear downstream, move the
     logits by a few percent of max|logit|) and
     K8's plain version for W4A8 weights: the engine's second token must be
-    the replay's argmax or a near-tie of it.  Returns a summary."""
+    the replay's argmax or a near-tie of it.
+
+    A DeepSeek (MLA) model is first replayed through the kernels
+    (uncounted), and the plain replay then takes from it only what a
+    rounding decides at DeepSeek-V3's width, where 256 experts nearly tie
+    and 4 random blocks magnify a swap or a flipped code past the rule:
+    the experts each router chose (:func:`deepseek_routes`; the weights
+    stay the plain router's, and the (row, layer) pairs where it would
+    choose otherwise are counted, at most ``ROUTE_SWAPS``), and under
+    W4A8 the int8 codes that part from its own by one where the two
+    inputs lie within ``FLIP_ULPS`` bf16 ulp (:func:`plain_w4a8`; at most
+    ``FLIP_SHARE`` of the code positions).  Returns a summary."""
     from gptq_v2_tpu_torch.serving import decode as D
     from gptq_v2_tpu_torch.serving import kv_cache as kvc
     from gptq_v2_tpu_torch.serving.engine import _bucket
@@ -2318,26 +2453,53 @@ def replay_first_step(torch, eng, prompts, out, tables, label: str) -> str:
     s_b = min(_bucket(max(len(p) for p in prompts) + 1, eng.page_size), eng.max_seq_len)
     bt = None
     if tables is not None:
-        cache = dataclasses.replace(eng.cache, kv=eng.cache.kv.clone())
         bt = torch.from_numpy(np.stack([tables[u] for u in uids])).to("cuda")
-    else:
-        cache = kvc.ContiguousKVCache(eng.cache.k.clone(), eng.cache.v.clone(),
-                                      eng.cache.k_scales, eng.cache.v_scales,
-                                      eng.cache.kv_bits)
-    with uncounted(), plain_attention(twin=True), plain_w4a8():
-        logits = D.decode_step(eng.model, first, cache, lens, s_b,
+
+    def cache_copy():
+        if tables is not None:
+            return dataclasses.replace(eng.cache, kv=eng.cache.kv.clone())
+        return kvc.ContiguousKVCache(eng.cache.k.clone(), eng.cache.v.clone(),
+                                     eng.cache.k_scales, eng.cache.v_scales,
+                                     eng.cache.kv_bits)
+
+    chosen = k_rows = None
+    if eng.model.cfg.mla:
+        with uncounted(), deepseek_routes() as chosen, w4a8_inputs() as k_rows:
+            D.decode_step(eng.model, first, cache_copy(), lens, s_b, block_tables=bt)
+    with (uncounted(), plain_attention(twin=True), plain_w4a8(k_rows) as flips,
+          deepseek_routes(chosen) if chosen is not None else contextlib.nullcontext([]) as swaps):
+        logits = D.decode_step(eng.model, first, cache_copy(), lens, s_b,
                                block_tables=bt)[0].float()
-    del cache
+    del k_rows
+    pairs = len(uids) * len(swaps)
+    if sum(swaps) > ROUTE_SWAPS * max(1, pairs):
+        raise RuntimeError(f"{label} replay: the plain replay's routers choose otherwise on "
+                           f"{sum(swaps)} of {pairs} (row, layer) pairs")
+    if flips["snapped"] > FLIP_SHARE * max(1, flips["codes"]):
+        raise RuntimeError(f"{label} replay: {flips['snapped']} of {flips['codes']} int8 "
+                           "activation codes flipped by a rounding")
     exact = 0
     for i, u in enumerate(uids):
         tok = out[u][1]
         exact += int(torch.argmax(logits[i])) == tok
         if not near_tie(logits[i], tok):
             raise RuntimeError(f"{label} request {u}: token {tok} disagrees with the plain "
-                               f"replay (argmax {int(torch.argmax(logits[i]))})")
+                               f"replay (argmax {int(torch.argmax(logits[i]))}, logit gap "
+                               f"{float(logits[i].max() - logits[i][tok]):.4g} of max|logit| "
+                               f"{float(logits[i].abs().max()):.4g})")
+    taken = []
+    if pairs:
+        taken.append(f"the kernels' experts, its own router choosing otherwise on "
+                     f"{sum(swaps)} of {pairs} (row, layer) pairs")
+    if flips["codes"]:
+        taken.append(f"the kernels' int8 code at {flips['snapped']} rounding flips of "
+                     f"{flips['codes']} codes (inputs within {FLIP_ULPS} bf16 ulp), "
+                     f"{flips['other']} codes parting otherwise kept"
+                     + (f" (inputs up to {flips['gap']:.4g} ulp apart)" if flips["other"]
+                        else ""))
     return (f"the first decode step replayed in plain torch (the attention kernels' algebra, "
-            f"K8's plain version) gives the engine's token on {exact}/{len(uids)}, near-ties "
-            f"on all")
+            f"K8's plain version" + "".join(f"; {t}" for t in taken)
+            + f") gives the engine's token on {exact}/{len(uids)}, near-ties on all")
 
 
 GEMMA_DEPTH = 2  # of Gemma-2-9B's 42 blocks: one sliding, one global
@@ -2556,6 +2718,16 @@ ROUTE_TIE = 0.1
 # the most (row, layer) pairs whose experts the kernels may choose otherwise
 # than the plain router (wrong linears would part most of them)
 ROUTE_SWAPS = 0.25
+# a W4A8 rounding flip in a DeepSeek replay: two int8 codes one apart from
+# inputs at most FLIP_ULPS bf16 ulp apart; at most FLIP_SHARE of the codes
+FLIP_ULPS, FLIP_SHARE = 1, 0.01
+# DeepSeek's group near-tie: the top-2 sigmoid score sums of the last kept
+# group and the next within this fraction (a score near 0.8 moves 0.16 a
+# unit of logit, so ROUTE_TIE's logit gap of ln(1 / 0.9) is about 1% of a
+# sum near 1.6)
+GROUP_TIE = 0.01
+# the fp32 stored weights of one layer judge_streamed keeps for all prompts
+STORED_BYTES = 16 << 30
 RAGGED = ["--cache-kind", "paged", "--scheduler", "ragged", "--token-budget", "64"]
 # (family, tag, the engines over its CLI checkpoint, --mse and resume too)
 MOE_CASES = (("mixtral", "mixtral", (("contiguous bf16", []),
@@ -2566,33 +2738,11 @@ MOE_CASES = (("mixtral", "mixtral", (("contiguous bf16", []),
 MOE_ROWS = ("mlp.experts.0.gate_proj", "mlp.experts.0.down_proj")
 
 
-def judge_streamed(torch, cfg, model, prompts, outs, label: str) -> str:
-    """The near-tie rule for each request's first new token against a plain
-    forward over ``model``'s own packed weights, streamed a layer at a time
-    (a Mixtral-8x7B's 32 blocks in bf16 would be 93 GB): a layer's W4A16
-    linears run K3's plain version (the fp32 product over stored rows,
-    ``w4a16_reference``, each linear's fp32 stored weight made once for
-    all prompts and freed after the layer; weights rounded to bf16 part
-    from K3 by enough to move a 32-block MoE's routes), W4A8 linears K8's.
-
-    A routing choice is discrete: K3's rounding against the plain bf16
-    product can swap two experts whose router probabilities nearly tie,
-    and the swap then moves everything after it (at 32 blocks nearly every
-    row has such a near-tie somewhere).  So beside the plain forward runs
-    the same prompt through the packed block on the kernels (uncounted),
-    and the plain forward takes that forward's experts a row; at most
-    :data:`ROUTE_SWAPS` of the (row, layer) pairs may differ from the
-    plain router's own top k — else the judge fails.  A first token
-    outside the near-tie rule passes only where the plain router had a
-    routing near-tie (:data:`ROUTE_TIE`) on that token's row in some layer;
-    those tokens, the pairs whose experts the kernels chose otherwise, the
-    largest probability gap below the k-th such a choice took and the
-    largest difference of a router logit between the two forwards are in
-    the summary.  Llama-4's router (the top k of the logits, sigmoid
-    scores) is forced the same way, its near-ties and gaps measured on the
-    softmax of its logits as Mixtral's (the same ranking; a tie is then a
-    logit gap within ln(1 / 0.9)).  Each layer attends with its window,
-    sinks, chunk, temperature and q/k L2 norm."""
+def judge_forwards(torch, cfg, model, prompts) -> dict:
+    """The two forwards :func:`judge_streamed` holds first tokens against,
+    over ``model`` and ``prompts``: the plain forward's last logits a
+    prompt (``rows``), the kernels' forward's (``k_rows``), the rows with
+    a routing near-tie (``ties``) and the routing statistics (``stats``)."""
     from gptq_v2_tpu_torch.models import llama as L
     from gptq_v2_tpu_torch.ops import w4a16 as K
     from gptq_v2_tpu_torch.ops.packing import PackedLinear
@@ -2602,7 +2752,7 @@ def judge_streamed(torch, cfg, model, prompts, outs, label: str) -> str:
         xq, xs = K.quantize_activations_int8(K.stored_rows(x, p))
         return K.w4a8_reference(xq, xs, p).reshape(*x.shape[:-1], p.out_features)
 
-    combines, route = (L.moe_combine, L.moe_combine_llama4), {}
+    combines, route = (L.moe_combine, L.moe_combine_llama4, L.moe_combine_deepseek), {}
     stats = {"swapped": 0, "gap": 0.0, "dz": 0.0}
 
     def router_logits(router_w, h, bias=None):
@@ -2619,10 +2769,15 @@ def judge_streamed(torch, cfg, model, prompts, outs, label: str) -> str:
         route["chosen"], route["logits"] = scores > 0, router_logits(router_w, h)
         return scores
 
-    def take(cfg_, logits):  # the plain forward: take its experts, check them
+    def recording_ds(cfg_, router_w, router_bias, h):
+        comb = combines[2](cfg_, router_w, router_bias, h)
+        route["chosen"], route["logits"] = comb > 0, router_logits(router_w, h)
+        return comb
+
+    def take(cfg_, logits, probs=None):  # the plain forward: take its experts, check them
         stats["dz"] = max(stats["dz"], float((logits - route["logits"]).abs().max()))
         chosen = route["chosen"]
-        probs = torch.softmax(logits, dim=-1)
+        probs = torch.softmax(logits, dim=-1) if probs is None else probs
         top = torch.topk(probs, cfg_.moe_top_k + 1, dim=-1).values
         kth = top[..., -2:-1]
         gap = torch.where(chosen, (kth - probs) / kth, torch.zeros_like(probs)).amax(-1)
@@ -2641,6 +2796,28 @@ def judge_streamed(torch, cfg, model, prompts, outs, label: str) -> str:
         chosen, _ = take(cfg_, logits)
         return torch.where(chosen, torch.sigmoid(logits), torch.zeros_like(logits))
 
+    def forced_ds(cfg_, router_w, router_bias, h):
+        logits = router_logits(router_w, h)
+        scores = torch.sigmoid(logits)
+        ng = cfg_.moe_n_group
+        kept, group_tie = torch.ones_like(scores, dtype=torch.bool), None
+        if ng > 1:  # the groups the plain router keeps, and near-ties at their edge
+            grp = (scores + router_bias.float()).reshape(*scores.shape[:-1], ng, -1)
+            sums = torch.topk(grp, 2, dim=-1).values.sum(-1)
+            order = torch.sort(sums, dim=-1, descending=True, stable=True)
+            keep = torch.zeros_like(sums, dtype=torch.bool).scatter(
+                -1, order.indices[..., :cfg_.moe_topk_group], True)
+            kept = keep.repeat_interleave(scores.shape[-1] // ng, dim=-1)
+            plain = torch.topk(scores.reshape(grp.shape), 2, dim=-1).values.sum(-1)
+            edge = torch.gather(plain, -1, order.indices[..., cfg_.moe_topk_group - 1:
+                                                         cfg_.moe_topk_group + 1])
+            group_tie = edge[..., 1] >= (1.0 - GROUP_TIE) * edge[..., 0]
+        masked = torch.where(kept, logits, torch.full_like(logits, -math.inf))
+        chosen, _ = take(cfg_, logits, torch.softmax(masked, dim=-1))
+        if group_tie is not None:
+            route["tie"] = route["tie"] | group_tie
+        return deepseek_weights(cfg_, scores, chosen)
+
     toks = [torch.tensor([p], device="cuda") for p in prompts]
     xs = [L.embed_lookup(cfg, model.embed_tokens, t) for t in toks]
     ks = [x.clone() for x in xs]  # the kernels' forward
@@ -2649,13 +2826,21 @@ def judge_streamed(torch, cfg, model, prompts, outs, label: str) -> str:
     try:
         with uncounted(), torch.no_grad():
             for li, lp in enumerate(model.layers):
-                stored = {n: K.stored_weight(w) for n, w in lp.items()
+                packed = {n: w for n, w in lp.items()
                           if isinstance(w, PackedLinear) and w.act_bits != 8}
+                keep = sum(4 * w.in_features_padded * w.out_features
+                           for w in packed.values()) <= STORED_BYTES
+                stored = {}
 
-                def lin(name, h, stored=stored):
+                def lin(name, h, packed=packed, stored=stored, keep=keep):
                     w, b = lp[name], lp.get(name + ".bias")
-                    if name in stored:  # K3's plain version, its weight made once
-                        y = (K.stored_rows(h, w).float() @ stored[name].T).to(h.dtype)
+                    if name in packed:  # K3's plain version, its weight made once if kept
+                        sw = stored.get(name)
+                        if sw is None:
+                            sw = K.stored_weight(w)
+                            if keep:
+                                stored[name] = sw
+                        y = (K.stored_rows(h, w).float() @ sw.T).to(h.dtype)
                         y = y.reshape(*h.shape[:-1], w.out_features)
                     else:
                         y = plain_a8(h, w) if isinstance(w, PackedLinear) else h @ w
@@ -2672,24 +2857,71 @@ def judge_streamed(torch, cfg, model, prompts, outs, label: str) -> str:
                                            sinks=lp.get("self_attn.sinks"), **kw), None
 
                     route.clear()
-                    L.moe_combine, L.moe_combine_llama4 = recording, recording4
+                    L.moe_combine, L.moe_combine_llama4, L.moe_combine_deepseek = (
+                        recording, recording4, recording_ds)
                     ks[i] = L.block_core(cfg, lp, ks[i], cos, sin,
                                          lambda name, h, lp=lp: _lin(lp, name, h), attn_fn,
                                          qk_l2)[0]
-                    L.moe_combine, L.moe_combine_llama4 = forced, forced4
+                    L.moe_combine, L.moe_combine_llama4, L.moe_combine_deepseek = (
+                        forced, forced4, forced_ds)
                     xs[i] = L.block_core(cfg, lp, xs[i], cos, sin, lin, attn_fn, qk_l2)[0]
                     if "tie" in route:
                         ties[i] |= route["tie"][0]
                 del stored
     finally:
-        L.moe_combine, L.moe_combine_llama4 = combines
+        L.moe_combine, L.moe_combine_llama4, L.moe_combine_deepseek = combines
+    rows = [head_logits(cfg, model.lm_head, L.final_norm(cfg, x, model.norm))[0, -1]
+            .float() for x in xs]
+    k_rows = [head_logits(cfg, model.lm_head, L.final_norm(cfg, x, model.norm))[0, -1]
+              .float() for x in ks]
+    return {"rows": rows, "k_rows": k_rows, "ties": ties, "stats": stats}
+
+
+def judge_streamed(torch, cfg, model, prompts, outs, label: str, forwards=None) -> str:
+    """The near-tie rule for each request's first new token against a plain
+    forward over ``model``'s own packed weights, streamed a layer at a time
+    (a Mixtral-8x7B's 32 blocks in bf16 would be 93 GB): a layer's W4A16
+    linears run K3's plain version (the fp32 product over stored rows,
+    ``w4a16_reference``, each linear's fp32 stored weight made once for
+    all prompts and freed after the layer, or made again for each prompt
+    where a layer's would pass ``STORED_BYTES``: DeepSeek-V3's 256
+    experts' are 45 GB; weights rounded to bf16 part from K3 by enough to
+    move a 32-block MoE's routes), W4A8 linears K8's.
+
+    A routing choice is discrete: K3's rounding against the plain bf16
+    product can swap two experts whose router probabilities nearly tie,
+    and the swap then moves everything after it (at 32 blocks nearly every
+    row has such a near-tie somewhere).  So beside the plain forward runs
+    the same prompt through the packed block on the kernels (uncounted),
+    and the plain forward takes that forward's experts a row; at most
+    :data:`ROUTE_SWAPS` of the (row, layer) pairs may differ from the
+    plain router's own top k — else the judge fails.  A first token
+    outside the near-tie rule passes only where the plain router had a
+    routing near-tie (:data:`ROUTE_TIE`) on that token's row in some layer;
+    those tokens, the pairs whose experts the kernels chose otherwise, the
+    largest probability gap below the k-th such a choice took and the
+    largest difference of a router logit between the two forwards are in
+    the summary.  Llama-4's router (the top k of the logits, sigmoid
+    scores) is forced the same way, its near-ties and gaps measured on the
+    softmax of its logits as Mixtral's (the same ranking; a tie is then a
+    logit gap within ln(1 / 0.9)).  DeepSeek's (sigmoid scores, the choice
+    group-limited) is forced the same way, its near-ties and gaps measured
+    on the softmax of its logits over the groups its plain router keeps
+    (the smoke's correction biases are all equal, so that is its ranking),
+    and a row whose last kept group nearly ties with the next (their top-2
+    score sums within ``GROUP_TIE``) counts as a routing near-tie too.
+    Each layer attends with its window, sinks, chunk, temperature and q/k
+    L2 norm.  ``forwards`` (:func:`judge_forwards` of ``model`` and
+    ``prompts``) lets the engines that share one packed model share its two
+    forwards (a DeepSeek model's engines do: they fuse no stages)."""
+    f = forwards or judge_forwards(torch, cfg, model, prompts)
+    rows, k_rows, ties, stats = f["rows"], f["k_rows"], f["ties"], f["stats"]
     exact = routed = same = 0
     for i, p in enumerate(prompts):
-        row = head_logits(cfg, model.lm_head, L.final_norm(cfg, xs[i], model.norm))[0, -1].float()
+        row = rows[i]
         tok = outs[i][0]
         exact += int(torch.argmax(row)) == tok
-        k_row = head_logits(cfg, model.lm_head, L.final_norm(cfg, ks[i], model.norm))[0, -1]
-        same += int(torch.argmax(k_row.float())) == tok
+        same += int(torch.argmax(k_rows[i])) == tok
         if near_tie(row, tok):
             continue
         gap = (f"argmax {int(torch.argmax(row))}, logit gap {float(row.max() - row[tok]):.4g} "
@@ -2878,32 +3110,36 @@ def mode_counts(n, want) -> str:
     return ", ".join(f"{k} {v}" for k, v in sorted(n.items()) if v)
 
 
-def serve_family(torch, tag: str, cfg, engines, prompts, make_engine, want) -> dict:
+def serve_family(torch, tag: str, cfg, engines, prompts, make_engine, want,
+                 new: int = NEW_TOKENS, shared=None) -> dict:
     """``engines`` (label, spec) through ``make_engine(spec)``: each run
-    twice (:func:`engine_runs`), its attention modes counted
-    (:func:`counted_modes`, every mode of ``want[label]`` required), its
-    first tokens judged by :func:`judge_streamed` and its first decode
-    step replayed (:func:`replay_first_step`).  Returns the first engine's
-    fused layer 0."""
-    layer0 = None
+    twice with ``new`` tokens a request (:func:`engine_runs`), its
+    attention modes counted (:func:`counted_modes`, every mode of
+    ``want[label]`` required), its first tokens judged by
+    :func:`judge_streamed` (over ``shared`` = (model, its
+    :func:`judge_forwards`) where the engine serves that model itself) and
+    its first decode step replayed (:func:`replay_first_step`).  Returns
+    the first engine's fused layers."""
+    layers = None
     for label, spec in engines:
         eng = make_engine(spec)
-        if layer0 is None:
-            layer0 = eng.model.layers[0]
+        if layers is None:
+            layers = eng.model.layers
         tables = record_tables(eng) if eng.block_tables is not None else None
         name = f"{tag} {label}"
         with counted_modes() as n:
-            out, _ = engine_runs(torch, eng, prompts, name, vocab=cfg.vocab_size)
+            out, _ = engine_runs(torch, eng, prompts, name, new=new, vocab=cfg.vocab_size)
         modes = mode_counts(n, want.get(label, ()))
         r = RATES[name]
-        verdict = (judge_streamed(torch, cfg, eng.model, prompts, out, name) + "; "
+        forwards = shared[1] if shared is not None and eng.model is shared[0] else None
+        verdict = (judge_streamed(torch, cfg, eng.model, prompts, out, name, forwards) + "; "
                    + replay_first_step(torch, eng, prompts, out, tables, name))
-        log(f"phase {name}: ok, {len(prompts)} requests x {NEW_TOKENS} new tokens, greedy "
+        log(f"phase {name}: ok, {len(prompts)} requests x {new} new tokens, greedy "
             f"output repeats, {r[0]:.1f} / {r[1]:.1f} tok/s on {SMI}; attention calls: "
             f"{modes}; {verdict}")
         del eng
         torch.cuda.empty_cache()
-    return layer0
+    return layers
 
 
 def phase_gptoss_llama4(torch, work: Path) -> dict:
@@ -2962,7 +3198,7 @@ def phase_gptoss_llama4(torch, work: Path) -> dict:
              "paged phased int8": ("K6 with sinks",), "paged ragged bf16": ("K6 with sinks",),
              "W4A8 contiguous bf16": ("K4 with sinks",)}
     layer0 = serve_family(torch, "gpt-oss", cfg, GPTOSS_ENGINES, prompts,
-                          lambda extra: build_engine(serve_args + extra), sinks)
+                          lambda extra: build_engine(serve_args + extra), sinks)[0]
     rows["gpt-oss "] = {n: layer0[n] for n in GPTOSS_ROWS}
     LOADED.clear()
     torch.cuda.empty_cache()
@@ -3020,9 +3256,116 @@ def phase_gptoss_llama4(torch, work: Path) -> dict:
                "W4A8 contiguous bf16": ("K4 with a chunk",)}
     layer0 = serve_family(torch, "llama-4-scout", cfg, SCOUT_ENGINES, prompts,
                           lambda kw: Engine(model, max_batch=len(prompts), max_seq_len=512,
-                                            **kw), chunked)
+                                            **kw), chunked)[0]
     rows["llama-4-scout "] = {n: layer0[n] for n in SCOUT_ROWS}
     del model
+    torch.cuda.empty_cache()
+    return {"rows": rows}
+
+
+# --- DeepSeek-V3 and Moonlight ------------------------------------------------
+
+# DeepSeek-V3: the CLI quantizes 1 of its 61 blocks (dense, q_lora, yarn);
+# the engines run 4 from random_packed_llama, its 3 dense blocks and its
+# first MoE one (256 experts; 11 GB on the card).  Moonlight-16B-A3B: the
+# CLI quantizes 2 of its 27 blocks, its dense block and its first MoE one
+DEEPSEEK_CLI_DEPTH, DEEPSEEK_DEPTH, MOONLIGHT_DEPTH = 1, 4, 2
+DEEPSEEK_NEW = 16  # new tokens a request
+DEEPSEEK_ENGINES = (("contiguous bf16", {}), ("contiguous int8", dict(kv_dtype="int8")),
+                    ("contiguous int4", dict(kv_dtype="int4")),
+                    ("paged phased int8", dict(cache_kind="paged", kv_dtype="int8")),
+                    ("paged ragged bf16", dict(cache_kind="paged", scheduler="ragged",
+                                               token_budget=64)),
+                    ("W4A8 contiguous bf16", dict(act_dtype="int8")))
+MOONLIGHT_ENGINES = (("contiguous bf16", []), ("paged ragged bf16", RAGGED))
+# the linears K3's and K8's rows are timed at: V3's first MoE block's
+# latent projections, o_proj and first expert
+DEEPSEEK_ROWS = ("self_attn.q_a_proj", "self_attn.q_b_proj", "self_attn.kv_a_proj_with_mqa",
+                 "self_attn.kv_b_proj", "self_attn.o_proj", "mlp.experts.0.gate_proj",
+                 "mlp.experts.0.down_proj")
+
+
+def phase_deepseek(torch, work: Path) -> dict:
+    """DeepSeek-V3 and Moonlight-16B-A3B at their published widths, on the
+    exact (non-absorbed) latent attention: 128 (Moonlight 16) heads of q/k
+    128 + 64 and v 128, V zero-padded to 192 in the caches, so K4, K7 and
+    K6 run at head dim 192 and K9 writes 128 x 192 rows; random weights
+    from seed 0 (V3 publishes FP8 blocks, which neither package reads).
+
+    DeepSeek-V3 (q_lora_rank 1536, kv_lora_rank 512, yarn factor 40):
+    the CLI path over DEEPSEEK_CLI_DEPTH block (dense: its first 3 are),
+    default, ``--mse`` and resumed.  Moonlight (a direct q_proj, 64
+    experts of width 1408 in one group, top 6, 2 shared experts): the CLI
+    path over MOONLIGHT_DEPTH blocks (a dense and a MoE one; its MoE
+    block's capture forwards logged), then ``serve`` engines over its
+    results, contiguous bf16 and paged ragged bf16.  Then V3 at
+    DEEPSEEK_DEPTH blocks from ``random_packed_llama`` (3 dense, then 256
+    experts of width 2048 in 8 groups of which 4 are kept, top 8, a shared
+    expert) through engines over contiguous bf16, int8 and int4, paged
+    phased int8 and paged ragged bf16 caches and the W4A8 tier,
+    DEEPSEEK_NEW new tokens a request.  Each engine runs twice; its first
+    tokens are judged by :func:`judge_streamed` and its first decode step
+    replayed.  Returns the linears K3's and K8's rows are timed at."""
+    from gptq_v2_tpu_torch.models import families
+    from gptq_v2_tpu_torch.serving import Engine
+    from gptq_v2_tpu_torch.serving import model as TM
+
+    rng = np.random.default_rng(12)
+    # --- DeepSeek-V3, the CLI
+    cfg = family_cfg("deepseek_v3", num_hidden_layers=DEEPSEEK_CLI_DEPTH)
+    log(f"deepseek-v3 path: {families.SOURCES['deepseek_v3']} widths (hidden "
+        f"{cfg.hidden_size}, {cfg.num_attention_heads} heads of q/k {cfg.qk_nope_head_dim} + "
+        f"{cfg.qk_rope_head_dim} and v {cfg.v_head_dim}, q_lora_rank {cfg.q_lora_rank}, "
+        f"kv_lora_rank {cfg.kv_lora_rank}, dense width {cfg.intermediate_size}, yarn factor "
+        f"{dict(cfg.rope_scaling)['factor']:g}, vocab {cfg.vocab_size}); depth cut to "
+        f"{DEEPSEEK_CLI_DEPTH} of 61 blocks for the CLI (a dense block), bf16 weights "
+        "(published FP8 blocks); random weights (seed 0)")
+    root = work / "deepseek_v3"
+    cli_quantize(torch, cfg, root, "deepseek-v3")
+    shutil.rmtree(root, ignore_errors=True)
+
+    # --- Moonlight-16B-A3B, the CLI and serve
+    cfg = family_cfg("moonlight", num_hidden_layers=MOONLIGHT_DEPTH)
+    log(f"moonlight path: {families.SOURCES['moonlight']} widths (hidden {cfg.hidden_size}, "
+        f"{cfg.num_attention_heads} heads of q/k {cfg.head_dim_} through a direct q_proj, "
+        f"{cfg.moe_num_experts} experts of width {cfg.moe_intermediate_} in one group, top "
+        f"{cfg.moe_top_k}, {cfg.moe_shared_experts} shared experts, vocab {cfg.vocab_size}); "
+        f"depth cut to {MOONLIGHT_DEPTH} of 27 blocks (a dense and a MoE block); random "
+        "weights (seed 0)")
+    root = work / "moonlight"
+    cli_quantize(torch, cfg, root, "moonlight", mse=False)
+    serve_args = ["--model-dir", str(root / "model"), "--results", str(root / "results.npz"),
+                  "--max-batch", str(len(PROMPT_LENS)), "--max-seq-len", "512"]
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).tolist() for n in PROMPT_LENS]
+    serve_family(torch, "moonlight", cfg, MOONLIGHT_ENGINES, prompts,
+                 lambda extra: build_engine(serve_args + extra), {}, new=DEEPSEEK_NEW)
+    LOADED.clear()
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # --- DeepSeek-V3, 4 blocks through the engines
+    cfg = family_cfg("deepseek_v3", num_hidden_layers=DEEPSEEK_DEPTH)
+    t0 = time.time()
+    model = TM.random_packed_llama(cfg, seed=0)
+    torch.cuda.synchronize()
+    moe = [cfg.layer_is_moe(i) for i in range(DEEPSEEK_DEPTH)]
+    log(f"deepseek-v3 engines: {DEEPSEEK_DEPTH} blocks (MoE {moe}; {cfg.moe_num_experts} "
+        f"experts of width "
+        f"{cfg.moe_intermediate_} in {cfg.moe_n_group} groups of which {cfg.moe_topk_group} "
+        f"are kept, top {cfg.moe_top_k}, {cfg.moe_shared_experts} shared) from "
+        f"random_packed_llama (seed 0) in {time.time() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).tolist() for n in PROMPT_LENS]
+    # one pair of judge forwards for the engines over the model itself (all
+    # but W4A8's): each remakes the fp32 weights of 256 experts a prompt
+    t0 = time.time()
+    shared = (model, judge_forwards(torch, cfg, model, prompts))
+    log(f"deepseek-v3 judge forwards, shared by the W4A16 engines: {time.time() - t0:.1f} s")
+    layers = serve_family(torch, "deepseek-v3", cfg, DEEPSEEK_ENGINES, prompts,
+                          lambda kw: Engine(model, max_batch=len(prompts), max_seq_len=512,
+                                            **kw), {}, new=DEEPSEEK_NEW, shared=shared)
+    rows = {"deepseek-v3 ": {n: layers[DEEPSEEK_DEPTH - 1][n] for n in DEEPSEEK_ROWS}}
+    del model, layers, shared
     torch.cuda.empty_cache()
     return {"rows": rows}
 
@@ -3114,6 +3457,9 @@ def main(argv=None) -> int:
              ("gpt-oss+llama-4", phase_gptoss_llama4,
               ("hessian", "gptq", "w4a16", "w4a8", "attention", "attention_p4",
                "paged_attention", "paged_write")),
+             ("deepseek", phase_deepseek,
+              ("hessian", "gptq", "gptq_step", "w4a16", "w4a8", "attention", "attention_p4",
+               "paged_attention", "paged_write")),
              ("families", phase_families, ("hessian", "gptq", "w4a16", "attention",
                                            "attention_p4")),
              ("window", phase_window, ("hessian", "gptq", "w4a16", "attention",
@@ -3148,7 +3494,7 @@ def main(argv=None) -> int:
                 main_out = result
             if name in ("qwen2.5", "gemma-2"):
                 wide[f"{name} "] = {n: result["layer0"][n] for n in FUSED}
-            if name in ("moe", "gpt-oss+llama-4"):
+            if name in ("moe", "gpt-oss+llama-4", "deepseek"):
                 wide.update(result["rows"])
             log(f"path {name}: {time.time() - t0:.1f} s, launches "
                 + ", ".join(f"{k} {v}" for k, v in counts[name].items()))

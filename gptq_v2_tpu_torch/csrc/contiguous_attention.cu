@@ -34,7 +34,8 @@
 //   (32 KB at hd 128) leave room for 5 blocks an SM, and at S = 4096 the
 //   partials (hd + 2 floats per q head and split) stay under 13% of the
 //   int4 rows' bytes.
-// * Head dims 64, 96, 128 and 256 (Llama, Phi-3-mini, Gemma).  The
+// * Head dims 64, 96, 128, 192 and 256 (Llama, Phi-3-mini, DeepSeek-V3's
+//   128 + 64, Gemma).  The
 //   split's K and V tiles are dynamic shared memory (split_attention.cuh):
 //   a bf16 pair at hd 256 is 65 KB, past the 48 KB a block may hold
 //   without opting in.  The 64-key split and its partials' layout are the
@@ -62,8 +63,8 @@
 //   m = max, p = exp(s - m) in fp32, l = Σ p.  p stays fp32 for PV.
 // * PV: each thread owns one d for all NH heads over the split's keys (two
 //   key halves added in order at hd 64; threads 96-127 idle at hd 96; two
-//   d's, t and t + 128, at hd 256), one element of V per lane, p as a
-//   broadcast.  The split writes (m, l, acc[hd]) per q head to the scratch
+//   d's, t and t + 128, at hd 256, and at hd 192 for threads 0-63), one
+//   element of V per lane, p as a broadcast.  The split writes (m, l, acc[hd]) per q head to the scratch
 //   the wrapper allocates.
 // * Merge: a second kernel in the same C call (no tickets, no atomics, so
 //   a launch is graph-capturable and bit-repeatable), one block per (slot,
@@ -210,6 +211,7 @@ int launch(const Args& a, int hd, cudaStream_t stream) {
     case 64: return static_cast<int>(launch_nh<MODE, 64>(a, stream));
     case 96: return static_cast<int>(launch_nh<MODE, 96>(a, stream));
     case 128: return static_cast<int>(launch_nh<MODE, 128>(a, stream));
+    case 192: return static_cast<int>(launch_nh<MODE, 192>(a, stream));
     case 256: return static_cast<int>(launch_nh<MODE, 256>(a, stream));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -266,7 +268,7 @@ extern "C" {
 // < s_used; sinks: (Hq,) fp32 or null; scratch: B·Hq·n_splits·(hd + 2)
 // fp32, n_splits = ceil(min(s_used, window, chunk) / 64) (refused
 // otherwise).  window/chunk 0 and soft_cap 0 switch those off.  hd must be
-// 64, 96, 128 or 256; any Hq/Hkv.  Two kernels on `stream`: the splits, then the
+// 64, 96, 128, 192 or 256; any Hq/Hkv.  Two kernels on `stream`: the splits, then the
 // merge.
 int contiguous_attention(const void* q, const void* k, const void* v, const int32_t* pos,
                          const float* sinks, void* out, void* scratch, int layer,

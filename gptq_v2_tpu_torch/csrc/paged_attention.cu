@@ -57,7 +57,8 @@
 //   hd 128, 128 for int8 and int4 pairs).  The whole split (up to 64 KB, at
 //   hd 256) is in flight at once; scores start when K has landed, while V
 //   is still in flight.
-// * Head dims 64, 96, 128 and 256 (Llama, Phi-3-mini, Gemma).  The
+// * Head dims 64, 96, 128, 192 and 256 (Llama, Phi-3-mini, DeepSeek-V3's
+//   128 + 64, Gemma).  The
 //   split's K and V tiles are dynamic shared memory (split_attention.cuh):
 //   a bf16 pair at hd 256 is 65 KB, past the 48 KB a block may hold
 //   without opting in.  The 64-key split and its partials' layout are the
@@ -72,8 +73,8 @@
 //   round it to the value dtype).
 // * PV: each thread owns one d for all NH heads over the split's keys (two
 //   key halves added in order at hd 64; threads 96-127 idle at hd 96; two
-//   d's, t and t + 128, at hd 256), one element of V per lane, p as a
-//   broadcast.  The split writes (m, l, acc[hd]) per q head to the scratch.
+//   d's, t and t + 128, at hd 256, and at hd 192 for threads 0-63), one
+//   element of V per lane, p as a broadcast.  The split writes (m, l, acc[hd]) per q head to the scratch.
 // * Merge: a second kernel in the same C call (no tickets, no atomics, so a
 //   launch is graph-capturable and bit-repeatable), one block per (row, q
 //   head), one thread per d: M = max over splits and the sink logit;
@@ -271,6 +272,7 @@ cudaError_t launch_hd(const Args& a, int n_rows, int rpr, int hd, cudaStream_t s
     case 64: return launch_nh<MODE, 64>(a, n_rows, rpr, stream);
     case 96: return launch_nh<MODE, 96>(a, n_rows, rpr, stream);
     case 128: return launch_nh<MODE, 128>(a, n_rows, rpr, stream);
+    case 192: return launch_nh<MODE, 192>(a, n_rows, rpr, stream);
     case 256: return launch_nh<MODE, 256>(a, n_rows, rpr, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -292,7 +294,7 @@ extern "C" {
 // Hkv (modes 0, 1) or Hkv/2 (mode 2), 16-byte aligned; kv_lens: (n_seqs,),
 // tables: (n_seqs, pages_per_seq), cu: (n_seqs + 1,), num_seqs: (1,), all
 // int32; sinks: (Hq,) fp32 or null.  qk_scale = sm_scale·k_scale; window 0
-// and soft_cap 0 switch those off.  hd must be 64, 96, 128 or 256; any
+// and soft_cap 0 switch those off.  hd must be 64, 96, 128, 192 or 256; any
 // Hq/Hkv.
 // n_splits must be ceil(min(pages_per_seq·page_size, window) /
 // 64); scratch holds rows_per_range·Hq·n_splits·(hd + 2) fp32, and

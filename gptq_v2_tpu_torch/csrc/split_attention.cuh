@@ -6,7 +6,7 @@
 // row; each stages the split's K and V rows into `tiles` and its q heads
 // into `qs`, then runs split_body.  A change here moves both.
 //
-// Head dims 64, 96, 128 and 256.  The K and V tiles are dynamic shared
+// Head dims 64, 96, 128, 192 and 256.  The K and V tiles are dynamic shared
 // memory at every head dim (Tile::BYTES a launch): at hd 256 a bf16 pair
 // takes 65 KB, past the 48 KB a block may hold without opting in, and at
 // int4 hd 256 the tiles with the static arrays pass it too, so every
@@ -16,7 +16,9 @@
 // registers for full occupancy and the hd-128 decode rows ran up to 22%
 // slower.  In PV a thread owns one d for all heads: two key halves added
 // in order at hd 64 (KG = 2), threads 96-127 idle at hd 96, two d's, t
-// and t + 128, at hd 256 (DPT = 2).
+// and t + 128, at hd 256 (DPT = 2), and at hd 192 (DeepSeek's 128 + 64)
+// the same two for threads 0-63, one for the rest: 192 is neither a
+// divisor nor a multiple of 128.
 
 #pragma once
 
@@ -105,14 +107,16 @@ __device__ __forceinline__ void load_elem(const unsigned char* p, float& lo, flo
 // then KPS V rows of ROW bytes; KG key groups and DPT dims a thread in PV
 template <int MODE, int HD>
 struct Tile {
-  static_assert(HD % 32 == 0 && (HD <= THREADS || HD % THREADS == 0), "head dim");
+  static_assert(HD % 32 == 0 && HD <= 2 * THREADS, "head dim");
   static constexpr int ROW = HD * (MODE == BF16 ? 2 : 1);  // bytes of one kv head's (pair's) row
   static constexpr int CPR = ROW / 16;                     // 16-byte chunks a row
   static constexpr int EPC = MODE == BF16 ? 8 : 16;        // d's a chunk
   static constexpr int KROW = ROW + 16;
   static constexpr int BYTES = KPS * (KROW + ROW);
   static constexpr int KG = HD < THREADS ? THREADS / HD : 1;   // 2 at hd 64, else 1
-  static constexpr int DPT = HD > THREADS ? HD / THREADS : 1;  // 2 at hd 256, else 1
+  static constexpr int DPT = HD > THREADS ? 2 : 1;  // 2 at hd 192 and 256, else 1
+  // hd 192: a thread's second d, t + 128, is past the row for t >= 64
+  static constexpr bool RAGGED_D = HD > THREADS && HD % THREADS != 0;
 };
 
 // blocks an SM holds by shared memory (228 KB, 1 KB reserved a block; the
@@ -225,12 +229,14 @@ __device__ __forceinline__ void split_body(const unsigned char* tiles, const flo
   cp_async_wait<0>();
   __syncthreads();
 
-  // PV: thread (d, key group) for every head, keys in order; at hd 256 a
-  // thread owns DPT = 2 dims, d and d + THREADS.  At hd 96 threads 96-127
-  // have key group 1, whose keys start at KPS: they sit out.
+  // PV: thread (d, key group) for every head, keys in order; at hd 192 and
+  // 256 a thread owns DPT = 2 dims, d and d + THREADS (at 192 only threads
+  // 0-63 own the second).  At hd 96 threads 96-127 have key group 1, whose
+  // keys start at KPS: they sit out.
   {
     const int d = t % HD, kg = t / HD;
     const int k_end = min(n, (kg + 1) * (KPS / KG));
+    const int n_d = T::RAGGED_D && d + THREADS >= HD ? 1 : DPT;  // dims this thread owns
     float acc[DPT][NH];
 #pragma unroll
     for (int u = 0; u < DPT; ++u)
@@ -239,6 +245,7 @@ __device__ __forceinline__ void split_body(const unsigned char* tiles, const flo
     for (int jj = kg * (KPS / KG); jj < k_end; ++jj) {
 #pragma unroll
       for (int u = 0; u < DPT; ++u) {
+        if (u >= n_d) break;
         float vlo, vhi = 0.0f;
         load_elem<MODE>(vs + jj * ROW + (d + u * THREADS) * (MODE == BF16 ? 2 : 1), vlo, vhi);
 #pragma unroll
@@ -259,9 +266,11 @@ __device__ __forceinline__ void split_body(const unsigned char* tiles, const flo
     }
     if (kg == 0) {
 #pragma unroll
-      for (int u = 0; u < DPT; ++u)
+      for (int u = 0; u < DPT; ++u) {
+        if (u >= n_d) break;
 #pragma unroll
         for (int i = 0; i < NH; ++i) part_acc[part(i) * HD + d + u * THREADS] = acc[u][i];
+      }
     }
   }
 }

@@ -3,13 +3,15 @@
 The JAX package derives stages by tracing the block into a jaxpr
 (``extract_dependencies``).  The port writes the block's dataflow down as
 data instead: for the dense Llama block ``[q,k,v] → [o] → [gate,up] →
-[down]`` (:data:`LLAMA_STAGES`), and for a sparse-MoE block the same
-attention stages, then per expert ``[gate, up]`` and ``[down]``, then
-Llama-4's shared expert's ``[gate, up]`` and ``[down]``
-(:func:`block_stages`).  The release sets come from the JAX package's
-release pass over that dataflow (:func:`_with_releases`); the tests hold
-both schedules equal to the JAX derivation.  Deriving the dataflow from
-the torch block (``torch.fx``) still waits, for DeepSeek's MLA block.
+[down]`` (:data:`LLAMA_STAGES`); for DeepSeek's latent attention ``[q_a,
+kv_a] → [q_b] → [kv_b] → [o]`` (without ``q_lora_rank``: ``[q, kv_a] →
+[kv_b] → [o]``); for a sparse-MoE block the attention stages, then per
+expert ``[gate, up]`` and ``[down]``, then the shared experts' ``[gate,
+up]`` and ``[down]`` (Llama-4's, DeepSeek's) (:func:`block_stages`).  The
+release sets come from the JAX package's release pass over that dataflow
+(:func:`_with_releases`); the tests hold every schedule equal to the JAX
+derivation.  Deriving the dataflow from the torch block (``torch.fx``)
+still waits.
 
 A stage is the linears sharing one Hessian (one captured input).
 ``release`` names the entities whose cached outputs are dead after the
@@ -35,6 +37,8 @@ class Stage(NamedTuple):
 _Q, _K, _V, _O = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
                   "self_attn.o_proj")
 _GATE, _UP, _DOWN = "mlp.gate_proj", "mlp.up_proj", "mlp.down_proj"
+_QA, _QB, _KVA, _KVB = ("self_attn.q_a_proj", "self_attn.q_b_proj",
+                        "self_attn.kv_a_proj_with_mqa", "self_attn.kv_b_proj")
 
 # the stages of a dense Llama block in order, ending with the OUTPUT sentinel
 LLAMA_STAGES: Tuple[Stage, ...] = (
@@ -47,13 +51,14 @@ LLAMA_STAGES: Tuple[Stage, ...] = (
 
 
 def _with_releases(stages: Sequence[Tuple[str, ...]],
-                   parents: Dict[str, FrozenSet[str]]) -> List[Stage]:
+                   parents: Dict[str, FrozenSet[str]],
+                   order: Sequence[str]) -> List[Stage]:
     """The release pass of JAX ``extract_dependencies``: an entity is
     released at the first stage by which every child of it has had its
     Hessian computed; the OUTPUT sentinel's children release last.
     ``parents`` maps each linear (and OUTPUT) to its nearest upstream
-    linears."""
-    order = [name for st in stages for name in st]
+    linears; ``order`` lists the linears as the forward runs them (JAX
+    lists a release set in that order: DeepSeek's q_b before kv_a)."""
     children: Dict[str, List[str]] = {INPUT: [], **{name: [] for name in order}}
     for child, ps in parents.items():
         for p in ps:
@@ -73,42 +78,65 @@ def _with_releases(stages: Sequence[Tuple[str, ...]],
     return out
 
 
+def _attention_dataflow(mla: bool, q_lora: bool):
+    """``(stages, parents, forward order)`` of a block's attention up to
+    ``o_proj``: q/k/v, or DeepSeek's latent projections (q through ``q_a``
+    → ``q_b`` or directly; ``kv_b`` reads ``kv_a``'s latent; attention
+    reads q, ``kv_b``'s k/v and ``kv_a``'s rope key)."""
+    inp = frozenset({INPUT})
+    if not mla:
+        return ([(_Q, _K, _V), (_O,)],
+                {_Q: inp, _K: inp, _V: inp, _O: frozenset({_Q, _K, _V})}, [_Q, _K, _V, _O])
+    if not q_lora:
+        return ([(_Q, _KVA), (_KVB,), (_O,)],
+                {_Q: inp, _KVA: inp, _KVB: frozenset({_KVA}), _O: frozenset({_Q, _KVA, _KVB})},
+                [_Q, _KVA, _KVB, _O])
+    return ([(_QA, _KVA), (_QB,), (_KVB,), (_O,)],
+            {_QA: inp, _KVA: inp, _QB: frozenset({_QA}), _KVB: frozenset({_KVA}),
+             _O: frozenset({_QB, _KVA, _KVB})}, [_QA, _QB, _KVA, _KVB, _O])
+
+
 @functools.lru_cache(maxsize=None)
-def _moe_stages(n_experts: int, masked_down: bool = True,
-                shared: bool = False) -> Tuple[Stage, ...]:
-    """A sparse-MoE block, once per layout.  The router reads the MLP
-    input, so an expert's gate/up input depends on the block input and
-    o_proj (Llama-4 scales it by the router score, the others mask it).
-    With ``masked_down`` (JAX ``moe_apply_dense``) the down input is masked
-    by the router too; Llama-4's (``moe_apply_llama4``) is the GLU of
-    gate and up alone.  ``shared`` adds Llama-4's shared expert after the
-    routed ones.  The block output depends on every down."""
+def _stages(mla: bool, q_lora: bool, n_experts: int, masked_down: bool = True,
+            shared: bool = False) -> Tuple[Stage, ...]:
+    """A block, once per layout: its attention (:func:`_attention_dataflow`),
+    then a dense MLP (``n_experts`` 0) or a sparse-MoE one.  The MLP input
+    depends on the block input and o_proj, and so does a MoE router: an
+    expert's gate/up input depends on both (Llama-4 scales it by the router
+    score, the others mask it).  With ``masked_down`` (JAX
+    ``moe_apply_dense``) the down input is masked by the router too;
+    Llama-4's (``moe_apply_llama4``) is the GLU of gate and up alone.
+    ``shared`` adds the shared experts (Llama-4's, DeepSeek's) after the
+    routed ones, their input unmasked.  The block output depends on its
+    input, o_proj and every down."""
+    stages, parents, order = _attention_dataflow(mla, q_lora)
     attn = frozenset({INPUT, _O})
-    stages = [(_Q, _K, _V), (_O,)]
-    parents: Dict[str, FrozenSet[str]] = {
-        **{n: frozenset({INPUT}) for n in (_Q, _K, _V)}, _O: frozenset({_Q, _K, _V})}
     downs = []
-    prefixes = [f"mlp.experts.{e}." for e in range(n_experts)]
-    for pre in prefixes + (["mlp.shared_experts."] if shared else []):
+    prefixes = ([f"mlp.experts.{e}." for e in range(n_experts)]
+                + (["mlp.shared_experts."] if shared else []) if n_experts else ["mlp."])
+    for pre in prefixes:
         gate, up, down = (pre + p for p in ("gate_proj", "up_proj", "down_proj"))
         stages += [(gate, up), (down,)]
-        masked = masked_down and pre != "mlp.shared_experts."
+        masked = masked_down and pre.startswith("mlp.experts.")
         parents.update({gate: attn, up: attn,
                         down: (attn if masked else frozenset()) | {gate, up}})
         downs.append(down)
+        order += [gate, up, down]
     parents[OUTPUT] = attn | set(downs)
-    return tuple(_with_releases(stages, parents))
+    return tuple(_with_releases(stages, parents, order))
 
 
 def block_stages(cfg, layer_idx: int) -> Tuple[Stage, ...]:
     """Layer ``layer_idx``'s stages, ending with the OUTPUT sentinel: a
-    dense layer's are :data:`LLAMA_STAGES`; a MoE layer's are the attention
-    stages, then each expert's ``[gate, up]`` and ``[down]`` in expert
-    order, then Llama-4's shared expert's (the router is not quantized)."""
-    if not cfg.layer_is_moe(layer_idx):
+    dense Llama layer's are :data:`LLAMA_STAGES`; a DeepSeek layer's start
+    with its latent projections; a MoE layer's MLP stages are each expert's
+    ``[gate, up]`` and ``[down]`` in expert order, then the shared
+    experts' (the router is not quantized)."""
+    moe = cfg.layer_is_moe(layer_idx)
+    if not (moe or cfg.mla):
         return LLAMA_STAGES
-    return _moe_stages(cfg.moe_num_experts, not cfg.moe_llama4,
-                       bool(cfg.moe_shared_experts))
+    return _stages(cfg.mla, bool(cfg.q_lora_rank), cfg.moe_num_experts if moe else 0,
+                   not cfg.moe_llama4, bool(cfg.moe_shared_experts))
 
 
 def stage_waves(stage_list: Sequence[Stage]) -> List[List[Stage]]:

@@ -13,7 +13,12 @@ publishes float32 weights.  Llama-4-Scout's file is the multimodal wrapper
 too; its text tower's NoPE pattern (every 4th layer) and chunked layers
 (every rope layer) are the ones HF ``Llama4TextConfig`` derives.  GPT-OSS
 publishes its experts as MXFP4 blocks (``quantization_config``), which
-neither package reads: its entry describes the bf16 layout.
+neither package reads: its entry describes the bf16 layout.  DeepSeek-V3
+publishes FP8 blocks (``quantization_config``, ``weight_scale_inv``),
+which neither package reads either: its entry describes the bf16 layout
+(HF's ``rope_interleave`` default, true, written out).  Moonlight-16B-A3B
+is a ``deepseek_v3``-typed model without ``q_lora_rank`` and with one
+expert group.
 """
 from __future__ import annotations
 
@@ -36,6 +41,8 @@ SOURCES = {
     "qwen3_moe": "Qwen/Qwen3-30B-A3B",
     "gpt_oss": "openai/gpt-oss-20b",
     "llama4": "meta-llama/Llama-4-Scout-17B-16E",
+    "deepseek_v3": "deepseek-ai/DeepSeek-V3",
+    "moonlight": "moonshotai/Moonlight-16B-A3B",
 }
 
 _PUBLISHED: Dict[str, dict] = {
@@ -141,6 +148,33 @@ _PUBLISHED: Dict[str, dict] = {
         rope_scaling={"rope_type": "llama3", "factor": 16.0, "low_freq_factor": 1.0,
                       "high_freq_factor": 1.0, "original_max_position_embeddings": 8192},
         rms_norm_eps=1e-5, tie_word_embeddings=False)),
+    "deepseek_v3": dict(model_type="deepseek_v3", vocab_size=129280, hidden_size=7168,
+                        intermediate_size=18432, moe_intermediate_size=2048,
+                        num_hidden_layers=61, num_attention_heads=128,
+                        num_key_value_heads=128, q_lora_rank=1536, kv_lora_rank=512,
+                        qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+                        n_routed_experts=256, n_shared_experts=1, num_experts_per_tok=8,
+                        n_group=8, topk_group=4, topk_method="noaux_tc",
+                        scoring_func="sigmoid", norm_topk_prob=True,
+                        routed_scaling_factor=2.5, first_k_dense_replace=3,
+                        moe_layer_freq=1, hidden_act="silu", attention_bias=False,
+                        max_position_embeddings=163840, rope_theta=10000,
+                        rope_scaling={"type": "yarn", "factor": 40, "beta_fast": 32,
+                                      "beta_slow": 1, "mscale": 1.0, "mscale_all_dim": 1.0,
+                                      "original_max_position_embeddings": 4096},
+                        rope_interleave=True, rms_norm_eps=1e-6, tie_word_embeddings=False,
+                        torch_dtype="bfloat16"),
+    "moonlight": dict(model_type="deepseek_v3", vocab_size=163840, hidden_size=2048,
+                      intermediate_size=11264, moe_intermediate_size=1408,
+                      num_hidden_layers=27, num_attention_heads=16, num_key_value_heads=16,
+                      q_lora_rank=None, kv_lora_rank=512, qk_nope_head_dim=128,
+                      qk_rope_head_dim=64, v_head_dim=128, n_routed_experts=64,
+                      n_shared_experts=2, num_experts_per_tok=6, n_group=1, topk_group=1,
+                      topk_method="noaux_tc", scoring_func="sigmoid", norm_topk_prob=True,
+                      routed_scaling_factor=2.446, first_k_dense_replace=1,
+                      moe_layer_freq=1, hidden_act="silu", attention_bias=False,
+                      max_position_embeddings=8192, rope_theta=50000.0, rope_scaling=None,
+                      rms_norm_eps=1e-5, tie_word_embeddings=False, torch_dtype="bfloat16"),
 }
 
 
@@ -151,7 +185,10 @@ def published(name: str, **overrides) -> dict:
     ``torch_dtype``; Llama-4's ``attention_chunk_size``).  SmolLM3's and
     Llama-4's NoPE patterns, Gemma-3's sliding pattern and Llama-4's chunked
     layers are written out for the published depth and then cut with it,
-    so a cut model keeps the published layers' kinds."""
+    so a cut model keeps the published layers' kinds.  DeepSeek's
+    ``first_k_dense_replace`` stays as published unless overridden: a
+    DeepSeek-V3 cut to 3 blocks or fewer is all dense, its 4th block its
+    first MoE one."""
     d = copy.deepcopy(_PUBLISHED[name])
     text = d.get("text_config", d)
     n = text["num_hidden_layers"]

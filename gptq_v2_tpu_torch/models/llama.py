@@ -14,7 +14,12 @@ masked-dense experts, as the JAX package computes them), GPT-OSS
 alternating sliding and full layers) and Llama-4 (chunked attention, NoPE
 layers with temperature tuning, a weightless q/k L2 norm on rope layers,
 sigmoid-scored top-k experts whose input the score scales, and a shared
-expert); ``linear``, ``llama3`` and ``yarn`` rope scaling.
+expert), and DeepSeek-V3 (multi-head latent attention in its exact form:
+q through a low-rank bottleneck or directly, k/v from a compressed latent
+with one rope key shared by every head, V zero-padded to the q/k head dim
+so the caches and attention kernels take it unchanged; a sigmoid router
+with a correction bias and group-limited choice, shared experts, dense
+first layers); ``linear``, ``llama3`` and ``yarn`` rope scaling.
 
 Parameters are a plain dict of tensors; linear weights are stored
 ``(in_features, out_features)`` so a projection is ``x @ W`` (plus the
@@ -23,10 +28,8 @@ module paths (``self_attn.q_proj`` …).  Numerics follow HF and the JAX
 package: RMSNorm in fp32 then cast, rotary tables in fp32 (float64 on the
 host for whole-sequence positions), attention scores and softmax in fp32.
 The decoder block exposes capture points at each linear's input for the
-quantization pipeline.
-
-DeepSeek-V3's MLA, the JAX package's other family, is not ported yet;
-:meth:`LlamaConfig.from_hf_dict` refuses it.
+quantization pipeline.  DeepSeek's absorbed MLA serving (a cache of the
+latent) is not ported: its models serve through the exact block.
 """
 from __future__ import annotations
 
@@ -45,10 +48,7 @@ Params = Dict[str, Any]
 # the model types from_hf_dict reads (JAX ``LlamaConfig.from_hf_dict``)
 FAMILIES = ("llama", "mistral", "qwen2", "qwen3", "glm4", "olmo2", "granite",
             "smollm3", "phi3", "gemma2", "gemma3_text", "mixtral", "qwen3_moe",
-            "gpt_oss", "llama4_text")
-# the JAX package's other family, refused until its slice is ported
-# (ROADMAP queue 1, item 10)
-_NOT_PORTED = ("deepseek_v3",)
+            "gpt_oss", "llama4_text", "deepseek_v3")
 # 2-D block params that are never quantized: the MoE router, a small (D, E)
 # classifier whose rounding would move routing decisions
 NON_QUANTIZED_LINEARS = ("mlp.router",)
@@ -121,8 +121,26 @@ class LlamaConfig:
     # layers with a dense MLP in a MoE model (Qwen3-MoE ``mlp_only_layers``
     # and ``decoder_sparse_step``)
     moe_dense_layers: Optional[Tuple[int, ...]] = None
-    # Llama-4: always-on shared experts beside the routed ones
+    # Llama-4, DeepSeek: always-on shared experts beside the routed ones
     moe_shared_experts: int = 0
+    # DeepSeek-V3 routing: sigmoid scores; the choice adds a correction bias
+    # and keeps the topk_group of n_group groups ranked by the sum of their
+    # top 2; the weights are the unbiased scores, renormalized, times
+    # routed_scaling_factor
+    moe_sigmoid_routing: bool = False
+    moe_n_group: int = 1
+    moe_topk_group: int = 1
+    moe_routed_scale: float = 1.0
+    # DeepSeek-V2/V3 multi-head latent attention: q through a low-rank
+    # bottleneck (q_a -> norm -> q_b; None = a direct q_proj), k/v from a
+    # compressed latent (kv_a_proj_with_mqa = [c_kv | rope key] -> norm ->
+    # kv_b); a head's q/k are [nope | rope], the rope key shared by every head
+    mla: bool = False
+    q_lora_rank: Optional[int] = None
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
     # GPT-OSS: a learned sink logit per q head joins each softmax
     attn_sinks: bool = False
     # GPT-OSS MoE: a biased router, per-expert biases, the clamped
@@ -151,12 +169,17 @@ class LlamaConfig:
 
     @property
     def head_dim_(self) -> int:
+        """The attention and cache head dim: MLA's [nope | rope] key width."""
+        if self.mla:
+            return self.qk_nope_head_dim + self.qk_rope_head_dim
         return self.head_dim or self.hidden_size // self.num_attention_heads
 
     @property
     def rope_dim_(self) -> int:
-        """Rotated dims a head (the rope tables' width): a GLM-4 prefix,
-        else the whole head."""
+        """Rotated dims a head (the rope tables' width): MLA's rope slice, a
+        GLM-4 prefix, else the whole head."""
+        if self.mla:
+            return self.qk_rope_head_dim
         return int(self.head_dim_ * self.partial_rotary_factor)
 
     @property
@@ -231,10 +254,6 @@ class LlamaConfig:
             return cls.from_hf_dict(inner)
         if model_type == "llama4":  # already the text tower
             model_type = "llama4_text"
-        if model_type in _NOT_PORTED:
-            raise NotImplementedError(
-                f"model_type {model_type!r} is not ported yet (ROADMAP queue 1, item 10: "
-                "DeepSeek-V2/V3's MLA)")
         if model_type not in FAMILIES:
             raise NotImplementedError(f"model_type {model_type!r}")
         if d.get("mlp_bias"):
@@ -294,6 +313,20 @@ class LlamaConfig:
             only = set(d.get("mlp_only_layers") or ())
             step = d.get("decoder_sparse_step", 1)
             moe_dense = tuple(i for i in range(n_layers) if i in only or (i + 1) % step) or None
+        mla = model_type == "deepseek_v3"
+        ds_moe = False
+        if mla:
+            if not d.get("rope_interleave", True):
+                raise NotImplementedError("deepseek_v3 with rope_interleave=False")
+            # its first first_k_dense_replace layers are dense; a depth cut
+            # inside them leaves a dense model
+            first_dense = d.get("first_k_dense_replace", 0)
+            ds_moe = bool(d.get("n_routed_experts")) and first_dense < n_layers
+            if ds_moe:
+                moe_experts, moe_top_k = d["n_routed_experts"], d["num_experts_per_tok"]
+                moe_inter = d.get("moe_intermediate_size")
+                moe_renorm = d.get("norm_topk_prob", True)
+                moe_dense = tuple(range(first_dense)) or None
         nope_layers = None
         if llama4 and d.get("no_rope_layers"):  # 1 = rope on, 0 = NoPE
             nope_layers = tuple(i for i, v in enumerate(d["no_rope_layers"]) if not v) or None
@@ -322,8 +355,10 @@ class LlamaConfig:
             intermediate_size=d["intermediate_size"],
             num_hidden_layers=n_layers,
             num_attention_heads=d["num_attention_heads"],
-            num_key_value_heads=d.get("num_key_value_heads",
-                                      d["num_attention_heads"]),
+            # MLA gives every head k/v of its own from the shared latent:
+            # DeepSeek's kv head count is vestigial, as many as q heads
+            num_key_value_heads=(d["num_attention_heads"] if mla else
+                                 d.get("num_key_value_heads", d["num_attention_heads"])),
             head_dim=d.get("head_dim"),
             max_position_embeddings=d.get("max_position_embeddings", 4096),
             rope_theta=d.get("rope_theta", 10000.0),
@@ -363,7 +398,17 @@ class LlamaConfig:
             moe_renorm=moe_renorm,
             moe_mixtral_names=model_type == "mixtral",
             moe_dense_layers=moe_dense,
-            moe_shared_experts=int(l4_moe),
+            moe_shared_experts=((d.get("n_shared_experts") or 0) if ds_moe else int(l4_moe)),
+            moe_sigmoid_routing=ds_moe,
+            moe_n_group=d.get("n_group", 1) if ds_moe else 1,
+            moe_topk_group=d.get("topk_group", 1) if ds_moe else 1,
+            moe_routed_scale=d.get("routed_scaling_factor", 1.0) if ds_moe else 1.0,
+            mla=mla,
+            q_lora_rank=d.get("q_lora_rank") if mla else None,
+            kv_lora_rank=d.get("kv_lora_rank", 512) if mla else 512,
+            qk_nope_head_dim=d.get("qk_nope_head_dim", 128) if mla else 128,
+            qk_rope_head_dim=d.get("qk_rope_head_dim", 64) if mla else 64,
+            v_head_dim=d.get("v_head_dim", 128) if mla else 128,
             attn_sinks=model_type == "gpt_oss",
             moe_gptoss=model_type == "gpt_oss",
             qk_l2_norm=llama4 and d.get("use_qk_norm", True),
@@ -452,6 +497,20 @@ class LlamaConfig:
                      decoder_sparse_step=1)
             if self.moe_intermediate_size is not None:
                 d["moe_intermediate_size"] = self.moe_intermediate_size
+        if mt == "deepseek_v3":
+            d.update(q_lora_rank=self.q_lora_rank, kv_lora_rank=self.kv_lora_rank,
+                     qk_nope_head_dim=self.qk_nope_head_dim,
+                     qk_rope_head_dim=self.qk_rope_head_dim, v_head_dim=self.v_head_dim,
+                     rope_interleave=True)
+            if self.moe_num_experts:
+                d.update(n_routed_experts=self.moe_num_experts,
+                         num_experts_per_tok=self.moe_top_k,
+                         moe_intermediate_size=self.moe_intermediate_size,
+                         norm_topk_prob=self.moe_renorm,
+                         first_k_dense_replace=len(self.moe_dense_layers or ()),
+                         n_group=self.moe_n_group, topk_group=self.moe_topk_group,
+                         routed_scaling_factor=self.moe_routed_scale,
+                         n_shared_experts=self.moe_shared_experts)
         return d
 
     @classmethod
@@ -485,11 +544,28 @@ def layer_param_shapes(cfg: LlamaConfig,
         "mlp.up_proj": (d, i),
         "mlp.down_proj": (i, d),
     }
+    if cfg.mla:  # DeepSeek's latent projections take q/k/v's place
+        assert nq == nkv, "MLA gives every q head its own k/v"
+        for n in ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"):
+            del shapes[n]
+        if cfg.q_lora_rank:
+            shapes["self_attn.q_a_proj"] = (d, cfg.q_lora_rank)
+            shapes["self_attn.q_a_layernorm"] = (cfg.q_lora_rank,)
+            shapes["self_attn.q_b_proj"] = (cfg.q_lora_rank, nq * hd)
+        else:
+            shapes["self_attn.q_proj"] = (d, nq * hd)
+        shapes["self_attn.kv_a_proj_with_mqa"] = (d, cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+        shapes["self_attn.kv_a_layernorm"] = (cfg.kv_lora_rank,)
+        shapes["self_attn.kv_b_proj"] = (cfg.kv_lora_rank,
+                                         nq * (cfg.qk_nope_head_dim + cfg.v_head_dim))
+        shapes["self_attn.o_proj"] = (nq * cfg.v_head_dim, d)
     if cfg.moe_num_experts and (layer_idx is None or cfg.layer_is_moe(layer_idx)):
         # the router and the experts take the dense MLP's place
         for n in ("mlp.gate_proj", "mlp.up_proj", "mlp.down_proj"):
             del shapes[n]
         shapes["mlp.router"] = (d, cfg.moe_num_experts)
+        if cfg.moe_sigmoid_routing:  # DeepSeek's correction bias
+            shapes["mlp.router_bias"] = (cfg.moe_num_experts,)
         if cfg.moe_gptoss:
             shapes["mlp.router.bias"] = (cfg.moe_num_experts,)
         mi = cfg.moe_intermediate_
@@ -501,7 +577,7 @@ def layer_param_shapes(cfg: LlamaConfig,
                 shapes[f"mlp.experts.{e}.gate_proj.bias"] = (mi,)
                 shapes[f"mlp.experts.{e}.up_proj.bias"] = (mi,)
                 shapes[f"mlp.experts.{e}.down_proj.bias"] = (d,)
-        if cfg.moe_shared_experts:  # Llama-4: beside the routed experts
+        if cfg.moe_shared_experts:  # Llama-4, DeepSeek: beside the routed experts
             si = mi * cfg.moe_shared_experts
             shapes["mlp.shared_experts.gate_proj"] = (d, si)
             shapes["mlp.shared_experts.up_proj"] = (d, si)
@@ -872,6 +948,31 @@ def moe_combine(cfg: LlamaConfig, router_w: torch.Tensor, h: torch.Tensor,
     return torch.zeros_like(probs).scatter(-1, idx, vals)
 
 
+def moe_combine_deepseek(cfg: LlamaConfig, router_w: torch.Tensor,
+                         router_bias: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """DeepSeek-V3's expert weights ``(B, N, E)`` in fp32 (JAX
+    ``moe_combine_deepseek``, HF ``DeepseekV3TopkRouter``): sigmoid scores
+    of the router logits; the choice adds the correction bias and, with
+    ``n_group`` > 1, keeps the ``topk_group`` groups whose two largest
+    biased scores sum highest (the others' scores zeroed); the weights are
+    the unbiased scores of the top k, renormalized (``+ 1e-20``) and times
+    ``routed_scaling_factor``.  Every top k is :func:`_top_k`'s (ties to
+    the lower index, as ``jax.lax.top_k``)."""
+    e, ng = cfg.moe_num_experts, cfg.moe_n_group
+    scores = torch.sigmoid((h @ router_w).float())
+    choice = scores + router_bias.float()
+    if ng > 1:
+        grp = choice.reshape(*choice.shape[:-1], ng, e // ng)
+        top2 = torch.sum(_top_k(grp, 2)[0], dim=-1)
+        keep = torch.zeros_like(top2).scatter(-1, _top_k(top2, cfg.moe_topk_group)[1], 1.0)
+        choice = torch.where(keep.repeat_interleave(e // ng, dim=-1) > 0, choice, 0.0)
+    idx = _top_k(choice, cfg.moe_top_k)[1]
+    vals = torch.gather(scores, -1, idx)
+    if cfg.moe_renorm:
+        vals = vals / (torch.sum(vals, dim=-1, keepdim=True) + 1e-20)
+    return torch.zeros_like(scores).scatter(-1, idx, vals * cfg.moe_routed_scale)
+
+
 def moe_combine_llama4(cfg: LlamaConfig, router_w: torch.Tensor,
                        h: torch.Tensor) -> torch.Tensor:
     """Llama-4's router scores ``(B, N, E)`` in fp32 (JAX
@@ -939,9 +1040,10 @@ def moe_apply_llama4(cfg: LlamaConfig, lin: Callable, h: torch.Tensor,
 def _mlp_tail(cfg: LlamaConfig, lp: Params, lin: Callable, h: torch.Tensor) -> torch.Tensor:
     """The block's MLP (JAX ``_mlp_tail``): the dense GLU (over the fused
     ``mlp.gate_up_proj`` where serving fused it), or, where ``lp`` holds
-    ``mlp.router``, the sparse-MoE block: Llama-4's score-scaled experts
-    or the softmax router's masked-dense ones, plus Llama-4's shared
-    expert."""
+    ``mlp.router``, the sparse-MoE block: Llama-4's score-scaled experts,
+    or masked-dense ones weighted by DeepSeek's sigmoid router or the
+    softmax router, plus Llama-4's or DeepSeek's shared experts (their
+    input unmasked)."""
     if "mlp.router" not in lp:
         if "mlp.gate_up_proj" in lp:
             gate, up = torch.chunk(lin("mlp.gate_up_proj", h), 2, dim=-1)
@@ -951,6 +1053,9 @@ def _mlp_tail(cfg: LlamaConfig, lp: Params, lin: Callable, h: torch.Tensor) -> t
         return lin("mlp.down_proj", activation(cfg)(gate) * up)
     if cfg.moe_llama4:
         mlp = moe_apply_llama4(cfg, lin, h, moe_combine_llama4(cfg, lp["mlp.router"], h))
+    elif cfg.moe_sigmoid_routing:
+        mlp = moe_apply_dense(cfg, lin, h, moe_combine_deepseek(
+            cfg, lp["mlp.router"], lp["mlp.router_bias"], h))
     else:
         mlp = moe_apply_dense(cfg, lin, h,
                               moe_combine(cfg, lp["mlp.router"], h, lp.get("mlp.router.bias")))
@@ -961,27 +1066,44 @@ def _mlp_tail(cfg: LlamaConfig, lp: Params, lin: Callable, h: torch.Tensor) -> t
     return mlp
 
 
-def block_core(cfg: LlamaConfig, lp: Params, x: torch.Tensor, cos, sin,
-               lin: Callable, attn_fn: Callable, qk_l2: Optional[bool] = None):
-    """The block skeleton shared by every forward path (dense, packed,
-    cache decode), with the family switches of the JAX ``block_core``:
-    q/k norms (Qwen3 and Gemma-3 per head, OLMo-2 flat), GLM-4's and
-    Gemma's sandwich norms (Gemma's with a unit offset), Gemma's GeGLU,
-    OLMo-2's post-norm-only block, Granite's residual multiplier, Llama-4's
-    q/k L2 norm after rope (``qk_l2``: this layer's, None =
-    ``cfg.qk_l2_norm``) and the sparse-MoE MLP of a layer whose ``lp``
-    holds ``mlp.router`` (:func:`_mlp_tail`).
-    ``lin(name, h)`` applies a linear and its bias (plain, packed,
-    capturing); ``attn_fn(q, k, v) -> (attn, aux)`` attends.  Consumes the
-    fused ``self_attn.qkv_proj`` / ``mlp.gate_up_proj`` names when present
-    (serving).  Returns ``(hidden, aux)``."""
-    b, n = x.shape[0], x.shape[1]
-    hd, uo = cfg.head_dim_, cfg.norm_unit_offset
+def _mla_attention(cfg: LlamaConfig, h: torch.Tensor, cos, sin, lin: Callable,
+                   norm: Callable, attn_fn: Callable):
+    """DeepSeek's multi-head latent attention in its exact form (the
+    attention of JAX ``_mla_attn_mlp``, HF ``DeepseekV3Attention``): q
+    through ``q_a`` → ``q_a_layernorm`` → ``q_b`` (or ``q_proj``);
+    ``kv_a_proj_with_mqa`` gives ``[c_kv | k_rope]``, ``kv_b`` of the
+    normed latent gives each head's ``[k_nope | v]``; rope on the rope
+    slice of q and on the one ``k_rope`` every head shares.  V is
+    zero-padded to the q/k head dim, so ``attn_fn`` and the caches take
+    MLA unchanged; the pad is cut before ``o_proj``.  The rope rows were
+    de-interleaved at load.  Returns ``(attn (B, N, H·v_head_dim), aux)``."""
+    b, n = h.shape[0], h.shape[1]
+    nope, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    if cfg.q_lora_rank:
+        q = lin("self_attn.q_b_proj",
+                norm(lin("self_attn.q_a_proj", h), "self_attn.q_a_layernorm"))
+    else:
+        q = lin("self_attn.q_proj", h)
+    q = q.reshape(b, n, -1, nope + rd)
+    nq = q.shape[2]
+    kv_a = lin("self_attn.kv_a_proj_with_mqa", h)
+    c_kv, k_rope = kv_a[..., :cfg.kv_lora_rank], kv_a[..., cfg.kv_lora_rank:]
+    kv = lin("self_attn.kv_b_proj", norm(c_kv, "self_attn.kv_a_layernorm"))
+    kv = kv.reshape(b, n, nq, nope + vd)
+    q = torch.cat([q[..., :nope], apply_rope(q[..., nope:], cos, sin)], dim=-1)
+    k_rot = apply_rope(k_rope[:, :, None, :], cos, sin)  # (B, N, 1, rd)
+    k = torch.cat([kv[..., :nope], k_rot.expand(b, n, nq, rd)], dim=-1)
+    v = torch.nn.functional.pad(kv[..., nope:], (0, nope + rd - vd))
+    attn, aux = attn_fn(q, k, v)
+    return attn[..., :vd].reshape(b, n, -1), aux
 
-    def norm(t, name):
-        return rms_norm(t, lp[name], cfg.rms_norm_eps, uo)
 
-    h = x if cfg.postnorm_only else norm(x, "input_layernorm")
+def _attention(cfg: LlamaConfig, lp: Params, h: torch.Tensor, cos, sin, lin: Callable,
+               norm: Callable, attn_fn: Callable, qk_l2: Optional[bool]):
+    """The Llama-family attention of :func:`block_core` up to ``o_proj``:
+    q/k/v (or the fused ``self_attn.qkv_proj``), the q/k norms, rope,
+    Llama-4's L2 norm.  Returns ``(attn (B, N, Hq·hd), aux)``."""
+    b, n, hd = h.shape[0], h.shape[1], cfg.head_dim_
     if "self_attn.qkv_proj" in lp:
         qkv = lin("self_attn.qkv_proj", h)
         groups = cfg.num_attention_heads // cfg.num_key_value_heads
@@ -1004,7 +1126,34 @@ def block_core(cfg: LlamaConfig, lp: Params, x: torch.Tensor, cos, sin,
     if cfg.qk_l2_norm if qk_l2 is None else qk_l2:  # Llama-4, after rope
         q, k = _l2_norm(q, cfg.rms_norm_eps), _l2_norm(k, cfg.rms_norm_eps)
     attn, aux = attn_fn(q, k, v.reshape(b, n, -1, hd))
-    o = lin("self_attn.o_proj", attn.reshape(b, n, -1))
+    return attn.reshape(b, n, -1), aux
+
+
+def block_core(cfg: LlamaConfig, lp: Params, x: torch.Tensor, cos, sin,
+               lin: Callable, attn_fn: Callable, qk_l2: Optional[bool] = None):
+    """The block skeleton shared by every forward path (dense, packed,
+    cache decode), with the family switches of the JAX ``block_core``:
+    q/k norms (Qwen3 and Gemma-3 per head, OLMo-2 flat), GLM-4's and
+    Gemma's sandwich norms (Gemma's with a unit offset), Gemma's GeGLU,
+    OLMo-2's post-norm-only block, Granite's residual multiplier, Llama-4's
+    q/k L2 norm after rope (``qk_l2``: this layer's, None =
+    ``cfg.qk_l2_norm``), DeepSeek's latent attention
+    (:func:`_mla_attention`) and the sparse-MoE MLP of a layer whose
+    ``lp`` holds ``mlp.router`` (:func:`_mlp_tail`).
+    ``lin(name, h)`` applies a linear and its bias (plain, packed,
+    capturing); ``attn_fn(q, k, v) -> (attn, aux)`` attends.  Consumes the
+    fused ``self_attn.qkv_proj`` / ``mlp.gate_up_proj`` names when present
+    (serving).  Returns ``(hidden, aux)``."""
+
+    def norm(t, name):
+        return rms_norm(t, lp[name], cfg.rms_norm_eps, cfg.norm_unit_offset)
+
+    h = x if cfg.postnorm_only else norm(x, "input_layernorm")
+    if cfg.mla:
+        attn, aux = _mla_attention(cfg, h, cos, sin, lin, norm, attn_fn)
+    else:
+        attn, aux = _attention(cfg, lp, h, cos, sin, lin, norm, attn_fn, qk_l2)
+    o = lin("self_attn.o_proj", attn)
     if cfg.sandwich_norms or cfg.postnorm_only:
         o = norm(o, "post_attention_layernorm")
     if cfg.residual_multiplier is not None:  # Granite

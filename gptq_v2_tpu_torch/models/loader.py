@@ -31,11 +31,17 @@ remaps, in HF layout (the JAX loader's):
   ``feed_forward.router``, the shared expert ``feed_forward.shared_expert``)
   and stacks its experts as ``feed_forward.experts.gate_up_proj`` ``(E, D,
   2I)``, ``[gate | up]`` halves, and ``down_proj`` ``(E, I, D)``.
+* DeepSeek-V3 names its router ``mlp.gate`` and the router's correction
+  bias ``mlp.gate.e_score_correction_bias`` (``mlp.router_bias`` in the
+  params); its shared experts are ``mlp.shared_experts.*``.
 * GLM-4 pairs each head's rotary dims even/odd, Llama-4 too over the whole
   head.  The rotary dims of every q/k head's out-features (weights and
   biases) are de-interleaved at load, a permutation that leaves ``q·k``
   (and Llama-4's L2 norm) unchanged, so the runtime keeps the
-  half-rotation.
+  half-rotation.  DeepSeek-V3 pairs them so too: each head's rope slice of
+  ``q_b_proj`` (or ``q_proj``) and the shared rope key's rows of
+  ``kv_a_proj_with_mqa`` (its last ``qk_rope_head_dim``) are
+  de-interleaved.
 
 :func:`save_hf_model` writes the inverse, a one-shard HF directory that
 :func:`load_hf_model` reads back to the same params.
@@ -67,7 +73,7 @@ def _hf_key(name: str, layer_idx) -> str:
         return {"embed_tokens": "model.embed_tokens.weight",
                 "norm": "model.norm.weight",
                 "lm_head": "lm_head.weight"}[name]
-    if name.endswith((".bias", ".sinks")):
+    if name.endswith((".bias", ".sinks", ".e_score_correction_bias")):
         return f"model.layers.{layer_idx}.{name}"
     return f"model.layers.{layer_idx}.{name}.weight"
 
@@ -89,6 +95,8 @@ def _hf_name(cfg: LlamaConfig, name: str) -> str:
         return _GLM_NORMS[name]
     if cfg.llama4_names and name.startswith("mlp."):
         return "feed_forward." + name[len("mlp."):].replace("shared_experts.", "shared_expert.")
+    if name == "mlp.router_bias":  # DeepSeek's correction bias
+        return "mlp.gate.e_score_correction_bias"
     if name == "mlp.router" and not cfg.moe_gptoss:
         return "block_sparse_moe.gate" if cfg.moe_mixtral_names else "mlp.gate"
     if cfg.moe_mixtral_names and name.startswith("mlp.experts."):
@@ -126,8 +134,26 @@ def rope_row_perm(cfg: LlamaConfig, n_heads: int) -> np.ndarray:
     return (np.arange(n_heads)[:, None] * hd + dim[None, :]).reshape(-1)
 
 
+def _mla_rope_rows(cfg: LlamaConfig, name: str):
+    """DeepSeek: the de-interleave row order of ``q_b_proj``/``q_proj``
+    (each head's rope slice after its nope dims) and of
+    ``kv_a_proj_with_mqa`` (the rope key after the latent), else None."""
+    rd, nope = cfg.qk_rope_head_dim, cfg.qk_nope_head_dim
+    deint = np.concatenate([np.arange(0, rd, 2), np.arange(1, rd, 2)])
+    if name in ("self_attn.q_b_proj", "self_attn.q_proj"):
+        dim = np.concatenate([np.arange(nope), nope + deint])
+        return (np.arange(cfg.num_attention_heads)[:, None] * (nope + rd)
+                + dim[None, :]).reshape(-1)
+    if name == "self_attn.kv_a_proj_with_mqa":
+        kl = cfg.kv_lora_rank
+        return np.concatenate([np.arange(kl), kl + deint])
+    return None
+
+
 def _rope_rows(cfg: LlamaConfig, name: str):
     """The de-interleave row order for a q/k weight or bias, else None."""
+    if cfg.mla:
+        return _mla_rope_rows(cfg, name)
     if not cfg.rope_interleaved:
         return None
     base = name[:-len(".bias")] if name.endswith(".bias") else name

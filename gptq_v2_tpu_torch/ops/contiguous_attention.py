@@ -47,7 +47,7 @@ _SIGNATURES = {
     "contiguous_attention": _ARGS + [ctypes.c_int] + _TAIL,  # + int8
     "contiguous_attention_p4": _ARGS + _TAIL,
 }
-HEAD_DIMS = (64, 96, 128, 256)  # the kernels' dispatch (Phi-3-mini 96, Gemma 256)
+HEAD_DIMS = (64, 96, 128, 192, 256)  # the kernels' dispatch (Phi-3-mini 96, DeepSeek 192, Gemma 256)
 KEYS_PER_SPLIT = 64  # the kernels' split (csrc KPS); the C entries refuse another count
 
 

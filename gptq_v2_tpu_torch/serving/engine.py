@@ -107,7 +107,8 @@ class Engine:
 
         q/k/v and gate/up are fused into one packed linear each and down's
         act-order perm is folded into gate/up (outputs unchanged; one
-        activation gather and one kernel launch per stage).  ``page_size``
+        activation gather and one kernel launch per stage; a DeepSeek
+        model's linears stay as they are, as in the JAX package).  ``page_size``
         rounds ``max_seq_len``, is the smallest context bucket and the page
         size of the paged cache; its pool has ``n_pages`` pages (default
         ``1 + max_batch · max_seq_len / page_size``: page 0 plus every

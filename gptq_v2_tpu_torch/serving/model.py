@@ -178,7 +178,10 @@ def fold_down_perm_layer(lp: Dict[str, Any]) -> Dict[str, Any]:
 
 def fuse_stage_linears(model: PackedLlama) -> PackedLlama:
     """Apply :func:`fuse_layer_dict` then :func:`fold_down_perm_layer` to
-    every layer (the engine's default transform)."""
+    every layer (the engine's default transform); a DeepSeek (MLA) model
+    is left as it is, as the JAX package leaves it."""
+    if model.cfg.mla:
+        return model
     layers = tuple(fold_down_perm_layer(fuse_layer_dict(lp)) for lp in model.layers)
     return dataclasses.replace(model, layers=layers)
 
@@ -247,10 +250,16 @@ STAGE_MATES = (("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"),
 
 
 def stage_mates(shapes: Dict[str, Tuple[int, ...]]) -> List[Tuple[str, ...]]:
-    """A layer's stage-mates: :data:`STAGE_MATES` where the layer has them,
-    each expert's gate/up and Llama-4's shared expert's."""
-    mates = [m for m in STAGE_MATES + (("mlp.shared_experts.gate_proj",
-                                        "mlp.shared_experts.up_proj"),) if m[0] in shapes]
+    """A layer's stage-mates: :data:`STAGE_MATES` where the layer has them
+    (DeepSeek's q_a or q with kv_a in their place), each expert's gate/up
+    and the shared experts'."""
+    attn = STAGE_MATES[0]
+    if "self_attn.kv_a_proj_with_mqa" in shapes:
+        attn = ("self_attn.q_a_proj" if "self_attn.q_a_proj" in shapes else "self_attn.q_proj",
+                "self_attn.kv_a_proj_with_mqa")
+    mates = [m for m in (attn,) + STAGE_MATES[1:] + (("mlp.shared_experts.gate_proj",
+                                                       "mlp.shared_experts.up_proj"),)
+             if m[0] in shapes]
     e = 0
     while f"mlp.experts.{e}.gate_proj" in shapes:
         mates.append((f"mlp.experts.{e}.gate_proj", f"mlp.experts.{e}.up_proj"))
@@ -270,9 +279,10 @@ def random_packed_llama(cfg: L.LlamaConfig, group_size: int = 128, seed: int = 0
     ones, or zeros where the family stores them with a unit offset.  A MoE
     layer's router stays dense bf16 and each expert's gate/up share a perm
     (so do Llama-4's shared expert's); a model's dense layers (Qwen3-MoE's
-    ``mlp_only_layers``, Llama-4's at their own width) keep their dense MLP.
-    Every 1-D param is drawn as a norm: GPT-OSS's sinks and its router and
-    expert biases are ones, as the JAX package makes them."""
+    ``mlp_only_layers``, Llama-4's at their own width, DeepSeek's first
+    ones) keep their dense MLP.  Every 1-D param is drawn as a norm:
+    GPT-OSS's sinks and its router and expert biases, and DeepSeek's
+    router correction bias, are ones, as the JAX package makes them."""
     g = group_size
     gen = torch.Generator(device=device).manual_seed(seed)
 

@@ -1364,19 +1364,22 @@ def test_attention_graph_replay_at_groups_7(dev, kind):
 
 def _group_outputs(groups_list=(1, 2, 4, 8)):
     """Fixed seeded K4/K7/K6 inputs and outputs at ``groups_list`` (CPU
-    tensors), for the bit-equality check against another tree's kernels."""
+    tensors), at head dims 64, 96, 128 and 256, for the bit-equality check
+    against another tree's kernels."""
     dev = torch.device("cuda")
     outs = {}
     for kind in ("bf16", "int8", "int4"):
         fn, _, _ = _attn_fns(kind)
         for groups in groups_list:
-            k, v, ks = _cache(kind, 1, 4, 700, 4, 128, seed=groups, dev=dev)
-            gen = torch.Generator(dev).manual_seed(groups)
-            q = (torch.randn((4, 4 * groups, 128), device=dev, generator=gen) * ks).to(
-                torch.bfloat16)
-            pos = torch.tensor([0, 699, 333, 64], device=dev)
-            outs[f"k4 {kind} {groups}"] = fn(q, k, v, pos, 0, s_bucket=700, window=300)
-            for hd in (64, 128):
+            for hd in (64, 96, 128, 256):
+                k, v, ks = _cache(kind, 1, 4, 700, 4, hd, seed=groups, dev=dev)
+                gen = torch.Generator(dev).manual_seed(groups)
+                q = (torch.randn((4, 4 * groups, hd), device=dev, generator=gen) * ks).to(
+                    torch.bfloat16)
+                pos = torch.tensor([0, 699, 333, 64], device=dev)
+                key = f"k4 {kind} {groups}" + ("" if hd == 128 else f" {hd}")
+                outs[key] = fn(q, k, v, pos, 0, s_bucket=700, window=300)
+            for hd in (64, 96, 128, 256):
                 args, kw = _ragged_call(kind, ((1, 300), (40, 100), (1, 9)), 24, groups,
                                         seed=groups, dev=dev, n_pad=5, hd=hd)
                 outs[f"k6 {kind} {groups} {hd}"] = pa.paged_ragged_attention(
@@ -1386,10 +1389,11 @@ def _group_outputs(groups_list=(1, 2, 4, 8)):
 
 
 def test_attention_bit_equal_to_parent_tree(dev, tmp_path):
-    """At 1, 2, 4 and 8 q heads a kv head, K4/K7 and K6 give the bits of
-    another checkout's kernels (the tree before every group count ran),
-    given as ``ATTN_PARENT_TREE``: the same seeded inputs go through that
-    tree's port in a subprocess.  Skips when no tree is given."""
+    """At 1, 2, 4 and 8 q heads a kv head and head dims 64 to 256, K4/K7 and
+    K6 give the bits of another checkout's kernels (the tree before head
+    dim 192 ran), given as ``ATTN_PARENT_TREE``: the same seeded inputs go
+    through that tree's port in a subprocess.  Skips when no tree is
+    given."""
     import os
     import subprocess
     import sys
@@ -1508,22 +1512,23 @@ def test_attention_graph_replay_at_head_dim_256(dev, kind):
         assert torch.equal(captured, first)
 
 
-@pytest.mark.parametrize("hd", [96, 256])
 @pytest.mark.parametrize("form", ["flat", "table"])
 @pytest.mark.parametrize("store", ["bf16", "int8", "int8_per_head", "int4", "int4_mixed"])
-def test_paged_write_kv_at_head_dims(dev, store, form, hd, monkeypatch):
-    """K9's fused write at head dims 96 and 256, bit-equal to its plain
-    version, one launch a write, as ``test_paged_write_kv_kernel``."""
-    monkeypatch.setitem(globals(), "K9_HD", hd)
-    pool, k, v, ks, vs, bits, target, (pad_k, pad_v) = _k9_case(store, 8, form, torch.int32,
-                                                                dev)
-    assert k.shape[-1] == hd
-    ref = pw.paged_write_kv_reference(pool.clone(), 1, k, v, ks, vs, bits, **target)
-    n = pw.paged_write_kv.launches
-    out = pw.paged_write_kv(pool.clone(), 1, k, v, ks, vs, bits, **target)
-    torch.cuda.synchronize()
-    assert pw.paged_write_kv.launches == n + 1
-    _k9_check_trash(out, ref, pad_k, pad_v, ks, vs, bits)
+def test_paged_write_kv_at_head_dims(dev, store, form, monkeypatch):
+    """K9's fused write at head dims 96, 192 (DeepSeek's 128 + 64) and 256,
+    bit-equal to its plain version, one launch a write, as
+    ``test_paged_write_kv_kernel``."""
+    for hd in (96, 192, 256):
+        monkeypatch.setitem(globals(), "K9_HD", hd)
+        pool, k, v, ks, vs, bits, target, (pad_k, pad_v) = _k9_case(store, 8, form,
+                                                                    torch.int32, dev)
+        assert k.shape[-1] == hd
+        ref = pw.paged_write_kv_reference(pool.clone(), 1, k, v, ks, vs, bits, **target)
+        n = pw.paged_write_kv.launches
+        out = pw.paged_write_kv(pool.clone(), 1, k, v, ks, vs, bits, **target)
+        torch.cuda.synchronize()
+        assert pw.paged_write_kv.launches == n + 1
+        _k9_check_trash(out, ref, pad_k, pad_v, ks, vs, bits)
 
 
 # --- the sparse-MoE families' shapes ------------------------------------------
@@ -1797,3 +1802,142 @@ def test_gpt_oss_and_llama4_on_the_card(dev, monkeypatch):
             _check_dequant_matmul_rows_equal_at_gpt_oss_width(dev, kernel, r)
     for model_type in ("gpt_oss", "llama4_text"):
         _check_moe_layers_through_block_core(dev, model_type, monkeypatch)
+
+
+# --- DeepSeek-V3: head dim 192 and the latent attention's widths ---------------
+
+
+def _check_attention_kernels_at_head_dim_192(dev, kind):
+    """K4 (bf16, int8), K7 (int4 pairs) and K6 at head dim 192 (DeepSeek's
+    128 + 64: the split tile's second dim a thread for threads 0-63 only),
+    one q head a kv head as MLA has it (and 2 a kv head), V's last 64 dims
+    zero as the padded V is: the contiguous kernels over S = 300 at slots
+    0, 63, 64, 299 and 150, K6 over a ragged mix, plain and with window,
+    soft cap 5 and sinks, each against its plain version and the split
+    twin (1e-2 of the largest output, pad rows zero); two launches
+    bit-equal and a CUDA-graph replay equal to the eager call."""
+    hd, b, s = 192, 5, 300
+    for n_kv, groups in ((4, 1), (2, 2)):
+        hq = n_kv * groups
+        k, v, ks = _cache(kind, 1, b, s, n_kv, hd, seed=192 + groups, dev=dev)
+        v[..., 128:] = 0
+        rng = np.random.default_rng(193 + groups)
+        q = (torch.from_numpy(rng.standard_normal((b, hq, hd)).astype(np.float32)) * ks
+             ).to(dev, torch.bfloat16)
+        pos = torch.tensor([0, 63, 64, 299, 150], device=dev)
+        fn, plain, bits = _attn_fns(kind)
+        for opts in HD_OPTS.values():
+            kw = dict(opts, s_bucket=s, sm_scale=hd ** -0.5)
+            if kw.pop("sinks", False):
+                kw["sinks"] = torch.from_numpy(rng.standard_normal(hq).astype(np.float32)
+                                               ).to(dev)
+            n = fn.launches
+            out = fn(q, k, v, pos, 0, **kw)
+            torch.cuda.synchronize()
+            assert fn.launches == n + 1 and out.shape == q.shape
+            ref = plain(q, k, v, pos, 0, **kw).float()
+            twin = ca.contiguous_decode_attention_split_ref(q, k, v, pos, 0, **kw,
+                                                            kv_bits=bits).float()
+            tol = 1e-2 * float(ref.abs().max())
+            torch.testing.assert_close(out.float(), ref, rtol=0, atol=tol)
+            torch.testing.assert_close(out.float(), twin, rtol=0, atol=tol)
+            args, pkw = _ragged_call(kind, ((1, 300), (40, 100), (1, 9)), 24, groups,
+                                     seed=194 + groups, dev=dev, n_pad=5, n_kv=n_kv, hd=hd)
+            o = dict(opts)
+            if "window" in o:
+                o["sliding_window"] = o.pop("window")
+            pkw = _sinks(dict(pkw, **o), hq, hd, dev)
+            n = pa.paged_ragged_attention.launches
+            pout = pa.paged_ragged_attention(*args, **pkw).float()
+            torch.cuda.synchronize()
+            assert pa.paged_ragged_attention.launches == n + 1
+            ref = pa.paged_ragged_attention_reference(*args, **pkw).float()
+            twin = pa.paged_ragged_attention_split_ref(*args, **pkw).float()
+            tol = 1e-2 * float(ref.abs().max())
+            torch.testing.assert_close(pout, ref, rtol=0, atol=tol)
+            torch.testing.assert_close(pout, twin, rtol=0, atol=tol)
+            assert not pout[int(args[4][-1]):].any()
+        calls = [lambda: fn(q, k, v, pos, 0, s_bucket=s, window=200, soft_cap=5.0),
+                 lambda: pa.paged_ragged_attention(*args, **pkw)]
+        for call in calls:
+            first, second = call(), call()
+            torch.cuda.synchronize()
+            assert torch.equal(first, second)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = call()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(captured, first)
+
+
+def _check_dequant_matmul_at_latent_widths(dev):
+    """K3 and K8 (bf16, g 128, act-order: the tensor-core routes) at the
+    latent attention's narrow sides, scaled down: ``kv_a`` (C 1024 -> R 576,
+    kv_lora_rank 512 + rope 64) and ``kv_b`` (C 512, 4 groups padded to 8,
+    -> R 1024) against their plain versions at M = 1, 8 and 64, and rows
+    of a call at M = 1 or 64 equal to the same rows at M = 8."""
+    for c, r in ((1024, 576), (512, 1024)):
+        for kernel in ("w4a16", "w4a8"):
+            if kernel == "w4a16":
+                p, fn, check = (_packed(4, c, r, c + r, dev, torch.bfloat16, 128),
+                                w4a16.w4a16_matmul, _check_w4a16)
+                assert w4a16.tensor_core_route(p)
+            else:
+                p, fn, check = (_a8(4, c, r, c + r, dev, torch.bfloat16, 128),
+                                w4a16.w4a8_matmul, _check_w4a8)
+                assert w4a16.a8_tensor_core_route(p)
+            for m in (1, 8, 64):
+                check(p, _rand((m, c), m, torch.bfloat16, dev))
+            x = _rand((8, c), 8, torch.bfloat16, dev)
+            eight = fn(x, p)
+            assert torch.equal(fn(x[:1], p), eight[:1])
+            assert torch.equal(fn(x.repeat(8, 1), p)[:8], eight)
+
+
+def _check_mla_moe_layer_through_block_core(dev, monkeypatch):
+    """One DeepSeek MoE layer (``q_lora_rank`` 512, ``kv_lora_rank`` 512,
+    4 heads of 128 + 64, 8 experts in 4 groups of which 2 are kept, top 2,
+    a shared expert) through ``block_core`` on packed fp32 weights over 24
+    tokens: K3 launches once a linear (q_a, q_b, kv_a, kv_b, o, three an
+    expert, three for the shared expert) and the hidden state is the plain
+    version's, 1e-4 of its largest entry."""
+    cfg = L.LlamaConfig.from_hf_dict(dict(
+        model_type="deepseek_v3", vocab_size=64, hidden_size=512, intermediate_size=768,
+        moe_intermediate_size=256, num_hidden_layers=1, num_attention_heads=4,
+        q_lora_rank=512, kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64,
+        v_head_dim=128, n_routed_experts=8, num_experts_per_tok=2, n_group=4, topk_group=2,
+        n_shared_experts=1, routed_scaling_factor=2.5, first_k_dense_replace=0,
+        torch_dtype="float32"))
+    model = sm.random_packed_llama(cfg, group_size=128, seed=7, device=dev)
+    lp = {k: (dataclasses.replace(w, scales=w.scales.float(), zeros=w.zeros.float())
+              if isinstance(w, packing.PackedLinear) else w.float())
+          for k, w in model.layers[0].items()}
+    lp["mlp.router_bias"] = torch.rand((8,), generator=torch.Generator(dev).manual_seed(8),
+                                       device=dev)
+    x = _rand((2, 24, 512), 36, dev=dev)
+    cos, sin = L.rope_cos_sin(cfg, np.arange(24), dev)
+
+    def run():
+        return sm.packed_block_apply(cfg, lp, x, cos, sin)[0]
+
+    n = w4a16.w4a16_matmul.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert w4a16.w4a16_matmul.launches == n + 5 + 3 * 8 + 3
+    with monkeypatch.context() as m:
+        m.setattr(sm, "w4a16_matmul", w4a16.w4a16_reference)
+        want = run()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
+def test_deepseek_on_the_card(dev, monkeypatch):
+    """DeepSeek-V3's kernel shapes, one test (the suite's collection count
+    is kept; ROADMAP queue 3 item 4): K4/K7/K6 at head dim 192 in every
+    cache kind, K3 and K8 at the latent projections' narrow widths, one
+    MLA MoE layer through ``block_core`` (K9 at 192: the head-dim test of
+    the paged write)."""
+    for kind in ("bf16", "int8", "int4"):
+        _check_attention_kernels_at_head_dim_192(dev, kind)
+    _check_dequant_matmul_at_latent_widths(dev)
+    _check_mla_moe_layer_through_block_core(dev, monkeypatch)

@@ -208,9 +208,9 @@ def test_paged_attention_plain_at_head_dims_matches_jax(kind, hd, n_kv, groups):
 
 
 def test_head_dims_the_kernels_take():
-    """The wrappers' dispatch list names Phi-3-mini's 96 and Gemma's 256
-    beside Llama's 64 and 128."""
-    assert TCA.HEAD_DIMS == TPA.HEAD_DIMS == (64, 96, 128, 256)
+    """The wrappers' dispatch list names Phi-3-mini's 96, DeepSeek-V3's 192
+    and Gemma's 256 beside Llama's 64 and 128."""
+    assert TCA.HEAD_DIMS == TPA.HEAD_DIMS == (64, 96, 128, 192, 256)
 
 
 # ---------------------------------------------------------------------------
@@ -282,12 +282,12 @@ def test_unit_offset_norms_start_at_zero():
 
 
 def test_refusals_that_stay():
-    """MLA is still refused, naming what queue 1 item 10 has left (GPT-OSS
-    and Llama-4 are taken: tests/test_torch_gptoss_llama4.py); an
-    activation the port lacks is refused; int4 KV over one kv head
-    (Gemma-3-1B's layout) has no head pair."""
-    for mt in ("deepseek_v3",):
-        with pytest.raises(NotImplementedError, match="MLA"):
+    """A family neither package takes is refused (DeepSeek-V3 is taken:
+    tests/test_torch_deepseek.py); an activation the port lacks is
+    refused; int4 KV over one kv head (Gemma-3-1B's layout) has no head
+    pair."""
+    for mt in ("deepseek_v2",):
+        with pytest.raises(NotImplementedError, match=mt):
             TL.LlamaConfig.from_hf_dict(dict(model_type=mt))
     with pytest.raises(NotImplementedError, match="hidden_act"):
         TL.LlamaConfig.from_hf_dict(dict(model_type="gemma2", hidden_activation="relu"))

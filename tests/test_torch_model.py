@@ -141,12 +141,14 @@ def test_stage_list_matches_jax_derivation():
 
 
 def test_config_refuses_other_families():
-    # the family of the JAX package not ported yet, with the queue item
-    # that ports it (GPT-OSS and Llama-4 are taken:
-    # tests/test_torch_gptoss_llama4.py)
-    for model_type in ("deepseek_v3",):
-        with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-            TL.LlamaConfig.from_hf_dict(_hf_dict(model_type=model_type))
+    # a family neither package takes (DeepSeek-V3 is taken:
+    # tests/test_torch_deepseek.py), and DeepSeek-V3 without its
+    # interleaved rope rows, which the JAX package refuses too
+    for d in (dict(model_type="deepseek_v2"),
+              dict(model_type="deepseek_v3", rope_interleave=False)):
+        for cls in (TL.LlamaConfig, JL.LlamaConfig):
+            with pytest.raises(NotImplementedError, match=d["model_type"]):
+                cls.from_hf_dict(_hf_dict(**d))
     with pytest.raises(NotImplementedError):
         TL.LlamaConfig.from_hf_dict(_hf_dict(mlp_bias=True))
     cfg = TL.LlamaConfig.from_hf_dict(_hf_dict(rope_scaling=LLAMA3_ROPE))
