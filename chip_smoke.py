@@ -87,7 +87,8 @@ over it (``--profile-dir`` gives their device time and device ops).
      budget; 4 a Qwen3-MoE block); Mixtral served through ``serve.main``
      and engines over contiguous bf16, paged ragged int8 and the W4A8
      tier, Qwen3-MoE through a paged ragged bf16 engine; Mixtral's 32
-     blocks from ``random_packed_llama`` (K1, K2, K5, K3, K8, K4, K6, K9).
+     blocks from ``random_packed_llama``, 8 new tokens a request (K1, K2,
+     K5, K3, K8, K4, K6, K9).
      Their first tokens are judged against a plain forward streamed a layer
      at a time, which takes the experts a forward through the kernels
      chose (at most ``ROUTE_SWAPS`` of them other than the plain router's
@@ -98,7 +99,7 @@ over it (``--profile-dir`` gives their device time and device ops).
      --group-size 64`` (2880 = 45 x 64) and ``serve`` (contiguous bf16 and
      int4: K4 and K7 with sinks; paged phased int8 and paged ragged bf16:
      K6 with sinks; the W4A8 tier), its 24 blocks from
-     ``random_packed_llama``; Llama-4-Scout (chunked rope layers, NoPE
+     ``random_packed_llama`` (8 new tokens a request); Llama-4-Scout (chunked rope layers, NoPE
      every 4th layer with temperature tuning, the q/k L2 norm, top-1
      sigmoid experts and a shared expert), its chunk and temperature floor
      cut to 256 and 64, 1 block through ``main`` and 4 from
@@ -117,10 +118,18 @@ over it (``--profile-dir`` gives their device time and device ops).
      first blocks from ``random_packed_llama`` (3 dense, then 256 experts
      in 8 groups of which 4 are kept, top 8, a shared one) through
      contiguous bf16/int8/int4, paged phased int8, paged ragged bf16 and
-     W4A8 engines, 8 x 16 new tokens, every first token through
-     ``judge_streamed`` and the first decode step replayed with the experts
-     a replay through the kernels chose and, under W4A8, its int8 codes at
-     rounding flips only (K1, K2, K5, K3, K8, K4, K7, K6, K9).
+     W4A8 engines, and absorbed engines over the latent cache
+     (``serving/mla.py``: one 576-value row a token; contiguous bf16,
+     contiguous int8 with ``multi_step=4`` and logprobs, paged ragged
+     bf16), Moonlight also through ``serve --mla-absorbed true``; 8 x 16
+     new tokens, every first token through ``judge_streamed`` and the
+     first decode step replayed with the experts a replay through the
+     kernels chose and, under W4A8, its int8 codes at rounding flips only
+     (an absorbed engine's replay from its cached latent rows);
+     each absorbed engine's greedy tokens counted against the exact
+     engine's of its cache kind, both engines' tok/s and every engine's
+     cache bytes a token and layer logged (K1, K2, K5, K3, K8, K4, K7,
+     K6, K9).
 
    The family paths' engines must repeat their greedy output and pass the
    near-tie rule against a plain bf16 forward over weights in K3's own
@@ -169,6 +178,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import math
 import re
@@ -199,6 +209,11 @@ K3_ROWS = (1, 8, 32, 64, 512, 1024)  # and the phased engine's middle prefill bu
 FUSED = ("self_attn.qkv_proj", "self_attn.o_proj", "mlp.gate_up_proj", "mlp.down_proj")
 PROMPT_LENS = (64, 96, 128, 160, 192, 224, 256, 80)
 NEW_TOKENS = 32
+# new tokens of Mixtral's and GPT-OSS-20B's full-depth runs (ticks of
+# 30–330 ms): their judge and replay read the first two; cut from 32 to
+# keep the whole smoke inside its time limit once the absorbed MLA
+# engines joined the deepseek path
+FULL_DEPTH_NEW = 8
 
 # the TPU kernels these replace (pl.pallas_call sites)
 REPLACES = {"hessian": "gptq_v2_tpu/ops/hessian_pallas.py:91",
@@ -218,6 +233,8 @@ RATES: dict = {}
 WRAPPERS: dict = {}
 # (model dir, results) → the packed model a path's engines share
 LOADED: dict = {}
+# engine label → its last run's outputs (uid → tokens), for comparisons
+OUTS: dict = {}
 
 
 def build_engine(argv):
@@ -2423,7 +2440,7 @@ def w4a8_inputs():
         K.w4a8_matmul = matmul
 
 
-def replay_first_step(torch, eng, prompts, out, tables, label: str) -> str:
+def replay_first_step(torch, eng, prompts, out, tables, label: str, ticks=None) -> str:
     """The engine's first decode step again, over a copy of the cache its
     run left (request i in slot i, or in the pages ``tables[i]``; rows past
     each prompt are masked), through the attention kernels' algebra in
@@ -2442,9 +2459,26 @@ def replay_first_step(torch, eng, prompts, out, tables, label: str) -> str:
     choose otherwise are counted, at most ``ROUTE_SWAPS``), and under
     W4A8 the int8 codes that part from its own by one where the two
     inputs lie within ``FLIP_ULPS`` bf16 ulp (:func:`plain_w4a8`; at most
-    ``FLIP_SHARE`` of the code positions).  Returns a summary."""
+    ``FLIP_SHARE`` of the code positions).
+
+    An absorbed MLA engine (``serving/mla.py``, whose latent attention is
+    plain torch) replays its step over a copy of its latent cache,
+    ``mla_decode_step`` or ``mla_ragged_forward``: the replay rebuilds the
+    step from the latent rows the engine cached.  A ragged tick's latent
+    attention and absorb products are cuBLAS products whose bits depend on
+    the tick's rows and table width, which V3's near-tied routers magnify:
+    each request is replayed in a tick of the shape that decoded its first
+    token (``ticks``, :func:`first_decode_ticks`), its decode row first,
+    pad rows after.  Its linears stay on K3, as every replay's do: with
+    K3's plain version the replay's V3 router chose other experts than the
+    kernels' replay on 4 of 8 (row, layer) pairs, past ``ROUTE_SWAPS`` (8
+    rows of one MoE layer are few for that rule; ``judge_streamed`` holds
+    the first tokens to K3's plain version over every prompt row).
+    Returns a summary."""
     from gptq_v2_tpu_torch.serving import decode as D
     from gptq_v2_tpu_torch.serving import kv_cache as kvc
+    from gptq_v2_tpu_torch.serving import mla as MLA
+    from gptq_v2_tpu_torch.serving import model as SM
     from gptq_v2_tpu_torch.serving.engine import _bucket
 
     uids = list(range(len(prompts)))
@@ -2455,21 +2489,57 @@ def replay_first_step(torch, eng, prompts, out, tables, label: str) -> str:
     if tables is not None:
         bt = torch.from_numpy(np.stack([tables[u] for u in uids])).to("cuda")
 
+    absorbed = eng.mla_absorbed
+    groups = {}  # an absorbed ragged engine's replay: (rows, table width) → requests
+    if absorbed and tables is not None:
+        for i, u in enumerate(uids):
+            groups.setdefault(ticks[u], []).append(i)
+
     def cache_copy():
+        if absorbed:
+            return dataclasses.replace(eng.cache, lat=eng.cache.lat.clone())
         if tables is not None:
             return dataclasses.replace(eng.cache, kv=eng.cache.kv.clone())
         return kvc.ContiguousKVCache(eng.cache.k.clone(), eng.cache.v.clone(),
                                      eng.cache.k_scales, eng.cache.v_scales,
                                      eng.cache.kv_bits)
 
+    def first_step():
+        if not absorbed:
+            return D.decode_step(eng.model, first, cache_copy(), lens, s_b, block_tables=bt)[0]
+        if bt is None:
+            return MLA.mla_decode_step(eng.model, eng._absorbed, cache_copy(), first, lens, s_b,
+                                       eng._mla_scales)[0]
+        logits = [None] * len(uids)
+        for (t, width), group in groups.items():
+            rows = torch.tensor(group, device="cuda")
+            m, s, ps = len(group), eng.max_batch, eng.page_size
+            pad = torch.zeros(t - m, dtype=torch.long, device="cuda")
+            pos = torch.cat([lens[rows], pad])
+            tables_g = torch.zeros((s, width), dtype=bt.dtype, device="cuda")
+            tables_g[:m] = bt[rows, :width]
+            kv_lens = torch.ones(s, dtype=torch.int32, device="cuda")
+            kv_lens[:m] = (lens[rows] + 1).to(torch.int32)
+            cu = torch.clamp(torch.arange(s + 1, dtype=torch.int32, device="cuda"), max=m)
+            live = torch.arange(t, device="cuda") < m
+            pages = torch.where(live, tables_g[torch.clamp(torch.arange(t, device="cuda"),
+                                                           max=m - 1), pos // ps], 0)
+            x = MLA.mla_ragged_forward(
+                eng.model, eng._absorbed, torch.cat([first[rows], pad]), cache_copy(), pos,
+                pages.to(torch.int32), torch.where(live, pos % ps, 0).to(torch.int32),
+                tables_g, kv_lens, cu, torch.tensor([m], dtype=torch.int32, device="cuda"),
+                eng._mla_scales)
+            for j, i in enumerate(group):
+                logits[i] = SM.head_logits(eng.model.cfg, eng.model.lm_head, x[j:j + 1])[0]
+        return torch.stack(logits)
+
     chosen = k_rows = None
     if eng.model.cfg.mla:
         with uncounted(), deepseek_routes() as chosen, w4a8_inputs() as k_rows:
-            D.decode_step(eng.model, first, cache_copy(), lens, s_b, block_tables=bt)
+            first_step()
     with (uncounted(), plain_attention(twin=True), plain_w4a8(k_rows) as flips,
           deepseek_routes(chosen) if chosen is not None else contextlib.nullcontext([]) as swaps):
-        logits = D.decode_step(eng.model, first, cache_copy(), lens, s_b,
-                               block_tables=bt)[0].float()
+        logits = first_step().float()
     del k_rows
     pairs = len(uids) * len(swaps)
     if sum(swaps) > ROUTE_SWAPS * max(1, pairs):
@@ -2497,8 +2567,10 @@ def replay_first_step(torch, eng, prompts, out, tables, label: str) -> str:
                      f"{flips['other']} codes parting otherwise kept"
                      + (f" (inputs up to {flips['gap']:.4g} ulp apart)" if flips["other"]
                         else ""))
-    return (f"the first decode step replayed in plain torch (the attention kernels' algebra, "
-            f"K8's plain version" + "".join(f"; {t}" for t in taken)
+    return (f"the first decode step replayed in plain torch (" + (
+                "from the cached latent rows, K8's plain version" if absorbed else
+                "the attention kernels' algebra, K8's plain version")
+            + "".join(f"; {t}" for t in taken)
             + f") gives the engine's token on {exact}/{len(uids)}, near-ties on all")
 
 
@@ -2960,7 +3032,7 @@ def phase_moe(torch, work: Path) -> dict:
     ``serve.main`` contiguous bf16, engines over contiguous bf16, paged
     ragged int8 and the W4A8 tier; Qwen3-MoE: paged ragged bf16); and
     Mixtral's 32 blocks from ``random_packed_llama`` (paged ragged bf16,
-    also :func:`replay_first_step`).  Each engine runs twice and its first
+    FULL_DEPTH_NEW new tokens, also :func:`replay_first_step`).  Each engine runs twice and its first
     tokens are judged by :func:`judge_streamed`.  Returns the expert linears K3's and K8's rows
     are timed at."""
     from gptq_v2_tpu_torch import serve as S
@@ -3017,15 +3089,15 @@ def phase_moe(torch, work: Path) -> dict:
                  scheduler="ragged", token_budget=64)
     tables = record_tables(eng)
     prompts = [rng.integers(0, cfg.vocab_size, (n,)).tolist() for n in PROMPT_LENS]
-    out, _ = engine_runs(torch, eng, prompts, label, vocab=cfg.vocab_size)
+    out, _ = engine_runs(torch, eng, prompts, label, new=FULL_DEPTH_NEW, vocab=cfg.vocab_size)
     r = RATES[label]
     # 32 random MoE blocks magnify a rounding (a bf16 ulp at the embedding
     # moves the last logits by tens of percent), so the first tokens pass
     # the judge mostly by its routing near-ties; the first decode step
     # replayed over the engine's own cache, its attention in plain torch,
     # checks the decode machinery at this depth
-    log(f"phase {label}: ok, paged ragged bf16, {len(prompts)} requests x {NEW_TOKENS} new "
-        f"tokens, greedy output repeats, {r[0]:.1f} / {r[1]:.1f} tok/s on {SMI}; "
+    log(f"phase {label}: ok, paged ragged bf16, {len(prompts)} requests x {FULL_DEPTH_NEW} "
+        f"new tokens, greedy output repeats, {r[0]:.1f} / {r[1]:.1f} tok/s on {SMI}; "
         + judge_streamed(torch, cfg, eng.model, prompts, out, label) + "; "
         + replay_first_step(torch, eng, prompts, out, tables, label))
     del eng, model
@@ -3118,28 +3190,84 @@ def serve_family(torch, tag: str, cfg, engines, prompts, make_engine, want,
     ``want[label]`` required), its first tokens judged by
     :func:`judge_streamed` (over ``shared`` = (model, its
     :func:`judge_forwards`) where the engine serves that model itself) and
-    its first decode step replayed (:func:`replay_first_step`).  Returns
-    the first engine's fused layers."""
+    its first decode step replayed (:func:`replay_first_step`).  Each
+    engine's cache bytes a token and layer and its peak allocation over
+    build and runs are logged (:func:`cache_bytes`), and its outputs kept
+    in :data:`OUTS`.  Returns the first engine's fused layers."""
     layers = None
     for label, spec in engines:
+        gc.collect()  # the last engine's cache (record_tables closes a cycle over it)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         eng = make_engine(spec)
         if layers is None:
             layers = eng.model.layers
         tables = record_tables(eng) if eng.block_tables is not None else None
         name = f"{tag} {label}"
-        with counted_modes() as n:
+        with (counted_modes() as n,
+              first_decode_ticks(eng) if eng.mla_absorbed and tables is not None
+              else contextlib.nullcontext() as ticks):
             out, _ = engine_runs(torch, eng, prompts, name, new=new, vocab=cfg.vocab_size)
+        OUTS[name] = out
+        log(f"phase {name}: {cache_bytes(torch, eng)}; peak allocation over build and runs "
+            f"{(torch.cuda.max_memory_allocated() - base) / 2**20:.1f} MiB above what was "
+            f"allocated before the build (torch.cuda.max_memory_allocated) on {SMI}")
         modes = mode_counts(n, want.get(label, ()))
         r = RATES[name]
         forwards = shared[1] if shared is not None and eng.model is shared[0] else None
         verdict = (judge_streamed(torch, cfg, eng.model, prompts, out, name, forwards) + "; "
-                   + replay_first_step(torch, eng, prompts, out, tables, name))
+                   + replay_first_step(torch, eng, prompts, out, tables, name, ticks))
         log(f"phase {name}: ok, {len(prompts)} requests x {new} new tokens, greedy "
             f"output repeats, {r[0]:.1f} / {r[1]:.1f} tok/s on {SMI}; attention calls: "
             f"{modes}; {verdict}")
         del eng
         torch.cuda.empty_cache()
     return layers
+
+
+@contextlib.contextmanager
+def first_decode_ticks(eng):
+    """uid → (token rows, table width) of the ragged tick in which an
+    absorbed MLA engine decoded each request's first token, over the runs
+    inside the block (the last run's kept): the shape a replay of that
+    step takes (:func:`replay_first_step`)."""
+    from gptq_v2_tpu_torch.serving import mla as MLA
+
+    step, shape, ticks = MLA.mla_ragged_step, {}, {}
+
+    def recording(model, absorbed, tokens, cache, positions, tok_pages, tok_offs,
+                  block_tables, *args, **kwargs):
+        shape["tick"] = (tokens.shape[0], block_tables.shape[1])
+        return step(model, absorbed, tokens, cache, positions, tok_pages, tok_offs,
+                    block_tables, *args, **kwargs)
+
+    def emitting(si, token, lp=None):
+        req = eng.slots[si].request
+        if len(req.output) == 1:  # this token is its first decode step's
+            ticks[req.uid] = shape["tick"]
+        type(eng)._emit(eng, si, token, lp)
+
+    MLA.mla_ragged_step, eng._emit = recording, emitting
+    try:
+        yield ticks
+    finally:
+        MLA.mla_ragged_step = step
+        del eng._emit
+
+
+def cache_bytes(torch, eng) -> str:
+    """An engine's cache as text: its tensors' bytes and those a token
+    and layer (the latent row of an absorbed MLA engine, K and V of the
+    others), from its shapes."""
+    cache = eng.cache
+    tensors = [getattr(cache, f.name) for f in dataclasses.fields(cache)]
+    total = sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
+    storage = tensors[0]  # lat, k or kv: (layers, slots or pages, positions, ...)
+    tokens = storage.shape[0] * storage.shape[1] * storage.shape[2]
+    return (f"cache {total / 2**20:.1f} MiB, {total / tokens:.0f} bytes a token and layer "
+            f"({type(cache).__name__} {tuple(storage.shape)} {storage.dtype})")
 
 
 def phase_gptoss_llama4(torch, work: Path) -> dict:
@@ -3153,8 +3281,8 @@ def phase_gptoss_llama4(torch, work: Path) -> dict:
     engines through ``serve.build_engine``: contiguous bf16 and int4 (K4
     and K7 with sinks), paged phased int8 and paged ragged bf16 (K6 with
     sinks), the W4A8 tier; prompts past the window.  Then all 24 blocks from
-    ``random_packed_llama`` (group 64) on paged ragged bf16, its first
-    decode step replayed.
+    ``random_packed_llama`` (group 64) on paged ragged bf16, FULL_DEPTH_NEW
+    new tokens, its first decode step replayed.
 
     Llama-4-Scout (40 q heads over 8 kv heads of 128, 16 experts of width
     8192, top 1, a shared expert, the q/k L2 norm on rope layers, chunked
@@ -3214,10 +3342,11 @@ def phase_gptoss_llama4(torch, work: Path) -> dict:
                  scheduler="ragged", token_budget=64)
     tables = record_tables(eng)
     with counted_modes() as n:
-        out, _ = engine_runs(torch, eng, prompts, label, vocab=full.vocab_size)
+        out, _ = engine_runs(torch, eng, prompts, label, new=FULL_DEPTH_NEW,
+                             vocab=full.vocab_size)
     r = RATES[label]
-    log(f"phase {label}: ok, paged ragged bf16, {len(prompts)} requests x {NEW_TOKENS} new "
-        f"tokens, greedy output repeats, {r[0]:.1f} / {r[1]:.1f} tok/s on {SMI}; attention "
+    log(f"phase {label}: ok, paged ragged bf16, {len(prompts)} requests x {FULL_DEPTH_NEW} "
+        f"new tokens, greedy output repeats, {r[0]:.1f} / {r[1]:.1f} tok/s on {SMI}; attention "
         f"calls: {mode_counts(n, ('K6 with sinks',))}; "
         + replay_first_step(torch, eng, prompts, out, tables, label))
     del eng, model
@@ -3276,8 +3405,21 @@ DEEPSEEK_ENGINES = (("contiguous bf16", {}), ("contiguous int8", dict(kv_dtype="
                     ("paged phased int8", dict(cache_kind="paged", kv_dtype="int8")),
                     ("paged ragged bf16", dict(cache_kind="paged", scheduler="ragged",
                                                token_budget=64)),
-                    ("W4A8 contiguous bf16", dict(act_dtype="int8")))
-MOONLIGHT_ENGINES = (("contiguous bf16", []), ("paged ragged bf16", RAGGED))
+                    ("W4A8 contiguous bf16", dict(act_dtype="int8")),
+                    # the absorbed latent cache (serving/mla.py): K3 for every linear
+                    ("absorbed contiguous bf16", dict(mla_absorbed=True)),
+                    ("absorbed contiguous int8", dict(mla_absorbed=True, kv_dtype="int8",
+                                                      multi_step=4, logprobs=True)),
+                    ("absorbed paged ragged bf16", dict(mla_absorbed=True, cache_kind="paged",
+                                                        scheduler="ragged", token_budget=64)))
+MOONLIGHT_ENGINES = (("contiguous bf16", []), ("paged ragged bf16", RAGGED),
+                     ("absorbed contiguous bf16", ["--mla-absorbed", "true"]))
+# each absorbed engine beside the exact engine of its cache kind, then two
+# exact engines beside each other: how soon greedy tokens part there
+ABSORBED_VS_EXACT = (("absorbed contiguous bf16", "contiguous bf16"),
+                     ("absorbed contiguous int8", "contiguous int8"),
+                     ("absorbed paged ragged bf16", "paged ragged bf16"),
+                     ("paged ragged bf16", "contiguous bf16"))
 # the linears K3's and K8's rows are timed at: V3's first MoE block's
 # latent projections, o_proj and first expert
 DEEPSEEK_ROWS = ("self_attn.q_a_proj", "self_attn.q_b_proj", "self_attn.kv_a_proj_with_mqa",
@@ -3298,14 +3440,19 @@ def phase_deepseek(torch, work: Path) -> dict:
     experts of width 1408 in one group, top 6, 2 shared experts): the CLI
     path over MOONLIGHT_DEPTH blocks (a dense and a MoE one; its MoE
     block's capture forwards logged), then ``serve`` engines over its
-    results, contiguous bf16 and paged ragged bf16.  Then V3 at
+    results, contiguous bf16, paged ragged bf16 and ``--mla-absorbed
+    true`` (contiguous bf16 over the latent cache).  Then V3 at
     DEEPSEEK_DEPTH blocks from ``random_packed_llama`` (3 dense, then 256
     experts of width 2048 in 8 groups of which 4 are kept, top 8, a shared
     expert) through engines over contiguous bf16, int8 and int4, paged
-    phased int8 and paged ragged bf16 caches and the W4A8 tier,
+    phased int8 and paged ragged bf16 caches and the W4A8 tier, then
+    absorbed engines over the latent cache (contiguous bf16, contiguous
+    int8 with ``multi_step=4`` and logprobs, paged ragged bf16),
     DEEPSEEK_NEW new tokens a request.  Each engine runs twice; its first
     tokens are judged by :func:`judge_streamed` and its first decode step
-    replayed.  Returns the linears K3's and K8's rows are timed at."""
+    replayed; each absorbed engine is compared with the exact engine of
+    its cache kind (:func:`compare_engines`).  Returns the linears K3's
+    and K8's rows are timed at."""
     from gptq_v2_tpu_torch.models import families
     from gptq_v2_tpu_torch.serving import Engine
     from gptq_v2_tpu_torch.serving import model as TM
@@ -3339,6 +3486,7 @@ def phase_deepseek(torch, work: Path) -> dict:
     prompts = [rng.integers(0, cfg.vocab_size, (n,)).tolist() for n in PROMPT_LENS]
     serve_family(torch, "moonlight", cfg, MOONLIGHT_ENGINES, prompts,
                  lambda extra: build_engine(serve_args + extra), {}, new=DEEPSEEK_NEW)
+    compare_engines("moonlight", ABSORBED_VS_EXACT[:1] + ABSORBED_VS_EXACT[3:])
     LOADED.clear()
     shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -3364,10 +3512,29 @@ def phase_deepseek(torch, work: Path) -> dict:
     layers = serve_family(torch, "deepseek-v3", cfg, DEEPSEEK_ENGINES, prompts,
                           lambda kw: Engine(model, max_batch=len(prompts), max_seq_len=512,
                                             **kw), {}, new=DEEPSEEK_NEW, shared=shared)
+    compare_engines("deepseek-v3", ABSORBED_VS_EXACT)
     rows = {"deepseek-v3 ": {n: layers[DEEPSEEK_DEPTH - 1][n] for n in DEEPSEEK_ROWS}}
     del model, layers, shared
     torch.cuda.empty_cache()
     return {"rows": rows}
+
+
+def compare_engines(tag: str, pairs) -> None:
+    """Two engines' greedy outputs over the same model and prompts, for
+    each pair: the requests whose tokens are equal throughout, those whose
+    first tokens are, the mean count of equal tokens before the first
+    difference (counts, not gates: an absorbed engine reassociates the
+    scores, other caches round otherwise, and at random weights a bf16
+    rounding swaps near-tied experts) and both engines' tok/s."""
+    for one, other in pairs:
+        a, e = OUTS[f"{tag} {one}"], OUTS[f"{tag} {other}"]
+        prefix = [next((i for i, (x, y) in enumerate(zip(a[u], e[u])) if x != y), len(e[u]))
+                  for u in e]
+        log(f"{tag} {one} against {other}: greedy tokens equal on "
+            f"{sum(a[u] == e[u] for u in e)}/{len(e)} requests, first tokens on "
+            f"{sum(a[u][0] == e[u][0] for u in e)}/{len(e)}, {np.mean(prefix):.2f} of "
+            f"{len(next(iter(e.values())))} tokens equal before the first difference; tok/s "
+            f"{rates(f'{tag} {one}')} against {rates(f'{tag} {other}')} on {SMI}")
 
 
 def device_ops(torch, fn, reps: int = 50):

@@ -1067,7 +1067,7 @@ def _mlp_tail(cfg: LlamaConfig, lp: Params, lin: Callable, h: torch.Tensor) -> t
 
 
 def _mla_attention(cfg: LlamaConfig, h: torch.Tensor, cos, sin, lin: Callable,
-                   norm: Callable, attn_fn: Callable):
+                   norm: Callable, attn_fn: Callable, mla_lat_sink: Optional[list] = None):
     """DeepSeek's multi-head latent attention in its exact form (the
     attention of JAX ``_mla_attn_mlp``, HF ``DeepseekV3Attention``): q
     through ``q_a`` → ``q_a_layernorm`` → ``q_b`` (or ``q_proj``);
@@ -1076,7 +1076,11 @@ def _mla_attention(cfg: LlamaConfig, h: torch.Tensor, cos, sin, lin: Callable,
     slice of q and on the one ``k_rope`` every head shares.  V is
     zero-padded to the q/k head dim, so ``attn_fn`` and the caches take
     MLA unchanged; the pad is cut before ``o_proj``.  The rope rows were
-    de-interleaved at load.  Returns ``(attn (B, N, H·v_head_dim), aux)``."""
+    de-interleaved at load.  ``mla_lat_sink`` (a list) receives the
+    token's latent row ``[rms_norm(c_kv) | rope(k_rope)]`` ``(B, N,
+    kv_lora_rank + qk_rope_head_dim)``, the row the absorbed serving path
+    caches (``serving/mla.py``).  Returns ``(attn (B, N, H·v_head_dim),
+    aux)``."""
     b, n = h.shape[0], h.shape[1]
     nope, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     if cfg.q_lora_rank:
@@ -1088,10 +1092,13 @@ def _mla_attention(cfg: LlamaConfig, h: torch.Tensor, cos, sin, lin: Callable,
     nq = q.shape[2]
     kv_a = lin("self_attn.kv_a_proj_with_mqa", h)
     c_kv, k_rope = kv_a[..., :cfg.kv_lora_rank], kv_a[..., cfg.kv_lora_rank:]
-    kv = lin("self_attn.kv_b_proj", norm(c_kv, "self_attn.kv_a_layernorm"))
+    c_kv_n = norm(c_kv, "self_attn.kv_a_layernorm")
+    kv = lin("self_attn.kv_b_proj", c_kv_n)
     kv = kv.reshape(b, n, nq, nope + vd)
     q = torch.cat([q[..., :nope], apply_rope(q[..., nope:], cos, sin)], dim=-1)
     k_rot = apply_rope(k_rope[:, :, None, :], cos, sin)  # (B, N, 1, rd)
+    if mla_lat_sink is not None:
+        mla_lat_sink.append(torch.cat([c_kv_n, k_rot[:, :, 0, :]], dim=-1))
     k = torch.cat([kv[..., :nope], k_rot.expand(b, n, nq, rd)], dim=-1)
     v = torch.nn.functional.pad(kv[..., nope:], (0, nope + rd - vd))
     attn, aux = attn_fn(q, k, v)
@@ -1130,7 +1137,8 @@ def _attention(cfg: LlamaConfig, lp: Params, h: torch.Tensor, cos, sin, lin: Cal
 
 
 def block_core(cfg: LlamaConfig, lp: Params, x: torch.Tensor, cos, sin,
-               lin: Callable, attn_fn: Callable, qk_l2: Optional[bool] = None):
+               lin: Callable, attn_fn: Callable, qk_l2: Optional[bool] = None,
+               mla_lat_sink: Optional[list] = None):
     """The block skeleton shared by every forward path (dense, packed,
     cache decode), with the family switches of the JAX ``block_core``:
     q/k norms (Qwen3 and Gemma-3 per head, OLMo-2 flat), GLM-4's and
@@ -1138,8 +1146,9 @@ def block_core(cfg: LlamaConfig, lp: Params, x: torch.Tensor, cos, sin,
     OLMo-2's post-norm-only block, Granite's residual multiplier, Llama-4's
     q/k L2 norm after rope (``qk_l2``: this layer's, None =
     ``cfg.qk_l2_norm``), DeepSeek's latent attention
-    (:func:`_mla_attention`) and the sparse-MoE MLP of a layer whose
-    ``lp`` holds ``mlp.router`` (:func:`_mlp_tail`).
+    (:func:`_mla_attention`, which appends each token's latent row to
+    ``mla_lat_sink`` when one is given) and the sparse-MoE MLP of a layer
+    whose ``lp`` holds ``mlp.router`` (:func:`_mlp_tail`).
     ``lin(name, h)`` applies a linear and its bias (plain, packed,
     capturing); ``attn_fn(q, k, v) -> (attn, aux)`` attends.  Consumes the
     fused ``self_attn.qkv_proj`` / ``mlp.gate_up_proj`` names when present
@@ -1150,7 +1159,7 @@ def block_core(cfg: LlamaConfig, lp: Params, x: torch.Tensor, cos, sin,
 
     h = x if cfg.postnorm_only else norm(x, "input_layernorm")
     if cfg.mla:
-        attn, aux = _mla_attention(cfg, h, cos, sin, lin, norm, attn_fn)
+        attn, aux = _mla_attention(cfg, h, cos, sin, lin, norm, attn_fn, mla_lat_sink)
     else:
         attn, aux = _attention(cfg, lp, h, cos, sin, lin, norm, attn_fn, qk_l2)
     o = lin("self_attn.o_proj", attn)

@@ -5,12 +5,12 @@
 Run: ``python -m gptq_v2_tpu_torch.serve --model-dir ... --results
 outputs/results.npz [--act-dtype native|int8] [--kv-dtype native|int8|int4]
 [--cache-kind paged [--scheduler ragged [--token-budget N]
-[--prefix-cache true]]] [--multi-step K] [--state-path FILE]
-[--profile-dir DIR] [--benchmark true]``
+[--prefix-cache true]]] [--multi-step K] [--mla-absorbed true]
+[--state-path FILE] [--profile-dir DIR] [--benchmark true]``
 
 Only the flags of the ported paths exist (one device); argparse refuses
-any other flag (``--tp``, ``--pp``, ``--draft-dir``, ``--mla-absorbed``,
-``--coordinator`` …) as unrecognized.
+any other flag (``--tp``, ``--pp``, ``--draft-dir``, ``--coordinator`` …)
+as unrecognized.
 """
 from __future__ import annotations
 
@@ -56,6 +56,10 @@ def parse_serve_args(argv=None):
     p.add_argument("--prefix-cache", type=str2bool, default=False,
                    help="shared-prefix KV page reuse (paged cache + ragged "
                         "scheduler)")
+    p.add_argument("--mla-absorbed", type=str2bool, default=False,
+                   help="DeepSeek MLA: decode over the compressed latent cache "
+                        "(one kv_lora + rope row a token; contiguous + phased or "
+                        "paged + ragged)")
     p.add_argument("--act-dtype", type=str, default="native",
                    choices=["native", "int8"],
                    help="int8 = the W4A8 tier: per-row dynamic int8 activations "
@@ -100,7 +104,7 @@ def build_engine(args, model):
                   cache_kind=args.cache_kind, scheduler=args.scheduler,
                   token_budget=args.token_budget or None,
                   prefix_cache=args.prefix_cache, act_dtype=args.act_dtype,
-                  multi_step=args.multi_step)
+                  multi_step=args.multi_step, mla_absorbed=args.mla_absorbed)
 
 
 def main(argv=None) -> dict:

@@ -29,6 +29,12 @@
   with per-layer (int8) or per-kv-head (int4) scales calibrated at build
   time unless ``kv_scales`` gives them;
 * ``act_dtype="int8"`` serves the W4A8 tier (K8 for every block linear);
+* ``mla_absorbed`` (DeepSeek's MLA, ``serving/mla.py``) caches one latent
+  row a token in place of per-head K/V, contiguous + phased or paged +
+  ragged, ``kv_dtype`` ``native`` or ``int8`` (a calibrated scale a
+  layer); prompts prefill exactly (phased) and decode attends the
+  latent; ragged ticks stay single-step; the exact MLA path is the
+  default;
 * Llama-4's chunked attention on the paged cache needs the chunk to be a
   multiple of ``page_size``, and the ragged scheduler ends a tick's prompt
   rows of a sequence at the chunk's boundary (the step rebases one table a
@@ -36,7 +42,7 @@
 * :meth:`Engine.snapshot` / :func:`restore_requests` recover unfinished
   requests after a crash (the JAX package's JSON format).
 
-Speculative decoding is not ported yet.
+Speculative decoding (over the latent cache too) is not ported yet.
 """
 from __future__ import annotations
 
@@ -53,6 +59,7 @@ import torch
 
 from gptq_v2_tpu_torch.serving import decode as D
 from gptq_v2_tpu_torch.serving import kv_cache as kvc
+from gptq_v2_tpu_torch.serving import mla as MLA
 from gptq_v2_tpu_torch.serving.model import (
     PackedLlama,
     calibrate_kv_scales,
@@ -94,6 +101,23 @@ def _bucket(n: int, lo: int = 16) -> int:
     return b
 
 
+def _check_absorbed(cfg, cache_kind: str, scheduler: str, kv_dtype: str, kv_scales) -> None:
+    """The modes the absorbed MLA path serves (the JAX package's rules):
+    a DeepSeek MLA model, contiguous + phased or paged + ragged, the latent
+    in the model dtype or int8 with its own calibrated scales."""
+    if not cfg.mla:
+        raise ValueError("mla_absorbed needs a DeepSeek MLA model")
+    if (cache_kind, scheduler) not in (("contiguous", "phased"), ("paged", "ragged")):
+        raise ValueError(f"mla_absorbed serves contiguous + phased or paged + ragged, not "
+                         f"{cache_kind} + {scheduler}")
+    if kv_dtype == "int4":
+        raise ValueError("mla_absorbed has no int4 latent: the latent cache's quantized tier "
+                         "is kv_dtype='int8'")
+    if kv_scales is not None:
+        raise ValueError("kv_scales are per-layer K/V scales: the absorbed latent cache "
+                         "calibrates its own (serving/mla.py::calibrate_mla_scales)")
+
+
 class Engine:
     def __init__(self, model: PackedLlama, max_batch: int = 8,
                  page_size: int = 16, max_seq_len: int = 512,
@@ -102,7 +126,7 @@ class Engine:
                  cache_kind: str = "contiguous", scheduler: str = "phased",
                  n_pages: Optional[int] = None, token_budget: Optional[int] = None,
                  prefix_cache: bool = False, act_dtype: str = "native",
-                 logprobs: bool = False, multi_step: int = 1):
+                 logprobs: bool = False, multi_step: int = 1, mla_absorbed: bool = False):
         """Serve ``model`` on the device its tensors live on.
 
         q/k/v and gate/up are fused into one packed linear each and down's
@@ -127,7 +151,15 @@ class Engine:
         raw model distribution (``Request.logprobs``), read back with the
         token.  ``multi_step=k`` runs k decode steps per phased tick, or per
         decode-only ragged tick, with one readback; a tick falls back to one
-        step when ``k`` more positions would pass ``max_seq_len``."""
+        step when ``k`` more positions would pass ``max_seq_len``.
+
+        ``mla_absorbed`` (a DeepSeek MLA model) serves over the compressed
+        latent cache (``serving/mla.py``): contiguous + phased, or paged +
+        ragged (single-step ticks), in the model dtype or, under
+        ``kv_dtype="int8"``, as int8 against per-layer scales calibrated at
+        build time (:func:`~gptq_v2_tpu_torch.serving.mla.calibrate_mla_scales`,
+        of the W4A8 model under ``act_dtype="int8"``); ``kv_b``'s absorbed
+        halves are dequantized once here.  Other combinations raise."""
         if kv_dtype not in ("native", "int8", "int4"):
             raise ValueError(f"kv_dtype {kv_dtype!r}")
         if cache_kind not in ("contiguous", "paged"):
@@ -143,6 +175,8 @@ class Engine:
             raise ValueError(f"act_dtype {act_dtype!r}")
         if multi_step < 1:
             raise ValueError(f"multi_step {multi_step}")
+        if mla_absorbed:
+            _check_absorbed(model.cfg, cache_kind, scheduler, kv_dtype, kv_scales)
         chunk = model.cfg.attn_chunk_size
         if chunk and cache_kind == "paged" and chunk % page_size:
             # the paged path rebases block tables to a chunk's first page
@@ -161,27 +195,41 @@ class Engine:
         self.cache_kind = cache_kind
         self.scheduler = scheduler
         self.token_budget = token_budget or max(2 * max_batch, 64)
-        k_scales = v_scales = None
-        if kv_dtype != "native":
-            k_scales, v_scales = kv_scales or calibrate_kv_scales(
-                model, bits=4 if kv_dtype == "int4" else 8, seed=seed)
-        cache_args = dict(
-            dtype=torch.int8 if k_scales is not None else model.embed_tokens.dtype,
-            device=self.device, k_scales=k_scales, v_scales=v_scales,
-            kv_bits=4 if kv_dtype == "int4" else None)
         self.block_tables: Optional[np.ndarray] = None
         self.free_pages: List[int] = []
         if cache_kind == "paged":
             n_pages = n_pages or 1 + max_batch * self.max_pages_per_seq
-            self.cache = kvc.init_cache(cfg.num_hidden_layers, n_pages, page_size,
-                                        cfg.num_key_value_heads, cfg.head_dim_,
-                                        **cache_args)
             self.free_pages = list(range(1, n_pages))  # page 0 = trash
             self.block_tables = np.zeros((max_batch, self.max_pages_per_seq), np.int32)
+        self.mla_absorbed = mla_absorbed
+        if mla_absorbed:
+            self._mla_scales = (MLA.calibrate_mla_scales(model, seed=seed)
+                                if kv_dtype == "int8" else None)
+            self._absorbed = MLA.absorb_kv_b(model)
+            lat_args = (cfg.num_hidden_layers,) + (
+                (n_pages, page_size) if cache_kind == "paged" else
+                (max_batch, self.max_seq_len)) + (cfg.kv_lora_rank + cfg.qk_rope_head_dim,)
+            lat_kw = dict(device=self.device, dtype=model.embed_tokens.dtype
+                          if self._mla_scales is None else torch.int8)
+            self.cache = (MLA.init_mla_paged_cache(*lat_args, **lat_kw)
+                          if cache_kind == "paged" else MLA.init_mla_cache(*lat_args, **lat_kw))
         else:
-            self.cache = kvc.init_contiguous_cache(
-                cfg.num_hidden_layers, max_batch, self.max_seq_len,
-                cfg.num_key_value_heads, cfg.head_dim_, **cache_args)
+            k_scales = v_scales = None
+            if kv_dtype != "native":
+                k_scales, v_scales = kv_scales or calibrate_kv_scales(
+                    model, bits=4 if kv_dtype == "int4" else 8, seed=seed)
+            cache_args = dict(
+                dtype=torch.int8 if k_scales is not None else model.embed_tokens.dtype,
+                device=self.device, k_scales=k_scales, v_scales=v_scales,
+                kv_bits=4 if kv_dtype == "int4" else None)
+            if cache_kind == "paged":
+                self.cache = kvc.init_cache(cfg.num_hidden_layers, n_pages, page_size,
+                                            cfg.num_key_value_heads, cfg.head_dim_,
+                                            **cache_args)
+            else:
+                self.cache = kvc.init_contiguous_cache(
+                    cfg.num_hidden_layers, max_batch, self.max_seq_len,
+                    cfg.num_key_value_heads, cfg.head_dim_, **cache_args)
         self.prefix_cache = prefix_cache
         if prefix_cache:
             self._hash_to_page: Dict[bytes, int] = {}
@@ -282,11 +330,16 @@ class Engine:
                 tokens[i, :plen] = req.prompt
                 lengths[i] = plen
                 slot_ids[i] = si
-            bt = (None if self.block_tables is None
-                  else self._tensor(self.block_tables[slot_ids]))
-            logits, self.cache = D.prefill(
-                self.model, self._tensor(tokens), self.cache,
-                self._tensor(lengths), self._tensor(slot_ids), block_tables=bt)
+            if self.mla_absorbed:
+                logits, self.cache = MLA.mla_prefill(
+                    self.model, self._tensor(tokens), self.cache, self._tensor(lengths),
+                    self._tensor(slot_ids), scales=self._mla_scales)
+            else:
+                bt = (None if self.block_tables is None
+                      else self._tensor(self.block_tables[slot_ids]))
+                logits, self.cache = D.prefill(
+                    self.model, self._tensor(tokens), self.cache,
+                    self._tensor(lengths), self._tensor(slot_ids), block_tables=bt)
             temps = np.zeros((nb,), np.float32)
             warps = self._warp_arrays(nb)
             for i, (_, req, _) in enumerate(group):
@@ -351,17 +404,24 @@ class Engine:
         max_pos = int(positions.max())
         k = self.multi_step if max_pos + self.multi_step <= self.max_seq_len else 1
         s_bucket = min(_bucket(max_pos + k, lo=self.page_size), self.max_seq_len)
-        args = (self.model, self._tensor(self.last_tokens), self.cache,
-                self._tensor(positions), self._tensor(temps), self.generator)
-        kw = dict(s_bucket=s_bucket, block_tables=None if self.block_tables is None
-                  else self._tensor(self.block_tables), return_logprobs=self.logprobs)
         top_ks, top_ps, min_ps = self._tensors(warps)
-        if k > 1:  # k steps, one readback; a mid-chunk stop drops the rest
-            out, self.cache = D.decode_sample_loop(*args, k, top_ks=top_ks, top_ps=top_ps,
-                                                   min_ps=min_ps, **kw)
+        kw = dict(s_bucket=s_bucket, top_ks=top_ks, top_ps=top_ps, min_ps=min_ps,
+                  return_logprobs=self.logprobs)
+        if self.mla_absorbed:
+            args = (self.model, self._absorbed, self.cache, self._tensor(self.last_tokens),
+                    self._tensor(positions), self._tensor(temps), self.generator)
+            loop, single = MLA.mla_decode_sample_loop, MLA.mla_decode_sample_step
+            kw["scales"] = self._mla_scales
         else:
-            out, self.cache = D.decode_sample_step(*args, top_ks=top_ks, top_ps=top_ps,
-                                                   min_ps=min_ps, **kw)
+            args = (self.model, self._tensor(self.last_tokens), self.cache,
+                    self._tensor(positions), self._tensor(temps), self.generator)
+            loop, single = D.decode_sample_loop, D.decode_sample_step
+            kw["block_tables"] = (None if self.block_tables is None
+                                  else self._tensor(self.block_tables))
+        if k > 1:  # k steps, one readback; a mid-chunk stop drops the rest
+            out, self.cache = loop(*args, k, **kw)
+        else:
+            out, self.cache = single(*args, **kw)
             out = out[None]
         self.steps += 1
         self._emit_steps(*self._readback(out), [(si, si) for si in active])
@@ -455,7 +515,8 @@ class Engine:
         ``token_budget`` rows when prompts stream.  A decode-only tick runs
         ``multi_step`` steps (:meth:`_step_ragged_multi`) while they fit
         under ``max_seq_len``; a tick with prompt chunks stays single-step,
-        so chunked prefill is never delayed."""
+        so chunked prefill is never delayed; an absorbed MLA engine's ticks
+        are all single-step, as in the JAX package."""
         self._admit_ragged()
         active = [si for si in range(self.max_batch) if self.slots[si] is not None]
         if not active:
@@ -464,7 +525,7 @@ class Engine:
         decoding = [si for si in active
                     if self.slots[si].prefill_done >= len(self.slots[si].request.prompt)]
         prefilling = [si for si in active if si not in decoding]
-        if (self.multi_step > 1 and not prefilling and max(
+        if (self.multi_step > 1 and not prefilling and not self.mla_absorbed and max(
                 self.slots[si].length for si in decoding) + self.multi_step <= self.max_seq_len):
             return self._step_ragged_multi(decoding)
         t = self.token_budget if prefilling else s
@@ -504,14 +565,18 @@ class Engine:
             tok_offs[cu[i]:cu[i + 1]] = pos % ps
 
         top_ks, top_ps, min_ps = self._tensors(warps)
-        out, self.cache = D.ragged_step(
-            self.model, self._tensor(tokens), self.cache, self._tensor(positions),
-            self._tensor(tok_pages), self._tensor(tok_offs),
-            self._table_bucket(bt_rows, int(kv_lens.max())),
-            self._tensor(kv_lens), self._tensor(cu),
-            self._tensor(np.array([len(order)], np.int32)), self._tensor(sample_rows),
-            self._tensor(temps), self.generator, top_ks=top_ks, top_ps=top_ps,
-            min_ps=min_ps, return_logprobs=self.logprobs)
+        args = (self._tensor(tokens), self.cache, self._tensor(positions),
+                self._tensor(tok_pages), self._tensor(tok_offs),
+                self._table_bucket(bt_rows, int(kv_lens.max())),
+                self._tensor(kv_lens), self._tensor(cu),
+                self._tensor(np.array([len(order)], np.int32)), self._tensor(sample_rows),
+                self._tensor(temps), self.generator)
+        kw = dict(top_ks=top_ks, top_ps=top_ps, min_ps=min_ps, return_logprobs=self.logprobs)
+        if self.mla_absorbed:
+            out, self.cache = MLA.mla_ragged_step(self.model, self._absorbed, *args,
+                                                  scales=self._mla_scales, **kw)
+        else:
+            out, self.cache = D.ragged_step(self.model, *args, **kw)
         toks, lps = self._readback(out)
         self.steps += 1
         for i, (si, n_new, completes) in enumerate(order):

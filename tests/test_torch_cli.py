@@ -22,6 +22,7 @@ from gptq_v2_tpu_torch import flags as tflags
 from gptq_v2_tpu_torch import main as tmain
 from gptq_v2_tpu_torch import pipeline as TP
 from gptq_v2_tpu_torch.quant import gptq as tg
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _argv(tc, tmp_path, **over):

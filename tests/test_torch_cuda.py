@@ -8,6 +8,7 @@ the repo's conftest (which imports JAX):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -1931,13 +1932,70 @@ def _check_mla_moe_layer_through_block_core(dev, monkeypatch):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
 
 
+def _check_absorbed_mla_engine(dev, monkeypatch):
+    """A tiny dense DeepSeek model (2 blocks, hidden 256, ``q_lora_rank``
+    and ``kv_lora_rank`` 128, 4 heads of 64 + 32, v 64) packed in fp32:
+    the absorbed engine's greedy tokens are the exact engine's (whose
+    fp32 decode attention runs K4's plain version: K4 takes bf16); one
+    absorbed decode step launches K3 seven times a block (q_a, q_b, kv_a,
+    o, gate, up, down: ``kv_b`` is absorbed, dequantized once) and its
+    logits are those of the step with K3's plain version, 1e-4 of their
+    largest."""
+    from gptq_v2_tpu_torch.serving import Engine, Request
+    from gptq_v2_tpu_torch.serving import mla
+
+    cfg = L.LlamaConfig.from_hf_dict(dict(
+        model_type="deepseek_v3", vocab_size=128, hidden_size=256, intermediate_size=512,
+        num_hidden_layers=2, num_attention_heads=4, q_lora_rank=128, kv_lora_rank=128,
+        qk_nope_head_dim=64, qk_rope_head_dim=32, v_head_dim=64, n_routed_experts=8,
+        num_experts_per_tok=2, first_k_dense_replace=2, torch_dtype="float32"))
+    model = sm.random_packed_llama(cfg, group_size=128, seed=9, device=dev)
+    model = dataclasses.replace(
+        model, embed_tokens=model.embed_tokens.float(), norm=model.norm.float(),
+        lm_head=model.lm_head.float(),
+        layers=tuple({k: (dataclasses.replace(w, scales=w.scales.float(), zeros=w.zeros.float())
+                          if isinstance(w, packing.PackedLinear) else w.float())
+                      for k, w in lp.items()} for lp in model.layers))
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, 128, (n,)).tolist() for n in (7, 12)]
+
+    def served(**kw):
+        eng = Engine(model, max_batch=2, max_seq_len=64, **kw)
+        return eng, eng.run([Request(uid=i, prompt=p, max_new_tokens=6)
+                             for i, p in enumerate(prompts)])
+
+    with monkeypatch.context() as m:
+        m.setattr(decode, "ca", types.SimpleNamespace(
+            contiguous_decode_attention=ca.contiguous_decode_attention_ref))
+        _, want = served()
+    eng, got = served(mla_absorbed=True)
+    assert got == want
+    toks = torch.tensor([3, 5], device=dev)
+    pos = torch.tensor([7, 12], device=dev)
+
+    def step():
+        cache = mla.MLACache(eng.cache.lat.clone())
+        return mla.mla_decode_step(eng.model, eng._absorbed, cache, toks, pos, s_bucket=16)[0]
+
+    n = w4a16.w4a16_matmul.launches
+    out = step()
+    torch.cuda.synchronize()
+    assert w4a16.w4a16_matmul.launches == n + 7 * 2
+    with monkeypatch.context() as m:
+        m.setattr(sm, "w4a16_matmul", w4a16.w4a16_reference)
+        ref = step()
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+
+
 def test_deepseek_on_the_card(dev, monkeypatch):
     """DeepSeek-V3's kernel shapes, one test (the suite's collection count
     is kept; ROADMAP queue 3 item 4): K4/K7/K6 at head dim 192 in every
     cache kind, K3 and K8 at the latent projections' narrow widths, one
     MLA MoE layer through ``block_core`` (K9 at 192: the head-dim test of
-    the paged write)."""
+    the paged write), and the absorbed latent engine against the exact
+    one, its decode step's K3 launches against K3's plain version."""
     for kind in ("bf16", "int8", "int4"):
         _check_attention_kernels_at_head_dim_192(dev, kind)
     _check_dequant_matmul_at_latent_widths(dev)
     _check_mla_moe_layer_through_block_core(dev, monkeypatch)
+    _check_absorbed_mla_engine(dev, monkeypatch)

@@ -41,6 +41,7 @@ from gptq_v2_tpu_torch.models import safetensors_io as st
 from gptq_v2_tpu_torch.models.loader import load_hf_model, save_hf_model
 from gptq_v2_tpu_torch.serving import Engine, Request
 from gptq_v2_tpu_torch.serving import model as TM
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GROUP = 16
 E = 8

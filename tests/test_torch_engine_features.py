@@ -30,6 +30,7 @@ from gptq_v2_tpu_torch.models.loader import load_hf_model, save_hf_model
 from gptq_v2_tpu_torch.serving import Engine, Request, restore_requests
 from gptq_v2_tpu_torch.serving import decode as D
 from gptq_v2_tpu_torch.serving import model as TM
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NEG = float(np.finfo(np.float32).min)
 

@@ -46,6 +46,7 @@ from gptq_v2_tpu_torch.ops import paged_attention as TPA
 from gptq_v2_tpu_torch.ops.packing import PackedLinear
 from gptq_v2_tpu_torch.serving import Engine, Request
 from gptq_v2_tpu_torch.serving import model as TM
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GROUP = 16
 BASE = {"vocab_size": 256, "hidden_size": 64, "intermediate_size": 128,

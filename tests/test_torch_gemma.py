@@ -39,6 +39,7 @@ from gptq_v2_tpu_torch.ops import paged_attention as TPA
 from gptq_v2_tpu_torch.ops.packing import PackedLinear
 from gptq_v2_tpu_torch.serving import Engine, Request
 from gptq_v2_tpu_torch.serving import model as TM
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GEMMA2 = dict(num_hidden_layers=2, sliding_window=8, hidden_act="gelu_pytorch_tanh",
               norm_unit_offset=True, sandwich_norms=True, embed_normalizer=True,

@@ -26,6 +26,7 @@ from gptq_v2_tpu_torch.ops import contiguous_attention as TCA
 from gptq_v2_tpu_torch.serving import Engine, Request
 from gptq_v2_tpu_torch.serving import kv_cache as TKV
 from gptq_v2_tpu_torch.serving import model as TM
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 L_, B, S, HKV, HD = 2, 4, 32, 4, 64
 

@@ -16,6 +16,7 @@ from gptq_v2_tpu_torch import graph as tgraph
 from gptq_v2_tpu_torch.models import llama as TL
 from gptq_v2_tpu_torch.models import safetensors_io as st
 from gptq_v2_tpu_torch.models.loader import load_hf_model, save_hf_model
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LLAMA3_ROPE = {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
                "high_freq_factor": 4.0, "original_max_position_embeddings": 64}

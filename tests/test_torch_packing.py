@@ -11,6 +11,7 @@ from gptq_v2_tpu.ops import packing as jp
 from gptq_v2_tpu.ops import w4a16 as jw
 from gptq_v2_tpu_torch.ops import packing as tp
 from gptq_v2_tpu_torch.ops import w4a16 as tw
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 R, GS = 48, 8
 

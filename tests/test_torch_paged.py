@@ -28,6 +28,7 @@ from gptq_v2_tpu_torch.serving import Engine, Request
 from gptq_v2_tpu_torch.serving import decode as TD
 from gptq_v2_tpu_torch.serving import kv_cache as TKV
 from gptq_v2_tpu_torch.serving import model as TM
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 L_, P, PS, HKV, HD = 2, 13, 4, 2, 16
 

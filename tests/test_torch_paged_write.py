@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from gptq_v2_tpu.serving import kv_cache as JKV
 from gptq_v2_tpu_torch.ops import paged_write as TPW
 from gptq_v2_tpu_torch.serving import kv_cache as TKV
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 L_, P, PS, HKV, HD = 2, 13, 4, 4, 16
 # per-head scales; the powers of two make (n + 1/2)·s an exact tie

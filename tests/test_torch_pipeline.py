@@ -16,6 +16,7 @@ from gptq_v2_tpu_torch import main as tmain
 from gptq_v2_tpu_torch import pipeline as TP
 from gptq_v2_tpu_torch.models import llama as TL
 from gptq_v2_tpu_torch.ops import packing as TPK
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GROUP = 32
 

@@ -21,6 +21,7 @@ from gptq_v2_tpu_torch.ops import gptq_cuda, hessian_cuda
 from gptq_v2_tpu_torch.quant import gptq as tg
 from gptq_v2_tpu_torch.quant import hessian as th
 from gptq_v2_tpu_torch.quant import quantizer as tq
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 C, R, G = 256, 96, 32
 

@@ -22,6 +22,7 @@ from gptq_v2_tpu_torch.models.loader import load_hf_model, save_hf_model
 from gptq_v2_tpu_torch.ops.packing import PackedLinear
 from gptq_v2_tpu_torch.serving import Engine, Request
 from gptq_v2_tpu_torch.serving import model as TM
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PROMPT_LENS = (5, 9, 17, 30, 12)
 
@@ -137,8 +138,10 @@ def test_serve_cli_runs_and_refuses_unported_flags(served):
         "paged", "ragged", 8, True)
     args = tserve.parse_serve_args(argv + ["--act-dtype", "int8", "--multi-step", "2"])
     assert (args.act_dtype, args.multi_step) == ("int8", 2)
+    assert not args.mla_absorbed  # the exact MLA path stays the default
+    assert tserve.parse_serve_args(argv + ["--mla-absorbed", "true"]).mla_absorbed
     for extra in (["--tp", "2"], ["--kv-dtype", "fp8"], ["--draft-dir", "x"],
-                  ["--mla-absorbed", "true"]):
+                  ["--spec-k", "2"]):
         with pytest.raises(SystemExit):
             tserve.parse_serve_args(argv + extra)
 

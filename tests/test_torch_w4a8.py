@@ -25,6 +25,7 @@ from gptq_v2_tpu_torch.ops import packing as PK
 from gptq_v2_tpu_torch.ops import w4a16 as K
 from gptq_v2_tpu_torch.serving import Engine, Request
 from gptq_v2_tpu_torch.serving import model as TM
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 C, R, G = 200, 96, 16  # C is not a multiple of any packing block
 
