@@ -129,7 +129,24 @@ over it (``--profile-dir`` gives their device time and device ops).
      each absorbed engine's greedy tokens counted against the exact
      engine's of its cache kind, both engines' tok/s and every engine's
      cache bytes a token and layer logged (K1, K2, K5, K3, K8, K4, K7,
-     K6, K9).
+     K6, K9);
+   * spec: speculative decoding over the main path's Llama-2-7B-width
+     checkpoint with a draft at TinyLlama-1.1B's published widths (2 of
+     its 22 blocks, random weights) and with the target as its own draft:
+     ``serve.main --draft-dir --spec-mode generate`` (a dense bf16 draft
+     checkpoint), then ``Engine(draft=)`` phased over contiguous bf16 and
+     int8 caches, ragged over int4 pages with the prefix cache, phased
+     with the self-draft, and DeepSeek-V3's widths at 1 block, absorbed,
+     with the self-draft (``mla_verify_chunk``), ``SPEC_K`` proposals a
+     tick.  Each engine's greedy output must repeat and equal the same
+     engine's without a draft (a differing token a near-tie of the plain
+     bf16 forward or, over int8 and int4 KV, of a decode over the quantized
+     cache); the Llama self-draft's rejected proposals must be near-ties of
+     the verify logits (V3's, an exact-MLA draft under an absorbed verify,
+     are counted); every verify of the bf16 engine launches K3 once a
+     packed linear; each engine launches K3 and K4 (the draft's decode
+     steps), the ragged one K6 and one K9 a layer and write (K3, K4, K6,
+     K9).
 
    The family paths' engines must repeat their greedy output and pass the
    near-tie rule against a plain bf16 forward over weights in K3's own
@@ -3519,6 +3536,249 @@ def phase_deepseek(torch, work: Path) -> dict:
     return {"rows": rows}
 
 
+SPEC_K = 4  # draft proposals a tick
+SPEC_DRAFT_DEPTH = 2  # of TinyLlama-1.1B's 22 blocks
+SPEC_ENGINES = (("phased bf16", []), ("phased int8", ["--kv-dtype", "int8"]),
+                ("ragged int4 prefix", RAGGED_FLAGS + ["--kv-dtype", "int4",
+                                                       "--prefix-cache", "true"]))
+
+
+def judged_rejections(eng, label: str, gate: bool = True):
+    """Wraps ``speculative.acceptance_step`` for one phased engine and logs
+    the gap (top logit minus the proposal's, over max|logit|) of every
+    proposal the verify rejects on an occupied slot; with ``gate`` each
+    must be a near-tie of the verify logits at that position (a self-draft
+    of one algebra: it decodes through K4, the verify attends in plain
+    torch ops).  Returns the list of gaps and the function that restores
+    the original."""
+    from gptq_v2_tpu_torch.serving import speculative as SP
+
+    inner, seen = SP.acceptance_step, []
+
+    def step(t_logits, d_logits, d_toks, *args, **kw):
+        out, counts = inner(t_logits, d_logits, d_toks, *args, **kw)
+        k = d_toks.shape[1]
+        for si, n in enumerate(counts.tolist()):
+            if eng.slots[si] is None or n > k:
+                continue
+            row, tok = t_logits[si, n - 1].float(), int(d_toks[si, n - 1])
+            gap = float(row.max() - row[tok]) / float(row.abs().max())
+            seen.append(gap)
+            if gate and not near_tie(row, tok):
+                raise RuntimeError(f"{label}: slot {si} rejected proposal {tok} at chunk "
+                                   f"position {n - 1}, {gap:.2e} of max|logit| below the top "
+                                   "logit: beyond the near-tie rule")
+        return out, counts
+
+    SP.acceptance_step = step
+
+    def restore():
+        SP.acceptance_step = inner
+
+    return seen, restore
+
+
+def cache_judge(torch, eng):
+    """The near-tie judge of a quantized cache, which the plain bf16
+    forward does not round: the last position's logits of ``tokens``
+    through a fresh cache of ``eng``'s kind, KV dtype and scales, all but
+    the last token prefilled and the last decoded over the quantized rows
+    (the engine's arithmetic without a draft)."""
+    from gptq_v2_tpu_torch.serving import decode as D
+    from gptq_v2_tpu_torch.serving import kv_cache as kvc
+
+    c, cfg = eng.cache, eng.model.cfg
+    kw = dict(dtype=c._storage.dtype, device="cuda", k_scales=c.k_scales, v_scales=c.v_scales,
+              kv_bits=4 if c.kv_bits == 4 else None)
+    n_layers, n_kv, hd = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim_
+
+    def last(tokens):
+        n = len(tokens)
+        toks = torch.tensor([tokens], device="cuda")
+        if eng.cache_kind == "paged":
+            pages = -(-n // eng.page_size)
+            cache = kvc.init_cache(n_layers, pages + 1, eng.page_size, n_kv, hd, **kw)
+            where = dict(block_tables=torch.arange(1, pages + 1, dtype=torch.int32,
+                                                   device="cuda")[None])
+        else:
+            cache = kvc.init_contiguous_cache(n_layers, 1, eng.max_seq_len, n_kv, hd, **kw)
+            where = {}
+        with uncounted():
+            D.prefill(eng.model, toks[:, :-1], cache, torch.tensor([n - 1], device="cuda"),
+                      **where)
+            return D.decode_step(eng.model, toks[0, -1:], cache,
+                                 torch.tensor([n - 1], device="cuda"), **where)[0][0].float()
+
+    return last
+
+
+def spec_stats(eng) -> str:
+    return (f"accept_rate {eng.spec_accepted / max(eng.spec_proposed, 1):.4f}, "
+            f"tokens_per_round {(eng.spec_accepted + eng.spec_rounds) / max(eng.spec_rounds, 1):.3f}"
+            f" ({eng.spec_rounds} sequence-rounds, {eng.spec_proposed} proposed, "
+            f"{eng.spec_accepted} accepted)")
+
+
+def spec_engine_pair(torch, label: str, make, draft, prompts, judges, self_draft=False,
+                     vocab: int = MODEL["vocab_size"], gate_rejections: bool = True):
+    """One engine kind without and with ``draft``: the plain engine runs
+    once, the speculative one twice (its output must repeat) and must give
+    the plain one's tokens or near-ties of one of ``judges`` (over a
+    quantized cache also :func:`cache_judge`); a self-draft's rejections are
+    logged and, with ``gate_rejections``, judged (:func:`judged_rejections`).
+    Returns the speculative engine."""
+    plain = make()
+    want, _ = engine_runs(torch, plain, prompts, f"spec {label} no draft", runs=1, vocab=vocab)
+    del plain
+    eng = make(draft=draft, spec_k=SPEC_K)
+    seen, restore = (judged_rejections(eng, f"spec {label}", gate_rejections) if self_draft
+                     else ([], None))
+    kernels = ("w4a16", "attention", "paged_attention", "paged_write")
+    n0 = {k: WRAPPERS[k].launches for k in kernels}
+    try:
+        got, _ = engine_runs(torch, eng, prompts, f"spec {label}", vocab=vocab)
+    finally:
+        if restore:
+            restore()
+    dn = {k: WRAPPERS[k].launches - n0[k] for k in kernels}
+    # K3 runs the target's linears, K4 the draft's decode steps (the verify
+    # attends in plain torch ops); a paged target writes through K9, reads
+    # through K6
+    need = ("w4a16", "attention") + (("paged_attention", "paged_write")
+                                     if eng.cache_kind == "paged" else ())
+    if not all(dn[k] for k in need):
+        raise RuntimeError(f"spec {label}: a kernel of the path never launched: {dn}")
+    if not 0 <= eng.spec_accepted <= eng.spec_proposed or not eng.spec_proposed:
+        raise RuntimeError(f"spec {label}: {eng.spec_accepted} accepted of "
+                           f"{eng.spec_proposed} proposed")
+    if getattr(eng.cache, "k_scales", None) is not None:  # int8 / int4 K/V
+        judges = dict(judges, **{"decode over the quantized cache": cache_judge(torch, eng)})
+    n_eq = check_agree(f"spec {label}", got, want, prompts, judges)
+    log(f"phase spec {label}: ok, output repeats, equal to the engine without a draft on "
+        f"{n_eq}/{len(prompts)} requests (the rest near-ties); {spec_stats(eng)}, "
+        f"{eng.steps} ticks over 2 runs; launches "
+        + ", ".join(f"{k} {v}" for k, v in dn.items())
+        + (f"; {len(seen)} rejected proposals, {sum(g > 1e-2 for g in seen)} of them "
+           f"beyond the near-tie rule (largest gap {max(seen, default=0.0):.2e} of "
+           f"max|logit|{'' if gate_rejections else '; counted, not a gate'})"
+           if self_draft else "")
+        + f"; tok/s {rates(f'spec {label}')} against {rates(f'spec {label} no draft')} "
+        f"without a draft on {SMI}")
+    return eng
+
+
+def phase_spec(torch, work: Path) -> None:
+    """Speculative decoding: ``serve.main --draft-dir`` and
+    ``Engine(draft=)`` over the main path's checkpoint (its ``DEPTH``
+    blocks at Llama-2-7B width), the absorbed MLA engine at DeepSeek-V3's
+    widths; see the module docstring.  No gain is claimed: the drafts are
+    random weights."""
+    from gptq_v2_tpu_torch import serve as S
+    from gptq_v2_tpu_torch.models import families
+    from gptq_v2_tpu_torch.models import llama as L
+    from gptq_v2_tpu_torch.models.loader import save_hf_model
+    from gptq_v2_tpu_torch.ops import w4a16
+    from gptq_v2_tpu_torch.ops.packing import PackedLinear
+    from gptq_v2_tpu_torch.serving import Engine
+    from gptq_v2_tpu_torch.serving import model as TM
+
+    if not (work / "results.npz").exists():
+        log("spec path: the main path's checkpoint is missing (a rehearsal of this path "
+            "alone): the main path makes it first")
+        phase_main_path(torch, work)
+    t_path = time.time()
+    dcfg = family_cfg("tinyllama", num_hidden_layers=SPEC_DRAFT_DEPTH)
+    log(f"spec path: target the main path's checkpoint ({DEPTH} blocks at Llama-2-7B "
+        f"width); draft {families.SOURCES['tinyllama']} widths (hidden {dcfg.hidden_size}, "
+        f"{dcfg.num_attention_heads} q heads over {dcfg.num_key_value_heads} kv heads of "
+        f"{dcfg.head_dim_}, intermediate {dcfg.intermediate_size}, vocab {dcfg.vocab_size}), "
+        f"depth cut to {SPEC_DRAFT_DEPTH} of 22 blocks, random weights; spec_k {SPEC_K}")
+    serve_args = ["--model-dir", str(work / "model"), "--results",
+                  str(work / "results.npz"), "--max-batch", str(len(PROMPT_LENS)),
+                  "--max-seq-len", "512"]
+    save_hf_model(dcfg, L.init_params(dcfg, seed=3), work / "tinyllama")
+    t0 = time.time()
+    stats = S.main(serve_args + ["--draft-dir", str(work / "tinyllama"), "--spec-mode",
+                                 "generate", "--spec-k", str(SPEC_K), "--prompt-tokens", "128",
+                                 "--bench-tokens", str(NEW_TOKENS)])
+    if not 0 <= stats["accept_rate"] <= 1 or stats["tokens_per_round"] < 1:
+        raise RuntimeError(f"spec serve.main generate: malformed stats {stats}")
+    log(f"phase spec serve.main --spec-mode generate (dense bf16 draft): ok, "
+        f"{time.time() - t0:.1f} s; {stats['requests']} requests x {NEW_TOKENS} new tokens: "
+        f"{stats['tok_s']:.1f} tok/s, accept_rate {stats['accept_rate']:.4f}, "
+        f"tokens_per_round {stats['tokens_per_round']:.3f}; serve.main without a draft "
+        f"(path main, this run) {rates('serve.main contiguous W4A16')} tok/s on {SMI}")
+    shutil.rmtree(work / "tinyllama", ignore_errors=True)
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, MODEL["vocab_size"], (n,)).tolist() for n in PROMPT_LENS]
+    draft = TM.random_packed_llama(dcfg, seed=0)
+    target = S._load_packed(str(work / "model"), str(work / "results.npz"), "cuda")
+    dense = kernel_dense(torch, target)
+
+    def dense_last(tokens):
+        return L.forward_logits(target.cfg, dense, torch.tensor([tokens], device="cuda"))[
+            0, -1].float()
+
+    judges = {"plain bf16 forward": dense_last}
+    for label, flags in SPEC_ENGINES:
+        args = S.parse_serve_args(serve_args + flags)
+        eng = spec_engine_pair(torch, label, lambda **kw: S.build_engine(args, target, **kw),
+                               draft, prompts, judges)
+        if label == "phased bf16":  # one K3 launch a packed linear a verify
+            stages = sum(isinstance(w, PackedLinear) for lp in eng.model.layers
+                         for w in lp.values())
+            calls, verify = [], eng._verify
+
+            def counted(*a, verify=verify, calls=calls):
+                n = w4a16.w4a16_matmul.launches
+                out = verify(*a)
+                calls.append(w4a16.w4a16_matmul.launches - n)
+                return out
+
+            eng._verify = counted
+            engine_runs(torch, eng, prompts, "spec phased bf16 K3 count", runs=1)
+            if not calls or any(c != stages for c in calls):
+                raise RuntimeError(f"spec: a verify launched K3 {sorted(set(calls))} times; "
+                                   f"the target has {stages} packed linears")
+            log(f"phase spec K3 a verify: ok, {len(calls)} verifies of "
+                f"{len(PROMPT_LENS)} x {SPEC_K + 1} rows, {stages} K3 launches each (one a "
+                "packed linear)")
+        del eng
+        torch.cuda.empty_cache()
+    spec_engine_pair(torch, "phased bf16 self-draft",
+                     lambda **kw: Engine(target, max_batch=len(PROMPT_LENS), max_seq_len=512,
+                                         **kw), target, prompts, judges, self_draft=True)
+    del draft, target, dense, judges
+    torch.cuda.empty_cache()
+
+    cfg = family_cfg("deepseek_v3", num_hidden_layers=1)
+    t0 = time.time()
+    model = TM.random_packed_llama(cfg, seed=0)
+    dense = kernel_dense(torch, model)
+    torch.cuda.synchronize()
+    log(f"spec path: {families.SOURCES['deepseek_v3']} widths, 1 block (dense) from "
+        f"random_packed_llama (seed 0) in {time.time() - t0:.1f} s; the absorbed engine's "
+        "verify over the latent cache, the model itself as an exact-MLA draft")
+
+    def v3_last(tokens):
+        return L.forward_logits(cfg, dense, torch.tensor([tokens], device="cuda"))[0, -1].float()
+
+    v3_prompts = [rng.integers(0, cfg.vocab_size, (n,)).tolist() for n in PROMPT_LENS]
+    # the draft runs the exact MLA (per-head K/V, K4 at head dim 192), the
+    # verify the absorbed latent form: two algebras, whose greedy tokens the
+    # deepseek path counts rather than gates (compare_engines), so the
+    # rejections are counted too
+    spec_engine_pair(torch, "deepseek-v3 absorbed self-draft",
+                     lambda **kw: Engine(model, max_batch=len(PROMPT_LENS), max_seq_len=512,
+                                         mla_absorbed=True, **kw),
+                     model, v3_prompts, {"plain bf16 forward": v3_last}, self_draft=True,
+                     vocab=cfg.vocab_size, gate_rejections=False)
+    del model, dense
+    torch.cuda.empty_cache()
+    log(f"spec path: {time.time() - t_path:.1f} s after the main path's checkpoint")
+
+
 def compare_engines(tag: str, pairs) -> None:
     """Two engines' greedy outputs over the same model and prompts, for
     each pair: the requests whose tokens are equal throughout, those whose
@@ -3638,7 +3898,8 @@ def main(argv=None) -> int:
              ("serve.w4a8", phase_serve_w4a8,
               ("w4a8", "attention", "paged_attention", "paged_write")),
              ("serve.features", phase_serve_features,
-              ("w4a16", "attention", "paged_attention", "paged_write")))
+              ("w4a16", "attention", "paged_attention", "paged_write")),
+             ("spec", phase_spec, ("w4a16", "attention", "paged_attention", "paged_write")))
     if args.paths:
         only = args.paths.split(",")
         paths = tuple(p for p in paths if p[0] in only)

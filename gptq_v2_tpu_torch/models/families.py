@@ -18,7 +18,8 @@ publishes FP8 blocks (``quantization_config``, ``weight_scale_inv``),
 which neither package reads either: its entry describes the bf16 layout
 (HF's ``rope_interleave`` default, true, written out).  Moonlight-16B-A3B
 is a ``deepseek_v3``-typed model without ``q_lora_rank`` and with one
-expert group.
+expert group.  TinyLlama-1.1B shares Llama-2's 32000-token vocabulary: it
+is the draft model of the speculative path at Llama-2-7B width.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ SOURCES = {
     "llama4": "meta-llama/Llama-4-Scout-17B-16E",
     "deepseek_v3": "deepseek-ai/DeepSeek-V3",
     "moonlight": "moonshotai/Moonlight-16B-A3B",
+    "tinyllama": "TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-3T",
 }
 
 _PUBLISHED: Dict[str, dict] = {
@@ -174,6 +176,10 @@ _PUBLISHED: Dict[str, dict] = {
                       routed_scaling_factor=2.446, first_k_dense_replace=1,
                       moe_layer_freq=1, hidden_act="silu", attention_bias=False,
                       max_position_embeddings=8192, rope_theta=50000.0, rope_scaling=None,
+                      rms_norm_eps=1e-5, tie_word_embeddings=False, torch_dtype="bfloat16"),
+    "tinyllama": dict(model_type="llama", vocab_size=32000, hidden_size=2048,
+                      intermediate_size=5632, num_hidden_layers=22, num_attention_heads=32,
+                      num_key_value_heads=4, max_position_embeddings=2048, rope_theta=10000.0,
                       rms_norm_eps=1e-5, tie_word_embeddings=False, torch_dtype="bfloat16"),
 }
 

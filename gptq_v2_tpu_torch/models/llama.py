@@ -38,7 +38,7 @@ import functools
 import json
 import math
 from pathlib import Path
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -866,7 +866,7 @@ def soft_cap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal_offset: Optional[int] = 0,
+              causal_offset: Union[int, torch.Tensor, None] = 0,
               key_mask: Optional[torch.Tensor] = None,
               window: Optional[int] = None,
               sm_scale: Optional[float] = None,
@@ -878,7 +878,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fp32.  q (B, N, Hq, hd), k/v (B, S, Hkv, hd) → (B, N, Hq, hd).
 
     ``causal_offset``: query i attends keys ``<= i + offset`` (None: no
-    causal mask); ``window`` keeps only the last ``window`` of those
+    causal mask); a ``(B,)`` tensor gives each row its own offset (a
+    speculative verify chunk starts at its sequence's position), and the
+    window and chunk masks follow the same per-row bound; ``window`` keeps
+    only the last ``window`` of those
     (``j > i + offset - window``, HF sliding-window semantics), ``chunk``
     only those of its own chunk (``j // chunk == (i + offset) // chunk``,
     Llama-4); ``key_mask`` (B, S) masks invalid cache slots; ``logit_cap``
@@ -900,14 +903,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = soft_cap(scores, logit_cap)
     neg = torch.finfo(torch.float32).min
     if causal_offset is not None:
+        per_row = isinstance(causal_offset, torch.Tensor) and causal_offset.dim() == 1
+        off = causal_offset[:, None, None] if per_row else causal_offset
         qi = torch.arange(n, device=q.device)[:, None]
         kj = torch.arange(s, device=q.device)[None, :]
-        mask = kj <= qi + causal_offset
+        mask = kj <= qi + off  # (n, s), or (B, n, s) per row
         if window is not None:
-            mask &= kj > qi + causal_offset - window
+            mask &= kj > qi + off - window
         if chunk is not None:
-            mask &= (kj // chunk) == ((qi + causal_offset) // chunk)
-        scores = scores.masked_fill(~mask[None, None, None], neg)
+            mask &= (kj // chunk) == ((qi + off) // chunk)
+        scores = scores.masked_fill(~(mask[:, None, None] if per_row else mask[None, None, None]),
+                                    neg)
     if key_mask is not None:
         scores = scores.masked_fill(~key_mask[:, None, None, None, :], neg)
     if sinks is None:

@@ -8,9 +8,15 @@ outputs/results.npz [--act-dtype native|int8] [--kv-dtype native|int8|int4]
 [--prefix-cache true]]] [--multi-step K] [--mla-absorbed true]
 [--state-path FILE] [--profile-dir DIR] [--benchmark true]``
 
+Speculative decoding: ``--draft-dir DIR [--draft-results FILE] [--spec-k 4]
+[--spec-mode generate|engine]`` serves a draft checkpoint beside the
+target (packed from its results, or dense in bf16 without them) and
+benchmarks ``speculative.speculative_generate`` on a fixed batch
+(``generate``) or ``Engine(draft=)`` (``engine``; ``--scheduler ragged``
+puts it on the paged cache, with ``--prefix-cache`` too).
+
 Only the flags of the ported paths exist (one device); argparse refuses
-any other flag (``--tp``, ``--pp``, ``--draft-dir``, ``--coordinator`` …)
-as unrecognized.
+any other flag (``--tp``, ``--pp``, ``--coordinator`` …) as unrecognized.
 """
 from __future__ import annotations
 
@@ -77,6 +83,16 @@ def parse_serve_args(argv=None):
     p.add_argument("--bench-tokens", type=int, default=64,
                    help="new tokens per request in the benchmark")
     p.add_argument("--prompt-tokens", type=int, default=64)
+    p.add_argument("--draft-dir", type=str, default="",
+                   help="draft model checkpoint: turns on speculative decoding")
+    p.add_argument("--draft-results", type=str, default="",
+                   help="the draft's quantization results (default: serve the draft "
+                        "dense in bf16)")
+    p.add_argument("--spec-k", type=int, default=4, help="speculative proposal length")
+    p.add_argument("--spec-mode", type=str, default="generate",
+                   choices=["generate", "engine"],
+                   help="generate = a fixed batch through speculative_generate; engine = "
+                        "speculation inside the continuous-batching engine")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
@@ -94,17 +110,18 @@ def _load_packed(model_dir: str, results_path: str, device):
                                      compute_dtype=torch.bfloat16, device=device)
 
 
-def build_engine(args, model):
+def build_engine(args, model, **kw):
     """The engine the arguments ask for, over ``model``, the packed model
-    of ``args.model_dir`` and ``args.results`` (:func:`_load_packed`)."""
+    of ``args.model_dir`` and ``args.results`` (:func:`_load_packed`);
+    ``kw`` overrides or adds engine arguments (``draft``)."""
     from gptq_v2_tpu_torch.serving import Engine
 
-    return Engine(model, max_batch=args.max_batch, page_size=args.page_size,
-                  max_seq_len=args.max_seq_len, kv_dtype=args.kv_dtype,
-                  cache_kind=args.cache_kind, scheduler=args.scheduler,
-                  token_budget=args.token_budget or None,
-                  prefix_cache=args.prefix_cache, act_dtype=args.act_dtype,
-                  multi_step=args.multi_step, mla_absorbed=args.mla_absorbed)
+    return Engine(model, **{**dict(
+        max_batch=args.max_batch, page_size=args.page_size, max_seq_len=args.max_seq_len,
+        kv_dtype=args.kv_dtype, cache_kind=args.cache_kind, scheduler=args.scheduler,
+        token_budget=args.token_budget or None, prefix_cache=args.prefix_cache,
+        act_dtype=args.act_dtype, multi_step=args.multi_step,
+        mla_absorbed=args.mla_absorbed), **kw})
 
 
 def main(argv=None) -> dict:
@@ -112,6 +129,8 @@ def main(argv=None) -> dict:
                         level=logging.INFO)
     logging.info(" ".join(argv if argv is not None else sys.argv))
     args = parse_serve_args(argv)
+    if args.draft_dir:
+        return _speculative_main(args)
     eng = build_engine(args, _load_packed(args.model_dir, args.results, args.device))
     stats = {}
     if args.benchmark:
@@ -148,6 +167,68 @@ def main(argv=None) -> dict:
         stats = {"requests": len(reqs), "new_tokens": total, "ticks": eng.steps - steps0,
                  "wall_s": dt, "tok_s": total / dt, "resumed": len(prefixes), **trace}
         logging.info("benchmark: %s", stats)
+    return stats
+
+
+def _speculative_main(args) -> dict:
+    """The speculative benchmark: target and draft, greedy, a batch of
+    ``min(max_batch, 8)`` prompts; a warm-up, then the timed run."""
+    from gptq_v2_tpu_torch.serving.speculative import speculative_generate
+    from gptq_v2_tpu_torch.utils import profile_trace
+
+    if args.kv_dtype == "int4" and args.spec_mode == "generate":
+        raise SystemExit("--kv-dtype int4 does not compose with --spec-mode generate "
+                         "(its caches are contiguous; use int8)")
+    target = _load_packed(args.model_dir, args.results, args.device)
+    draft = _load_packed(args.draft_dir, args.draft_results, args.device)
+    rng = np.random.default_rng(0)
+    b = min(args.max_batch, 8)  # speculation aims at small-batch latency
+    prompts = [rng.integers(0, target.cfg.vocab_size, (args.prompt_tokens,)).tolist()
+               for _ in range(b)]
+    if args.spec_mode == "engine":
+        return _speculative_engine_bench(args, target, draft, prompts)
+    kw = dict(k=args.spec_k, max_seq_len=args.max_seq_len,
+              kv_dtype=torch.int8 if args.kv_dtype == "int8" else None)
+    speculative_generate(target, draft, prompts, max_new_tokens=2, **kw)  # warm-up
+    t0 = time.time()
+    with profile_trace(args.profile_dir) as trace:
+        _, st = speculative_generate(target, draft, prompts,
+                                     max_new_tokens=args.bench_tokens, **kw)
+    dt = time.time() - t0
+    stats = {"requests": b, "new_tokens": b * args.bench_tokens, "wall_s": dt,
+             "tok_s": b * args.bench_tokens / dt, "accept_rate": st.accept_rate,
+             "tokens_per_round": st.tokens_per_round, **trace}
+    logging.info("speculative benchmark: %s", stats)
+    return stats
+
+
+def _speculative_engine_bench(args, target, draft, prompts) -> dict:
+    """Speculation inside the continuous-batching engine (``Engine(draft=)``):
+    a warm-up engine run, then the timed run on a fresh engine."""
+    from gptq_v2_tpu_torch.serving import Request
+    from gptq_v2_tpu_torch.utils import profile_trace
+
+    # --scheduler ragged composes speculation with chunked prefill and the
+    # paged cache (and --prefix-cache)
+    kw = dict(max_batch=len(prompts), draft=draft, spec_k=args.spec_k)
+    if args.scheduler == "ragged":
+        kw["cache_kind"] = "paged"
+
+    def reqs():
+        return [Request(uid=i, prompt=p, max_new_tokens=args.bench_tokens)
+                for i, p in enumerate(prompts)]
+
+    build_engine(args, target, **kw).run(reqs())  # warm-up
+    eng = build_engine(args, target, **kw)
+    t0 = time.time()
+    with profile_trace(args.profile_dir) as trace:
+        eng.run(reqs())
+    dt = time.time() - t0
+    total = len(prompts) * args.bench_tokens
+    stats = {"requests": len(prompts), "new_tokens": total, "wall_s": dt,
+             "tok_s": total / dt, "accept_rate": eng.spec_accepted / max(eng.spec_proposed, 1),
+             "ticks": eng.steps, **trace}
+    logging.info("speculative engine benchmark: %s", stats)
     return stats
 
 

@@ -1,5 +1,6 @@
-"""Prefill, single-token decode, the ragged mixed step, their multi-step
-loops and per-row sampling (counterpart of ``gptq_v2_tpu/serving/decode.py``).
+"""Prefill, single-token decode, the ragged mixed step and its speculative
+form, their multi-step loops and per-row sampling (counterpart of
+``gptq_v2_tpu/serving/decode.py``).
 
 Every block projection runs through K3 (``ops/w4a16.py``), or K8 in the
 W4A8 tier.  Over the
@@ -284,6 +285,64 @@ def ragged_multi_step(model: PackedLlama,
                         (top_ks, top_ps, min_ps), return_logprobs), cache
 
 
+def ragged_spec_step(model: PackedLlama,
+                     tokens: torch.Tensor,  # (T,) chunk heads and prompt tokens, by sequence
+                     cache: kvc.PagedKVCache,
+                     positions: torch.Tensor,  # (T,)
+                     tok_pages: torch.Tensor,  # (T,) destination page (0 = trash for padding)
+                     tok_offs: torch.Tensor,  # (T,)
+                     block_tables: torch.Tensor,  # (S, max_pages)
+                     kv_lens: torch.Tensor,  # (S,)
+                     cu_q_lens: torch.Tensor,  # (S+1,)
+                     num_seqs: torch.Tensor,  # (1,)
+                     sample_rows: torch.Tensor,  # (S,) last row of each sequence
+                     chunk_rows: torch.Tensor,  # (S, k+1) rows of each decoding sequence's chunk
+                     seq_slots: torch.Tensor,  # (S,) engine slot of each sequence
+                     d_logits: torch.Tensor,  # (B, k, V) draft logits, by slot
+                     d_toks: torch.Tensor,  # (B, k) draft proposals, by slot
+                     temperatures: torch.Tensor,  # (S,)
+                     generator: Optional[torch.Generator] = None,
+                     top_ks: Optional[torch.Tensor] = None,  # (S,)
+                     top_ps: Optional[torch.Tensor] = None,
+                     min_ps: Optional[torch.Tensor] = None,
+                     return_logprobs: bool = False,
+                     ) -> Tuple[torch.Tensor, kvc.PagedKVCache]:
+    """A speculative mixed tick (JAX ``decode.ragged_spec_step``): every
+    decoding sequence's ``k + 1``-token chunk ``[cur, d_0 .. d_{k-1}]`` at
+    positions ``len .. len + k`` and the admitting sequences' prompt chunks
+    in one ragged forward (:func:`_ragged_forward`: K9 writes, K6 reads,
+    one launch of each a layer).  The draft proposals are scattered into
+    the token rows on the device (``chunk_rows``; a non-decoding sequence's
+    rows point at the trash row ``T - 1``, a padding row), the chunks'
+    logits go through ``speculative.acceptance_step`` and the sequences
+    that complete their prompt sample their first token at
+    ``sample_rows``, both from ``generator``.  Rejected tokens' K/V rows
+    are rewritten by the next tick's chunk before any query can attend
+    them.  Returns ``(packed (S, k+3), cache)``, one readback:
+    ``packed[i] = [first_tok, count, out_0 .. out_k]``; with
+    ``return_logprobs`` ``(S, 2k+5)`` int32, ``[..., first_lp, lp_0 ..
+    lp_k]`` as f32 bits, each the raw target distribution's."""
+    from gptq_v2_tpu_torch.serving.speculative import acceptance_step
+
+    s, k1 = chunk_rows.shape
+    d_lg, d_tk = d_logits[seq_slots], d_toks[seq_slots]  # (S, k, V), (S, k)
+    tokens = tokens.clone()
+    tokens[chunk_rows[:, 1:].reshape(-1)] = d_tk.reshape(-1).to(tokens.dtype)
+    x = _ragged_forward(model, tokens, cache, positions, tok_pages, tok_offs, block_tables,
+                        kv_lens, cu_q_lens, num_seqs)
+    warps = (top_ks, top_ps, min_ps)
+    t_logits = head_logits(model.cfg, model.lm_head, x[chunk_rows.reshape(-1)]).reshape(s, k1, -1)
+    out, counts = acceptance_step(t_logits, d_lg, d_tk, generator, temperatures, *warps,
+                                  return_logprobs=return_logprobs)
+    first_logits = head_logits(model.cfg, model.lm_head, x[sample_rows])
+    first = sample_per_row(first_logits, temperatures, generator, *warps)
+    if return_logprobs:
+        first_lp = chosen_logprob(first_logits, first).view(torch.int32)
+        return torch.cat([first[:, None].to(torch.int32), counts[:, None].to(torch.int32),
+                          out[..., 0], first_lp[:, None], out[..., 1]], dim=1), cache
+    return torch.cat([first[:, None], counts[:, None], out], dim=1), cache
+
+
 def _ragged_forward(model, tokens, cache, positions, tok_pages, tok_offs, block_tables,
                     kv_lens, cu_q_lens, num_seqs) -> torch.Tensor:
     """The ragged forward: per layer, write each token's K/V and attend
@@ -392,9 +451,9 @@ def chosen_logprob(logits: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
 
 
 def pack_tok_logprob(toks: torch.Tensor, lps: torch.Tensor) -> torch.Tensor:
-    """(B,) tokens + (B,) f32 logprobs → (B, 2) int32, the logprob's bits
-    reinterpreted, so a tick reads back one tensor."""
-    return torch.stack([toks.to(torch.int32), lps.float().view(torch.int32)], dim=1)
+    """(...) tokens + (...) f32 logprobs → (..., 2) int32, the logprob's
+    bits reinterpreted, so a tick reads back one tensor."""
+    return torch.stack([toks.to(torch.int32), lps.float().view(torch.int32)], dim=-1)
 
 
 def unpack_tok_logprob(packed: np.ndarray):

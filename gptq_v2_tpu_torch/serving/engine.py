@@ -39,10 +39,15 @@
   multiple of ``page_size``, and the ragged scheduler ends a tick's prompt
   rows of a sequence at the chunk's boundary (the step rebases one table a
   sequence);
+* ``draft`` (speculative decoding, ``serving/speculative.py``): each tick
+  the draft proposes ``spec_k`` tokens a slot over its own contiguous
+  cache and the target verifies every slot's chunk in one forward, on the
+  phased scheduler over the contiguous cache (over the latent cache under
+  ``mla_absorbed``, ``mla.mla_verify_chunk``) or the ragged scheduler,
+  whose one mixed forward verifies the chunks beside the prompt chunks
+  (``decode.ragged_spec_step``);
 * :meth:`Engine.snapshot` / :func:`restore_requests` recover unfinished
   requests after a crash (the JAX package's JSON format).
-
-Speculative decoding (over the latent cache too) is not ported yet.
 """
 from __future__ import annotations
 
@@ -60,6 +65,7 @@ import torch
 from gptq_v2_tpu_torch.serving import decode as D
 from gptq_v2_tpu_torch.serving import kv_cache as kvc
 from gptq_v2_tpu_torch.serving import mla as MLA
+from gptq_v2_tpu_torch.serving import speculative as SP
 from gptq_v2_tpu_torch.serving.model import (
     PackedLlama,
     calibrate_kv_scales,
@@ -118,6 +124,28 @@ def _check_absorbed(cfg, cache_kind: str, scheduler: str, kv_dtype: str, kv_scal
                          "calibrates its own (serving/mla.py::calibrate_mla_scales)")
 
 
+def _check_draft(cfg, dcfg, spec_k: int, multi_step: int, kv_dtype: str, cache_kind: str,
+                 scheduler: str, mla_absorbed: bool) -> None:
+    """The modes speculative serving composes with (the JAX package's
+    rules)."""
+    if spec_k < 1:
+        raise ValueError(f"spec_k {spec_k}")
+    if dcfg.vocab_size != cfg.vocab_size:
+        raise ValueError("the draft's vocabulary differs from the target's")
+    if multi_step > 1:
+        raise ValueError("multi_step rides the non-speculative decode ticks")
+    if cfg.attn_chunk_size or cfg.attn_temp_tuning:
+        raise ValueError("Llama-4's chunked attention and temperature tuning do not compose "
+                         "with speculative decoding")
+    if kv_dtype == "int4" and scheduler != "ragged":
+        raise ValueError("int4 KV with speculation runs on the ragged scheduler's paged "
+                         "verify")
+    if mla_absorbed and (cache_kind, scheduler) != ("contiguous", "phased"):
+        raise ValueError("absorbed MLA speculation runs contiguous + phased")
+    if scheduler == "phased" and cache_kind != "contiguous":
+        raise ValueError("phased speculative serving uses the contiguous cache")
+
+
 class Engine:
     def __init__(self, model: PackedLlama, max_batch: int = 8,
                  page_size: int = 16, max_seq_len: int = 512,
@@ -126,7 +154,8 @@ class Engine:
                  cache_kind: str = "contiguous", scheduler: str = "phased",
                  n_pages: Optional[int] = None, token_budget: Optional[int] = None,
                  prefix_cache: bool = False, act_dtype: str = "native",
-                 logprobs: bool = False, multi_step: int = 1, mla_absorbed: bool = False):
+                 logprobs: bool = False, multi_step: int = 1, mla_absorbed: bool = False,
+                 draft: Optional[PackedLlama] = None, spec_k: int = 4):
         """Serve ``model`` on the device its tensors live on.
 
         q/k/v and gate/up are fused into one packed linear each and down's
@@ -159,7 +188,18 @@ class Engine:
         ``kv_dtype="int8"``, as int8 against per-layer scales calibrated at
         build time (:func:`~gptq_v2_tpu_torch.serving.mla.calibrate_mla_scales`,
         of the W4A8 model under ``act_dtype="int8"``); ``kv_b``'s absorbed
-        halves are dequantized once here.  Other combinations raise."""
+        halves are dequantized once here.
+
+        ``draft`` (a packed model with the target's vocabulary) turns on
+        speculative decoding with ``spec_k`` proposals a slot and tick: on
+        the phased scheduler over the contiguous cache (the latent cache
+        under ``mla_absorbed``), or on the ragged scheduler (any
+        ``kv_dtype``, with the prefix cache too).  The draft's stages are
+        fused as the target's (not under ``mla_absorbed``, as in the JAX
+        package) and it keeps a contiguous cache in its own dtype; each
+        request reserves ``spec_k`` positions of headroom.  It does not
+        compose with ``multi_step > 1`` or Llama-4's chunked attention.
+        Other combinations raise."""
         if kv_dtype not in ("native", "int8", "int4"):
             raise ValueError(f"kv_dtype {kv_dtype!r}")
         if cache_kind not in ("contiguous", "paged"):
@@ -177,6 +217,9 @@ class Engine:
             raise ValueError(f"multi_step {multi_step}")
         if mla_absorbed:
             _check_absorbed(model.cfg, cache_kind, scheduler, kv_dtype, kv_scales)
+        if draft is not None:
+            _check_draft(model.cfg, draft.cfg, spec_k, multi_step, kv_dtype, cache_kind,
+                         scheduler, mla_absorbed)
         chunk = model.cfg.attn_chunk_size
         if chunk and cache_kind == "paged" and chunk % page_size:
             # the paged path rebases block tables to a chunk's first page
@@ -237,6 +280,18 @@ class Engine:
             self._page_rc: Dict[int, int] = {}  # active slots per cached page
             self._cached_free: Dict[int, None] = {}  # refcount 0, LRU order
             self.prefix_hit_tokens = 0
+        self.draft = draft
+        self.spec_k = spec_k
+        self.spec_rounds = self.spec_proposed = self.spec_accepted = 0
+        if draft is not None:
+            if not mla_absorbed:
+                self.draft = draft = fuse_stage_linears(draft)
+            dcfg = draft.cfg
+            self.draft_cache = kvc.init_contiguous_cache(
+                dcfg.num_hidden_layers, max_batch, self.max_seq_len, dcfg.num_key_value_heads,
+                dcfg.head_dim_, dtype=draft.embed_tokens.dtype, device=self.device)
+            # each slot's token before its current one (the draft's catch-up)
+            self.prev_tokens = np.zeros((max_batch,), np.int64)
         self.slots: List[Optional[_Slot]] = [None] * max_batch
         self.last_tokens = np.zeros((max_batch,), np.int64)
         self.queue: List[Request] = []
@@ -257,8 +312,13 @@ class Engine:
         return tuple(None if a is None else self._tensor(a) for a in arrays)
 
     # ------------------------------------------------------------------ admin
+    def _headroom(self) -> int:
+        """Positions a request reserves past its last token: a speculative
+        chunk writes up to ``spec_k`` of them."""
+        return self.spec_k if self.draft is not None else 0
+
     def add_request(self, req: Request) -> None:
-        if len(req.prompt) + req.max_new_tokens > self.max_seq_len:
+        if len(req.prompt) + req.max_new_tokens + self._headroom() > self.max_seq_len:
             raise ValueError(
                 f"request {req.uid} exceeds max_seq_len {self.max_seq_len}")
         if req.top_k > 0 or req.top_p < 1.0 or req.min_p > 0.0:
@@ -266,7 +326,7 @@ class Engine:
         self.queue.append(req)
 
     def _pages_needed(self, req: Request) -> int:
-        return -(-(len(req.prompt) + req.max_new_tokens) // self.page_size)
+        return -(-(len(req.prompt) + req.max_new_tokens + self._headroom()) // self.page_size)
 
     def _alloc_pages(self, n: int) -> Optional[List[int]]:
         if self.prefix_cache:
@@ -340,6 +400,12 @@ class Engine:
                 logits, self.cache = D.prefill(
                     self.model, self._tensor(tokens), self.cache,
                     self._tensor(lengths), self._tensor(slot_ids), block_tables=bt)
+            if self.draft is not None:  # mirror the prompts into the draft's cache
+                _, self.draft_cache = D.prefill(self.draft, self._tensor(tokens),
+                                                self.draft_cache, self._tensor(lengths),
+                                                self._tensor(slot_ids))
+                for si, req, _ in group:
+                    self.prev_tokens[si] = req.prompt[-1]
             temps = np.zeros((nb,), np.float32)
             warps = self._warp_arrays(nb)
             for i, (_, req, _) in enumerate(group):
@@ -388,9 +454,12 @@ class Engine:
         sync.  Phased: admit new work, then one decode step for every slot
         (idle slots decode too: on the paged cache their zeroed tables send
         the writes to the trash page), or ``multi_step`` of them while they
-        fit under ``max_seq_len``.  Ragged: :meth:`_step_ragged`."""
+        fit under ``max_seq_len``.  Ragged: :meth:`_step_ragged`.  With a
+        draft: :meth:`_step_speculative` or :meth:`_step_ragged_spec`."""
         if self.scheduler == "ragged":
-            return self._step_ragged()
+            return self._step_ragged() if self.draft is None else self._step_ragged_spec()
+        if self.draft is not None:
+            return self._step_speculative()
         self._admit()
         active = [si for si in range(self.max_batch) if self.slots[si] is not None]
         if not active:
@@ -640,6 +709,200 @@ class Engine:
             self._set_sampling(i, slot.request, temps, warps)
             bt_rows[i] = self.block_tables[si]
         return tokens, positions, kv_lens, temps, warps, bt_rows
+
+    # ------------------------------------------------------------ speculative
+    def _spec_bucket(self, max_pos: int) -> int:
+        """The context bucket of a speculative tick: it covers every slot's
+        chunk, ``max_pos .. max_pos + spec_k``."""
+        return min(_bucket(max_pos + self.spec_k + 1, lo=self.page_size), self.max_seq_len)
+
+    def _draft_propose(self, pos_dev, temps_dev, cur, warps, s_bucket: int):
+        """``spec_k`` draft proposals a slot: a 2-token catch-up chunk
+        (``speculative.verify_chunk`` at ``position - 1``, the draft's gap
+        after a fully accepted round), then ``spec_k - 1`` decode steps.
+        Proposals are drawn from the per-row warped draft distribution (the
+        acceptance rule needs ``p_d`` to be what the draft sampled from).
+        Returns ``(d_logits (B, k, V), d_toks (B, k))`` on the device."""
+        pair = torch.stack([self._tensor(self.prev_tokens), cur], dim=1)
+        lg2, self.draft_cache = SP.verify_chunk(self.draft, pair, self.draft_cache,
+                                                pos_dev - 1, s_bucket)
+        d_in = D.sample_per_row(lg2[:, 1], temps_dev, self.generator, *warps)
+        d_lgs, d_tks = [lg2[:, 1]], [d_in]
+        for i in range(1, self.spec_k):
+            lg, self.draft_cache = D.decode_step(self.draft, d_in, self.draft_cache,
+                                                 pos_dev + i, s_bucket)
+            d_in = D.sample_per_row(lg, temps_dev, self.generator, *warps)
+            d_lgs.append(lg)
+            d_tks.append(d_in)
+        return torch.stack(d_lgs, dim=1), torch.stack(d_tks, dim=1)
+
+    def _verify(self, chunk: torch.Tensor, positions: torch.Tensor, s_bucket: int):
+        """The target's chunk verify over its cache: the latent cache under
+        ``mla_absorbed``."""
+        if self.mla_absorbed:
+            return MLA.mla_verify_chunk(self.model, self._absorbed, chunk, self.cache,
+                                        positions, scales=self._mla_scales, s_bucket=s_bucket)
+        return SP.verify_chunk(self.model, chunk, self.cache, positions, s_bucket)
+
+    def _emit_chunk(self, si: int, toks, lps) -> None:
+        """Emit a slot's accepted tokens in order; a request that stops
+        mid-chunk (EOS, ``max_new_tokens``) drops the rest of its chunk."""
+        for j, tok in enumerate(toks):
+            if self.slots[si] is None:
+                break
+            self.slots[si].length += 1
+            self.decode_tokens += 1
+            self.prev_tokens[si] = self.last_tokens[si]
+            self._emit(si, int(tok), None if lps is None else float(lps[j]))
+
+    def _step_speculative(self) -> None:
+        """A phased tick with draft speculation: ``spec_k`` draft proposals
+        a slot, one ``(B, k+1)`` target verify over every slot, accept and
+        reject on the device, one readback, 1 to ``k + 1`` tokens a request.
+        Inactive slots ride along at position 1 with token 0: their K/V is
+        never attended (every position is rewritten before a query can
+        reach it) and their tokens are dropped."""
+        self._admit()
+        active = [si for si in range(self.max_batch) if self.slots[si] is not None]
+        if not active:
+            return
+        k = self.spec_k
+        positions = np.ones((self.max_batch,), np.int64)
+        temps = np.zeros((self.max_batch,), np.float32)
+        warps = self._warp_arrays(self.max_batch)
+        for si in active:
+            positions[si] = self.slots[si].length
+            self._set_sampling(si, self.slots[si].request, temps, warps)
+        s_bucket = self._spec_bucket(int(positions.max()))
+        pos_dev, temps_dev = self._tensor(positions), self._tensor(temps)
+        warps_dev = self._tensors(warps)
+        cur = self._tensor(self.last_tokens)
+        d_logits, d_toks = self._draft_propose(pos_dev, temps_dev, cur, warps_dev, s_bucket)
+        t_logits, self.cache = self._verify(torch.cat([cur[:, None], d_toks], dim=1), pos_dev,
+                                            s_bucket)
+        out, counts = SP.acceptance_step(t_logits, d_logits, d_toks, self.generator, temps_dev,
+                                         *warps_dev, return_logprobs=self.logprobs)
+        # one readback: each row's count, then its k + 1 records
+        arr = torch.cat([counts[:, None].to(out.dtype), out.reshape(out.shape[0], -1)],
+                        dim=1).cpu().numpy()
+        body = arr[:, 1:].reshape(out.shape)
+        toks, lps = D.unpack_tok_logprob(body) if self.logprobs else (body, None)
+        self.steps += 1
+        self.spec_rounds += len(active)
+        self.spec_proposed += k * len(active)
+        for si in active:
+            n = int(arr[si, 0])
+            self.spec_accepted += n - 1
+            self._emit_chunk(si, toks[si, :n], None if lps is None else lps[si, :n])
+
+    def _step_ragged_spec(self) -> None:
+        """A speculative ragged tick: the draft proposes ``spec_k`` tokens
+        for every slot (its contiguous cache, inactive slots riding along),
+        then one ragged target forward verifies every decoding sequence's
+        ``k + 1``-token chunk and streams the admitting sequences' prompt
+        chunks (``decode.ragged_spec_step``), acceptance on the device and
+        one packed readback.  A prompt's last chunk mirrors the prompt into
+        the draft's cache before the slot joins speculation."""
+        self._admit_ragged()
+        active = [si for si in range(self.max_batch) if self.slots[si] is not None]
+        if not active:
+            return
+        s, ps, k = self.max_batch, self.page_size, self.spec_k
+        decoding = [si for si in active
+                    if self.slots[si].prefill_done >= len(self.slots[si].request.prompt)]
+        prefilling = [si for si in active if si not in decoding]
+
+        positions_b = np.ones((s,), np.int64)  # slot-indexed, for the draft
+        temps_b = np.zeros((s,), np.float32)
+        warps_b = self._warp_arrays(s)
+        for si in decoding:
+            positions_b[si] = self.slots[si].length
+            self._set_sampling(si, self.slots[si].request, temps_b, warps_b)
+        d_logits, d_toks = self._draft_propose(
+            self._tensor(positions_b), self._tensor(temps_b), self._tensor(self.last_tokens),
+            self._tensors(warps_b), self._spec_bucket(int(positions_b.max())))
+
+        # two shapes: decode-only and mixed; the last row is the trash row
+        # non-decoding sequences' chunk_rows point at
+        t = s * (k + 1) + (self.token_budget if prefilling else 0) + 1
+        tokens = np.zeros((t,), np.int64)
+        positions = np.zeros((t,), np.int64)
+        tok_pages = np.zeros((t,), np.int32)  # 0 = the trash page for padding
+        tok_offs = np.zeros((t,), np.int32)
+        kv_lens = np.ones((s,), np.int32)
+        cu = np.zeros((s + 1,), np.int32)
+        sample_rows = np.zeros((s,), np.int64)
+        chunk_rows = np.full((s, k + 1), t - 1, np.int64)
+        seq_slots = np.zeros((s,), np.int64)
+        temps = np.zeros((s,), np.float32)
+        warps = self._warp_arrays(s)  # sequence-indexed
+        bt_rows = np.zeros((s, self.max_pages_per_seq), np.int32)
+        row, order = 0, []  # (slot, is_spec, n_new, completes_prefill)
+        remaining = t - 1 - (k + 1) * len(decoding)
+        for si in decoding + prefilling:
+            slot = self.slots[si]
+            req = slot.request
+            if si in decoding:
+                n_new = k + 1
+                tokens[row] = self.last_tokens[si]  # the proposals land after it
+                pos = np.arange(slot.length, slot.length + n_new)
+                chunk_rows[len(order)] = np.arange(row, row + n_new)
+                completes = False
+            else:
+                n_new = min(len(req.prompt) - slot.prefill_done, max(0, remaining))
+                if n_new == 0:
+                    continue
+                remaining -= n_new
+                tokens[row:row + n_new] = req.prompt[slot.prefill_done:slot.prefill_done + n_new]
+                pos = np.arange(slot.prefill_done, slot.prefill_done + n_new)
+                completes = slot.prefill_done + n_new >= len(req.prompt)
+            i = len(order)
+            positions[row:row + n_new] = pos
+            tok_pages[row:row + n_new] = self.block_tables[si][pos // ps]
+            tok_offs[row:row + n_new] = pos % ps
+            kv_lens[i] = int(pos[-1]) + 1
+            cu[i + 1] = cu[i] + n_new
+            sample_rows[i] = row + n_new - 1
+            seq_slots[i] = si
+            self._set_sampling(i, req, temps, warps)
+            bt_rows[i] = self.block_tables[si]
+            order.append((si, si in decoding, n_new, completes))
+            row += n_new
+        cu[len(order) + 1:] = cu[len(order)]
+
+        packed, self.cache = D.ragged_spec_step(
+            self.model, self._tensor(tokens), self.cache, self._tensor(positions),
+            self._tensor(tok_pages), self._tensor(tok_offs),
+            self._table_bucket(bt_rows, int(kv_lens.max())), self._tensor(kv_lens),
+            self._tensor(cu), self._tensor(np.array([len(order)], np.int32)),
+            self._tensor(sample_rows), self._tensor(chunk_rows), self._tensor(seq_slots),
+            d_logits, d_toks, self._tensor(temps), self.generator, *self._tensors(warps),
+            return_logprobs=self.logprobs)
+        arr = packed.cpu().numpy()
+        lps = np.ascontiguousarray(arr[:, k + 3:]).view(np.float32) if self.logprobs else None
+        self.steps += 1
+        for i, (si, is_spec, n_new, completes) in enumerate(order):
+            slot = self.slots[si]
+            if is_spec:
+                n = int(arr[i, 1])
+                self.spec_rounds += 1
+                self.spec_proposed += k
+                self.spec_accepted += n - 1
+                self._emit_chunk(si, arr[i, 2:2 + n], None if lps is None else lps[i, 1:1 + n])
+                continue
+            slot.prefill_done += n_new
+            slot.length = slot.prefill_done
+            if completes:
+                if self.prefix_cache:
+                    self._prefix_register(si)
+                prompt = slot.request.prompt
+                toks_d = np.zeros((1, _bucket(len(prompt))), np.int64)
+                toks_d[0, :len(prompt)] = prompt
+                _, self.draft_cache = D.prefill(
+                    self.draft, self._tensor(toks_d), self.draft_cache,
+                    self._tensor(np.array([len(prompt)])), self._tensor(np.array([si])))
+                self.prev_tokens[si] = prompt[-1]
+                self._emit(si, int(arr[i, 0]), None if lps is None else float(lps[i, 0]))
 
     # ------------------------------------------------------- crash recovery
     def snapshot(self) -> dict:

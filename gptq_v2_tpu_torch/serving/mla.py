@@ -18,9 +18,10 @@ the value half, ``out_h = W_uv_hᵀ (Σ_t p_t c_t)``.
 dequantizes it once, at engine build, into each head's halves ``wk`` and
 ``wv``.  Prompts run the exact attention (:func:`mla_prefill`) and cache
 their latent rows through ``block_core(mla_lat_sink=...)``; decode
-(:func:`mla_decode_sample_step`, :func:`mla_decode_sample_loop`) and the
-ragged mixed tick over the paged latent cache (:func:`mla_ragged_step`)
-attend the latent.  The absorb products (``q_nope · wk``, ``ctx · wv``)
+(:func:`mla_decode_sample_step`, :func:`mla_decode_sample_loop`), the
+speculative verify chunk (:func:`mla_verify_chunk`) and the ragged mixed
+tick over the paged latent cache (:func:`mla_ragged_step`) attend the
+latent.  The absorb products (``q_nope · wk``, ``ctx · wv``)
 run in full fp32 (no TF32).  ``kv_dtype="int8"`` stores the latent as
 symmetric int8 against one calibrated scale a layer
 (:func:`calibrate_mla_scales`), folded into q for the scores and into the
@@ -232,14 +233,14 @@ def _absorbed_q_and_row(cfg, lp, x: torch.Tensor, cos, sin, wk: torch.Tensor):
 
 def _absorbed_tail(cfg, lp, x: torch.Tensor, ctx: torch.Tensor, wv: torch.Tensor,
                    scale: Optional[torch.Tensor]) -> torch.Tensor:
-    """The back half: the attended latent ``ctx (R, 1, nq, kv_lora)``
+    """The back half: the attended latent ``ctx (B, N, nq, kv_lora)``
     (times the int8 scale) through the value half ``wv`` in fp32, then
-    ``o_proj``, the residual and the MLP; ``x`` ``(R, 1, D)``."""
+    ``o_proj``, the residual and the MLP; ``x`` ``(B, N, D)``."""
     eps, uo = cfg.rms_norm_eps, cfg.norm_unit_offset
     if scale is not None:
         ctx = ctx * scale.to(ctx.dtype)
     out = torch.einsum("bnhc,hcv->bnhv", ctx.float(), wv.float()).to(x.dtype)
-    x = x + _lin(lp, "self_attn.o_proj", out.reshape(x.shape[0], 1, -1))
+    x = x + _lin(lp, "self_attn.o_proj", out.reshape(*x.shape[:-1], -1))
     h = L.rms_norm(x, lp["post_attention_layernorm"], eps, uo)
     return x + L._mlp_tail(cfg, lp, lambda name, t: _lin(lp, name, t), h)
 
@@ -250,22 +251,66 @@ def _fold_scale(q_eff: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Ten
 
 
 def _mla_absorbed_block(cfg, lp, wk, wv, x, cos, sin, lat_layer: torch.Tensor,
-                        positions: torch.Tensor, key_mask: torch.Tensor,
+                        positions: torch.Tensor,
                         scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One decoder layer of absorbed decode, ``x`` ``(B, 1, D)``: writes
-    each row's latent at its position of ``lat_layer`` ``(B, S, lat_dim)``
-    (a view into the cache) and attends the slot's rows MQA-style, one
-    shared head, scores at ``cfg.sm_scale_``."""
-    b = x.shape[0]
+    """One decoder layer of absorbed attention over ``x`` ``(B, N, D)``, the
+    tokens of row ``b`` at ``positions[b] + i``: writes their latent rows
+    into ``lat_layer`` ``(B, S, lat_dim)`` (a view into the cache) and
+    attends the row's slot MQA-style, one shared head, keys ``<=
+    positions[b] + i``, scores at ``cfg.sm_scale_``."""
+    b, n = x.shape[:2]
     q_eff, new_row = _absorbed_q_and_row(cfg, lp, x, cos, sin, wk)
-    lat_layer[torch.arange(b, device=x.device), positions] = _quantize_row(
-        new_row[:, 0], scale).to(lat_layer.dtype)
+    pos_b = positions[:, None] + torch.arange(n, device=x.device)[None]
+    lat_layer[torch.arange(b, device=x.device)[:, None], pos_b] = _quantize_row(
+        new_row, scale).to(lat_layer.dtype)
     keys = lat_layer[:, :, None, :]  # (B, S, 1, lat_dim)
     if scale is not None:
         keys = keys.to(q_eff.dtype)
     ctx = L.attention(_fold_scale(q_eff, scale), keys, keys[..., :cfg.kv_lora_rank],
-                      causal_offset=None, key_mask=key_mask, sm_scale=cfg.sm_scale_)
+                      causal_offset=positions, sm_scale=cfg.sm_scale_)
     return _absorbed_tail(cfg, lp, x, ctx, wv, scale)
+
+
+def _mla_chunk_hidden(model: PackedLlama, absorbed: AbsorbedKVB, tokens: torch.Tensor,
+                      cache: MLACache, positions: torch.Tensor,
+                      scales: Optional[Tuple[float, ...]], s_bucket: Optional[int]
+                      ) -> torch.Tensor:
+    """The final-norm hidden states ``(B, Q, D)`` of ``tokens`` ``(B, Q)``,
+    row ``b``'s at ``positions[b] + i``, through the absorbed layers
+    (:func:`_mla_absorbed_block`) over the slot's first ``s_bucket`` latent
+    rows."""
+    cfg = model.cfg
+    b, qn = tokens.shape
+    s = cache.max_len if s_bucket is None else min(cache.max_len, s_bucket)
+    pos_b = positions[:, None] + torch.arange(qn, device=tokens.device)[None]
+    ropes = [(c.reshape(b, qn, -1), s_.reshape(b, qn, -1))
+             for c, s_ in L.rope_tables(cfg, pos_b.reshape(-1))]
+    x = L.embed_lookup(cfg, model.embed_tokens, tokens)
+    layer_scales = _layer_scales(scales, tokens.device, len(model.layers))
+    with full_fp32():
+        for li, lp in enumerate(model.layers):
+            cos, sin = ropes[cfg.layer_rope(li)]
+            x = _mla_absorbed_block(cfg, lp, absorbed.wk[li], absorbed.wv[li], x, cos, sin,
+                                    cache.lat[li, :, :s], positions, layer_scales[li])
+    return L.final_norm(cfg, x, model.norm)
+
+
+def mla_verify_chunk(model: PackedLlama, absorbed: AbsorbedKVB,
+                     tokens: torch.Tensor,  # (B, Q) chunk tokens per slot
+                     cache: MLACache,
+                     positions: torch.Tensor,  # (B,) position of each chunk's FIRST token
+                     scales: Optional[Tuple[float, ...]] = None,
+                     s_bucket: Optional[int] = None,  # bounds the attended context
+                     ) -> Tuple[torch.Tensor, MLACache]:
+    """Speculative chunk verification over the absorbed latent cache
+    (``speculative.verify_chunk``'s contract): per layer, the latent rows
+    of all Q chunk positions are written first (int8 under ``scales``),
+    then each query attends its slot's first ``s_bucket`` rows under the
+    per-row causal bound ``key <= positions[b] + i``.  A rejected token's
+    row is rewritten by the next chunk before a later query can attend it.
+    Returns ``(logits (B, Q, V), cache)``."""
+    hidden = _mla_chunk_hidden(model, absorbed, tokens, cache, positions, scales, s_bucket)
+    return head_logits(model.cfg, model.lm_head, hidden), cache
 
 
 def mla_decode_step(model: PackedLlama, absorbed: AbsorbedKVB, cache: MLACache,
@@ -275,22 +320,11 @@ def mla_decode_step(model: PackedLlama, absorbed: AbsorbedKVB, cache: MLACache,
                     scales: Optional[Tuple[float, ...]] = None,
                     ) -> Tuple[torch.Tensor, MLACache]:
     """One absorbed decode step for every slot (row ``b`` is slot ``b``),
-    attending the first ``s_bucket`` positions; returns ``(B, V)``
-    logits."""
-    cfg = model.cfg
-    s = cache.max_len if s_bucket is None else min(cache.max_len, s_bucket)
-    ropes = _row_ropes(cfg, positions)
-    x = L.embed_lookup(cfg, model.embed_tokens, tokens)[:, None, :]
-    key_mask = torch.arange(s, device=tokens.device)[None, :] <= positions[:, None]
-    layer_scales = _layer_scales(scales, tokens.device, len(model.layers))
-    with full_fp32():
-        for li, lp in enumerate(model.layers):
-            cos, sin = ropes[cfg.layer_rope(li)]
-            x = _mla_absorbed_block(cfg, lp, absorbed.wk[li], absorbed.wv[li], x, cos, sin,
-                                    cache.lat[li, :, :s], positions, key_mask,
-                                    layer_scales[li])
-    x = L.final_norm(cfg, x[:, 0], model.norm)
-    return head_logits(cfg, model.lm_head, x), cache
+    attending the first ``s_bucket`` positions: the verify chunk's layers
+    over one token.  Returns ``(B, V)`` logits."""
+    hidden = _mla_chunk_hidden(model, absorbed, tokens[:, None], cache, positions, scales,
+                               s_bucket)
+    return head_logits(model.cfg, model.lm_head, hidden[:, 0]), cache
 
 
 def mla_decode_sample_step(model: PackedLlama, absorbed: AbsorbedKVB, cache: MLACache,

@@ -21,9 +21,10 @@ from gptq_v2_tpu_torch.ops import paged_attention as pa
 from gptq_v2_tpu_torch.ops import paged_write as pw
 from gptq_v2_tpu_torch.quant import hessian as hs
 from gptq_v2_tpu_torch.quant import quantizer as qz
-from gptq_v2_tpu_torch.serving import decode
+from gptq_v2_tpu_torch.serving import Engine, Request, decode
 from gptq_v2_tpu_torch.serving import kv_cache as kvc
 from gptq_v2_tpu_torch.serving import model as sm
+from gptq_v2_tpu_torch.serving import speculative
 
 pytestmark = pytest.mark.cuda
 
@@ -679,24 +680,24 @@ def test_decode_attention_batch_invariant(dev, case, kind):
             assert torch.equal(alone[0], batch[i]), (i, s_bucket)
 
 
-@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
-def test_decode_attention_repeat_and_graph_replay(dev, kind):
+def test_decode_attention_repeat_and_graph_replay(dev):
     """The merge sums the splits in a fixed order with no atomics: two
     launches are bit-equal, and a launch captured in a CUDA graph replays to
-    the eager output bit for bit."""
-    q, k, v, pos, kw = _split_case(kind, "all", 4, 17, dev)
-    fn, _, _ = _attn_fns(kind)
-    args = (q, k, v, pos, 0)
-    first = fn(*args, s_bucket=2100, **kw)
-    second = fn(*args, s_bucket=2100, **kw)
-    torch.cuda.synchronize()
-    assert torch.equal(first, second)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        captured = fn(*args, s_bucket=2100, **kw)
-    graph.replay()
-    torch.cuda.synchronize()
-    assert torch.equal(captured, first)
+    the eager output bit for bit, for each of bf16, int8 and int4."""
+    for kind in ("bf16", "int8", "int4"):
+        q, k, v, pos, kw = _split_case(kind, "all", 4, 17, dev)
+        fn, _, _ = _attn_fns(kind)
+        args = (q, k, v, pos, 0)
+        first = fn(*args, s_bucket=2100, **kw)
+        second = fn(*args, s_bucket=2100, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), kind
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = fn(*args, s_bucket=2100, **kw)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first), kind
 
 
 def _pool(kind, n_pages, ps, n_kv, hd, seed, dev):
@@ -899,23 +900,23 @@ def test_paged_attention_batch_invariant(dev, case, kind):
         assert torch.equal(out, outs["alone"]), name
 
 
-@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
-def test_paged_attention_repeat_and_graph_replay(dev, kind):
+def test_paged_attention_repeat_and_graph_replay(dev):
     """The merge sums the splits in a fixed order with no atomics: two
     launches are bit-equal, and a launch captured in a CUDA graph replays to
-    the eager output bit for bit."""
-    args, kw = _ragged_call(kind, PAGED_SPLIT_SEQS, 132, 4, seed=41, dev=dev, n_pad=3)
-    kw = _sinks(dict(kw, **PAGED_SPLIT_CASES["all"]), args[0].shape[1], 42, dev)
-    first = pa.paged_ragged_attention(*args, **kw)
-    second = pa.paged_ragged_attention(*args, **kw)
-    torch.cuda.synchronize()
-    assert torch.equal(first, second)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        captured = pa.paged_ragged_attention(*args, **kw)
-    graph.replay()
-    torch.cuda.synchronize()
-    assert torch.equal(captured, first)
+    the eager output bit for bit, for each of bf16, int8 and int4."""
+    for kind in ("bf16", "int8", "int4"):
+        args, kw = _ragged_call(kind, PAGED_SPLIT_SEQS, 132, 4, seed=41, dev=dev, n_pad=3)
+        kw = _sinks(dict(kw, **PAGED_SPLIT_CASES["all"]), args[0].shape[1], 42, dev)
+        first = pa.paged_ragged_attention(*args, **kw)
+        second = pa.paged_ragged_attention(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second), kind
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = pa.paged_ragged_attention(*args, **kw)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first), kind
 
 
 @pytest.mark.parametrize("kind", ["bf16", "int4"])
@@ -946,30 +947,32 @@ def test_paged_attention_scratch_ranges(dev, kind):
     assert torch.equal(whole, halves)
 
 
-@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
-@pytest.mark.parametrize("t", [1, 8, 64])
-def test_paged_write_kernel(dev, kind, t):
+def test_paged_write_kernel(dev):
     """K9 bit-equal to the indexed store on distinct targets; pad rows aimed
     at the trash slot (page 0, offset 0) race, so each element there comes
-    from one of them."""
+    from one of them; bf16, int8 and int4 rows, 1, 8 and 64 of them."""
     n_layers, n_pages, ps, n_kv, hd = 3, 40, 16, 4, 128
-    pool, _, _ = _pool(kind, n_layers * n_pages, ps, n_kv, hd, seed=t, dev=dev)
-    pool = pool.reshape(n_layers, n_pages, *pool.shape[1:])
-    rng = np.random.default_rng(t)
-    slots = rng.choice(np.arange(ps, n_pages * ps), t, replace=False)  # pages >= 1
-    rows_src, _, _ = _pool(kind, 1, t + 3, n_kv, hd, seed=t + 1, dev=dev)
-    rows = rows_src[0].contiguous()
-    pages = torch.from_numpy(np.concatenate([slots // ps, [0, 0, 0]]).astype(np.int32)).to(dev)
-    offs = torch.from_numpy(np.concatenate([slots % ps, [0, 0, 0]]).astype(np.int32)).to(dev)
-    ref = pw.paged_write_reference(pool.clone(), 1, rows[:t], pages[:t], offs[:t])
-    n = pw.paged_write_rows.launches
-    out = pw.paged_write_rows(pool.clone(), 1, rows, pages, offs)
-    torch.cuda.synchronize()
-    assert pw.paged_write_rows.launches == n + 1
-    trash = out[1, 0, 0].clone()
-    assert (trash[None] == rows[t:]).any(0).all()
-    out[1, 0, 0] = ref[1, 0, 0]
-    assert torch.equal(out, ref)
+    for kind in ("bf16", "int8", "int4"):
+        for t in (1, 8, 64):
+            pool, _, _ = _pool(kind, n_layers * n_pages, ps, n_kv, hd, seed=t, dev=dev)
+            pool = pool.reshape(n_layers, n_pages, *pool.shape[1:])
+            rng = np.random.default_rng(t)
+            slots = rng.choice(np.arange(ps, n_pages * ps), t, replace=False)  # pages >= 1
+            rows_src, _, _ = _pool(kind, 1, t + 3, n_kv, hd, seed=t + 1, dev=dev)
+            rows = rows_src[0].contiguous()
+            pages = torch.from_numpy(np.concatenate([slots // ps, [0, 0, 0]]).astype(
+                np.int32)).to(dev)
+            offs = torch.from_numpy(np.concatenate([slots % ps, [0, 0, 0]]).astype(
+                np.int32)).to(dev)
+            ref = pw.paged_write_reference(pool.clone(), 1, rows[:t], pages[:t], offs[:t])
+            n = pw.paged_write_rows.launches
+            out = pw.paged_write_rows(pool.clone(), 1, rows, pages, offs)
+            torch.cuda.synchronize()
+            assert pw.paged_write_rows.launches == n + 1
+            trash = out[1, 0, 0].clone()
+            assert (trash[None] == rows[t:]).any(0).all(), (kind, t)
+            out[1, 0, 0] = ref[1, 0, 0]
+            assert torch.equal(out, ref), (kind, t)
 
 
 def test_paged_kernels_refuse_bad_input(dev):
@@ -1277,6 +1280,66 @@ def test_sample_per_row_matches_multinomial(dev):
         want = torch.multinomial(torch.softmax(logits / 0.7, dim=-1), 1, generator=g2)[:, 0]
         assert torch.equal(got, want)
     assert torch.equal(g1.get_state(), g2.get_state())
+
+
+def test_speculative_engines_on_card(dev, tiny_packed):
+    """``Engine(draft=)`` on the card gives the engine's own greedy tokens
+    without a draft, up to near-ties, phased over the bf16 contiguous cache
+    and ragged over int4 pages with chunked prefill (the draft: the
+    target's first block, its decode steps through K4; the ragged verify
+    through K6 and K9); a verify chunk of ``B·(k+1)`` rows launches K3 once
+    per packed stage."""
+    model = tiny_packed
+    draft = dataclasses.replace(model, layers=model.layers[:1], cfg=dataclasses.replace(
+        model.cfg, num_hidden_layers=1))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, model.cfg.vocab_size, (n,)).tolist() for n in (5, 9, 3, 7)]
+
+    def reqs():
+        return [Request(uid=i, prompt=p, max_new_tokens=6) for i, p in enumerate(prompts)]
+
+    def agree(got, want):
+        """Equal tokens, or at a request's first difference both tokens
+        within 1% of the largest |logit| of the top one in the packed
+        forward (the verify attends in torch ops, the plain engine through
+        K4: a near-tie may flip)."""
+        fused = sm.fuse_stage_linears(model)
+        for u, w in want.items():
+            j = next((i for i, (a, b) in enumerate(zip(got[u], w)) if a != b), None)
+            if j is None:
+                assert got[u] == w
+                continue
+            lg = sm.packed_forward_logits(
+                fused, torch.tensor([prompts[u] + w[:j]], device=dev))[0, -1].float()
+            for tok in (got[u][j], w[j]):
+                assert float(lg.max() - lg[tok]) <= 1e-2 * float(lg.abs().max()), (u, j)
+
+    ragged = dict(cache_kind="paged", scheduler="ragged", token_budget=16, kv_dtype="int4",
+                  kv_scales=_kv_scales("int4", 2, model.cfg.num_key_value_heads))
+    for kw in (dict(), ragged):
+        want = Engine(model, max_batch=2, max_seq_len=64, **kw).run(reqs())
+        counts = (ca.contiguous_decode_attention.launches, pa.paged_ragged_attention.launches,
+                  pw.paged_write_kv.launches)
+        eng = Engine(model, max_batch=2, max_seq_len=64, **kw, draft=draft, spec_k=3)
+        got = eng.run(reqs())
+        torch.cuda.synchronize()
+        agree(got, want)
+        assert 0 < eng.spec_accepted <= eng.spec_proposed
+        assert ca.contiguous_decode_attention.launches > counts[0]
+        if kw:
+            assert pa.paged_ragged_attention.launches > counts[1]
+            assert pw.paged_write_kv.launches > counts[2]
+    fused = sm.fuse_stage_linears(model)
+    stages = sum(isinstance(w, packing.PackedLinear) for lp in fused.layers for w in lp.values())
+    cache = kvc.init_contiguous_cache(2, 2, 64, model.cfg.num_key_value_heads,
+                                      model.cfg.head_dim_, device=dev)
+    n = w4a16.w4a16_matmul.launches
+    logits, _ = speculative.verify_chunk(
+        fused, torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], device=dev), cache,
+        torch.tensor([3, 10], device=dev))
+    torch.cuda.synchronize()
+    assert w4a16.w4a16_matmul.launches - n == stages > 0
+    assert logits.shape == (2, 4, model.cfg.vocab_size) and bool(torch.isfinite(logits).all())
 
 
 # --- K4, K7 and K6 at every group count ---------------------------------------

@@ -333,6 +333,6 @@ def test_serve_flag_and_refusals(tmp_path_factory):
                                                                      mla=False))
     with pytest.raises(ValueError, match="MLA"):
         Engine(dense, max_batch=2, max_seq_len=32, mla_absorbed=True)
-    for flag in (["--tp", "2"], ["--draft-dir", "x"], ["--spec-k", "2"]):
+    for flag in (["--tp", "2"], ["--pp", "2"]):
         with pytest.raises(SystemExit):
             tserve.parse_serve_args(argv + ["--mla-absorbed", "true"] + flag)

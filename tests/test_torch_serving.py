@@ -140,8 +140,10 @@ def test_serve_cli_runs_and_refuses_unported_flags(served):
     assert (args.act_dtype, args.multi_step) == ("int8", 2)
     assert not args.mla_absorbed  # the exact MLA path stays the default
     assert tserve.parse_serve_args(argv + ["--mla-absorbed", "true"]).mla_absorbed
-    for extra in (["--tp", "2"], ["--kv-dtype", "fp8"], ["--draft-dir", "x"],
-                  ["--spec-k", "2"]):
+    args = tserve.parse_serve_args(argv + ["--draft-dir", "x", "--spec-k", "2"])
+    assert (args.draft_dir, args.draft_results, args.spec_k, args.spec_mode) == (
+        "x", "", 2, "generate")
+    for extra in (["--tp", "2"], ["--pp", "2"], ["--kv-dtype", "fp8"]):
         with pytest.raises(SystemExit):
             tserve.parse_serve_args(argv + extra)
 
