@@ -95,11 +95,11 @@ over it (``--profile-dir`` gives their device time and device ops).
      own top k), a token outside the near-tie rule passing only on a row
      with a routing near-tie (``ROUTE_TIE``; ``judge_streamed``);
    * gpt-oss+llama-4: GPT-OSS-20B (sinks, biased router and experts, the
-     clamped GLU, window 128 on alternate layers), 2 blocks through ``main
-     --group-size 64`` (2880 = 45 x 64) and ``serve`` (contiguous bf16 and
-     int4: K4 and K7 with sinks; paged phased int8 and paged ragged bf16:
-     K6 with sinks; the W4A8 tier), its 24 blocks from
-     ``random_packed_llama`` (8 new tokens a request); Llama-4-Scout (chunked rope layers, NoPE
+     clamped GLU, window 128 on alternate layers), 1 block (sliding)
+     through ``main --group-size 64`` (2880 = 45 x 64) and ``serve``
+     (contiguous bf16 and int4: K4 and K7 with sinks; paged phased int8 and
+     paged ragged bf16: K6 with sinks; the W4A8 tier), 4 of its 24 blocks
+     from ``random_packed_llama`` (8 new tokens a request); Llama-4-Scout (chunked rope layers, NoPE
      every 4th layer with temperature tuning, the q/k L2 norm, top-1
      sigmoid experts and a shared expert), its chunk and temperature floor
      cut to 256 and 64, 1 block through ``main`` and 4 from
@@ -146,7 +146,18 @@ over it (``--profile-dir`` gives their device time and device ops).
      are counted); every verify of the bf16 engine launches K3 once a
      packed linear; each engine launches K3 and K4 (the draft's decode
      steps), the ragged one K6 and one K9 a layer and write (K3, K4, K6,
-     K9).
+     K9);
+   * bits: every packed form of the quantizer's output, over the main
+     path's checkpoint: ``main --bits 3`` (K1, K2 at maxq 7) and its
+     ``results.npz`` through ``serve.main`` and contiguous and paged ragged
+     engines (each linear a BitSlicedLinear: K3 at 2 bits, then at 1 bit);
+     the 4-bit results with the lm_head RTN-packed (K3 at 4096 x 32000);
+     one down_proj re-quantized with mixed per-group widths (K1, K5) and
+     served dense; 3-bit attention with 4-bit MLP under W4A8 (K3 for the
+     3-bit linears, K8 for the 4-bit ones only); a two-point ``sweep``
+     (``--bits 3,4``, 1 block).  K3's 1-bit launches are counted apart
+     (``w4a16_matmul.launches_by_bits``) and must be more than zero
+     (K1, K2, K5, K3, K8, K4, K6, K9).
 
    The family paths' engines must repeat their greedy output and pass the
    near-tie rule against a plain bf16 forward over weights in K3's own
@@ -173,7 +184,9 @@ over it (``--profile-dir`` gives their device time and device ops).
    768×2048: two padding groups), and at GPT-OSS-20B's (g 64, C = 2880
    packed to 3072), Llama-4-Scout's and DeepSeek-V3's (q_a, q_b, kv_a,
    kv_b, o, an expert's gate and down), K1 and K2 at V3's o_proj (C =
-   16384).
+   16384).  K3 also runs at 1 and 2 bits (a 3-bit linear's slices, and
+   the pair) at Llama-2-7B's q/o, gate/up and down, and the packed lm_head
+   at 4096 x 32000; one 1-bit launch is replayed from a CUDA graph.
    K2 and K5 also log their two kernels' device time (torch.profiler)
    and the tail product's rate, beside
    ``torch.mm`` over the same tail shapes, and K5 fed K2's own scales and
@@ -278,11 +291,13 @@ def uncounted():
     """Launches inside the block (a replay held against a plain version)
     leave every count as it was."""
     counts = {k: fn.launches for k, fn in WRAPPERS.items()}
+    by_bits = dict(WRAPPERS["w4a16"].launches_by_bits)
     try:
         yield
     finally:
         for k, fn in WRAPPERS.items():
             fn.launches = counts[k]
+        WRAPPERS["w4a16"].launches_by_bits.update(by_bits)
 
 
 def bound(n_bytes: float, flops: float, kind: str):
@@ -673,67 +688,85 @@ def phase_w4a16(torch, timer, launches, layer0, wide) -> list:
     to the same rows computed among 32, and the first 8 rows of the M =
     1024 activations alone equal those rows of the M = 1024 call."""
     from gptq_v2_tpu_torch.ops import w4a16 as K
-    from gptq_v2_tpu_torch.ops.packing import dequantize_dense
 
     out = []
     for tag, name, rows in ([("", n, K3_ROWS) for n in FUSED]
                             + [(tag, n, QWEN_ROWS) for tag in wide for n in wide[tag]]):
         p = (wide[tag] if tag else layer0)[name]
-        c, r = p.in_features, p.out_features
-        w_dense = dequantize_dense(p, torch.bfloat16)
-        p_bytes = sum(t.numel() * t.element_size() for t in (p.qweight, p.scales, p.zeros))
-
-        def packed_copy(i, p=p):
-            return p if i == 0 else dataclasses.replace(
-                p, qweight=p.qweight.clone(), scales=p.scales.clone(), zeros=p.zeros.clone())
-
-        def dense_copy(i, w=w_dense):
-            return w if i == 0 else w.clone()
-
         if not K.tensor_core_route(p):
             raise RuntimeError(f"K3 {tag}{name}: the path's linear is off the tensor-core route")
-        for m in rows:
-            x = torch.randn((m, c), device="cuda", dtype=torch.bfloat16)
-            y = K.w4a16_matmul(x, p)
-            got = y.float()
-            ref = K.w4a16_reference(x, p).float()
-            err = float((got - ref).abs().max())
-            # bf16: relative error <= 1e-2 of the output's largest entry
-            if err > 1e-2 * float(ref.abs().max()):
-                raise RuntimeError(f"K3 {name} M={m}: max abs err {err}")
-            if m == 8:
-                once = K.w4a16_matmul(x, p)
-                if not torch.equal(once, K.w4a16_matmul(x, p)):
-                    raise RuntimeError(f"K3 {name} M=8: two launches differ")
-                # the decode path gives a row the prefill path's bits
-                if not torch.equal(once, K.w4a16_matmul(x.repeat(4, 1), p)[:m]):
-                    raise RuntimeError(f"K3 {name} M=8: decode rows differ from prefill rows")
-            if m == 1024 and not torch.equal(K.w4a16_matmul(x[:8], p), y[:8]):
-                raise RuntimeError(f"K3 {name}: 8 rows alone differ from the same rows at M=1024")
-            ms = timer(lambda: K.w4a16_matmul(x, p), 10)
-            plain_ms = timer(lambda: K.w4a16_reference(x, p), 3)
-            lib_ms = timer(lambda: x @ w_dense, 10)
-            steady_ms = timer.steady(
-                lambda i, x=x: (lambda q=packed_copy(i): K.w4a16_matmul(x, q)), p_bytes)
-            lib_steady_ms = timer.steady(
-                lambda i, x=x: (lambda w=dense_copy(i): x @ w), 2 * c * r)
-            g_pad = p.scales.shape[0]
-            n_bytes = (p.in_features_padded * r * p.bits // 8 + 2 * 2 * g_pad * r
-                       + 2 * m * c + 2 * m * r + (8 * c if p.perm is not None else 0))
-            b_ms, b_by = bound(n_bytes, 2 * m * c * r, "bf16")
-            out.append(dict(name=f"w4a16_matmul [{tag}{name} C={c} R={r} M={m} bf16]",
-                            route="cuda", source="gptq_v2_tpu_torch/csrc/w4a16.cu",
-                            replaces=REPLACES["w4a16"], launches=launches["w4a16"],
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=lib_ms))
-            log(f"phase K3 {tag}{name} M={m}: ok, rel err {err / float(ref.abs().max()):.2e}"
-                + (", two launches bit-equal and equal to the prefill path's rows"
-                   if m == 8 else ", its first 8 rows equal to the decode path's"
-                   if m == 1024 else "")
-                + f", kernel {ms:.4f} ms (steady {steady_ms:.4f} ms), plain {plain_ms:.3f} ms, "
-                f"x@W {lib_ms:.4f} ms (steady {lib_steady_ms:.4f} ms), "
-                f"bound {b_ms:.4f} ms ({b_by})")
-        del w_dense
+        w_bytes = p.in_features_padded * p.out_features * p.bits // 8 + 2 * 2 * p.scales.numel()
+        out += k3_rows(torch, timer, f"{tag}{name}", p, rows, w_bytes, launches["w4a16"])
+    return out
+
+
+def k3_rows(torch, timer, label: str, p, ms, w_bytes: int, launches: int) -> list:
+    """K3's kernel rows of linear ``p`` (a PackedLinear or a 3-bit
+    BitSlicedLinear, bf16) at each M in ``ms``: held against its plain
+    version (bf16: 1e-2 of the output's largest entry); at M = 8 two
+    launches bit-equal and equal to the same rows among 32 (decode rows
+    against prefill rows), at M = 1024 the first 8 rows alone equal the
+    call's; timed by one event pair a launch after an L2 flush (``ms``),
+    steady (``Timer.steady`` over rotating copies of the packed weights, and
+    of the dense bf16 weight for ``x @ W``), the plain version and ``x @
+    W``.  The bound counts ``w_bytes`` of weights and scales, x, the output
+    and the perm against ``2·M·C·R`` bf16 operations."""
+    from gptq_v2_tpu_torch.ops import w4a16 as K
+    from gptq_v2_tpu_torch.ops.packing import BitSlicedLinear, dequantize_dense
+
+    def packed_copy(i, p=p):
+        if i == 0:
+            return p
+        if isinstance(p, BitSlicedLinear):
+            return BitSlicedLinear(packed_copy(i, p.lo), packed_copy(i, p.hi))
+        return dataclasses.replace(p, qweight=p.qweight.clone(), scales=p.scales.clone(),
+                                   zeros=p.zeros.clone())
+
+    def stored_bytes(p):
+        if isinstance(p, BitSlicedLinear):
+            return stored_bytes(p.lo) + stored_bytes(p.hi)
+        return sum(t.numel() * t.element_size() for t in (p.qweight, p.scales, p.zeros))
+
+    c, r = p.in_features, p.out_features
+    w_dense = dequantize_dense(p, torch.bfloat16)
+    out = []
+    for m in ms:
+        x = torch.randn((m, c), device="cuda", dtype=torch.bfloat16)
+        y = K.w4a16_matmul(x, p)
+        ref = K.w4a16_reference(x, p).float()
+        err = float((y.float() - ref).abs().max())
+        if err > 1e-2 * float(ref.abs().max()):
+            raise RuntimeError(f"K3 {label} M={m}: max abs err {err}")
+        if m == 8:
+            once = K.w4a16_matmul(x, p)
+            if not torch.equal(once, K.w4a16_matmul(x, p)):
+                raise RuntimeError(f"K3 {label} M=8: two launches differ")
+            # the decode path gives a row the prefill path's bits
+            if not torch.equal(once, K.w4a16_matmul(x.repeat(4, 1), p)[:m]):
+                raise RuntimeError(f"K3 {label} M=8: decode rows differ from prefill rows")
+        if m == 1024 and not torch.equal(K.w4a16_matmul(x[:8], p), y[:8]):
+            raise RuntimeError(f"K3 {label}: 8 rows alone differ from the same rows at M=1024")
+        k_ms = timer(lambda: K.w4a16_matmul(x, p), 10)
+        plain_ms = timer(lambda: K.w4a16_reference(x, p), 3)
+        lib_ms = timer(lambda: x @ w_dense, 10)
+        steady_ms = timer.steady(
+            lambda i, x=x: (lambda q=packed_copy(i): K.w4a16_matmul(x, q)), stored_bytes(p))
+        lib_steady_ms = timer.steady(
+            lambda i, x=x: (lambda w=w_dense if i == 0 else w_dense.clone(): x @ w), 2 * c * r)
+        n_bytes = w_bytes + 2 * m * c + 2 * m * r + (8 * c if p.perm is not None else 0)
+        b_ms, b_by = bound(n_bytes, 2 * m * c * r, "bf16")
+        out.append(dict(name=f"w4a16_matmul [{label} C={c} R={r} M={m} bf16]",
+                        route="cuda", source="gptq_v2_tpu_torch/csrc/w4a16.cu",
+                        replaces=REPLACES["w4a16"], launches=launches,
+                        max_abs_err=err, ms=k_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=lib_ms))
+        log(f"phase K3 {label} M={m}: ok, rel err {err / float(ref.abs().max()):.2e}"
+            + (", two launches bit-equal and equal to the prefill path's rows"
+               if m == 8 else ", its first 8 rows equal to the decode path's"
+               if m == 1024 else "")
+            + f", kernel {k_ms:.4f} ms (steady {steady_ms:.4f} ms), plain {plain_ms:.3f} ms, "
+            f"x@W {lib_ms:.4f} ms (steady {lib_steady_ms:.4f} ms), "
+            f"bound {b_ms:.4f} ms ({b_by})")
     return out
 
 
@@ -2198,11 +2231,12 @@ def kernel_dense(torch, model) -> dict:
     differs from it by each group's ``zs`` rounding, which activations of
     large mean (the v bias passes through attention into o_proj's input)
     turn into a few percent of the logits at Qwen2.5 widths."""
-    from gptq_v2_tpu_torch.ops.packing import PackedLinear
+    from gptq_v2_tpu_torch.ops.packing import BitSlicedLinear, PackedLinear
     from gptq_v2_tpu_torch.ops.w4a16 import kernel_weight
 
     def dense(w):
-        return (kernel_weight(w) if isinstance(w, PackedLinear) else w).to(torch.bfloat16)
+        return (kernel_weight(w) if isinstance(w, (PackedLinear, BitSlicedLinear))
+                else w).to(torch.bfloat16)
 
     return {"embed_tokens": dense(model.embed_tokens), "norm": dense(model.norm),
             "lm_head": dense(model.lm_head),
@@ -2834,7 +2868,7 @@ def judge_forwards(torch, cfg, model, prompts) -> dict:
     a routing near-tie (``ties``) and the routing statistics (``stats``)."""
     from gptq_v2_tpu_torch.models import llama as L
     from gptq_v2_tpu_torch.ops import w4a16 as K
-    from gptq_v2_tpu_torch.ops.packing import PackedLinear
+    from gptq_v2_tpu_torch.ops.packing import BitSlicedLinear, PackedLinear
     from gptq_v2_tpu_torch.serving.model import _lin, head_logits
 
     def plain_a8(x, p):
@@ -2916,14 +2950,16 @@ def judge_forwards(torch, cfg, model, prompts) -> dict:
         with uncounted(), torch.no_grad():
             for li, lp in enumerate(model.layers):
                 packed = {n: w for n, w in lp.items()
-                          if isinstance(w, PackedLinear) and w.act_bits != 8}
-                keep = sum(4 * w.in_features_padded * w.out_features
-                           for w in packed.values()) <= STORED_BYTES
+                          if isinstance(w, (PackedLinear, BitSlicedLinear)) and w.act_bits != 8}
+                keep = sum(4 * w.in_features_padded * w.out_features for w in packed.values()
+                           if isinstance(w, PackedLinear)) <= STORED_BYTES
                 stored = {}
 
                 def lin(name, h, packed=packed, stored=stored, keep=keep):
                     w, b = lp[name], lp.get(name + ".bias")
-                    if name in packed:  # K3's plain version, its weight made once if kept
+                    if isinstance(w, BitSlicedLinear):  # both slices' plain versions, summed
+                        y = K.w4a16_reference(h, w)
+                    elif name in packed:  # K3's plain version, its weight made once if kept
                         sw = stored.get(name)
                         if sw is None:
                             sw = K.stored_weight(w)
@@ -3124,7 +3160,10 @@ def phase_moe(torch, work: Path) -> dict:
 
 # --- GPT-OSS and Llama-4 ---------------------------------------------------------
 
-GPTOSS_DEPTH = 2  # of GPT-OSS-20B's 24 blocks: one sliding, one full
+# of GPT-OSS-20B's 24 blocks: the CLI's one (sliding, with sinks), and the
+# random packed model's 4 (sliding and full alternating), cut from 2 and 24
+# to make room in the run's time limit for the bits path
+GPTOSS_DEPTH, GPTOSS_PACKED_DEPTH = 1, 4
 GPTOSS_GROUP = ["--group-size", "64"]  # 2880 = 45 x 64; 128 does not divide it
 # Llama-4-Scout: the CLI quantizes 1 of its 48 blocks; the engines run 4
 # (layer 3 is its first NoPE layer).  Its chunk and temperature floor, 8192
@@ -3294,10 +3333,10 @@ def phase_gptoss_llama4(torch, work: Path) -> dict:
     GPT-OSS-20B (64 q heads over 8 kv heads of 64, sinks, 32 experts of
     width 2880 with biases and the clamped GLU, top 4, window 128 on
     alternate layers, yarn rope): the CLI path at ``--group-size 64`` over
-    GPTOSS_DEPTH blocks (a sliding and a full one), then ``serve.main`` and
+    GPTOSS_DEPTH block (a sliding one), then ``serve.main`` and
     engines through ``serve.build_engine``: contiguous bf16 and int4 (K4
     and K7 with sinks), paged phased int8 and paged ragged bf16 (K6 with
-    sinks), the W4A8 tier; prompts past the window.  Then all 24 blocks from
+    sinks), the W4A8 tier; prompts past the window.  Then GPTOSS_PACKED_DEPTH blocks from
     ``random_packed_llama`` (group 64) on paged ragged bf16, FULL_DEPTH_NEW
     new tokens, its first decode step replayed.
 
@@ -3348,12 +3387,12 @@ def phase_gptoss_llama4(torch, work: Path) -> dict:
     LOADED.clear()
     torch.cuda.empty_cache()
 
-    full = family_cfg("gpt_oss", torch_dtype="bfloat16")
-    label = "gpt-oss full depth"
+    full = family_cfg("gpt_oss", torch_dtype="bfloat16", num_hidden_layers=GPTOSS_PACKED_DEPTH)
+    label = f"gpt-oss {GPTOSS_PACKED_DEPTH} blocks"
     t0 = time.time()
     model = TM.random_packed_llama(full, group_size=64, seed=0)
     torch.cuda.synchronize()
-    log(f"{label} path: all {full.num_hidden_layers} blocks, random_packed_llama (group 64, "
+    log(f"{label} path: {full.num_hidden_layers} of 24 blocks, random_packed_llama (group 64, "
         f"seed 0) in {time.time() - t0:.1f} s")
     eng = Engine(model, max_batch=len(PROMPT_LENS), max_seq_len=512, cache_kind="paged",
                  scheduler="ragged", token_budget=64)
@@ -3678,7 +3717,7 @@ def phase_spec(torch, work: Path) -> None:
     from gptq_v2_tpu_torch.models import llama as L
     from gptq_v2_tpu_torch.models.loader import save_hf_model
     from gptq_v2_tpu_torch.ops import w4a16
-    from gptq_v2_tpu_torch.ops.packing import PackedLinear
+    from gptq_v2_tpu_torch.ops.packing import BitSlicedLinear, PackedLinear
     from gptq_v2_tpu_torch.serving import Engine
     from gptq_v2_tpu_torch.serving import model as TM
 
@@ -3725,9 +3764,9 @@ def phase_spec(torch, work: Path) -> None:
         args = S.parse_serve_args(serve_args + flags)
         eng = spec_engine_pair(torch, label, lambda **kw: S.build_engine(args, target, **kw),
                                draft, prompts, judges)
-        if label == "phased bf16":  # one K3 launch a packed linear a verify
-            stages = sum(isinstance(w, PackedLinear) for lp in eng.model.layers
-                         for w in lp.values())
+        if label == "phased bf16":  # one K3 launch a packed linear a verify (two a 3-bit one)
+            stages = sum(isinstance(w, PackedLinear) + 2 * isinstance(w, BitSlicedLinear)
+                         for lp in eng.model.layers for w in lp.values())
             calls, verify = [], eng._verify
 
             def counted(*a, verify=verify, calls=calls):
@@ -3777,6 +3816,279 @@ def phase_spec(torch, work: Path) -> None:
     del model, dense
     torch.cuda.empty_cache()
     log(f"spec path: {time.time() - t_path:.1f} s after the main path's checkpoint")
+
+
+# --- every bit width the quantizer writes ------------------------------------
+
+BITS_MIXED = (4, 8, 2, 3)  # per-group widths of the re-quantized layer, repeated
+# q/o, gate/up and down at Llama-2-7B width: K3's slice and pair rows
+BITS_SHAPES = (("q/o", 4096, 4096), ("gate/up", 4096, 11008), ("down", 11008, 4096))
+BITS_ROWS = (1, 8, 1024)
+HEAD_ROWS = (1, 8, 64)  # the packed lm_head's rows: decode batches, a ragged tick
+ATTENTION = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj", "self_attn.o_proj")
+
+
+@contextlib.contextmanager
+def counted_heads(vocab: int):
+    """Counts the packed linears ``vocab`` wide (the lm_head) that
+    ``serving.model._linear`` hands to K3, by wrapping the name it calls."""
+    from gptq_v2_tpu_torch.serving import model as TM
+
+    fn, n = TM.w4a16_matmul, {"heads": 0}
+
+    def counting(x, p):
+        n["heads"] += p.out_features == vocab
+        return fn(x, p)
+
+    TM.w4a16_matmul = counting
+    try:
+        yield n
+    finally:
+        TM.w4a16_matmul = fn
+
+
+def phase_bits(torch, work: Path) -> dict:
+    """Every packed form the quantizer's output serves as, over the main
+    path's checkpoint (``DEPTH`` blocks at Llama-2-7B width): ``main --bits
+    3`` (K1, K2 at maxq 7), then its ``results.npz`` through ``serve.main``
+    and engines over contiguous bf16 and paged ragged bf16 caches (each
+    linear a BitSlicedLinear: K3 at 2 bits, then at 1 bit); the main path's
+    4-bit results with the lm_head RTN-packed to INT4 g128 (K3 at 4096 x
+    32000, counted at every head); its first block's down_proj re-quantized
+    by K1 + K5 with per-group widths ``BITS_MIXED`` and served dense; a model
+    with 3-bit attention and 4-bit MLP linears under W4A8 (the 3-bit ones
+    stay on K3, K8 runs only the 4-bit ones); and a two-point ``sweep``
+    (``--bits 3,4``) over one block.  Every engine's greedy output repeats
+    and its first tokens pass the near-tie rule against a plain forward in
+    K3's algebra (``kernel_dense``; under W4A8 ``judge_streamed``, K8's plain
+    version).  Returns the packed lm_head and its launch count, for the
+    kernel rows."""
+    from gptq_v2_tpu_torch import main as M
+    from gptq_v2_tpu_torch import serve as S
+    from gptq_v2_tpu_torch import sweep as SW
+    from gptq_v2_tpu_torch.data import cache_key
+    from gptq_v2_tpu_torch.models import llama as L
+    from gptq_v2_tpu_torch.models.loader import load_hf_model, save_hf_model
+    from gptq_v2_tpu_torch.ops import gptq_cuda, hessian_cuda, w4a16
+    from gptq_v2_tpu_torch.ops.packing import BitSlicedLinear, PackedLinear
+    from gptq_v2_tpu_torch.quant import gptq as G
+    from gptq_v2_tpu_torch.quant import hessian as H
+    from gptq_v2_tpu_torch.quant.quantizer import reconstruct_weight
+    from gptq_v2_tpu_torch.serving import Engine
+    from gptq_v2_tpu_torch.serving import model as TM
+
+    if not (work / "results.npz").exists():
+        log("bits path: the main path's checkpoint is missing (a rehearsal of this path "
+            "alone): the main path makes it first")
+        phase_main_path(torch, work)
+    t_path = time.time()
+    cfg = L.LlamaConfig(**MODEL)
+    by_bits = w4a16.w4a16_matmul.launches_by_bits
+    cache = work / "bits_datasets"
+    cache.mkdir(exist_ok=True)
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (N_SEQ, SEQLEN))
+    np.savez(cache / f"{cache_key('c4', 'train', SEQLEN, N_SEQ, 0)}.npz",
+             tokens=toks.astype(np.int64))
+    base = ["--seqlen", str(SEQLEN), "--data-train-n-samples", str(N_SEQ),
+            "--data-cache-dir", str(cache), "--batch-size", str(CALIB_BATCH),
+            "--eval-sets", "train"]
+    solvers = (hessian_cuda.accumulate_hessian, gptq_cuda.gptq_solve, gptq_cuda.gptq_step)
+    n0 = [f.launches for f in solvers]
+    t0 = time.time()
+    out = M.main(["--model-dir", str(work / "model"), *base, "--bits", "3",
+                  "--save-model-path", str(work / "results3.npz")])
+    torch.cuda.synchronize()
+    dn = [f.launches - n for f, n in zip(solvers, n0)]
+    data3, ppl = out["results"]["data"], out["ppls"]["train"]
+    if (not (dn[0] and dn[1]) or dn[2] or not np.isfinite(ppl)
+            or len(data3) != quantized_linears(cfg)
+            or any(set(m["group_bit_widths"].cpu().tolist()) != {3} for m in data3.values())):
+        raise RuntimeError(f"bits main --bits 3: K1/K2/K5 launches {dn}, ppl {ppl!r}, "
+                           f"{len(data3)} layers")
+    log(f"phase bits main --bits 3: ok, {time.time() - t0:.1f} s wall, quantize "
+        f"{out['quant_s']:.2f} s for {DEPTH} blocks (maxq 7), ppl(train) {ppl!r}; K1/K2/K5 "
+        f"launches {dn}")
+    del out
+
+    serve3 = ["--model-dir", str(work / "model"), "--results", str(work / "results3.npz"),
+              "--max-batch", str(len(PROMPT_LENS)), "--max-seq-len", "512"]
+    t0 = time.time()
+    stats = S.main(serve3 + ["--prompt-tokens", "128", "--bench-tokens", str(NEW_TOKENS)])
+    RATES["bits serve.main contiguous W3A16"] = [stats["tok_s"]]
+    log(f"phase bits serve.main 3-bit contiguous bf16: ok, {time.time() - t0:.1f} s; "
+        f"{stats['requests']} requests x {NEW_TOKENS} new tokens: {stats['tok_s']:.1f} tok/s; "
+        f"4-bit (path main, this run) {rates('serve.main contiguous W4A16')} tok/s on {SMI}")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).tolist() for n in PROMPT_LENS]
+
+    def judged(label, eng, dense):
+        out, _ = engine_runs(torch, eng, prompts, f"bits {label}")
+        verdict = judge_tokens(torch, cfg, dense, prompts, out, f"bits {label}")
+        log(f"phase bits {label}: ok, greedy output repeats, {rates(f'bits {label}')} tok/s "
+            f"(4-bit contiguous engine, path main, this run: "
+            f"{rates('engine contiguous W4A16')}) on {SMI}; {verdict}")
+
+    n1 = by_bits[1]
+    eng = build_engine(serve3)
+    model3 = LOADED[(str(work / "model"), str(work / "results3.npz"))]
+    if not all(isinstance(w, BitSlicedLinear) for lp in model3.layers
+               for n, w in lp.items() if n.endswith("_proj")):
+        raise RuntimeError("bits: a 3-bit linear was not packed as a BitSlicedLinear")
+    dense = kernel_dense(torch, model3)
+    judged("3-bit contiguous bf16", eng, dense)
+    del eng
+    judged("3-bit paged ragged bf16", build_engine(serve3 + RAGGED_FLAGS), dense)
+    if by_bits[1] == n1 or by_bits[1] != by_bits[2]:
+        raise RuntimeError(f"bits: 3-bit engines launched K3 at 1 bit {by_bits[1] - n1} times, "
+                           f"K3 launches by bits {by_bits}")
+    del dense, model3
+    LOADED.clear()
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    _, params = load_hf_model(work / "model", device="cpu")
+    data4 = M.load_results(str(work / "results.npz"))["data"]
+    model = TM.quantize_params_to_packed(cfg, params, data4, quantize_lm_head=True)
+    head = model.lm_head
+    if not (isinstance(head, PackedLinear) and head.bits == 4
+            and (head.in_features, head.out_features) == (cfg.hidden_size, cfg.vocab_size)):
+        raise RuntimeError(f"bits: the lm_head was not packed: {type(head)}")
+    torch.cuda.synchronize()
+    log(f"phase bits packed lm_head: {cfg.hidden_size} x {cfg.vocab_size} RTN INT4 g128 with "
+        f"the 4-bit results in {time.time() - t0:.1f} s")
+    dense = kernel_dense(torch, model)
+    heads = 0
+    for label, kw in (("packed lm_head contiguous bf16", {}),
+                      ("packed lm_head paged ragged bf16",
+                       dict(cache_kind="paged", scheduler="ragged", token_budget=64))):
+        with counted_heads(cfg.vocab_size) as n:
+            judged(label, Engine(model, max_batch=len(PROMPT_LENS), max_seq_len=512, **kw),
+                   dense)
+        if not n["heads"]:
+            raise RuntimeError(f"bits {label}: no head ran through K3")
+        heads += n["heads"]
+    log(f"phase bits packed lm_head: ok, {heads} K3 launches at {cfg.hidden_size} x "
+        f"{cfg.vocab_size} over both engines' runs")
+    del model, dense
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    name = "model.layers.0.mlp.down_proj"
+    w = params["layers"][0]["mlp.down_proj"].to("cuda")  # (C, R) = (11008, 4096)
+    n_groups = w.shape[0] // 128
+    widths = [BITS_MIXED[i % len(BITS_MIXED)] for i in range(n_groups)]
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((SEQLEN, w.shape[0]))
+                         .astype(np.float32)).to("cuda", torch.bfloat16)
+    n0 = [f.launches for f in solvers]
+    inv = H.invert(H.accumulate(H.init_state(w.shape[0]), x))
+    qm = G.gptq_quant(w.T.float(), inv, [128] * n_groups, widths)["quant_meta"]
+    torch.cuda.synchronize()
+    dn = [f.launches - n for f, n in zip(solvers, n0)]
+    if not (dn[0] and dn[2]) or dn[1]:
+        raise RuntimeError(f"bits mixed widths: K1/K2/K5 launches {dn}")
+    model = TM.quantize_params_to_packed(cfg, params, {**data4, name: qm})
+    down = model.layers[0]["mlp.down_proj"]
+    if not (isinstance(down, torch.Tensor) and torch.equal(
+            down, reconstruct_weight(qm).T.to(torch.bfloat16))):
+        raise RuntimeError("bits mixed widths: down_proj is not reconstruct_weight(qm).T")
+    log(f"phase bits mixed widths: {name} ({w.shape[0]} x {w.shape[1]}) re-quantized with "
+        f"widths {list(BITS_MIXED)} repeated over {n_groups} groups of 128 in "
+        f"{time.time() - t0:.1f} s (K1/K2/K5 launches {dn}), served dense as "
+        "reconstruct_weight(qm).T")
+    judged("mixed widths contiguous bf16", Engine(model, max_batch=len(PROMPT_LENS),
+                                                  max_seq_len=512), kernel_dense(torch, model))
+    del model, w, x, inv, qm
+    torch.cuda.empty_cache()
+
+    data = {n: (data3 if n.split(".", 3)[-1] in ATTENTION else data4)[n] for n in data4}
+    model = TM.quantize_params_to_packed(cfg, params, data)
+    eng = Engine(model, max_batch=len(PROMPT_LENS), max_seq_len=512, act_dtype="int8")
+    k3, k8 = dict(by_bits), w4a16.w4a8_kernel.launches
+    out, _ = engine_runs(torch, eng, prompts, "bits W4A8 3-bit attention")
+    d3 = {b: by_bits[b] - k3[b] for b in by_bits}
+    d8 = w4a16.w4a8_kernel.launches - k8
+    # a layer's forward: q, k, v, o at 3 bits (two K3 launches each, unfused),
+    # gate_up and down at 4 bits (one K8 launch each)
+    if not d8 or d3[1] != 2 * d8 or d3[2] != d3[1] or d3[4] or d3[8]:
+        raise RuntimeError(f"bits W4A8: K3 launches by bits {d3}, K8 {d8}")
+    log(f"phase bits W4A8 3-bit attention: ok, greedy output repeats, "
+        f"{rates('bits W4A8 3-bit attention')} tok/s on {SMI}; K3 at 1 / 2 bits {d3[1]} / "
+        f"{d3[2]} (the 3-bit q, k, v, o), K8 {d8} (the 4-bit gate_up and down), K3 at 4 bits "
+        f"0; {judge_streamed(torch, cfg, eng.model, prompts, out, 'bits W4A8')}")
+    del eng, model, params
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    cfg1 = L.LlamaConfig(**{**MODEL, "num_hidden_layers": 1})
+    save_hf_model(cfg1, L.init_params(cfg1, seed=0), work / "bits_model1")
+    rows = SW.main(["--model-dir", str(work / "bits_model1"), "--bits", "3,4",
+                    "--group-sizes", "128", "--act-order", "true", "--eval-sets", "train",
+                    "--seqlen", str(SEQLEN), "--data-train-n-samples", str(N_SEQ),
+                    "--data-cache-dir", str(cache), "--batch-size", str(CALIB_BATCH),
+                    "--out", str(work / "sweep.json")])
+    if [r["bits"] for r in rows] != [3, 4] or not all(
+            np.isfinite(r["ppl"]["train"]) for r in rows) or json.loads(
+            (work / "sweep.json").read_text()) != rows:
+        raise RuntimeError(f"bits sweep: rows {rows}")
+    log(f"phase bits sweep --bits 3,4 (1 block, g128, act-order): ok, {time.time() - t0:.1f} s; "
+        + "; ".join(f"{r['bits']} bits: quantize {r['quant_wall_s']} s, ppl(train) "
+                    f"{r['ppl']['train']!r}" for r in rows))
+    shutil.rmtree(work / "bits_model1", ignore_errors=True)
+    log(f"bits path: {time.time() - t_path:.1f} s after the main path's checkpoint")
+    return {"lm_head": head, "head_launches": heads}
+
+
+def phase_w4a16_bits(torch, timer, by_bits, bits_out) -> list:
+    """K3 at 1 and 2 bits (a 3-bit linear's hi and lo slices, bf16, g128,
+    act-order, random codes 0-7) at Llama-2-7B's q/o, gate/up and down
+    shapes, M in ``BITS_ROWS``; the 3-bit pair (both launches) at the same
+    shapes against the 3-bits-a-weight byte bound; and the bits path's
+    packed lm_head (4096 x 32000, INT4 g128) at ``HEAD_ROWS``.  Each is held
+    against its plain version (1e-2 of max|y|); at M = 8 two launches are
+    bit-equal and equal to the same rows among 32 (decode rows against
+    prefill rows), at M = 1024 the first 8 rows alone equal the call's
+    (:func:`k3_rows`); one 1-bit launch is replayed from a CUDA graph."""
+    from gptq_v2_tpu_torch.ops import w4a16 as K
+    from gptq_v2_tpu_torch.ops.packing import pack_quant_meta
+
+    out = []
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for tag, c, r in BITS_SHAPES:
+        g_n = c // 128
+        meta = {"qweight": torch.randint(0, 8, (r, c), device="cuda", generator=gen,
+                                         dtype=torch.uint8),
+                "scale": torch.rand((r, g_n), device="cuda", generator=gen) * 0.02 + 0.005,
+                "qzero": torch.randint(0, 8, (r, g_n), device="cuda", generator=gen),
+                "perm": torch.randperm(c, device="cuda", generator=gen),
+                "group_sizes": torch.full((g_n,), 128), "group_bit_widths": torch.full((g_n,), 3)}
+        p3 = pack_quant_meta(meta, torch.bfloat16, device="cuda")
+        del meta
+        for bits, sl in ((2, p3.lo), (1, p3.hi)):
+            w_bytes = sl.in_features_padded * r * bits // 8 + 2 * 2 * sl.scales.shape[0] * r
+            out += k3_rows(torch, timer, f"{tag} {bits}-bit slice", sl, BITS_ROWS, w_bytes,
+                           by_bits[bits])
+        if tag == "q/o":  # one 1-bit launch captured in a CUDA graph and replayed
+            x = torch.randn((8, c), device="cuda", dtype=torch.bfloat16)
+            eager = K.w4a16_matmul(x, p3.hi)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = K.w4a16_matmul(x, p3.hi)
+            graph.replay()
+            torch.cuda.synchronize()
+            if not torch.equal(captured, eager):
+                raise RuntimeError("K3 1-bit: the CUDA-graph replay differs from the eager call")
+            log("phase K3 1-bit CUDA graph: ok, the replay equals the eager launch")
+        # the pair against 3 bits a weight and one set of scales and zeros
+        w_bytes = p3.lo.in_features_padded * r * 3 // 8 + 2 * 2 * p3.lo.scales.shape[0] * r
+        out += k3_rows(torch, timer, f"{tag} 3-bit pair", p3, BITS_ROWS, w_bytes, by_bits[1])
+        del p3
+        torch.cuda.empty_cache()
+    head = bits_out["lm_head"]
+    w_bytes = (head.in_features_padded * head.out_features * head.bits // 8
+               + 2 * 2 * head.scales.shape[0] * head.out_features)
+    out += k3_rows(torch, timer, "lm_head 4-bit RTN", head, HEAD_ROWS, w_bytes,
+                   bits_out["head_launches"])
+    return out
 
 
 def compare_engines(tag: str, pairs) -> None:
@@ -3899,7 +4211,9 @@ def main(argv=None) -> int:
               ("w4a8", "attention", "paged_attention", "paged_write")),
              ("serve.features", phase_serve_features,
               ("w4a16", "attention", "paged_attention", "paged_write")),
-             ("spec", phase_spec, ("w4a16", "attention", "paged_attention", "paged_write")))
+             ("spec", phase_spec, ("w4a16", "attention", "paged_attention", "paged_write")),
+             ("bits", phase_bits, ("hessian", "gptq", "gptq_step", "w4a16", "w4a8", "attention",
+                                   "paged_attention", "paged_write")))
     if args.paths:
         only = args.paths.split(",")
         paths = tuple(p for p in paths if p[0] in only)
@@ -3909,23 +4223,32 @@ def main(argv=None) -> int:
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     counts = {}
+    by_bits = w4a16.w4a16_matmul.launches_by_bits
+    bits_counts = {}  # path → K3 launches by bit width
     wide = {}  # tag → the linears of a wide path K3's and K8's rows are timed at
     try:
         for name, phase, needed in paths:
             for fn in wrappers.values():
                 fn.launches = 0
+            by_bits.update(dict.fromkeys(by_bits, 0))
             t0 = time.time()
             result = phase(torch, work)
             LOADED.clear()
             counts[name] = {k: fn.launches for k, fn in wrappers.items()}
+            bits_counts[name] = dict(by_bits)
             if name == "main":
                 main_out = result
+            if name == "bits":
+                bits_out = result
+                if not by_bits[1]:
+                    raise RuntimeError("path bits: K3 at 1 bit never launched")
             if name in ("qwen2.5", "gemma-2"):
                 wide[f"{name} "] = {n: result["layer0"][n] for n in FUSED}
             if name in ("moe", "gpt-oss+llama-4", "deepseek"):
                 wide.update(result["rows"])
             log(f"path {name}: {time.time() - t0:.1f} s, launches "
-                + ", ".join(f"{k} {v}" for k, v in counts[name].items()))
+                + ", ".join(f"{k} {v}" for k, v in counts[name].items())
+                + "; K3 by bits " + ", ".join(f"{b} {n}" for b, n in by_bits.items()))
             missing = [k for k in needed if not counts[name][k]]
             if missing:
                 raise RuntimeError(f"path {name}: {missing} never launched")
@@ -3945,6 +4268,7 @@ def main(argv=None) -> int:
                     shutil.move(str(work / item), str(keep / item))
         shutil.rmtree(work, ignore_errors=True)
     launches = {k: sum(c[k] for c in counts.values()) for k in wrappers}
+    by_bits_total = {b: sum(c[b] for c in bits_counts.values()) for b in by_bits}
     if args.paths:
         log(f"paths {args.paths}: ok, total wall {time.time() - wall0:.1f} s on {SMI}")
         return 0
@@ -3953,6 +4277,7 @@ def main(argv=None) -> int:
     kernels = (phase_hessian(torch, timer, launches)
                + phase_gptq(torch, timer, launches)
                + phase_w4a16(torch, timer, launches, main_out["layer0"], wide)
+               + phase_w4a16_bits(torch, timer, by_bits_total, bits_out)
                + phase_w4a8(torch, timer, launches, main_out["layer0"], wide)
                + phase_gptq_step(torch, timer, launches)
                + phase_attention(torch, timer, launches)

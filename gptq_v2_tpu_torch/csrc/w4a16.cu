@@ -17,7 +17,7 @@
 //
 // Two routes, chosen by the weights' dtype, bits and g, never by M:
 //
-// Tensor-core route: bf16, bits 2 / 4 / 8, g % 16 == 0 and g <= 128
+// Tensor-core route: bf16, bits 1 / 2 / 4 / 8, g % 16 == 0 and g <= 128
 // (entry w4a16_tc).  As the JAX kernel, a group's dot takes the codes in
 // the activation type (bf16, exact for every code 0..255) with fp32
 // accumulation.  One small kernel (w4a16_stage_rows) writes x's rows in
@@ -351,8 +351,8 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 
 // One plane's codes in the words of two k positions, as the bf16 pair
 // {code(lo), code(hi)} (the lower k in the low half, as mma's fragments
-// take it).  Exact: every code 0..255 is a bf16 integer.  At 2 and 4 bits a
-// byte permute puts the plane's half of both words side by side, and the
+// take it).  Exact: every code 0..255 is a bf16 integer.  At 1, 2 and 4 bits
+// a byte permute puts the plane's half of both words side by side, and the
 // codes are or-ed into the mantissa of 128.0 (0x4300), minus 128 in bf16x2;
 // 8-bit codes do not fit that mantissa and go through fp32.  No I2F.
 template <int BITS>
@@ -789,6 +789,7 @@ int dispatch_decode(const void* x, const int64_t* perm, int perm_len, int c, flo
                     const int32_t* qw, const void* s, const void* z, void* out, int m, int c_pad,
                     int r, int g, int bits, cudaStream_t stream) {
   switch (bits) {
+    case 1: return decode_bits<1, T>(x, perm, perm_len, c, xt, qw, s, z, out, m, c_pad, r, g, stream);
     case 2: return decode_bits<2, T>(x, perm, perm_len, c, xt, qw, s, z, out, m, c_pad, r, g, stream);
     case 4: return decode_bits<4, T>(x, perm, perm_len, c, xt, qw, s, z, out, m, c_pad, r, g, stream);
     case 8: return decode_bits<8, T>(x, perm, perm_len, c, xt, qw, s, z, out, m, c_pad, r, g, stream);
@@ -800,6 +801,7 @@ template <typename T>
 int dispatch(const void* x, const int32_t* qw, const void* s, const void* z, void* out,
              int m, int c_pad, int r, int g, int bits, cudaStream_t stream) {
   switch (bits) {
+    case 1: return launch<1, 64, T>(x, qw, s, z, out, m, c_pad, r, g, stream);
     case 2: return launch<2, 64, T>(x, qw, s, z, out, m, c_pad, r, g, stream);
     case 4: return launch<4, 64, T>(x, qw, s, z, out, m, c_pad, r, g, stream);
     case 8: return launch<8, 64, T>(x, qw, s, z, out, m, c_pad, r, g, stream);
@@ -897,7 +899,7 @@ int w4a16_tc(const void* x, const int64_t* perm, int perm_len, int c, void* xg, 
              const int32_t* qw, const void* s, const void* z, void* out, int m, int c_pad,
              int r, int g, int bits, cudaStream_t stream) {
   if (m <= 0 || c <= 0 || r <= 0 || g <= 0 || g % 16 != 0 || g > TC_MAX_G ||
-      (bits != 2 && bits != 4 && bits != 8) || c_pad % ((32 / bits) * g) != 0 ||
+      (bits != 1 && bits != 2 && bits != 4 && bits != 8) || c_pad % ((32 / bits) * g) != 0 ||
       (perm != nullptr && perm_len > c_pad) || reinterpret_cast<uintptr_t>(xg) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int gpb = STAGE_COLS / g;
@@ -915,6 +917,7 @@ int w4a16_tc(const void* x, const int64_t* perm, int perm_len, int c, void* xg, 
   const bf16* zb = static_cast<const bf16*>(z);
   bf16* ob = static_cast<bf16*>(out);
   switch (bits) {
+    case 1: return dispatch_tc<1>(xgb, xs, qw, sb, zb, ob, m, c_pad, r, g, flags, stream);
     case 2: return dispatch_tc<2>(xgb, xs, qw, sb, zb, ob, m, c_pad, r, g, flags, stream);
     case 4: return dispatch_tc<4>(xgb, xs, qw, sb, zb, ob, m, c_pad, r, g, flags, stream);
     default: return dispatch_tc<8>(xgb, xs, qw, sb, zb, ob, m, c_pad, r, g, flags, stream);

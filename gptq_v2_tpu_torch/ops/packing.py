@@ -15,8 +15,10 @@ Layout:
 * ``scales`` / ``zeros``: ``(G_pad, R)``; ``perm``: stored→original column
   map for the activation gather.
 
-3-bit bit-sliced linears, RTN packing and tensor-parallel splits are not
-ported yet.
+Uniform 3-bit groups pack as a :class:`BitSlicedLinear`: a 2-bit slice and
+a 1-bit slice of the same codes, each a :class:`PackedLinear` that K3 runs
+as it is.  :func:`rtn_pack_dense` packs a dense weight without a Hessian
+(the optional packed lm_head).  Tensor-parallel splits are not ported.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 @dataclasses.dataclass
@@ -49,6 +52,45 @@ class PackedLinear:
     @property
     def in_features_padded(self) -> int:
         return self.qweight.shape[0] * (32 // self.bits)
+
+
+@dataclasses.dataclass
+class BitSlicedLinear:
+    """A 3-bit packed linear as two bit-planes of one quantization: ``q =
+    lo + 4·hi``, ``lo`` the low 2 bits (16 codes a word, with the linear's
+    scales, zeros and perm) and ``hi`` the top bit (32 codes a word, scales
+    ``4·s`` and zero-point 0).  The affine dequantization distributes over
+    the slices, so the product is two K3 launches summed:
+    ``s·(x@lo) − Σx·z·s + 4s·(x@hi)``; the weights stay 3 bits a weight."""
+
+    lo: PackedLinear  # 2-bit slice: scales, zeros, perm
+    hi: PackedLinear  # 1-bit slice: scales 4·s, zeros 0
+
+    bits = 3
+
+    @property
+    def in_features(self) -> int:
+        return self.lo.in_features
+
+    @property
+    def out_features(self) -> int:
+        return self.lo.out_features
+
+    @property
+    def group_size(self) -> int:
+        return self.lo.group_size
+
+    @property
+    def perm(self):
+        return self.lo.perm
+
+    @property
+    def scales(self):
+        return self.lo.scales
+
+    @property
+    def act_bits(self) -> int:
+        return self.lo.act_bits
 
 
 def _numpy(v) -> np.ndarray:
@@ -113,14 +155,27 @@ def unpack_codes(packed: torch.Tensor, group_size: int, bits: int = 4,
 
 
 def pack_quant_meta(quant_meta: dict, compute_dtype: torch.dtype = torch.bfloat16,
-                    device="cuda") -> PackedLinear:
+                    device="cuda"):
     """Build a :class:`PackedLinear` from a solver ``quant_meta`` (uniform
-    groups of 2, 4 or 8 bits)."""
-    bits_u = np.unique(_numpy(quant_meta["group_bit_widths"]))
-    if bits_u.size != 1 or int(bits_u[0]) not in (2, 4, 8):
+    groups of 1, 2, 4 or 8 bits), or from uniform 3-bit groups a
+    :class:`BitSlicedLinear` (its 2-bit and 1-bit slices)."""
+    widths = _numpy(quant_meta["group_bit_widths"])
+    bits_u = np.unique(widths)
+    if bits_u.size != 1 or int(bits_u[0]) not in (1, 2, 3, 4, 8):
         raise NotImplementedError(
-            f"packing ports uniform 2/4/8-bit groups, got {bits_u}")
+            f"packing needs uniform 1/2/3/4/8-bit groups, got {bits_u}")
     bits = int(bits_u[0])
+    if bits == 3:
+        qw = _numpy(quant_meta["qweight"]).astype(np.uint8)
+        lo = pack_quant_meta({**quant_meta, "qweight": qw & 3,
+                              "group_bit_widths": np.full_like(widths, 2)},
+                             compute_dtype, device)
+        hi = pack_quant_meta({**quant_meta, "qweight": qw >> 2,
+                              "group_bit_widths": np.full_like(widths, 1)},
+                             compute_dtype, device)
+        hi = dataclasses.replace(hi, scales=(hi.scales.float() * 4.0).to(compute_dtype),
+                                 zeros=torch.zeros_like(hi.zeros))
+        return BitSlicedLinear(lo=lo, hi=hi)
     planes = 32 // bits
     group_sizes = _numpy(quant_meta["group_sizes"]).astype(np.int64)
     if len(np.unique(group_sizes)) != 1:
@@ -158,9 +213,41 @@ def pack_quant_meta(quant_meta: dict, compute_dtype: torch.dtype = torch.bfloat1
         perm=perm_t, group_size=g, in_features=c, bits=bits)
 
 
-def dequantize_dense(p: PackedLinear, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+def rtn_pack_dense(w, group_size: int, compute_dtype: torch.dtype = torch.bfloat16,
+                   bits: int = 4, device="cuda") -> PackedLinear:
+    """Round-to-nearest quantize a dense ``(C, R)`` weight to a packed
+    linear (asymmetric, per group along C, no Hessian): the optional packed
+    lm_head.  Codes, scales and zeros are the JAX package's numpy fp32
+    ones (``(max − min) / maxq + 1e-12``, round half to even), computed on
+    ``device``; every divisor is a tensor (CUDA divides by a host scalar
+    through its reciprocal, which is not bit-equal)."""
+    w = torch.as_tensor(w).to(device=device, dtype=torch.float32)
+    c, r = w.shape
+    g = group_size
+    if c % g:
+        raise ValueError(f"in_features {c} is not a multiple of the group size {g}")
+    maxq = torch.tensor((1 << bits) - 1, dtype=torch.float32, device=device)
+    wg = w.reshape(c // g, g, r)
+    x_max = torch.clamp(wg.amax(dim=1), min=0.0)  # (G, R)
+    x_min = torch.clamp(wg.amin(dim=1), max=0.0)
+    scale = (x_max - x_min) / maxq + 1e-12
+    zero = torch.round(-x_min / scale)
+    codes = torch.clamp(torch.round(wg / scale[:, None, :]) + zero[:, None, :], 0.0, maxq)
+    packed = pack_codes_tensor(codes.to(torch.uint8).reshape(c, r).T, g, bits)
+    pad = packed.shape[0] // g * (32 // bits) - c // g
+    scale, zero = (F.pad(t, (0, 0, 0, pad)).to(compute_dtype) for t in (scale, zero))
+    return PackedLinear(qweight=packed, scales=scale, zeros=zero, perm=None,
+                        group_size=g, in_features=c, bits=bits)
+
+
+def dequantize_dense(p, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Dense ``(C, R)`` dequantized weight in original column order (the
-    plain version of the fused kernel, with a matmul after it)."""
+    plain version of the fused kernel, with a matmul after it).  A
+    :class:`BitSlicedLinear` is ``(q_lo − z)·s + q_hi·4s``: each slice in
+    ``dtype``, summed in fp32, as the JAX package sums them."""
+    if isinstance(p, BitSlicedLinear):
+        return (dequantize_dense(p.lo, dtype).float()
+                + dequantize_dense(p.hi, dtype).float()).to(dtype)
     g = p.group_size
     codes = unpack_codes(p.qweight, g, p.bits).float()  # (R, C_pad) stored
     scales = torch.repeat_interleave(p.scales.float().T, g, dim=1)

@@ -27,6 +27,10 @@ tensor cores at every ``M`` (decode split over groups at ``M ≤ 16``, a
 tile kernel above, both through one group-dot routine, so a row has the
 same bits at every ``M``); other group sizes on a CUDA-core ``__dp4a`` kernel.
 
+A 3-bit :class:`~gptq_v2_tpu_torch.ops.packing.BitSlicedLinear` is two K3
+launches, its 2-bit slice then its 1-bit slice, whose outputs are summed in
+the activation dtype, as the JAX package sums them; it has no W4A8 form.
+
 The plain versions are :func:`w4a16_reference` (``q·s − zs`` then a
 matmul) and :func:`w4a8_reference`.  On a CPU tensor the wrappers run
 them; on a CUDA tensor they launch the kernel or raise.
@@ -39,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from gptq_v2_tpu_torch.ops import _cuda
-from gptq_v2_tpu_torch.ops.packing import PackedLinear, unpack_codes
+from gptq_v2_tpu_torch.ops.packing import BitSlicedLinear, PackedLinear, unpack_codes
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {"w4a16_matmul": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
@@ -75,20 +79,26 @@ def stored_weight(p: PackedLinear) -> torch.Tensor:
             - torch.repeat_interleave(zs.T, g, dim=1))
 
 
-def kernel_weight(p: PackedLinear) -> torch.Tensor:
+def kernel_weight(p) -> torch.Tensor:
     """:func:`stored_weight` as a dense ``(C, R)`` fp32 weight in original
     column order: ``x @ kernel_weight(p)`` is :func:`w4a16_reference`'s
-    product (a plain forward in the kernel's algebra)."""
+    product (a plain forward in the kernel's algebra); a
+    :class:`BitSlicedLinear`'s is the sum of its slices'."""
+    if isinstance(p, BitSlicedLinear):
+        return kernel_weight(p.lo) + kernel_weight(p.hi)
     w = stored_weight(p)[:, :p.in_features]
     if p.perm is not None:
         w = torch.empty_like(w).index_copy_(1, p.perm, w)
     return w.T
 
 
-def w4a16_reference(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
+def w4a16_reference(x: torch.Tensor, p) -> torch.Tensor:
     """Plain version in the JAX kernel's algebra (:func:`stored_weight`):
     ``x @ W`` over stored rows in fp32, cast back to the activation
+    dtype; a :class:`BitSlicedLinear`'s two slices' outputs summed in that
     dtype."""
+    if isinstance(p, BitSlicedLinear):
+        return w4a16_reference(x, p.lo) + w4a16_reference(x, p.hi)
     y = stored_rows(x, p).float() @ stored_weight(p).T
     return y.to(x.dtype).reshape(*x.shape[:-1], p.out_features)
 
@@ -97,7 +107,7 @@ def _check_packed(p: PackedLinear) -> None:
     if p.scales.dtype not in _DTYPES or p.zeros.dtype != p.scales.dtype:
         raise TypeError(f"scales/zeros dtype {p.scales.dtype}/{p.zeros.dtype}: "
                         "the kernel takes float32 or bfloat16")
-    if p.bits not in (2, 4, 8) or p.qweight.dtype != torch.int32:
+    if p.bits not in (1, 2, 4, 8) or p.qweight.dtype != torch.int32:
         raise TypeError(f"unsupported packing: {p.bits} bits, {p.qweight.dtype}")
     if not (p.qweight.is_contiguous() and p.scales.is_contiguous()
             and p.zeros.is_contiguous()):
@@ -133,11 +143,12 @@ def _check_input(x: torch.Tensor, p: PackedLinear) -> None:
         raise ValueError(f"unsupported device {x.device}")
 
 
-def w4a16_matmul(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
+def w4a16_matmul(x: torch.Tensor, p) -> torch.Tensor:
     """``y = x @ dequantize(p)`` for ``x`` ``(..., C)`` in original column
     order; returns ``(..., R)`` in the scales' dtype (the activation is cast
     to it first, as in the JAX package).  A W4A8 linear (``act_bits == 8``)
-    goes to :func:`w4a8_matmul`.
+    goes to :func:`w4a8_matmul`; a :class:`BitSlicedLinear` is two calls,
+    ``lo`` then ``hi``, summed in the scales' dtype (two launches).
 
     The route depends on the weights alone (:func:`tensor_core_route`),
     the kernel within it on ``M``: at ``M ≤ 16`` the decode kernel.  The
@@ -145,6 +156,8 @@ def w4a16_matmul(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
     columns and zero-pad the contraction themselves; the CUDA-core prefill
     kernel takes rows gathered and padded here (:func:`stored_rows`).  Both
     kernels of a route give a row the same bits."""
+    if isinstance(p, BitSlicedLinear):
+        return w4a16_matmul(x, p.lo) + w4a16_matmul(x, p.hi)
     if p.act_bits == 8:
         return w4a8_matmul(x, p)
     _check_input(x, p)
@@ -191,10 +204,13 @@ def w4a16_matmul(x: torch.Tensor, p: PackedLinear) -> torch.Tensor:
                 _cuda.stream_ptr(x.device))
     _cuda.check(lib, err, "w4a16_matmul")
     w4a16_matmul.launches += 1
+    w4a16_matmul.launches_by_bits[p.bits] += 1
     return out.reshape(*lead, r)
 
 
 w4a16_matmul.launches = 0
+# the same launches by bit width (a 3-bit linear's are its 2- and 1-bit slices')
+w4a16_matmul.launches_by_bits = {1: 0, 2: 0, 4: 0, 8: 0}
 
 
 def quantize_activations_int8(xb: torch.Tensor):

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from gptq_v2_tpu_torch.models import llama as L
-from gptq_v2_tpu_torch.ops.packing import PackedLinear, dequantize_dense
+from gptq_v2_tpu_torch.ops.packing import BitSlicedLinear, PackedLinear, dequantize_dense
 from gptq_v2_tpu_torch.quant.quantizer import full_fp32
 from gptq_v2_tpu_torch.serving.decode import _row_ropes, _sample_loop, sample_record
 from gptq_v2_tpu_torch.serving.model import PackedLlama, _lin, head_logits
@@ -108,8 +108,8 @@ def absorb_kv_b(model: PackedLlama) -> AbsorbedKVB:
     wks, wvs = [], []
     for lp in model.layers:
         w = lp["self_attn.kv_b_proj"]
-        dense = (dequantize_dense(w, model.embed_tokens.dtype) if isinstance(w, PackedLinear)
-                 else w)
+        dense = (dequantize_dense(w, model.embed_tokens.dtype)
+                 if isinstance(w, (PackedLinear, BitSlicedLinear)) else w)
         kv = dense.reshape(dense.shape[0], -1, nope + vd)  # (kv_lora, nq, nope + vd)
         wks.append(kv[..., :nope].permute(1, 2, 0).contiguous())
         wvs.append(kv[..., nope:].permute(1, 0, 2).contiguous())

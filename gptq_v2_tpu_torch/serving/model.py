@@ -2,10 +2,12 @@
 ``gptq_v2_tpu/serving/model.py``).
 
 Linear weights live as :class:`~gptq_v2_tpu_torch.ops.packing.PackedLinear`
+(3-bit ones as a :class:`~gptq_v2_tpu_torch.ops.packing.BitSlicedLinear`)
 and every block projection runs through K3 (``ops/w4a16.py``), or K8 in
-the W4A8 tier (:func:`to_w4a8`); norms,
-rope, attention, embeddings, biases and the lm_head stay dense in the
-compute dtype.
+the W4A8 tier (:func:`to_w4a8`); a linear quantized with mixed per-group
+widths is served dense.  Norms, rope, attention, embeddings, biases and
+the lm_head stay dense in the compute dtype, unless the lm_head is
+RTN-packed (``quantize_lm_head``), when it runs through K3 too.
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ import numpy as np
 import torch
 
 from gptq_v2_tpu_torch.models import llama as L
-from gptq_v2_tpu_torch.ops.packing import PackedLinear, dequantize_dense, pack_quant_meta
+from gptq_v2_tpu_torch.ops.packing import (BitSlicedLinear, PackedLinear, dequantize_dense,
+                                           pack_quant_meta, rtn_pack_dense)
 from gptq_v2_tpu_torch.ops.w4a16 import w4a16_matmul
 
 
@@ -24,9 +27,9 @@ from gptq_v2_tpu_torch.ops.w4a16 import w4a16_matmul
 class PackedLlama:
     cfg: L.LlamaConfig
     embed_tokens: torch.Tensor  # (V, D)
-    layers: Tuple[Dict[str, Any], ...]  # name -> PackedLinear | tensor
+    layers: Tuple[Dict[str, Any], ...]  # name -> PackedLinear | BitSlicedLinear | tensor
     norm: torch.Tensor
-    lm_head: torch.Tensor  # (D, V) dense (the reference never quantizes it)
+    lm_head: Any  # (D, V) dense (the reference never quantizes it), or RTN-packed
 
     def __post_init__(self):
         # decode's rotary frequencies (and Gemma-3's local ones), built with
@@ -39,40 +42,63 @@ class PackedLlama:
 def quantize_params_to_packed(cfg: L.LlamaConfig, params: L.Params,
                               quant_data: Dict[str, dict],
                               compute_dtype: torch.dtype = torch.bfloat16,
-                              device="cuda") -> PackedLlama:
+                              device="cuda", quantize_lm_head: bool = False,
+                              lm_head_group_size: int = 128) -> PackedLlama:
     """Packed model from pipeline output ``results['data']``: each linear
-    with an entry in ``quant_data`` becomes a :class:`PackedLinear`; the
-    other leaves of ``params`` are cast to ``compute_dtype``."""
+    with an entry in ``quant_data`` of uniform 2, 3, 4 or 8 bits becomes a
+    :class:`PackedLinear` (3 bits a :class:`BitSlicedLinear`); one of mixed
+    per-group widths has no packed layout and is served dense, its
+    ``reconstruct_weight`` transposed to ``(C, R)``.  The other leaves of
+    ``params`` are cast to ``compute_dtype``.  ``quantize_lm_head``
+    RTN-packs the lm_head to INT4 in groups of ``lm_head_group_size``
+    (:func:`~gptq_v2_tpu_torch.ops.packing.rtn_pack_dense`; opt-in, as in
+    the JAX package)."""
+    from gptq_v2_tpu_torch.quant.quantizer import reconstruct_weight
+
     layers: List[Dict[str, Any]] = []
     for li, lp in enumerate(params["layers"]):
         out: Dict[str, Any] = {}
         for name, w in lp.items():
             qm = quant_data.get(f"model.layers.{li}.{name}")
-            out[name] = (pack_quant_meta(qm, compute_dtype, device) if qm is not None
-                         else w.to(device=device, dtype=compute_dtype))
+            if qm is None:
+                out[name] = w.to(device=device, dtype=compute_dtype)
+            elif torch.as_tensor(qm["group_bit_widths"]).unique().numel() == 1:
+                out[name] = pack_quant_meta(qm, compute_dtype, device)
+            else:  # mixed widths: served dense
+                out[name] = reconstruct_weight(qm).T.to(device=device,
+                                                        dtype=compute_dtype).contiguous()
         layers.append(out)
     _dedupe_perms(layers)
+    lm_head = (rtn_pack_dense(params["lm_head"], lm_head_group_size, compute_dtype,
+                              device=device) if quantize_lm_head
+               else params["lm_head"].to(device=device, dtype=compute_dtype))
     return PackedLlama(
         cfg=cfg,
         embed_tokens=params["embed_tokens"].to(device=device, dtype=compute_dtype),
         layers=tuple(layers),
         norm=params["norm"].to(device=device, dtype=compute_dtype),
-        lm_head=params["lm_head"].to(device=device, dtype=compute_dtype),
+        lm_head=lm_head,
     )
+
+
+def _with_perm(w, perm):
+    """``w`` with act-order ``perm`` (both slices of a 3-bit linear)."""
+    if isinstance(w, BitSlicedLinear):
+        return BitSlicedLinear(lo=dataclasses.replace(w.lo, perm=perm),
+                               hi=dataclasses.replace(w.hi, perm=perm))
+    return dataclasses.replace(w, perm=perm)
 
 
 def _dedupe_perms(layers: List[Dict[str, Any]]) -> None:
     """Within a layer, point value-equal act-order perms (stage-mates share
-    one Hessian, so their argsorts are identical) at one tensor."""
+    one Hessian, so their argsorts are identical; a 3-bit linear's two
+    slices carry one) at one tensor."""
     for lp in layers:
         seen: Dict[bytes, torch.Tensor] = {}
         for name, w in list(lp.items()):
-            if isinstance(w, PackedLinear) and w.perm is not None:
+            if isinstance(w, (PackedLinear, BitSlicedLinear)) and w.perm is not None:
                 key = w.perm.cpu().numpy().tobytes()
-                if key in seen:
-                    lp[name] = dataclasses.replace(w, perm=seen[key])
-                else:
-                    seen[key] = w.perm
+                lp[name] = _with_perm(w, seen.setdefault(key, w.perm))
 
 
 FUSED_STAGES = (
@@ -132,7 +158,9 @@ def fuse_layer_dict(lp: Dict[str, Any]) -> Dict[str, Any]:
 
 def _permute_out(w, cols: torch.Tensor):
     """Reorder a linear's output columns (a relabeling of independent
-    packed columns)."""
+    packed columns; both slices of a 3-bit linear)."""
+    if isinstance(w, BitSlicedLinear):
+        return BitSlicedLinear(lo=_permute_out(w.lo, cols), hi=_permute_out(w.hi, cols))
     if isinstance(w, PackedLinear):
         return dataclasses.replace(w, qweight=w.qweight[:, cols].contiguous(),
                                    scales=w.scales[:, cols].contiguous(),
@@ -141,7 +169,7 @@ def _permute_out(w, cols: torch.Tensor):
 
 
 def _out_features(w) -> int:
-    return w.out_features if isinstance(w, PackedLinear) else w.shape[1]
+    return w.out_features if isinstance(w, (PackedLinear, BitSlicedLinear)) else w.shape[1]
 
 
 def fold_down_perm_layer(lp: Dict[str, Any]) -> Dict[str, Any]:
@@ -150,7 +178,10 @@ def fold_down_perm_layer(lp: Dict[str, Any]) -> Dict[str, Any]:
     arrives in down's stored column order and down's activation gather
     disappears, at no extra weight traffic."""
     down = lp.get("mlp.down_proj")
-    if not isinstance(down, PackedLinear) or down.perm is None:
+    if not isinstance(down, (PackedLinear, BitSlicedLinear)) or down.perm is None:
+        return lp
+    if isinstance(down, BitSlicedLinear) and (
+            down.hi.perm is None or not torch.equal(down.hi.perm, down.perm)):
         return lp
     perm, ins = down.perm, down.in_features
     lp = dict(lp)
@@ -172,7 +203,7 @@ def fold_down_perm_layer(lp: Dict[str, Any]) -> Dict[str, Any]:
                 lp[n + ".bias"] = lp[n + ".bias"][perm]
     else:
         return lp
-    lp["mlp.down_proj"] = dataclasses.replace(down, perm=None)
+    lp["mlp.down_proj"] = _with_perm(down, None)
     return lp
 
 
@@ -189,8 +220,9 @@ def fuse_stage_linears(model: PackedLlama) -> PackedLlama:
 def to_w4a8(model: PackedLlama) -> PackedLlama:
     """The W4A8 serving tier: every packed linear of the blocks takes
     per-row dynamic int8 activations into K8's int8 dots (``act_bits=8``;
-    ``ops/w4a16.py::w4a8_matmul``).  The dense lm_head stays as it is
-    (logit quality), as in the JAX package."""
+    ``ops/w4a16.py::w4a8_matmul``).  A 3-bit linear stays on K3, and the
+    lm_head (dense or packed) and dense linears as they are (logit
+    quality), as in the JAX package."""
     def conv(lp):
         return {k: (dataclasses.replace(v, act_bits=8) if isinstance(v, PackedLinear) else v)
                 for k, v in lp.items()}
@@ -199,7 +231,7 @@ def to_w4a8(model: PackedLlama) -> PackedLlama:
 
 
 def _linear(w, x: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    y = w4a16_matmul(x, w) if isinstance(w, PackedLinear) else x @ w
+    y = w4a16_matmul(x, w) if isinstance(w, (PackedLinear, BitSlicedLinear)) else x @ w
     return y if bias is None else y + bias
 
 
@@ -377,9 +409,12 @@ def calibrate_kv_scales(model: PackedLlama, tokens: Optional[torch.Tensor] = Non
 
 
 def dequantized_params(model: PackedLlama, dtype=torch.bfloat16) -> L.Params:
-    """Dense params from a packed model (reference forwards, parity checks)."""
-    layers = [{name: (dequantize_dense(w, dtype) if isinstance(w, PackedLinear)
-                      else w.to(dtype))
-               for name, w in lp.items()} for lp in model.layers]
-    return {"embed_tokens": model.embed_tokens.to(dtype), "layers": layers,
-            "norm": model.norm.to(dtype), "lm_head": model.lm_head.to(dtype)}
+    """Dense params from a packed model (reference forwards, parity checks):
+    packed linears, 3-bit ones and a packed lm_head dequantized."""
+    def dense(w):
+        return (dequantize_dense(w, dtype) if isinstance(w, (PackedLinear, BitSlicedLinear))
+                else w.to(dtype))
+
+    return {"embed_tokens": model.embed_tokens.to(dtype),
+            "layers": [{name: dense(w) for name, w in lp.items()} for lp in model.layers],
+            "norm": model.norm.to(dtype), "lm_head": dense(model.lm_head)}

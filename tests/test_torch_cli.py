@@ -5,6 +5,7 @@ on the CPU.
 Each ``main`` test runs both packages' ``main`` on the same argv; the JAX
 runs compile their programs once per module, so the configurations are
 spread over several tests in an order that keeps each under 10 s."""
+import json
 import sys
 
 import numpy as np
@@ -205,3 +206,30 @@ def test_per_layer_file_reads_in_both(tiny_checkpoint, tmp_path):
     for k, v in jm.items():
         if v is not None:
             np.testing.assert_array_equal(np.asarray(tm[k]), np.asarray(v), err_msg=k)
+
+
+def test_sweep_rows_match_jax(tiny_checkpoint, tmp_path):
+    """A two-point port ``sweep`` (``--bits 3,4``, group 16, act-order)
+    writes JAX's rows: the same keys and configs, and ppls within rtol 1e-4
+    of JAX ``sweep``'s (``test_main_matches_jax``'s tolerance: the same
+    codes, f32 sums in another order)."""
+    from gptq_v2_tpu import sweep as jsweep
+    from gptq_v2_tpu_torch import sweep as tsweep
+
+    tc = tiny_checkpoint
+    argv = ["--model-dir", tc["model_dir"], "--bits", "3,4", "--group-sizes", "16",
+            "--act-order", "true", "--eval-sets", "train", "--seqlen", str(tc["seqlen"]),
+            "--data-train-n-samples", str(tc["n_train"]),
+            "--eval-n-samples", str(tc["n_eval"]), "--data-cache-dir", tc["cache_dir"],
+            "--batch-size", "2"]
+    assert vars(tsweep.parse_sweep_args(argv)) == vars(jsweep.parse_sweep_args(argv))
+    rows = tsweep.main(argv + ["--out", str(tmp_path / "t.json")], device="cpu")
+    jrows = jsweep.main(argv + ["--out", str(tmp_path / "j.json")])
+    assert json.loads((tmp_path / "t.json").read_text()) == rows
+    assert [r["bits"] for r in rows] == [3, 4]
+    for r, j in zip(rows, jrows):
+        assert set(r) == set(j)
+        assert {k: r[k] for k in ("bits", "group_size", "act_order", "sym", "mse")} == {
+            k: j[k] for k in ("bits", "group_size", "act_order", "sym", "mse")}
+        assert r["quant_wall_s"] >= 0 and set(r["ppl"]) == set(j["ppl"]) == {"train"}
+        assert r["ppl"]["train"] == pytest.approx(j["ppl"]["train"], rel=1e-4)

@@ -220,12 +220,55 @@ def _check_w4a16(p, x):
 
 
 # m <= 16 takes the decode path (row tiles 1, 4, 8, 16), m > 16 the
-# prefill path
-@pytest.mark.parametrize("bits", [2, 4, 8])
-@pytest.mark.parametrize("m", [1, 5, 8, 16, 17, 520])
+# prefill path; bits 1 is the hi slice of a 3-bit linear (32 planes a word)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_w4a16_kernel(dev, bits, m, dtype):
-    _check_w4a16(_packed(bits, 208, 100, bits, dev, dtype), _rand((m, 208), m, dtype, dev))
+def test_w4a16_kernel(dev, dtype):
+    for bits in (1, 2, 4, 8):
+        for m in (1, 5, 8, 16, 17, 520):
+            _check_w4a16(_packed(bits, 208, 100, bits, dev, dtype), _rand((m, 208), m, dtype, dev))
+
+
+def test_w4a16_one_bit_and_bit_sliced(dev):
+    """K3 at 1 bit on every route: decode over several packing blocks (C =
+    3000 → 4096 at g 16: 256 groups; C = 11008 → 12288 at g 128) and at
+    R = 102 (scalar word loads), rows at M = 1, 5, 16, 17, 64, 520 equal to
+    the same rows at M = 40, two launches bit-equal and a CUDA-graph replay.
+    A 3-bit BitSlicedLinear is two launches (2-bit, then 1-bit) whose
+    outputs sum in bf16, as its plain version sums them."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for c, r, g in ((3000, 200, 16), (1000, 102, 16), (11008, 72, 128)):
+            p = _packed(1, c, r, c + r, dev, dtype, g)
+            assert p.bits == 1 and p.in_features_padded % (32 * g) == 0
+            for m in (1, 8, 16, 64):
+                _check_w4a16(p, _rand((m, c), m, dtype, dev))
+            x = _rand((40, c), 40, dtype, dev).repeat(13, 1)
+            full = w4a16.w4a16_matmul(x[:40], p)
+            for m in (1, 5, 16, 17, 64, 520):
+                assert torch.equal(w4a16.w4a16_matmul(x[:m], p), full.repeat(13, 1)[:m]), m
+    p = _packed(1, 3000, 200, 1, dev, torch.bfloat16)
+    for m in (8, 64):
+        x = _rand((m, 3000), m, torch.bfloat16, dev)
+        first = w4a16.w4a16_matmul(x, p)
+        assert torch.equal(first, w4a16.w4a16_matmul(x, p))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = w4a16.w4a16_matmul(x, p)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+    for c, r, g in ((3000, 200, 16), (4096, 384, 128)):
+        p3 = packing.pack_quant_meta(_meta(3, c, r, c, g), torch.bfloat16, device=dev)
+        assert isinstance(p3, packing.BitSlicedLinear)
+        for m in (1, 8, 520):
+            x = _rand((m, c), m, torch.bfloat16, dev)
+            n, n1 = w4a16.w4a16_matmul.launches, w4a16.w4a16_matmul.launches_by_bits[1]
+            out = w4a16.w4a16_matmul(x, p3)
+            torch.cuda.synchronize()
+            assert (w4a16.w4a16_matmul.launches - n, w4a16.w4a16_matmul.launches_by_bits[1] - n1) == (2, 1)
+            assert torch.equal(out, w4a16.w4a16_matmul(x, p3.lo) + w4a16.w4a16_matmul(x, p3.hi))
+            ref = w4a16.w4a16_reference(x, p3).float()
+            torch.testing.assert_close(out.float(), ref, rtol=0,
+                                       atol=1e-2 * float(ref.abs().max()))
 
 
 # C_pad over many packing blocks (clusters of several blocks; C = 28672 at

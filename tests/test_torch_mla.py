@@ -163,7 +163,14 @@ def recorded_logits(monkeypatch):
 
 def _check_absorb(case, run):
     """``absorb_kv_b``'s halves equal JAX's within 1e-6 (``kv_b`` with its
-    act-order perm)."""
+    act-order perm); a 3-bit ``kv_b`` (the first block's RTN-quantized at 3
+    bits, a BitSlicedLinear) is dequantized through ``dequantize_dense``:
+    its halves equal JAX's over JAX's dense form of the same linear (JAX's
+    ``absorb_kv_b`` dequantizes only a ``PackedLinear``)."""
+    from gptq_v2_tpu.ops import packing as jp
+    from gptq_v2_tpu_torch.ops import packing as tp
+    from gptq_v2_tpu_torch.quant import gptq as tg
+
     jm, tm = run["jmodel"], run["tmodel"]
     assert all(lp["self_attn.kv_b_proj"].perm is not None for lp in tm.layers)
     ja, ta = JMLA.absorb_kv_b(jm), TMLA.absorb_kv_b(tm)
@@ -174,6 +181,22 @@ def _check_absorb(case, run):
         for got, want in ((ta.wk[li], ja.wk[li]), (ta.wv[li], ja.wv[li])):
             np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6,
                                        err_msg=f"{case} layer {li}")
+    w = tp.dequantize_dense(tm.layers[0]["self_attn.kv_b_proj"], torch.float32)  # (C, R)
+    c = w.shape[0]
+    meta = tg.gptq_quant(w.T.contiguous(), None, [16] * (c // 16), [3] * (c // 16),
+                         save_dtype=torch.float32)["quant_meta"]
+    t3 = tp.pack_quant_meta(meta, torch.float32, device="cpu")
+    j3 = jp.pack_quant_meta({k: (None if v is None else v.numpy()) for k, v in meta.items()},
+                            jnp.float32)
+    assert isinstance(t3, tp.BitSlicedLinear)
+    ta = TMLA.absorb_kv_b(dataclasses.replace(
+        tm, layers=({**tm.layers[0], "self_attn.kv_b_proj": t3},)))
+    ja = JMLA.absorb_kv_b(dataclasses.replace(
+        jm, layers=({**jm.layers[0],
+                     "self_attn.kv_b_proj": jp.dequantize_dense(j3, jnp.float32)},)))
+    for got, want in ((ta.wk[0], ja.wk[0]), (ta.wv[0], ja.wv[0])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6,
+                                   err_msg=f"{case} 3-bit kv_b")
 
 
 def _check_scales_and_prefill(case, run):
