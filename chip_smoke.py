@@ -16,7 +16,13 @@ over it (``--profile-dir`` gives their device time and device ops).
 
    * main: writes a checkpoint with the port's safetensors writer, loads
      it, GPTQ-quantizes it (INT4, group 128, act-order; K1, K2) on seeded
-     token ids, saves ``results.npz`` and serves it (K3, K4 on the bf16
+     token ids through the incremental path (each stage's step a traced,
+     dead-code-eliminated block with the cached inputs injected: per
+     calibration batch and block 10 quantized-linear matmuls and one
+     attention call, counted), then its first block through the per-stage
+     path (20 and 4, counted in a run of its own), whose codes must be the
+     incremental run's bit for bit, both paths' seconds a block logged; saves
+     ``results.npz`` and serves it (K3, K4 on the bf16
      cache) through ``serve.main`` and an ``Engine`` built by
      ``serve.build_engine``: greedy output must repeat on a second run and
      agree with a plain bf16 forward on every request's first new token;
@@ -419,16 +425,25 @@ def phase_main_path(torch, work: Path) -> dict:
 
     calib = np.random.default_rng(0).integers(0, cfg.vocab_size, (N_SEQ, SEQLEN))
     qcfg = P.QuantConfig()
+    n_batches = -(-N_SEQ // CALIB_BATCH)
+    # the A/B's weights (block 0): quantize_model replaces a finished
+    # block's layer dict in its params' list and copies every weight it solves
+    loaded = dict(params, layers=params["layers"][:1])
     t0 = time.time()
-    results = P.quantize_model(cfg, params, calib, qcfg, batch_size=CALIB_BATCH)
-    torch.cuda.synchronize()
+    with counted_captures() as ops:
+        results = P.quantize_model(cfg, params, calib, qcfg, batch_size=CALIB_BATCH)
+        torch.cuda.synchronize()
     quant_s = time.time() - t0
     del params
     errs = [m["gptq_error"] for m in results["metrics"].values()]
     if not all(np.isfinite(errs)) or len(results["data"]) != quantized_linears(cfg):
         raise RuntimeError(f"quantization output malformed: {len(results['data'])} layers")
-    log(f"phase quantize: ok, {quant_s:.1f} s for {DEPTH} blocks "
-        f"({quant_s / DEPTH:.2f} s/block), {N_SEQ}x{SEQLEN} calibration tokens")
+    check_dense_ops("main quantize", ops, DEPTH, n_batches, incremental=True)
+    log(f"phase quantize: ok (incremental), {quant_s:.1f} s for {DEPTH} blocks "
+        f"({quant_s / DEPTH:.2f} s/block), {N_SEQ}x{SEQLEN} calibration tokens, batch "
+        f"{CALIB_BATCH}; {per_batch_block(ops, DEPTH, n_batches)} on {SMI}")
+    quantize_ab(torch, cfg, loaded, calib, qcfg, results, quant_s, ops["trace_s"])
+    del loaded
 
     t0 = time.time()
     M.save_results(str(work / "results.npz"), results, qcfg)
@@ -487,6 +502,50 @@ def phase_main_path(torch, work: Path) -> dict:
     (work / "contiguous_first.json").write_text(
         json.dumps([outs[0][i][0] for i in range(len(prompts))]))
     return {"cfg": cfg, "layer0": eng.model.layers[0]}
+
+
+def quantize_ab(torch, cfg, loaded: dict, calib, qcfg, inc_results: dict, inc_s: float,
+                inc_trace_s: float) -> None:
+    """The main path's first block quantized again from the same loaded
+    weights and tokens through the per-stage path (``incremental=False``),
+    twice: once with its ops counted (:func:`counted_captures` with
+    ``ops``, a dispatch hook on every op), which must be a dense block's
+    (:data:`DENSE_BLOCK_OPS`), then timed with its capture forwards
+    counted only.  Each run's codes, scales, zero-points and perms must
+    equal the incremental run's for that block bit for bit.  Logs both
+    paths' seconds a block: the incremental run's include the process's
+    first ``torch.fx`` traces (``inc_trace_s`` of ``inc_s``)."""
+    from gptq_v2_tpu_torch import pipeline as P
+
+    n_batches = -(-N_SEQ // CALIB_BATCH)
+    cfg1 = dataclasses.replace(cfg, num_hidden_layers=1)
+    inc = {n: m for n, m in inc_results["data"].items() if n.startswith("model.layers.0.")}
+    fields = ("qweight", "qzero", "scale", "perm")
+    for label, counted in (("per-stage, ops counted", True), ("per-stage", False)):
+        params = dict(loaded, layers=loaded["layers"][:1])
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with counted_captures(ops=counted) as ops:
+            data = P.quantize_model(cfg1, params, calib, qcfg, batch_size=CALIB_BATCH,
+                                    incremental=False)["data"]
+            torch.cuda.synchronize()
+        stage_s = time.time() - t0
+        del params
+        if counted:
+            check_dense_ops(f"{label} quantize", ops, 1, n_batches, incremental=False)
+        elif ops["forwards"] != DENSE_BLOCK_OPS[False][0] * n_batches:
+            raise RuntimeError(f"{label} quantize: {ops['forwards']} capture forwards")
+        if list(data) != list(inc) or not all(torch.equal(data[n][f], inc[n][f])
+                                              for n in data for f in fields):
+            raise RuntimeError(f"{label} quantization codes differ from the incremental "
+                               "run's")
+        log(f"phase quantize.ab {label}: ok, codes, scales, zero-points and perms of all "
+            f"{len(data)} linears of block 0 bit-equal to the incremental run's; "
+            f"{per_batch_block(ops, 1, n_batches)}")
+    log(f"phase quantize.ab: ok, s/block at Llama-2-7B width, {N_SEQ}x{SEQLEN} calibration "
+        f"tokens, batch {CALIB_BATCH}: incremental {inc_s / DEPTH:.3f} ({DEPTH} blocks, the "
+        f"process's first quantization, {inc_trace_s:.2f} s of block traces in all), "
+        f"per-stage {stage_s:.3f} (block 0, its steps' ops not hooked) on {SMI}")
 
 
 def phase_hessian(torch, timer, launches) -> list:
@@ -2281,10 +2340,11 @@ def quantized_linears(cfg) -> int:
 
 
 def capture_passes(cfg, li: int, budget: int = 4 << 30):
-    """``(capture forwards a calibration batch, stages)`` of block ``li``:
-    one forward a wave, or a wave's chunk under the pipeline's default
-    Hessian budget (``pipeline._split_wave_by_budget``), against one a
-    stage without waves."""
+    """``(capture forwards a calibration batch, stages)`` of block ``li``
+    on the default (incremental) path: a block whose waves are single
+    stages runs one capturing step a stage under its incremental plan; a
+    MoE block one forward a wave, or a wave's chunk under the pipeline's
+    default Hessian budget (``pipeline._split_wave_by_budget``)."""
     from gptq_v2_tpu_torch import graph
     from gptq_v2_tpu_torch import pipeline as P
     from gptq_v2_tpu_torch.models import llama as L
@@ -2295,25 +2355,113 @@ def capture_passes(cfg, li: int, budget: int = 4 << 30):
                for w in graph.stage_waves(stages)), len(stages)
 
 
+# per calibration batch and dense Llama block: (capture forwards, quantized
+# linears' matmuls, attention calls) of the incremental path (the plan
+# injects o_proj's and gate_proj's cached inputs: 0 + 3 + 1 + 2 + 4 over
+# the stages and the final forward) and of the per-stage path (0 + 3 + 4 +
+# 6 + 7, attention in every forward after the q/k/v capture)
+DENSE_BLOCK_OPS = {True: (4, 10, 1), False: (4, 20, 4)}
+
+
 @contextlib.contextmanager
-def counted_captures():
-    """Counts the block forwards that capture stage inputs (the pipeline's
-    Hessian passes, one a calibration batch) by wrapping
-    ``models.llama.block_apply`` for the block."""
+def counted_captures(ops: bool = False):
+    """Counts what ``pipeline.quantize_model``'s block forwards run on the
+    card (its ``torch.fx`` traces run on fake tensors and count nothing):
+    ``forwards``, those that capture a stage input (an incremental step
+    with a capture, or a capturing ``block_apply``: one a calibration
+    batch and stage, or wave); ``traces`` and ``trace_s``, the block
+    traces (schedules, plans, steps) and their seconds; in every block
+    forward, the final ones too, ``linears``, the matmuls (aten
+    ``mm``/``addmm``: the quantized linears', and a MoE router's) and
+    ``attention``, the attention calls (two ``bmm`` each: the scores and
+    PV).  An incremental step runs each node of its graph once, so its
+    ops are counted off the graph; an eager ``block_apply``'s are counted
+    only with ``ops``, by a ``TorchDispatchMode`` that slows every op and
+    so stays out of timed runs (without it, ``linears`` and ``attention``
+    are None once an eager forward ran)."""
+    from torch._subclasses.fake_tensor import is_fake
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from gptq_v2_tpu_torch import graph
+    from gptq_v2_tpu_torch import pipeline as P
     from gptq_v2_tpu_torch.models import llama as L
 
-    apply = L.block_apply
-    n = {"forwards": 0}
+    n = {"forwards": 0, "linears": 0, "bmm": 0, "eager": 0, "traces": 0, "trace_s": 0.0}
+    inside = [0]  # quantize_model calls under way
+    quantize, apply, step, trace = (P.quantize_model, L.block_apply, P._Step.__call__,
+                                    graph.trace_block)
 
-    def counting(*a, capture=(), **kw):
+    def count(op: str):
+        if op in ("mm", "addmm"):
+            n["linears"] += 1
+        elif op == "bmm":
+            n["bmm"] += 1
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            count(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    def counting_apply(cfg, lp, x, *a, capture=(), **kw):
+        if not inside[0] or is_fake(x):
+            return apply(cfg, lp, x, *a, capture=capture, **kw)
         n["forwards"] += bool(capture)
-        return apply(*a, capture=capture, **kw)
+        n["eager"] += 1
+        with Ops() if ops else contextlib.nullcontext():
+            return apply(cfg, lp, x, *a, capture=capture, **kw)
 
-    L.block_apply = counting
+    def counting_step(self, lp, x, *a):
+        if inside[0] and not is_fake(x):
+            n["forwards"] += self.capture is not None
+            for node in self.gm.graph.nodes:
+                if node.op == "call_function" and hasattr(node.target, "overloadpacket"):
+                    count(node.target.overloadpacket.__name__)
+        return step(self, lp, x, *a)
+
+    def timed_trace(*a, **kw):
+        t0 = time.time()
+        try:
+            return trace(*a, **kw)
+        finally:
+            n["traces"] += 1
+            n["trace_s"] += time.time() - t0
+
+    def counting_quantize(*a, **kw):
+        inside[0] += 1
+        try:
+            return quantize(*a, **kw)
+        finally:
+            inside[0] -= 1
+
+    P.quantize_model, L.block_apply, P._Step.__call__, graph.trace_block = (
+        counting_quantize, counting_apply, counting_step, timed_trace)
     try:
         yield n
     finally:
-        L.block_apply = apply
+        P.quantize_model, L.block_apply, P._Step.__call__, graph.trace_block = (
+            quantize, apply, step, trace)
+        n["attention"] = n["bmm"] // 2
+        if n["eager"] and not ops:
+            n["linears"] = n["attention"] = None
+
+
+def per_batch_block(n: dict, blocks: int, batches: int) -> str:
+    """:func:`counted_captures`'s counts a calibration batch and block."""
+    per = blocks * batches
+    counted = ("" if n["linears"] is None else
+               f", {n['linears'] / per:g} matmuls, {n['attention'] / per:g} attention calls")
+    return (f"{n['forwards'] / per:g} capture forwards{counted} a batch and block; "
+            f"{n['traces']} block traces, {n['trace_s']:.2f} s")
+
+
+def check_dense_ops(label: str, n: dict, blocks: int, batches: int, incremental: bool):
+    """Raises unless :func:`counted_captures`'s counts are a dense Llama
+    block's (:data:`DENSE_BLOCK_OPS`) for ``blocks`` blocks."""
+    want = [v * blocks * batches for v in DENSE_BLOCK_OPS[incremental]]
+    got = [n["forwards"], n["linears"], n["attention"]]
+    if got != want:
+        raise RuntimeError(f"{label}: (capture forwards, matmuls, attention calls) {got}, "
+                           f"want {want}")
 
 
 def cli_quantize(torch, cfg, root: Path, tag: str, mse: bool = True, extra=()) -> None:
@@ -2368,8 +2516,8 @@ def cli_quantize(torch, cfg, root: Path, tag: str, mse: bool = True, extra=()) -
                                f"want {want}")
         log(f"phase {tag} main {label}: ok, {time.time() - t0:.1f} s wall, quantize "
             f"{out['quant_s']:.2f} s for {depth} blocks, ppl(train) {ppl!r}; K1/K2/K5 "
-            f"launches {dn}; capture forwards a block {captures['forwards'] // n_batches // depth}"
-            f" ({passes[-1][1]} stages) x {n_batches} calibration batches")
+            f"launches {dn}; {per_batch_block(captures, depth, n_batches)} "
+            f"({passes[-1][1]} stages in the last block, {n_batches} calibration batches)")
     if not (runs["default"][1][0] and runs["default"][1][1]) or runs["default"][1][2]:
         raise RuntimeError(f"{tag} main default did not run K1 and K2: {runs['default'][1]}")
     if not mse:

@@ -9,8 +9,9 @@ rewritten by hand in CUDA C++ for Hopper (``csrc/``).  Module names mirror
   ops/        CUDA kernel wrappers (each beside its plain PyTorch version)
               and the packed low-bit weight format
   models/     functional Llama + safetensors reader/writer + HF loader
-  graph.py    the Llama quantization stage list
-  pipeline.py block-sequential quantization pipeline
+  graph.py    the quantization stages, from a torch.fx trace of the block
+  pipeline.py block-sequential quantization pipeline (incremental,
+              wave and per-stage paths)
   main.py     results.npz save/load
   serving/    packed model, contiguous and paged KV caches, decode and
               sampling, the continuous-batching engine

@@ -909,9 +909,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kj = torch.arange(s, device=q.device)[None, :]
         mask = kj <= qi + off  # (n, s), or (B, n, s) per row
         if window is not None:
-            mask &= kj > qi + off - window
+            mask = mask & (kj > qi + off - window)
         if chunk is not None:
-            mask &= (kj // chunk) == ((qi + off) // chunk)
+            mask = mask & ((kj // chunk) == ((qi + off) // chunk))
         scores = scores.masked_fill(~(mask[:, None, None] if per_row else mask[None, None, None]),
                                     neg)
     if key_mask is not None:
@@ -1193,7 +1193,9 @@ class _Captured(Exception):
 
 
 def block_apply(cfg: LlamaConfig, lp: Params, x: torch.Tensor, cos, sin,
-                capture: Sequence[str] = (), window: Optional[int] = None,
+                capture: Sequence[str] = (),
+                inject: Optional[Dict[str, torch.Tensor]] = None,
+                window: Optional[int] = None,
                 chunk: Optional[int] = None, q_scale: Optional[torch.Tensor] = None,
                 qk_l2: Optional[bool] = None
                 ) -> Tuple[Optional[torch.Tensor], Dict[str, torch.Tensor]]:
@@ -1202,11 +1204,16 @@ def block_apply(cfg: LlamaConfig, lp: Params, x: torch.Tensor, cos, sin,
     ``capture`` names linears whose inputs to return — the stage hook the
     quantization pipeline accumulates Hessians from.  With captures the
     forward stops as soon as all are taken and ``hidden`` is None.
-    ``window``, ``chunk``, ``q_scale`` and ``qk_l2`` are this layer's
-    (:func:`layer_kw`)."""
+    ``inject`` maps linear names to precomputed inputs that replace the
+    ones computed here (JAX ``block_apply(inject=)``): the incremental
+    pipeline traces this function and drops the compute the injection
+    makes dead (``graph.trace_block``).  ``window``, ``chunk``,
+    ``q_scale`` and ``qk_l2`` are this layer's (:func:`layer_kw`)."""
     caps: Dict[str, torch.Tensor] = {}
+    inject = inject or {}
 
     def lin(name: str, h: torch.Tensor) -> torch.Tensor:
+        h = inject.get(name, h)
         if name in capture:
             caps[name] = h
             if len(caps) == len(capture):

@@ -274,12 +274,13 @@ def gptq_solve_stepped(weight_t: torch.Tensor, hinv: torch.Tensor,
     q_t = torch.empty((c, r), dtype=torch.uint8, device=dev)
     err2 = torch.empty((n_groups, r), dtype=torch.float32, device=dev)
     params = []
+    # one device copy of each bit width's maxq, not one a group
+    maxqs = {bits: torch.tensor(2.0 ** float(bits) - 1.0, dtype=torch.float32, device=dev)
+             for bits in set(group_bit_widths)}
     for gi, bits in enumerate(group_bit_widths):
         maxq = 2.0 ** float(bits) - 1.0
         wblk = w_t[gi * g:(gi + 1) * g].T  # (R, g) running state
-        p = qz.find_params_maxq(
-            wblk, torch.tensor(maxq, dtype=torch.float32, device=dev), sym,
-            scale_bits)
+        p = qz.find_params_maxq(wblk, maxqs[bits], sym, scale_bits)
         if mse:
             p = qz.mse_refine(p, wblk, mse_max_shrink, mse_n_grid, mse_norm)
         gptq_step(w_t, hinv, gi, g, p.scale[:, 0], p.qzero[:, 0], maxq, q_t,

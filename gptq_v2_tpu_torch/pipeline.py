@@ -1,39 +1,54 @@
 """Block-sequential GPTQ quantization pipeline (counterpart of
-``gptq_v2_tpu/pipeline.py``, its per-stage path with wave fusion).
+``gptq_v2_tpu/pipeline.py``: its incremental path, its wave fusion and its
+per-stage path, with JAX's rules for which a block takes).
 
-Per decoder block, the stages of :func:`graph.block_stages` are grouped
-into waves of mutually independent stages (:func:`graph.stage_waves`: a
-dense block's waves are its four stages, one each; a MoE block's are
-``[q,k,v]``, ``[o]``, every expert's ``[gate, up]``, every expert's
-``[down]``).  For each wave, split so that its fp32 Hessians held at once
-stay under ``hessian_budget`` bytes (JAX ``_split_wave_by_budget``):
+Per decoder block, the stages come from a ``torch.fx`` trace of the block
+(:func:`graph.block_stages`), once per block signature.  Each stage's
+Hessian is accumulated (K1) from its captured input over every
+calibration batch, inverted (damp, act-order, upper Cholesky factor of
+H⁻¹), and every linear of it solved (K2) and swapped into the block as
+its dequantized weights, so later stages see quantized predecessors (the
+GPTQ-v2 error propagation, reference ``llama.py:171-179``).  Then the
+next block's inputs are computed with the fully quantized block.  How the
+captures are produced is the path:
 
-1. run the block forward over every calibration batch with the *current*
-   (partially quantized) weights, capture every member's input in that one
-   forward and accumulate each member's Hessian (K1);
-2. invert each (damp, act-order, upper Cholesky factor of H⁻¹);
-3. solve every linear of each member (K2) and swap the dequantized
-   weights into the block, so later waves see quantized predecessors (the
-   GPTQ-v2 error propagation, reference ``llama.py:171-179``).
+* **incremental** (the default, a block whose waves are single stages:
+  every dense block): :func:`_plan_incremental` decides, from liveness
+  over traced steps (``graph.analyze_live``), which stage inputs to cache
+  — those that cost a matmul to recompute, are at most 1.5x the block
+  input's size and are read later — and each stage's step, and the final
+  forward, is the block traced with the cached inputs injected
+  (``models.llama.block_apply(inject=)``) after ``eliminate_dead_code()``
+  (:func:`_quantize_block_incremental`).  A dense Llama block runs q/k/v
+  and attention once a calibration batch and its linears 10 times,
+  against 20 and 4 attention calls per stage;
+* **waves** (a block with independent stages: MoE experts): the stages
+  grouped by :func:`graph.stage_waves`, split so that a wave's fp32
+  Hessians held at once stay under ``hessian_budget`` bytes (JAX
+  ``_split_wave_by_budget``); one eager forward a calibration batch
+  captures every member's input;
+* **per stage** (``qcfg.rtn``, a block with a resumed stage, or
+  ``incremental=False``, which only the tests and ``chip_smoke.py`` set,
+  as the reference for the incremental path's codes): one eager forward a
+  calibration batch and stage, which stops at the captured input, then
+  one full forward.
 
-Members of a wave do not feed each other, so capturing them from one
-forward sees exactly what one forward per stage would: the codes are the
-per-stage loop's bit for bit (JAX documents the same of its waves).  Each
-block's forwards take its own sliding window, Llama-4 chunk, temperature
-and q/k L2 norm (``models.llama.layer_kw``) and rope table
+The same ops run on the same values every way, so the codes are equal
+bit for bit (JAX documents the same).  JAX's ``_stack_batches`` (one XLA
+dispatch over every batch) has no counterpart: the steps run once a
+batch.  Each block's forwards take its own sliding window, Llama-4 chunk,
+temperature and q/k L2 norm (``models.llama.layer_kw``) and rope table
 (``cfg.layer_rope``); the JAX pipeline passes the window and the L2 norm
-but neither the chunk nor the temperature.  Biases, norms, GPT-OSS's sinks,
-the other 1-D params and the MoE router (and its bias) pass through
-unquantized.
+but neither the chunk nor the temperature.  Biases, norms, GPT-OSS's
+sinks, the other 1-D params and the MoE router (and its bias) pass
+through unquantized.
 
-Then the next block's inputs are computed with the fully quantized block,
-and the block's linears in ``params`` become the weights reconstructed
-from their ``quant_meta`` (the JAX package's default ``reconstruct``
-offload, what evaluation reads).  With ``save_dir`` each linear's result
-streams to ``{save_dir}/{name}.npz``; ``resume`` reloads every stage whose
-files were written by the same :class:`QuantConfig` instead of solving it,
-swapping its weights in before its wave's forward.  The JAX package's
-incremental injection is not ported.
+The block's linears in ``params`` become the weights reconstructed from
+their ``quant_meta`` (the JAX package's default ``reconstruct`` offload,
+what evaluation reads).  With ``save_dir`` each linear's result streams
+to ``{save_dir}/{name}.npz``; ``resume`` reloads every stage whose files
+were written by the same :class:`QuantConfig` instead of solving it,
+swapping its weights in before its forward.
 
 Numerics contract (docs/PARITY.md): fp32 Hessians, ``2/n_seq`` scaling,
 act-order, cumulative damp retry, fp16 error feedback, TF32 off,
@@ -41,6 +56,7 @@ quantized weights cast to the model dtype before downstream stages.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import time
@@ -204,6 +220,7 @@ def quantize_model(
     save_dir: Optional[str] = None,
     resume: bool = True,
     hessian_budget: int = 4 << 30,
+    incremental: bool = True,
 ) -> Dict[str, Dict]:
     """Quantize every decoder block; compute runs on ``device``.
 
@@ -213,7 +230,13 @@ def quantize_model(
     {name: metrics}}`` with the reference's names
     ``model.layers.{i}.{linear}`` (``model.layers.{i}.mlp.experts.{e}.
     gate_proj`` …) and quant_meta as CPU tensors, in solve order.
-    ``hessian_budget`` caps the bytes of a wave's Hessians held at once."""
+    ``hessian_budget`` caps the bytes of a wave's Hessians held at once.
+    ``incremental`` runs a block whose waves are single stages under its
+    incremental plan (:func:`_plan_incremental`) and fuses a MoE block's
+    waves; ``qcfg.rtn``, a block with a resumed stage and
+    ``incremental=False`` take the per-stage path (JAX's rules).  No
+    program path sets ``incremental=False``: it is the reference that the
+    tests and ``chip_smoke.py`` hold the incremental path's codes to."""
     n_seq, seqlen = encodings.shape
     dt = cfg.torch_dtype
     results: Dict[str, Dict] = {"data": {}, "metrics": {}}
@@ -228,6 +251,20 @@ def quantize_model(
     xs = [L.embed_lookup(cfg, embed_w, tokens[b:b + batch_size].to(device))
           for b in range(0, n_seq, batch_size)]
     del embed_w
+
+    def schedule(li, lp, cos, sin, kw):
+        """The block's stages, waves, whether it fuses them and its
+        incremental plan (JAX ``_block_schedule``; the stages and the plan
+        are cached by block signature)."""
+        stages = [st for st in graph.block_stages(cfg, li) if st.linears != (graph.OUTPUT,)]
+        waves = graph.stage_waves(stages)
+        use_waves = incremental and not qcfg.rtn and any(len(w) > 1 for w in waves)
+        plan = None
+        if incremental and not qcfg.rtn and not use_waves:
+            sig = graph.block_signature(lp)
+            plan = _traced(("plan", cfg, sig, tuple(xs[0].shape), xs[0].dtype),
+                           lambda: _plan_incremental(cfg, lp, xs[0], cos, sin, stages, kw))
+        return stages, waves, use_waves, plan
 
     def try_resume(li, stage):
         """The stage's saved results if every linear of it was written by
@@ -259,6 +296,9 @@ def quantize_model(
             results["metrics"][canonical] = res["metrics"]
             pending.append(canonical)
 
+    def invert(state):
+        return hs.invert(state, damp_ratio=qcfg.damp_ratio, act_order=qcfg.act_order)
+
     with full_fp32():
         for li in range(cfg.num_hidden_layers):
             t0 = time.time()
@@ -266,54 +306,289 @@ def quantize_model(
             cos, sin = ropes[cfg.layer_rope(li)]
             kw = L.layer_kw(cfg, li, positions)
             lp = {k: v.to(device) for k, v in home.items()}
-            stages = [st for st in graph.block_stages(cfg, li)
-                      if st.linears != (graph.OUTPUT,)]
-            pending, passes = [], 0
-            for wave in graph.stage_waves(stages):
-                todo = []
-                for stage in wave:
-                    loaded = try_resume(li, stage) if save_path and resume else None
-                    if loaded is None:
-                        todo.append(stage)
+            stages, waves, use_waves, plan = schedule(li, lp, cos, sin, kw)
+            if plan is not None:
+                logger.info("block %d incremental plan: caching %s", li,
+                            [st.linears[0] for st, c in zip(stages, plan.cache) if c])
+            resumed = {}
+            if save_path and resume:
+                for stage in stages:
+                    loaded = try_resume(li, stage)
+                    if loaded is not None:
+                        resumed[stage.linears[0]] = loaded
+            pending = []
+            if plan is not None and not resumed:
+                xs = _quantize_block_incremental(cfg, lp, xs, cos, sin, kw, stages, plan,
+                                                 lambda st, state: solve(li, lp, st,
+                                                                         invert(state), pending))
+                passes = len(stages)
+            else:
+                passes = 0
+                for wave in (waves if use_waves and not resumed else [[st] for st in stages]):
+                    todo = []
+                    for stage in wave:
+                        loaded = resumed.get(stage.linears[0])
+                        if loaded is None:
+                            todo.append(stage)
+                            continue
+                        for name, (meta, metrics, _) in loaded.items():
+                            canonical = f"model.layers.{li}.{name}"
+                            results["data"][canonical] = meta
+                            results["metrics"][canonical] = metrics
+                            lp[name] = _dequantized(meta, dt, device)
+                            logger.debug("%s resumed", canonical)
+                    if qcfg.rtn:
+                        for stage in todo:
+                            solve(li, lp, stage, None, pending)
                         continue
-                    for name, (meta, metrics, _) in loaded.items():
-                        canonical = f"model.layers.{li}.{name}"
-                        results["data"][canonical] = meta
-                        results["metrics"][canonical] = metrics
-                        lp[name] = _dequantized(meta, dt, device)
-                        logger.debug("%s resumed", canonical)
-                if qcfg.rtn:
-                    for stage in todo:
-                        solve(li, lp, stage, None, pending)
-                    continue
-                d_ins = [lp[st.linears[0]].shape[0] for st in todo]
-                for chunk in _split_wave_by_budget(todo, d_ins, hessian_budget):
-                    firsts = tuple(st.linears[0] for st in chunk)
-                    states = {f: hs.init_state(lp[f].shape[0], device) for f in firsts}
-                    for xb in xs:
-                        _, caps = L.block_apply(cfg, lp, xb, cos, sin, capture=firsts,
-                                                **kw)
-                        for f in firsts:
-                            states[f] = hs.accumulate(states[f], caps.pop(f))
-                    passes += 1
-                    for stage in chunk:
-                        inv = hs.invert(states.pop(stage.linears[0]),
-                                        damp_ratio=qcfg.damp_ratio,
-                                        act_order=qcfg.act_order)
-                        solve(li, lp, stage, inv, pending)
-                        del inv
-            # inputs of the next block, through the fully quantized block
-            # (reference llama.py:184-191)
-            xs = [L.block_apply(cfg, lp, xb, cos, sin, **kw)[0] for xb in xs]
+                    d_ins = [lp[st.linears[0]].shape[0] for st in todo]
+                    for chunk in _split_wave_by_budget(todo, d_ins, hessian_budget):
+                        firsts = tuple(st.linears[0] for st in chunk)
+                        states = {f: hs.init_state(lp[f].shape[0], device) for f in firsts}
+                        for xb in xs:
+                            _, caps = L.block_apply(cfg, lp, xb, cos, sin, capture=firsts,
+                                                    **kw)
+                            for f in firsts:
+                                states[f] = hs.accumulate(states[f], caps.pop(f))
+                        passes += 1
+                        for stage in chunk:
+                            inv = invert(states.pop(stage.linears[0]))
+                            solve(li, lp, stage, inv, pending)
+                            del inv
+                # inputs of the next block, through the fully quantized block
+                # (reference llama.py:184-191)
+                xs = [L.block_apply(cfg, lp, xb, cos, sin, **kw)[0] for xb in xs]
             _finish_block(results, pending, save_path, tag)
             params["layers"][li] = {
                 k: (_dequantized(results["data"][f"model.layers.{li}.{k}"], dt, device)
                     if f"model.layers.{li}.{k}" in results["data"] else v
                     ).to(home[k].device)
                 for k, v in lp.items()}
-            logger.info("finished block %d in %.2f s: %d stages, %d capture passes",
-                        li, time.time() - t0, len(stages), passes)
+            logger.info("finished block %d in %.2f s: %d stages, %d capture passes%s",
+                        li, time.time() - t0, len(stages), passes,
+                        " (incremental)" if plan is not None and not resumed else "")
     return results
+
+
+# ---------------------------------------------------------------------------
+# Incremental stage scheduling (JAX ``pipeline.py``: ``_IncPlan``,
+# ``_plan_incremental``, ``_quantize_block_incremental``; the module
+# docstring says what it saves)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _IncPlan:
+    """A block's incremental plan (JAX ``_IncPlan``, field for field).
+
+    ``injects`` has one entry a Hessian stage plus one for the final
+    forward: the stage-first names whose cached captures that step takes;
+    ``cache[k]``: whether stage k's own capture is kept; ``uses_input[k]``:
+    whether step k reads the block input; ``last_use``: ``((name, step),
+    …)``, the last step that reads each cache (and ``'input'``), where it
+    is dropped."""
+
+    injects: tuple
+    cache: tuple
+    uses_input: tuple
+    last_use: tuple
+
+    def last_use_of(self, name: str) -> int:
+        return dict(self.last_use).get(name, -1)
+
+
+def _block_fn(cfg, names, capture: Optional[str], inject_firsts, members, static,
+              has_q_scale: bool):
+    """``fn(*weights, x, cos, sin[, q_scale], *injected)``: the block with
+    the named stage inputs injected (every member of a stage takes its
+    first's), returning ``capture``'s input or, for None, the block
+    output.  ``static`` holds the layer's window, chunk and ``qk_l2``."""
+    n = len(names)
+
+    def fn(*args):
+        lp = dict(zip(names, args[:n]))
+        x, cos, sin = args[n:n + 3]
+        q_scale = args[n + 3] if has_q_scale else None
+        inj = args[n + 3 + has_q_scale:]
+        injected = {m: inj[i] for i, f in enumerate(inject_firsts) for m in members[f]}
+        out, caps = L.block_apply(cfg, lp, x, cos, sin,
+                                  capture=(capture,) if capture else (),
+                                  inject=injected, q_scale=q_scale, **static)
+        return caps[capture] if capture else out
+
+    return fn
+
+
+# a stage input is cached only up to this many times the block input's bytes
+MAX_CACHE_RATIO = 1.5
+
+
+def _plan_incremental(cfg, lp, x, cos, sin, stage_list, kw) -> _IncPlan:
+    """The block's incremental plan, from liveness over its steps traced on
+    fake tensors of ``lp``, ``x``, ``cos``, ``sin`` and ``kw``'s
+    (:func:`models.llama.layer_kw`: the layer's switches) (JAX
+    ``_plan_incremental``).  The traces are :func:`_step_for`'s, so
+    the steps the plan keeps are not traced again.
+
+    A stage's capture is cached iff (a) recomputing it from the captures
+    already cached runs a matmul (``graph.analyze_live``), (b) it is at
+    most :data:`MAX_CACHE_RATIO` times the block input's size (the MLP's
+    gate/up activations, 2.7x the hidden width on Llama-2-7B, are cheaper
+    to recompute than to hold), and (c) a later step reads it."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    firsts = [st.linears[0] for st in stage_list]
+    stage_idx = {f: k for k, f in enumerate(firsts)}
+    members = {st.linears[0]: st.linears for st in stage_list}
+    mode = FakeTensorMode()
+    lp_f = {k: mode.from_tensor(v) for k, v in lp.items()}
+    x_f, cos_f, sin_f = (mode.from_tensor(t) for t in (x, cos, sin))
+    kw_f = dict(kw, q_scale=None if kw["q_scale"] is None else mode.from_tensor(kw["q_scale"]))
+    with mode:
+        _, caps = L.block_apply(cfg, lp_f, x_f, cos_f, sin_f, capture=tuple(firsts))
+    sig = graph.block_signature(lp)
+    first_inj = len(lp) + 3 + (kw["q_scale"] is not None)  # placeholder index
+
+    def trace(capture, inject_firsts):
+        """``(x live, {inject first: live}, expensive)`` of one step."""
+        g = _step_for(cfg, sig, lp_f, x_f, cos_f, sin_f, kw_f, capture, inject_firsts,
+                      members, [caps[f] for f in inject_firsts]).gm.graph
+        phs = [node for node in g.nodes if node.op == "placeholder"]
+        live, expensive = graph.analyze_live(g, graph.output_nodes(g))
+        return (phs[len(lp)] in live,
+                {f: phs[first_inj + i] in live for i, f in enumerate(inject_firsts)},
+                expensive)
+
+    x_bytes = x.numel() * x.element_size()
+    candidates = []
+    for first in firsts:
+        _, _, expensive = trace(first, tuple(candidates))
+        cap = caps[first]
+        if expensive and cap.numel() * cap.element_size() <= MAX_CACHE_RATIO * x_bytes:
+            candidates.append(first)
+
+    # liveness fixpoint: drop the candidates no later step reads; dropping
+    # one changes what the remaining steps recompute, so iterate
+    for _ in range(len(firsts) + 1):
+        injects, uses_input, used = [], [], set()
+        for k, first in enumerate(firsts + [None]):
+            avail = tuple(c for c in candidates if first is None or stage_idx[c] < k)
+            x_live, inj_live, _ = trace(first, avail)
+            live_inj = tuple(c for c in avail if inj_live[c])
+            injects.append(live_inj)
+            uses_input.append(x_live)
+            used.update(live_inj)
+        kept = [c for c in candidates if c in used]
+        if kept == candidates:
+            break
+        candidates = kept
+
+    last_use: Dict[str, int] = {}
+    for k, inj in enumerate(injects):
+        for c in inj:
+            last_use[c] = k
+        if uses_input[k]:
+            last_use[graph.INPUT] = k
+    return _IncPlan(injects=tuple(injects), cache=tuple(f in candidates for f in firsts),
+                    uses_input=tuple(uses_input), last_use=tuple(sorted(last_use.items())))
+
+
+# plans by ("plan", config, block signature, batch shape, dtype), steps by
+# everything traced into them (:func:`_step_for`), least recently used
+# dropped past _TRACED_MAX entries (a dense signature holds a plan and ≈ 7
+# steps a batch shape): shared by every quantize_model call of the process
+_TRACED_MAX = 256
+_traced_cache: "collections.OrderedDict[tuple, object]" = collections.OrderedDict()
+
+
+def _traced(key: tuple, make):
+    """``_traced_cache[key]``, made by ``make()`` on a miss."""
+    if key in _traced_cache:
+        _traced_cache.move_to_end(key)
+    else:
+        _traced_cache[key] = make()
+        if len(_traced_cache) > _TRACED_MAX:
+            _traced_cache.popitem(last=False)
+    return _traced_cache[key]
+
+
+class _Step:
+    """One step of the incremental path: the traced block
+    (:func:`_block_fn`) after ``eliminate_dead_code()``.  ``capture`` is
+    the stage first whose input it returns, None for the final forward."""
+
+    def __init__(self, gm, names, capture: Optional[str]):
+        self.gm, self.names, self.capture = gm, names, capture
+
+    def __call__(self, lp, x, cos, sin, q_scale, injected):
+        extra = () if q_scale is None else (q_scale,)
+        return self.gm(*(lp[k] for k in self.names), x, cos, sin, *extra, *injected)
+
+
+def _step_for(cfg, sig, lp, x, cos, sin, kw, capture, inject_firsts, members, injected
+              ) -> _Step:
+    """The step for this block signature, layer switches, capture,
+    injection and batch shape, dtype and device; traced on the first call
+    with these arguments' fakes (factory ops on their device).  Dead-code
+    elimination keeps every placeholder, so the plan reads an injected
+    input's liveness off the step's graph."""
+    static = {k: kw[k] for k in ("window", "chunk", "qk_l2")}
+    q_scale = kw["q_scale"]
+    key = ("step", cfg, sig, capture, tuple(inject_firsts), tuple(static.values()),
+           q_scale is not None, tuple(x.shape), x.dtype, x.device)
+
+    def make():
+        names = sorted(lp)
+        gm = graph.trace_block(
+            _block_fn(cfg, names, capture, inject_firsts, members, static,
+                      q_scale is not None),
+            *(lp[k] for k in names), x, cos, sin,
+            *(() if q_scale is None else (q_scale,)), *injected)
+        gm.graph.eliminate_dead_code()
+        gm.recompile()
+        return _Step(gm, names, capture)
+
+    return _traced(key, make)
+
+
+def _quantize_block_incremental(cfg, lp, xs, cos, sin, kw, stage_list, plan: _IncPlan,
+                                solve_stage) -> list:
+    """One block under its incremental plan; returns the next block's
+    inputs (JAX ``_quantize_block_incremental``).  Per stage one step a
+    calibration batch returns the stage's input; K1 accumulates it
+    outside the graph and, where planned, it is cached for the later
+    steps that inject it, and dropped at its last use.
+    ``solve_stage(stage, hessian_state)`` inverts, solves and swaps the
+    stage's quantized weights into ``lp``.  The final forward is a step
+    too: each linear runs at most once a batch in it."""
+    sig = graph.block_signature(lp)
+    members = {st.linears[0]: st.linears for st in stage_list}
+    cache: Dict[str, list] = {}
+
+    def run(k, capture, b, xb):
+        inj = plan.injects[k]
+        injected = [cache[c][b] for c in inj]
+        step = _step_for(cfg, sig, lp, xb, cos, sin, kw, capture, inj, members, injected)
+        out = step(lp, xb, cos, sin, kw["q_scale"], injected)
+        for c in inj:
+            if plan.last_use_of(c) == k:
+                cache[c][b] = None
+        return out
+
+    for k, stage in enumerate(stage_list):
+        first = stage.linears[0]
+        state = hs.init_state(lp[first].shape[0], xs[0].device)
+        if plan.cache[k]:
+            cache[first] = [None] * len(xs)
+        for b, xb in enumerate(xs):
+            act = run(k, first, b, xb)
+            state = hs.accumulate(state, act)
+            if plan.cache[k]:
+                cache[first][b] = act
+            del act
+        solve_stage(stage, state)
+        del state
+    return [run(len(stage_list), None, b, xb) for b, xb in enumerate(xs)]
 
 
 def _finish_block(results: Dict, pending, save_path: Optional[Path],

@@ -242,7 +242,7 @@ def _check_stage_schedule_matches_jax(case):
     ``q_b`` and ``kv_b`` together, the shared experts in the experts'."""
     jcfg, tcfg = _configs(case)
     cos, sin = JL.rope_cos_sin(jcfg, jnp.arange(16))
-    layers = JL.init_params(jcfg, jax.random.key(0))["layers"]
+    layers = jax.eval_shape(lambda: JL.init_params(jcfg, jax.random.key(0)))["layers"]
     for li, lp in enumerate(layers):
         lp0 = jax.tree_util.tree_map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype),
                                      dict(lp))

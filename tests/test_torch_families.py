@@ -210,18 +210,17 @@ def test_forward_logits_match_jax(case):
 
 @pytest.mark.parametrize("fam", FAMILIES)
 def test_stage_schedule_matches_jax(fam):
-    """The port runs every family through ``graph.LLAMA_STAGES``; the JAX
-    package derives each family's schedule from its block's jaxpr."""
-    jcfg, _ = _configs(fam)
-    lp0 = jax.tree_util.tree_map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype),
-                                 dict(JL.init_params(jcfg, jax.random.key(0))["layers"][0]))
+    """The port derives each family's schedule from a ``torch.fx`` trace of
+    its block, the JAX package from its block's jaxpr."""
+    jcfg, tcfg = _configs(fam)
+    lp0 = dict(jax.eval_shape(lambda: JL.init_params(jcfg, jax.random.key(0)))["layers"][0])
     cos, sin = JL.rope_cos_sin(jcfg, jnp.arange(16))
     derived = jgraph.extract_dependencies(
         lambda p, xb, cs: JL.block_apply(jcfg, p, xb, cs[0], cs[1])[0],
         lp0, jax.ShapeDtypeStruct((2, 16, jcfg.hidden_size), jnp.float32),
         (jax.ShapeDtypeStruct(cos.shape, cos.dtype), jax.ShapeDtypeStruct(sin.shape, sin.dtype)),
         exclude=JL.NON_QUANTIZED_LINEARS)
-    assert [tuple(s) for s in tgraph.LLAMA_STAGES] == [tuple(s) for s in derived]
+    assert [tuple(s) for s in tgraph.block_stages(tcfg, 0)] == [tuple(s) for s in derived]
 
 
 # ---------------------------------------------------------------------------
@@ -333,7 +332,7 @@ def test_quantize_codes_match_jax(fam, feedback, monkeypatch):
     jd = JP.quantize_model(jcfg, _params(jcfg), CALIB, JP.QuantConfig(**kw),
                            batch_size=4, incremental=False)["data"]
     order = [(li, stage.linears) for li in range(tcfg.num_hidden_layers)
-             for stage in tgraph.LLAMA_STAGES[:-1]]
+             for stage in tgraph.block_stages(tcfg, li)[:-1]]
     assert list(td) == list(jd) == [f"model.layers.{li}.{n}" for li, ns in order for n in ns]
     assert len(hessians) == len(order)
     for li, names in order:

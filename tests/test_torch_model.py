@@ -128,8 +128,7 @@ def test_safetensors_reader_reads_package_file(tmp_path):
 
 def test_stage_list_matches_jax_derivation():
     cfg = JL.LlamaConfig.tiny(dtype="float32")
-    lp0 = jax.tree_util.tree_map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype),
-                                 dict(JL.init_params(cfg, jax.random.key(0))["layers"][0]))
+    lp0 = dict(jax.eval_shape(lambda: JL.init_params(cfg, jax.random.key(0)))["layers"][0])
     seqlen = 16
     cos, sin = JL.rope_cos_sin(cfg, jnp.arange(seqlen))
     derived = jgraph.extract_dependencies(
@@ -138,7 +137,8 @@ def test_stage_list_matches_jax_derivation():
         (jax.ShapeDtypeStruct(cos.shape, cos.dtype),
          jax.ShapeDtypeStruct(sin.shape, sin.dtype)),
         exclude=JL.NON_QUANTIZED_LINEARS)
-    assert [tuple(s) for s in tgraph.LLAMA_STAGES] == [tuple(s) for s in derived]
+    assert [tuple(s) for s in tgraph.block_stages(TL.LlamaConfig.tiny(dtype="float32"), 0)] \
+        == [tuple(s) for s in derived]
 
 
 def test_config_refuses_other_families():

@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 import jax
 import jax.numpy as jnp
@@ -195,7 +196,7 @@ def test_stage_schedule_matches_jax(fam):
     layer's waves are [q,k,v], [o], every expert's gate/up, every down."""
     jcfg, tcfg = _configs(fam)
     cos, sin = JL.rope_cos_sin(jcfg, jnp.arange(16))
-    layers = JL.init_params(jcfg, jax.random.key(0))["layers"]
+    layers = jax.eval_shape(lambda: JL.init_params(jcfg, jax.random.key(0)))["layers"]
     for li, lp in enumerate(layers):
         lp0 = jax.tree_util.tree_map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype),
                                      dict(lp))
@@ -311,17 +312,25 @@ def test_wave_path_bit_equal_to_singleton_split(fam, monkeypatch):
     """A Hessian budget so small that every wave splits into single stages
     (one capture forward a stage: 2 + 2E a MoE block) gives the wave path's
     codes, scales, zero-points and perms bit for bit (4 forwards a MoE
-    block), at the default fp16 feedback."""
+    block), at the default fp16 feedback.  A dense block's 4 capture
+    forwards are its incremental steps (traces, on fake tensors, are not
+    forwards)."""
     jcfg, tcfg = _configs(fam)
-    apply = TL.block_apply
+    apply, step = TL.block_apply, TP._Step.__call__
     passes = []
 
     def counting(*a, capture=(), **kw):
-        if capture:
+        if capture and not is_fake(a[2]):
             passes.append(len(capture))
         return apply(*a, capture=capture, **kw)
 
+    def counting_step(self, *a):
+        if self.capture:
+            passes.append(1)
+        return step(self, *a)
+
     monkeypatch.setattr(TL, "block_apply", counting)
+    monkeypatch.setattr(TP._Step, "__call__", counting_step)
     runs = []
     for budget in (4 << 30, 1):
         passes.clear()
